@@ -1,0 +1,168 @@
+"""Weight bridge from the JAX package's trees: counterpart of
+``clip_ebc_tpu/models/convert.py``, in the other direction.
+
+:func:`from_jax_params` turns a JAX ``ClipEBC`` variable tree (nested
+dicts of numpy arrays: ``params`` and ``batch_stats``) into this port's
+``state_dict``, whose keys are the reference's torch names. The JAX
+package's ``convert_reference_clip_ebc`` maps such a state dict back, so
+the two packages share weights without either importing the other.
+
+Layout rules:
+- Dense kernel (in, out) -> Linear weight (out, in);
+- Conv kernel HWIO -> OIHW; the ViT patchify kernel (p, p, c, F) -> (F, c, p, p);
+- stacked VPT (depth, n, width) -> ``vpt_{i}``;
+- LayerNorm ``<name>/LayerNorm_0/{scale,bias}`` -> ``<name>.{weight,bias}``;
+- BatchNorm ``scale/bias`` + ``batch_stats`` ``mean/var`` -> ``weight/bias/running_mean/running_var``;
+- decoder ``BasicBlock_{j}`` -> the j-th block's index in the decoder Sequential.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _dense(sd: StateDict, dst: str, tree: Mapping[str, Any]) -> None:
+    sd[f"{dst}.weight"] = _t(np.asarray(tree["kernel"]).T)
+    sd[f"{dst}.bias"] = _t(tree["bias"])
+
+
+def _conv(a) -> torch.Tensor:
+    return _t(np.asarray(a).transpose(3, 2, 0, 1))
+
+
+def _ln(sd: StateDict, dst: str, tree: Mapping[str, Any]) -> None:
+    sd[f"{dst}.weight"] = _t(tree["LayerNorm_0"]["scale"])
+    sd[f"{dst}.bias"] = _t(tree["LayerNorm_0"]["bias"])
+
+
+def _bn(sd: StateDict, dst: str, params: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
+    """``params``/``stats``: the subtrees of the JAX ``BatchNorm`` wrapper,
+    which holds flax's ``nn.BatchNorm`` as ``BatchNorm_0``."""
+    p, s = params["BatchNorm_0"], stats["BatchNorm_0"]
+    sd[f"{dst}.weight"] = _t(p["scale"])
+    sd[f"{dst}.bias"] = _t(p["bias"])
+    sd[f"{dst}.running_mean"] = _t(s["mean"])
+    sd[f"{dst}.running_var"] = _t(s["var"])
+    sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _resblocks(sd: StateDict, tree: Mapping[str, Any]) -> None:
+    i = 0
+    while f"resblock_{i}" in tree:
+        src, out = tree[f"resblock_{i}"], f"transformer.resblocks.{i}"
+        _ln(sd, f"{out}.ln_1", src["ln_1"])
+        _ln(sd, f"{out}.ln_2", src["ln_2"])
+        attn = src["attn"]
+        sd[f"{out}.attn.in_proj_weight"] = _t(np.asarray(attn["in_proj"]["kernel"]).T)
+        sd[f"{out}.attn.in_proj_bias"] = _t(attn["in_proj"]["bias"])
+        _dense(sd, f"{out}.attn.out_proj", attn["out_proj"])
+        _dense(sd, f"{out}.mlp.c_fc", src["mlp_fc"])
+        _dense(sd, f"{out}.mlp.c_proj", src["mlp_proj"])
+        i += 1
+
+
+def clip_vit_state(tree: Mapping[str, Any]) -> StateDict:
+    """JAX ``ClipViT`` params (without ``vpt``) -> ``ClipViT`` state dict."""
+    sd: StateDict = {"conv1.weight": _conv(tree["conv1"]["kernel"])}
+    sd["class_embedding"] = _t(tree["class_embedding"])
+    sd["positional_embedding"] = _t(tree["positional_embedding"])
+    _ln(sd, "ln_pre", tree["ln_pre"])
+    _ln(sd, "ln_post", tree["ln_post"])
+    _resblocks(sd, tree)
+    return sd
+
+
+def clip_text_state(tree: Mapping[str, Any]) -> StateDict:
+    """JAX ``ClipTextEncoder`` params -> ``ClipTextEncoder`` state dict."""
+    sd: StateDict = {"token_embedding.weight": _t(tree["token_embedding"]["embedding"])}
+    sd["positional_embedding"] = _t(tree["positional_embedding"])
+    _ln(sd, "ln_final", tree["ln_final"])
+    sd["text_projection"] = _t(tree["text_projection"])
+    _resblocks(sd, tree)
+    return sd
+
+
+def basic_block_state(params: Mapping[str, Any], stats: Mapping[str, Any]) -> StateDict:
+    """JAX decoder ``BasicBlock`` params + batch_stats -> ``BasicBlock``
+    state dict (``ConvBNAct_2``, the channel-changing shortcut, becomes
+    ``downsample``)."""
+    sd: StateDict = {}
+    names = {"ConvBNAct_0": ("conv1", "bn1"), "ConvBNAct_1": ("conv2", "bn2"),
+             "ConvBNAct_2": ("downsample.0", "downsample.1")}
+    for unit, (conv, bn) in names.items():
+        if unit in params:
+            sd[f"{conv}.weight"] = _conv(params[unit]["Conv_0"]["kernel"])
+            _bn(sd, bn, params[unit]["BatchNorm_0"], stats[unit]["BatchNorm_0"])
+    return sd
+
+
+def from_jax_params(
+    params: Mapping[str, Any],
+    batch_stats: Mapping[str, Any],
+    decoder_cfg: Sequence[Union[int, str]] = (768,),
+) -> StateDict:
+    """JAX ``ClipEBC`` (ViT backbone) variables -> this port's state dict.
+    ``decoder_cfg`` places the decoder blocks at their Sequential indices
+    (``"U"`` entries take an index but hold no weights)."""
+    ie = params["image_encoder"]
+    sd: StateDict = {f"image_encoder.{k}": v for k, v in clip_vit_state(ie).items()}
+    if "vpt" in ie:
+        for i, v in enumerate(np.asarray(ie["vpt"])):
+            sd[f"vpt_{i}"] = _t(v)
+    sd.update({f"text_encoder.{k}": v for k, v in clip_text_state(params["text_encoder"]).items()})
+
+    dec_p, dec_s = params["image_decoder"], batch_stats["image_decoder"]
+    block_idx = [i for i, v in enumerate(decoder_cfg) if v != "U"]
+    for j, idx in enumerate(block_idx):
+        block = basic_block_state(dec_p[f"BasicBlock_{j}"], dec_s[f"BasicBlock_{j}"])
+        sd.update({f"image_decoder.{idx}.{k}": v for k, v in block.items()})
+    if "projection" in params:
+        sd["projection.weight"] = _conv(params["projection"]["kernel"])
+        sd["projection.bias"] = _t(params["projection"]["bias"])
+    sd["logit_scale"] = _t(params["logit_scale"]).reshape(())
+    return sd
+
+
+def _unflatten_tree(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_prepared_tree(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], Dict[str, str]]:
+    """Read a JAX prepared-tree ``.npz`` (keys ``params/...``,
+    ``stats/...``, ``meta/...``, the format of ``save_prepared_tree``);
+    returns ``(params, stats, meta)``."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    params = {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
+    stats = {k[len("stats/"):]: v for k, v in flat.items() if k.startswith("stats/")}
+    meta = {k[len("meta/"):]: str(v) for k, v in flat.items() if k.startswith("meta/")}
+    if not params:
+        raise ValueError(f"{path} is not a prepared-tree artifact (no 'params/' entries)")
+    return _unflatten_tree(params), _unflatten_tree(stats), meta
+
+
+def load_weights(model: torch.nn.Module, path: str) -> None:
+    """Load a port ``.pt`` state dict or a JAX prepared-tree ``.npz`` into
+    ``model`` (strict: every key must match)."""
+    if path.endswith(".npz"):
+        params, stats, _ = load_prepared_tree(path)
+        sd = from_jax_params(params, stats, getattr(model, "decoder_cfg", (768,)))
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(sd, strict=True)

@@ -1,0 +1,238 @@
+"""Transformer building blocks for the CLIP towers: counterpart of
+``clip_ebc_tpu/models/transformer.py``.
+
+Batch-major ``(B, L, D)`` pre-LN blocks with QuickGELU, in torch's CLIP
+parameter layout (``attn.in_proj_weight``, ``mlp.c_fc`` ...). Parameters
+are fp32; linear layers compute in the dtype of their input, which the
+tower's first layer sets (``PatchifyMatmul``/the token embedding), and
+LayerNorm computes in fp32 and casts back.
+
+``attn_backend`` picks the attention path of a block: ``"fused"`` hands
+ln_1, the qkv projection and the attention to
+``ops.fused_attention.fused_ln_qkv_attention``; ``"sdpa"`` runs them as
+plain torch ops; ``"auto"`` means the kernel for CUDA tensors and the
+plain ops for CPU tensors, as the JAX ``"auto"`` means Pallas on a TPU.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.fused_attention import fused_ln_qkv_attention, supports
+from ..ops.interpolate import torch_bicubic_resize
+
+ATTN_BACKENDS = ("auto", "fused", "sdpa")
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+class QuickGELU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quick_gelu(x)
+
+
+def use_fused_qkv(backend: str, x: torch.Tensor) -> bool:
+    """Whether a block should take the fused LN+qkv+attention call:
+    explicit ``"fused"``, or ``"auto"`` on a CUDA tensor."""
+    if backend == "fused":
+        return True
+    if backend == "auto":
+        return x.is_cuda
+    if backend == "sdpa":
+        return False
+    raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {backend!r}")
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with fp32 parameters that computes in its input's
+    dtype. The bias is added after the product is rounded to that dtype,
+    as flax's ``Dense`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+class LayerNormF32(nn.LayerNorm):
+    """LayerNorm computed in fp32, output cast back to the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5) -> None:
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), self.normalized_shape, self.weight, self.bias, self.eps
+        ).to(x.dtype)
+
+
+def sdpa_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """Plain attention on ``(B, H, L, dh)`` tensors: scores in fp32, the
+    softmax cast to v's dtype before P.V (the JAX einsum path)."""
+    scale = q.shape[-1] ** -0.5
+    logits = ((q * scale) @ k.transpose(-1, -2)).float()
+    if mask is not None:
+        logits = logits + mask.float()
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return probs @ v
+
+
+class MultiHeadAttention(nn.Module):
+    """Joint-QKV multi-head attention in ``nn.MultiheadAttention``'s
+    parameter layout (``in_proj_weight`` (3D, D), ``in_proj_bias``,
+    ``out_proj``). ``kv_len`` < L masks keys at index >= kv_len.
+
+    ``pre_ln=(weight, bias, eps)`` moves the preceding LayerNorm into the
+    fused kernel together with the qkv projection; then ``x`` is the
+    block input, not its LN output."""
+
+    def __init__(self, dim: int, num_heads: int) -> None:
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} not divisible by heads {num_heads}")
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = Linear(dim, dim)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        kv_len: Optional[int] = None,
+        pre_ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None,
+    ) -> torch.Tensor:
+        b, l, d = x.shape
+        dh = d // self.num_heads
+        if pre_ln is not None:
+            if mask is not None:
+                raise ValueError("pre_ln (the fused path) takes no mask")
+            g, bb, eps = pre_ln
+            out = fused_ln_qkv_attention(
+                x, g, bb, self.in_proj_weight.to(x.dtype), self.in_proj_bias,
+                self.num_heads, kv_len or l, dh**-0.5, eps,
+            )
+            return self.out_proj(out)
+
+        qkv = F.linear(x, self.in_proj_weight.to(x.dtype)) + self.in_proj_bias.to(x.dtype)
+        q, k, v = qkv.split(d, dim=-1)
+
+        def heads(t):
+            return t.reshape(b, l, self.num_heads, dh).transpose(1, 2)
+
+        attn_mask = mask
+        if kv_len is not None and kv_len < l:
+            keys = torch.arange(l, device=x.device)
+            kmask = torch.where(keys < kv_len, 0.0, -float("inf"))[None, None, None, :]
+            attn_mask = kmask if mask is None else mask + kmask
+        out = sdpa_attention(heads(q), heads(k), heads(v), attn_mask)
+        return self.out_proj(out.transpose(1, 2).reshape(b, l, d))
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN block: x + MHA(ln_1(x)); x + MLP(ln_2(x)).
+
+    The fused path (ln_1 folded into the kernel) is taken when
+    ``attn_backend`` asks for it and the kernel applies: no mask, head
+    dim 64, D <= MAX_FUSED_DIM, L <= MAX_FUSED_SEQ. The same kind of
+    checks as transformer.py:356-377 of the JAX package, made here, up
+    front, so the kernel wrapper never has to fall back. bf16 and fp32
+    activations both take the kernel; any other dtype makes the wrapper
+    raise."""
+
+    def __init__(
+        self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+        ln_epsilon: float = 1e-5, attn_backend: str = "auto",
+    ) -> None:
+        super().__init__()
+        if attn_backend not in ATTN_BACKENDS:
+            raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {attn_backend!r}")
+        self.attn_backend = attn_backend
+        self.ln_1 = LayerNormF32(dim, ln_epsilon)
+        self.attn = MultiHeadAttention(dim, num_heads)
+        self.ln_2 = LayerNormF32(dim, ln_epsilon)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.Sequential(OrderedDict(
+            c_fc=Linear(dim, hidden), gelu=QuickGELU(), c_proj=Linear(hidden, dim)
+        ))
+
+    def fused(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:
+        _, l, d = x.shape
+        heads = self.attn.num_heads
+        return (
+            use_fused_qkv(self.attn_backend, x)
+            and mask is None
+            and supports(heads, d // heads, l)
+        )
+
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        kv_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        if self.fused(x, mask):
+            x = x + self.attn(x, kv_len=kv_len, pre_ln=(self.ln_1.weight, self.ln_1.bias, self.ln_1.eps))
+        else:
+            x = x + self.attn(self.ln_1(x), mask, kv_len)
+        return x + self.mlp(self.ln_2(x))
+
+
+class Transformer(nn.Module):
+    """``resblocks`` stack (torch CLIP's ``transformer.resblocks.{i}``)."""
+
+    def __init__(self, width: int, layers: int, heads: int, attn_backend: str = "auto") -> None:
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            ResidualAttentionBlock(width, heads, attn_backend=attn_backend)
+            for _ in range(layers)
+        )
+
+
+class PatchifyMatmul(nn.Module):
+    """ViT patch embedding as reshape + one matmul. ``weight`` is a torch
+    ``Conv2d`` weight ``(F, C, p, p)`` (state-dict key ``conv1.weight``);
+    the patch is flattened in ``(py, px, c)`` order, as the JAX module
+    flattens its ``(p, p, c, F)`` kernel. ``(B, H, W, C)`` pixels ->
+    ``(B, gh*gw, F)`` in ``dtype``."""
+
+    def __init__(self, features: int, patch: int, in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.patch = patch
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_channels, patch, patch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.patch
+        b, h, w, c = x.shape
+        gh, gw = h // p, w // p
+        feats = self.weight.shape[0]
+        x = (
+            x.to(self.dtype)
+            .reshape(b, gh, p, gw, p, c)
+            .permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, gh * gw, p * p * c)
+        )
+        kernel = self.weight.permute(2, 3, 1, 0).reshape(p * p * c, feats)
+        return x @ kernel.to(self.dtype)
+
+
+def interpolate_pos_embed(
+    pos_embed: torch.Tensor, grid_hw: Tuple[int, int], new_hw: Tuple[int, int]
+) -> torch.Tensor:
+    """Resize the patch part of a ``(1 + H*W, D)`` positional embedding to
+    a new grid (bicubic, torch semantics), keeping the CLS slot."""
+    (h, w), (nh, nw) = grid_hw, new_hw
+    if (h, w) == (nh, nw):
+        return pos_embed
+    cls_tok, patch = pos_embed[:1], pos_embed[1:]
+    d = patch.shape[-1]
+    patch = torch_bicubic_resize(patch.reshape(h, w, d), (nh, nw))
+    return torch.cat([cls_tok, patch.reshape(nh * nw, d)], dim=0)

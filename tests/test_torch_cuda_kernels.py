@@ -1,0 +1,147 @@
+"""The port's CUDA kernels against their plain PyTorch versions on a card.
+
+Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
+without one (the ``cuda`` fixture decides, at run time). The file imports
+nothing of JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: attention 2e-2 in bf16 (the kernel and the plain version
+round qkv and P to bf16 at the same points, but sum in another order, so
+a rounding can land on the other side), 1e-4 in fp32 (no rounding but the
+order of fp32 sums); head rtol 1e-4 (both sides do all the math in fp32 on
+the same inputs).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from clip_ebc_tpu_torch.config import get_bins_and_anchors
+from clip_ebc_tpu_torch.models import get_model
+from clip_ebc_tpu_torch.ops.fused_attention import fused_ln_qkv_attention, ln_qkv_attention_plain
+from clip_ebc_tpu_torch.ops.fused_head import ebc_head_plain, fused_ebc_head
+from clip_ebc_tpu_torch.training.evaluate import Evaluator
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' fp32 products
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _attn_inputs(b, l, d, seed, dev, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    x = t(rng.normal(size=(b, l, d))).to(dtype)
+    g = t(1.0 + 0.1 * rng.normal(size=d))
+    be = t(0.1 * rng.normal(size=d))
+    w = t(rng.normal(size=(3 * d, d)) * d**-0.5).to(dtype)  # nn.Linear (out, in)
+    bias = t(0.02 * rng.normal(size=3 * d))
+    return x, g, be, w, bias
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 229, 768, 12, 229, "bfloat16"),  # flagship block: 1 + 32 VPT + 196 patches, ViT-B
+    (4, 229, 768, 12, 200, "bfloat16"),  # masked keys
+    (3, 37, 128, 2, 33, "bfloat16"),  # ragged length, narrow width
+    (4, 229, 768, 12, 229, "float32"),  # flagship block, fp32 activations (no --amp)
+    (3, 37, 128, 2, 33, "float32"),  # ragged length, masked keys, narrow width
+])
+def test_attention_kernel_matches_plain(cuda, shape):
+    b, l, d, h, kv_len, dtype = shape
+    dtype = getattr(torch, dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    args = _attn_inputs(b, l, d, seed=l + kv_len, dev=cuda, dtype=dtype)
+    before = fused_ln_qkv_attention.launches
+    got = fused_ln_qkv_attention(*args, h, kv_len, (d // h) ** -0.5)
+    torch.cuda.synchronize()
+    assert fused_ln_qkv_attention.launches == before + 1
+    assert got.dtype == dtype
+    want = ln_qkv_attention_plain(*args, h, kv_len, (d // h) ** -0.5)
+    np.testing.assert_allclose(got[:, :kv_len].float().cpu().numpy(),
+                               want[:, :kv_len].float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+def test_attention_wrapper_raises_instead_of_falling_back(cuda):
+    x, g, be, w, bias = _attn_inputs(2, 37, 128, seed=0, dev=cuda)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        fused_ln_qkv_attention(x.half(), g, be, w.half(), bias, 2, 37, 0.125)
+    with pytest.raises(ValueError, match="w must be"):
+        fused_ln_qkv_attention(x.float(), g, be, w, bias, 2, 37, 0.125)  # bf16 w, fp32 x
+    with pytest.raises(ValueError, match="head dim"):
+        fused_ln_qkv_attention(x, g, be, w, bias, 4, 37, 0.125)  # dh = 32
+    wide = _attn_inputs(1, 37, 1024, seed=0, dev=cuda)  # ViT-L width: D > MAX_FUSED_DIM
+    with pytest.raises(ValueError, match="D <= 768"):
+        fused_ln_qkv_attention(*wide, 16, 37, 0.125)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reduction,truncation", [(8, 4), (32, 19)])  # K = 5, K = 20
+def test_head_kernel_matches_plain(cuda, dtype, reduction, truncation):
+    _, anchors = get_bins_and_anchors(reduction, truncation, "qnrf")
+    k = len(anchors)
+    rng = np.random.default_rng(k)
+    args = (torch.from_numpy(rng.normal(size=(4097, 512)).astype(np.float32))
+            .to(cuda, getattr(torch, dtype)),
+            torch.from_numpy(rng.normal(size=(k, 512)).astype(np.float32)).to(cuda),
+            torch.tensor(1 / 0.07, device=cuda),
+            torch.tensor(anchors, dtype=torch.float32, device=cuda))
+    before = fused_ebc_head.launches
+    got = fused_ebc_head(*args)
+    torch.cuda.synchronize()
+    assert fused_ebc_head.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), ebc_head_plain(*args).cpu().numpy(),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_model_takes_both_kernels_and_matches_plain_path(cuda):
+    """A whole ViT-B/16 CLIP-EBC forward on 64 px windows in bf16: 12
+    attention launches and 1 head launch per forward, and the density of
+    the plain path (``attn_backend="sdpa"``, ``fused_head="off"``) within
+    the bf16 tolerance of the count."""
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    image = np.random.default_rng(0).normal(size=(96, 144, 3)).astype(np.float32)
+    counts = {}
+    for paths in ({}, {"attn_backend": "sdpa", "fused_head": "off"}):
+        model = get_model("clip_vit_b_16", 64, 8, bins, anchors, dtype=torch.bfloat16,
+                          num_vpt=32, seed=0, device=cuda, **paths)
+        ev = Evaluator(model, reduction=8, sliding_window=True, window_size=64, stride=32,
+                       pad_to_multiple=16)
+        ev.text_features()
+        fused_ln_qkv_attention.launches = fused_ebc_head.launches = 0
+        density = ev.predict_density(image)
+        torch.cuda.synchronize()
+        assert tuple(density.shape) == (12, 18)
+        assert bool(torch.isfinite(density).all())
+        fused = not paths
+        assert fused_ln_qkv_attention.launches == (12 if fused else 0)
+        assert fused_ebc_head.launches == (1 if fused else 0)
+        counts[fused] = float(density.sum())
+    assert abs(counts[True] - counts[False]) <= 2e-2 * abs(counts[False])
+
+
+def test_fp32_model_takes_the_attention_kernel(cuda):
+    """A default (fp32, no ``--amp``) model on the card takes the kernel in
+    every block, ``attn_backend`` "fused" and "auto" alike, and agrees with
+    the plain path within the fp32 slice tolerance (1e-3)."""
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    image = np.random.default_rng(1).normal(size=(64, 96, 3)).astype(np.float32)
+    counts = {}
+    for backend in ("fused", "auto", "sdpa"):
+        model = get_model("clip_vit_b_16", 64, 8, bins, anchors, dtype=torch.float32,
+                          num_vpt=32, seed=0, device=cuda, attn_backend=backend)
+        ev = Evaluator(model, reduction=8, sliding_window=True, window_size=64, stride=32,
+                       pad_to_multiple=16)
+        ev.text_features()
+        fused_ln_qkv_attention.launches = 0
+        counts[backend] = ev.predict_count(image)
+        torch.cuda.synchronize()
+        assert fused_ln_qkv_attention.launches == (0 if backend == "sdpa" else 12)
+    for backend in ("fused", "auto"):
+        assert abs(counts[backend] - counts["sdpa"]) <= 1e-3 * abs(counts["sdpa"])
