@@ -23,11 +23,30 @@ Phases, each a hard failure (a raised exception, exit code 1):
    bf16 and 1e-3 in fp32; the time per image is measured for both paths
    and set beside the image's bound (its matmul and convolution FLOP,
    counted by ``FlopCounterMode`` on the plain path, over the card's peak).
+4. the flagship training path through the user's entry point: the trainer
+   CLI with the README's flagship flags (CLIP-EBC ViT-B/16, deep VPT-32,
+   reduction 8, DACE + DMCount, 8 images x 2 crops = 16 windows of 224 px
+   a step) on a synthetic ``qnrf`` dataset written from a seed (32 train
+   images, so one epoch is 4 steps, and 2 val images of 512 x 768), one
+   epoch and one sliding-window evaluation, random weights from a seed;
+   bf16 (``--amp``), then fp32. Counters zeroed just before, read just
+   after: 12 backward launches per step (``ln_qkv_bwd_frozen`` in bf16,
+   the fp32 ``attention_bwd`` in fp32). The loss is finite, the trunk and
+   text tower are bit-identical to the initial weights, the prompts and
+   the decoder moved, and the best checkpoint loads into the predict CLI.
+   Then, on one fixed batch, the step's VPT and decoder gradients against
+   the plain path's (``attn_backend="sdpa"``): relative L2 <= 1e-3 in
+   fp32, <= 5e-2 in bf16 (printed beside the plain path's own bf16-vs-fp32
+   error). Then ms per step, windows/s and peak memory
+   (median of 10 steps after 2 warm-up) beside the step's bound (forward
+   + backward FLOP of the plain path by ``FlopCounterMode`` over the
+   card's peak).
 
 The last lines are the card line, one JSON line describing every kernel
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX. With
-``--profile`` it also prints the device time of one kernel-path forward by
-CUDA kernel (torch.profiler).
+``--profile`` it also prints the device time of one kernel-path forward
+and of one training step (bf16 and fp32) by CUDA kernel (torch.profiler),
+with the step's device idle share.
 """
 
 from __future__ import annotations
@@ -51,6 +70,18 @@ PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 B, L, D, H = 140, 229, 768, 12  # flagship trunk launch: 140 windows x (1 + 32 + 196) tokens
 IMAGE_HW = (2048, 3072)
+# flagship training step: 8 images x 2 crops of 224 px; a synthetic dataset
+# of 32 train images (4 steps an epoch) and 2 val images of 512 x 768
+TRAIN_SIZE, TRAIN_B, TRAIN_IMAGES, DATA_HW = 224, 16, 32, (512, 768)
+
+
+def train_flags() -> list:
+    """The README's flagship training flags."""
+    size = str(TRAIN_SIZE)
+    return ["--model", "clip_vit_b_16", "--dataset", "qnrf", "--input_size", size,
+            "--reduction", "8", "--truncation", "4", "--num_vpt", "32", "--prompt_type", "word",
+            "--count_loss", "dmcount", "--batch_size", str(TRAIN_B), "--num_crops", "2",
+            "--sliding_window", "--window_size", size, "--stride", size, "--warmup_lr", "1e-3"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -170,6 +201,107 @@ def phase_head(dev) -> dict:
         "name": "fused_ebc_head", "route": "cuda", "source": "clip_ebc_tpu_torch/csrc/fused_head.cu",
         "replaces": "clip_ebc_tpu/ops/fused_head.py:70", "max_abs_err": err, "ms": ms,
         "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    }
+
+
+def _bwd_inputs(dev, dtype, seed):
+    """qkv at the trunk's scale (unit variance after the LN and the
+    projection, so the softmax is peaked) and a unit cotangent."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(TRAIN_B, L, 3 * D, generator=g, device=dev).to(dtype)
+    gout = torch.randn(TRAIN_B, L, D, generator=g, device=dev).to(dtype)
+    return qkv, gout
+
+
+def _check_scaled(who: str, got, want, tol: float) -> float:
+    """Max abs error of ``got`` against ``want`` within ``tol`` x the
+    largest magnitude of ``want``, printed beside that limit."""
+    err = (got.float() - want.float()).abs().max().item()
+    limit = tol * want.float().abs().max().item()
+    print(f"{who}: max abs err {err:.3e} (limit {limit:.3e} = {tol:g} x max|want|)")
+    check(math.isfinite(err) and err <= limit, f"{who}: kernel disagrees with its plain version")
+    return err
+
+
+def phase_attention_bwd(dev, dtype: torch.dtype) -> dict:
+    """The attention backward at the flagship training shape against its
+    plain version: dQ, dK and dV each within 2e-2 (bf16) or 1e-4 (fp32)
+    of its own largest magnitude, as in the GPU tests; library yardstick:
+    the backward of ``F.scaled_dot_product_attention`` on the same q, k, v
+    and g (timed here only)."""
+    from clip_ebc_tpu_torch.ops.fused_attention import attention_bwd, attention_bwd_plain
+
+    fp32 = dtype == torch.float32
+    tol, peak, tag = (1e-4, PEAK_FP32, " fp32") if fp32 else (2e-2, PEAK_BF16, "")
+    qkv, gout = _bwd_inputs(dev, dtype, 2)
+    sm = (D // H) ** -0.5
+    errs = []
+    for kv_len in (L, 200):
+        got = attention_bwd(qkv, gout, H, kv_len, sm)
+        want = attention_bwd_plain(qkv, gout, H, kv_len, sm)
+        torch.cuda.synchronize()
+        for i, part in enumerate(("dQ", "dK", "dV")):
+            cols = slice(i * D, (i + 1) * D)
+            errs.append(_check_scaled(f"attention_bwd{tag} {part} kernel vs plain, kv_len={kv_len}",
+                                      got[..., cols], want[..., cols], tol))
+        check(got[:, kv_len:, D:].float().abs().sum().item() == 0,
+              f"attention_bwd{tag}: masked keys got a gradient")
+    ms = time_ms(lambda: attention_bwd(qkv, gout, H, L, sm))
+    plain = time_ms(lambda: attention_bwd_plain(qkv, gout, H, L, sm))
+    q, k, v = (t.reshape(TRAIN_B, L, H, D // H).transpose(1, 2).detach().requires_grad_(True)
+               for t in qkv.split(D, dim=-1))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    go = gout.reshape(TRAIN_B, L, H, D // H).transpose(1, 2)
+    library = time_ms(lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True))
+    es = qkv.element_size()
+    flops = 5 * 2 * TRAIN_B * H * L * L * (D // H)  # S, dP, dQ, dK, dV
+    nbytes = TRAIN_B * L * (3 * D + D + 3 * D) * es
+    bnd, by = bound_ms(flops, peak, nbytes)
+    print(f"attention_bwd{tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA backward "
+          f"{library:.3f} ms, bound {bnd:.4f} ms ({by})")
+    return {
+        "name": "attention_bwd" + ("_fp32" if fp32 else ""), "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:360", "max_abs_err": max(errs),
+        "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": library,
+    }
+
+
+def phase_ln_qkv_bwd_frozen(dev) -> dict:
+    """The frozen LN + QKV + attention backward (bf16) at the flagship
+    training shape against its plain version, tolerance 2e-2 of the
+    largest magnitude of dx."""
+    from clip_ebc_tpu_torch.ops.fused_attention import ln_qkv_bwd_frozen, ln_qkv_bwd_frozen_plain
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(TRAIN_B, L, D, generator=g, device=dev).to(torch.bfloat16)
+    gout = torch.randn(TRAIN_B, L, D, generator=g, device=dev).to(torch.bfloat16)
+    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
+    w = (torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5).to(torch.bfloat16)
+    bias = 0.02 * torch.randn(3 * D, generator=g, device=dev)
+    sm = (D // H) ** -0.5
+    args = (x, gout, ln_w, ln_b, w, bias, H)
+    errs = []
+    for kv_len in (L, 200):
+        got = ln_qkv_bwd_frozen(*args, kv_len, sm)
+        want = ln_qkv_bwd_frozen_plain(*args, kv_len, sm)
+        torch.cuda.synchronize()
+        errs.append(_check_scaled(f"ln_qkv_bwd_frozen kernel vs plain, kv_len={kv_len}",
+                                  got, want, 2e-2))
+    ms = time_ms(lambda: ln_qkv_bwd_frozen(*args, L, sm))
+    plain = time_ms(lambda: ln_qkv_bwd_frozen_plain(*args, L, sm))
+    m = TRAIN_B * L
+    flops = 2 * (2 * m * D * 3 * D) + 5 * 2 * TRAIN_B * H * L * L * (D // H)
+    nbytes = 3 * m * D * 2 + 3 * D * D * 2 + (2 * D + 3 * D) * 4
+    bnd, by = bound_ms(flops, PEAK_BF16, nbytes)
+    print(f"ln_qkv_bwd_frozen: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms "
+          f"({by}); {flops / ms / 1e9:.1f} TFLOP/s")
+    return {
+        "name": "ln_qkv_bwd_frozen", "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:627", "max_abs_err": max(errs),
+        "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
     }
 
 
@@ -315,6 +447,227 @@ def phase_main_path(dev, kernels: dict, profile: bool) -> None:
         print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
 
+def _train_counters(reset: bool = False) -> dict:
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+    from clip_ebc_tpu_torch.ops.fused_head import fused_ebc_head
+
+    fns = {"fused_ln_qkv_attention": fa.fused_ln_qkv_attention, "attention_bwd": fa.attention_bwd,
+           "ln_qkv_bwd_frozen": fa.ln_qkv_bwd_frozen, "fused_ebc_head": fused_ebc_head}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return {k: f.launches for k, f in fns.items()}
+
+
+def _flagship_model(dev, dtype, **paths):
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.models import get_model
+
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    return get_model("clip_vit_b_16", 224, 8, bins, anchors, dtype=dtype, num_vpt=32, seed=42,
+                     device=dev, **paths)
+
+
+def run_trainer(dev, data_root: str, ckpt_dir: str, amp: bool) -> dict:
+    """The trainer CLI for one epoch (4 steps) and one evaluation, counters
+    zeroed just before and read just after; returns them with the epoch's
+    loss terms (the checkpoint's loss history)."""
+    from clip_ebc_tpu_torch.cli import trainer
+
+    argv = train_flags() + ["--total_epochs", "1", "--eval_start", "1", "--data_root", data_root,
+                            "--ckpt_dir", ckpt_dir, "--eval_disable_size_check",
+                            "--device", str(dev)]
+    argv += ["--amp"] if amp else []
+    _train_counters(reset=True)
+    t0 = time.perf_counter()
+    trainer.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _train_counters()
+    with open(os.path.join(ckpt_dir, "meta.json")) as f:
+        meta = json.load(f)
+    mode = "bf16 (--amp)" if amp else "fp32 (default)"
+    print(f"trainer CLI, {mode}: {secs:.1f} s (model build, {_steps()} steps, eval, "
+          f"checkpoints); launches {launches}; epoch {meta['loss_history'][-1]}; "
+          f"val {meta['best_scores']}")
+    return {"launches": launches, "loss": meta["loss_history"][-1]["loss"]}
+
+
+def _steps() -> int:
+    return TRAIN_IMAGES // (TRAIN_B // 2)
+
+
+def _group_err(got: dict, want: dict, prefixes: tuple) -> float:
+    names = sorted(n for n in want if n.startswith(prefixes))
+    a = torch.cat([got[n].float().flatten() for n in names])
+    b = torch.cat([want[n].float().flatten() for n in names])
+    return float((a - b).norm() / b.norm())
+
+
+def _step_grads(dev, dtype, batch, **paths) -> dict:
+    """Gradients of the flagship model's training loss on ``batch``."""
+    from clip_ebc_tpu_torch.config import ExperimentConfig
+    from clip_ebc_tpu_torch.losses import make_loss_fn
+
+    cfg = ExperimentConfig(model="clip_vit_b_16", dataset="qnrf", input_size=TRAIN_SIZE,
+                           reduction=8, truncation=4, count_loss="dmcount").normalize()
+    model = _flagship_model(dev, dtype, **paths).train()
+    with torch.no_grad():
+        text = model.encode_text()
+    logits, density = model(batch.images, text_feats=text)
+    loss, _ = make_loss_fn(cfg)(logits, density, batch)
+    loss.backward()
+    return {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+
+
+def time_steps(trainer, batch, text, reps: int = 10, warmup: int = 2) -> float:
+    """Median wall ms of one optimizer step on ``batch`` (ends in a
+    synchronize) after ``warmup`` steps."""
+    times = []
+    for i in range(warmup + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, text)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def profile_step(trainer, batch, text, tag: str) -> None:
+    """Device time of one training step by CUDA kernel (torch.profiler),
+    the step's wall time under the profiler and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, text)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device time: the kernel and copy events only (an operator's own
+    # device time repeats its kernels'); the profiler's buffer entry is not work
+    events = [e for e in p.events() if e.name != "Activity Buffer Request"]
+    busy = sum(e.device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    host = sum(e.self_cpu_time_total for e in events if e.device_type == DeviceType.CPU) / 1e3
+    print(f"profiled training step {tag}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"(idle share {1 - busy / wall:.2f}), host CPU {host:.2f} ms")
+    print(p.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+
+
+def phase_training(dev, kernels: dict, profile: bool) -> None:
+    from clip_ebc_tpu_torch.cli import predict
+    from clip_ebc_tpu_torch.config import ExperimentConfig
+    from clip_ebc_tpu_torch.data.crowd import CrowdDataset
+    from clip_ebc_tpu_torch.data.loader import TrainLoader, make_train_transforms
+    from clip_ebc_tpu_torch.data.synthetic import make_synthetic_crowd_dataset
+    from clip_ebc_tpu_torch.losses import make_loss_fn
+    from clip_ebc_tpu_torch.training.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = make_synthetic_crowd_dataset(os.path.join(tmp, "data"), "qnrf",
+                                            n_train=TRAIN_IMAGES, n_val=2, size=DATA_HW, seed=0)
+        print(f"synthetic qnrf ({TRAIN_IMAGES} train, 2 val, {DATA_HW[0]} x {DATA_HW[1]}): "
+              f"{time.perf_counter() - t0:.1f} s")
+        for amp in (True, False):
+            dtype = torch.bfloat16 if amp else torch.float32
+            ckpt = os.path.join(tmp, f"ckpt_{'bf16' if amp else 'fp32'}")
+            init = {k: v.cpu() for k, v in _flagship_model(dev, dtype).state_dict().items()}
+            res = run_trainer(dev, data, ckpt, amp)
+            n, steps = res["launches"], _steps()
+            check(math.isfinite(res["loss"]), f"training loss {res['loss']} is not finite")
+            if amp:
+                check(n["ln_qkv_bwd_frozen"] == 12 * steps,
+                      f"bf16: expected {12 * steps} frozen-backward launches")
+                check(n["attention_bwd"] == 12 * steps,
+                      "bf16: the frozen backward runs one attention backward per block")
+                kernels["ln_qkv_bwd_frozen"]["launches"] = n["ln_qkv_bwd_frozen"]
+                kernels["attention_bwd"]["launches"] = n["attention_bwd"]
+            else:
+                check(n["attention_bwd"] == 12 * steps and n["ln_qkv_bwd_frozen"] == 0,
+                      f"fp32: expected {12 * steps} attention-backward launches, no frozen")
+                kernels["attention_bwd_fp32"]["launches"] = n["attention_bwd"]
+            best = os.path.join(ckpt, "best", "1.pt")
+            trained = torch.load(best, map_location="cpu", weights_only=True)
+            frozen = [k for k in init if k.startswith(("image_encoder.", "text_encoder."))]
+            check(all(torch.equal(trained[k], init[k]) for k in frozen),
+                  "a frozen trunk or text-tower parameter changed")
+            for prefix in ("vpt_", "image_decoder.", "projection."):
+                check(all(not torch.equal(trained[k], init[k]) for k in init
+                          if k.startswith(prefix) and "num_batches" not in k),
+                      f"a {prefix} parameter did not move")
+            out = os.path.join(tmp, "val_counts.csv")
+            predict.main([os.path.join(data, "qnrf", "val", "images"), "--sliding_window",
+                          "--window_size", str(TRAIN_SIZE), "--stride", str(TRAIN_SIZE),
+                          "--weight_path", best, "--out", out, "--device", str(dev)]
+                         + (["--amp"] if amp else []))
+            with open(out) as f:
+                rows = list(csv.DictReader(f))
+            check(len(rows) == 2 and all(math.isfinite(float(r["count"])) for r in rows),
+                  "predict CLI on the trained checkpoint gave no finite counts")
+            print(f"predict CLI on the trained checkpoint: counts {[r['count'] for r in rows]}")
+
+        # one fixed batch: gradients against the plain path, then timed steps
+        cfg = ExperimentConfig(model="clip_vit_b_16", dataset="qnrf", input_size=TRAIN_SIZE,
+                               reduction=8, truncation=4, count_loss="dmcount",
+                               batch_size=TRAIN_B, num_crops=2, warmup_lr=1e-3).normalize()
+        ds = CrowdDataset("qnrf", "train", data, transforms=make_train_transforms(cfg),
+                          num_crops=2, check_sizes=False)
+        batch = next(iter(TrainLoader(ds, TRAIN_B, 8, seed=0))).to(dev)
+
+    groups = {"vpt": ("vpt_",), "decoder": ("image_decoder.", "projection.")}
+    ref32 = _step_grads(dev, torch.float32, batch, attn_backend="sdpa")
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        got = _step_grads(dev, dtype, batch)
+        plain = ref32 if dtype == torch.float32 else _step_grads(dev, dtype, batch, attn_backend="sdpa")
+        check(all(got[k] is not None for k in plain), f"{tag}: a trainable parameter got no gradient")
+        for gname, prefixes in groups.items():
+            err = _group_err(got, plain, prefixes)
+            if dtype == torch.float32:
+                bound = 1e-3
+                print(f"step gradient {tag}, {gname}: kernel vs plain path rel L2 {err:.3e} "
+                      f"(bound {bound:g})")
+            else:
+                bound = 5e-2
+                print(f"step gradient {tag}, {gname}: kernel vs plain path rel L2 {err:.3e} "
+                      f"(bound {bound:g}); plain bf16 vs plain fp32 "
+                      f"{_group_err(plain, ref32, prefixes):.3e}")
+            check(err <= bound, f"{tag} {gname} gradient disagrees with the plain path")
+        del got, plain
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FP32)):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        plain_model = _flagship_model(dev, dtype, attn_backend="sdpa").train()
+        plain_trainer = Trainer(cfg, plain_model, make_loss_fn(cfg))
+        plain_trainer.set_epoch_lr(1)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            plain_trainer.train_step(batch, plain_trainer.text_features())
+        flops = float(counter.get_total_flops())
+        plain_ms = time_steps(plain_trainer, batch, plain_trainer.text_features())
+        del plain_model, plain_trainer
+        model = _flagship_model(dev, dtype).train()
+        trainer = Trainer(cfg, model, make_loss_fn(cfg))
+        trainer.set_epoch_lr(1)
+        text = trainer.text_features()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = time_steps(trainer, batch, text)
+        peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        bnd = flops / peak * 1e3
+        print(f"training step {tag} ({TRAIN_B} windows of {TRAIN_SIZE}): kernels {ms:.2f} ms/step "
+              f"({TRAIN_B / ms * 1e3:.0f} windows/s), peak memory {peak_mem:.2f} GiB; plain path "
+              f"{plain_ms:.2f} ms/step; bound {flops / 1e12:.3f} TFLOP (FlopCounterMode, plain "
+              f"path, forward + backward) / {peak / 1e12:.0f} TFLOP/s = {bnd:.2f} ms "
+              f"({ms / bnd:.1f}x)")
+        if profile:
+            profile_step(trainer, batch, text, tag)
+        del model, trainer
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -326,11 +679,20 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' fp32 products stay fp32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
     phase_build()
     kernels = [phase_attention(dev, torch.bfloat16), phase_attention(dev, torch.float32),
-               phase_head(dev)]
-    phase_main_path(dev, {k["name"]: k for k in kernels}, "--profile" in argv)
-    check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
+               phase_head(dev), phase_attention_bwd(dev, torch.bfloat16),
+               phase_attention_bwd(dev, torch.float32), phase_ln_qkv_bwd_frozen(dev)]
+    print(f"phases 1-2: {time.perf_counter() - t0:.1f} s")
+    by_name = {k["name"]: k for k in kernels}
+    t0 = time.perf_counter()
+    phase_main_path(dev, by_name, "--profile" in argv)
+    print(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_training(dev, by_name, "--profile" in argv)
+    print(f"phase 4: {time.perf_counter() - t0:.1f} s")
+    check(all(k.get("launches", 0) > 0 for k in kernels), "a kernel of the path was never launched")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,221 @@
+"""Training entry point: counterpart of ``clip_ebc_tpu/cli/trainer.py`` with
+the same flags and defaults, plus ``--device`` (default ``cuda``).
+
+    python -m clip_ebc_tpu_torch.cli.trainer --model clip_vit_b_16 --dataset qnrf \\
+        --input_size 224 --reduction 8 --truncation 4 --num_vpt 32 --prompt_type word \\
+        --count_loss dmcount --batch_size 16 --num_crops 2 --sliding_window \\
+        --window_size 224 --stride 224 --warmup_lr 1e-3 --amp
+
+One process trains on one device from random weights (``--seed``): VPT
+prompt tuning of CLIP-EBC with the trunk and the text tower frozen. Each
+epoch trains, evaluates on the val split from ``--eval_start`` on (MAE,
+RMSE), keeps the best ``--save_best_k`` weights under
+``{ckpt_dir}/best/{epoch}.pt`` (which ``cli.predict --weight_path``
+loads) and the full state in ``{ckpt_dir}/latest.pt``, from which a rerun
+resumes. Not ported yet, and refused: ``--pretrained``, multi-host
+(``--coordinator``, ``--num_hosts`` > 1, ``--host_id`` > 0),
+``--profile_dir``, ``--regression``, ``--loader_procs`` > 0 and every
+model whose backbone the port does not build yet (all but
+``clip_vit_b_16``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train an EBC crowd-counting model (PyTorch/CUDA).")
+    # Model
+    p.add_argument("--model", type=str, default="vgg19_ae")
+    p.add_argument("--input_size", type=int, default=448)
+    p.add_argument("--reduction", type=int, default=8, choices=[8, 16, 32])
+    p.add_argument("--regression", action="store_true")
+    p.add_argument("--truncation", type=int, default=None)
+    p.add_argument("--anchor_points", type=str, default="average", choices=["average", "middle"])
+    p.add_argument("--prompt_type", type=str, default="word", choices=["word", "number"])
+    p.add_argument("--granularity", type=str, default="fine", choices=["fine", "dynamic", "coarse"])
+    p.add_argument("--num_vpt", type=int, default=32)
+    p.add_argument("--vpt_drop", type=float, default=0.0)
+    p.add_argument("--shallow_vpt", action="store_true")
+    # Dataset
+    p.add_argument("--dataset", type=str, required=True)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--num_crops", type=int, default=1)
+    p.add_argument("--min_scale", type=float, default=1.0)
+    p.add_argument("--max_scale", type=float, default=2.0)
+    p.add_argument("--brightness", type=float, default=0.1)
+    p.add_argument("--contrast", type=float, default=0.1)
+    p.add_argument("--saturation", type=float, default=0.1)
+    p.add_argument("--hue", type=float, default=0.0)
+    p.add_argument("--kernel_size", type=int, default=5)
+    p.add_argument("--saltiness", type=float, default=1e-3)
+    p.add_argument("--spiciness", type=float, default=1e-3)
+    p.add_argument("--jitter_prob", type=float, default=0.2)
+    p.add_argument("--blur_prob", type=float, default=0.2)
+    p.add_argument("--noise_prob", type=float, default=0.5)
+    # Evaluation
+    p.add_argument("--sliding_window", action="store_true")
+    p.add_argument("--stride", type=int, default=None)
+    p.add_argument("--window_size", type=int, default=None)
+    p.add_argument("--strategy", type=str, default="average", choices=["average", "max"])
+    p.add_argument("--resize_to_multiple", action="store_true")
+    p.add_argument("--zero_pad_to_multiple", action="store_true")
+    p.add_argument("--pad_to_multiple", type=int, default=0,
+                   help="pad eval images up to this multiple; 0 disables")
+    # Loss
+    p.add_argument("--weight_count_loss", type=float, default=1.0)
+    p.add_argument("--count_loss", type=str, default="mae", choices=["mae", "mse", "dmcount"])
+    # Optimizer / schedule
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--warmup_epochs", type=int, default=50)
+    p.add_argument("--warmup_lr", type=float, default=1e-6)
+    p.add_argument("--T_0", type=int, default=5)
+    p.add_argument("--T_mult", type=int, default=2)
+    p.add_argument("--eta_min", type=float, default=1e-7)
+    # Training
+    p.add_argument("--total_epochs", type=int, default=2600)
+    p.add_argument("--eval_start", type=int, default=50)
+    p.add_argument("--eval_freq", type=int, default=1)
+    p.add_argument("--save_freq", type=int, default=5)
+    p.add_argument("--save_best_k", type=int, default=3)
+    p.add_argument("--amp", action="store_true", help="bf16 compute (fp32 parameters)")
+    p.add_argument("--num_workers", type=int, default=4, help="loader decode threads")
+    p.add_argument("--loader_procs", type=int, default=0)
+    p.add_argument("--seed", type=int, default=42, help="seed of the weights, data order and dropout")
+    # Paths
+    p.add_argument("--pretrained", type=str, default=None)
+    p.add_argument("--data_root", type=str, default="data")
+    p.add_argument("--ckpt_dir", type=str, default=None)
+    p.add_argument("--max_points", type=int, default=0,
+                   help="per-image point pad for the OT loss; 0 sizes it from the dataset")
+    p.add_argument("--eval_disable_size_check", action="store_true")
+    # Multi-host
+    p.add_argument("--coordinator", type=str, default=None)
+    p.add_argument("--num_hosts", type=int, default=1)
+    p.add_argument("--host_id", type=int, default=0)
+    # Observability
+    p.add_argument("--profile_dir", type=str, default=None)
+    # Paths of the model
+    p.add_argument("--attn_backend", type=str, default="auto", choices=["auto", "fused", "sdpa"])
+    p.add_argument("--fused_head", type=str, default="auto", choices=["auto", "on", "off"])
+    p.add_argument("--decoder_before_upsample", action="store_true")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def _check_ported(args) -> None:
+    from ..models import PORTED_CLIP_BACKBONES
+
+    todo = {
+        "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
+        "multi-host --coordinator/--num_hosts/--host_id (ROADMAP Queue 1, multi-GPU)": (
+            args.coordinator is not None or args.num_hosts != 1 or args.host_id != 0),
+        "--profile_dir (ROADMAP Queue 1, remaining tooling)": args.profile_dir is not None,
+        "--regression (ROADMAP Queue 1, non-CLIP models)": args.regression,
+        "--loader_procs (ROADMAP Queue 1, VPT training: loader process pool)": args.loader_procs > 0,
+        f"--model {args.model} (ROADMAP Queue 1, other backbones and models)": (
+            args.model.lower() not in {"clip_" + b for b in PORTED_CLIP_BACKBONES}),
+    }
+    missing = [k for k, asked in todo.items() if asked]
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def config_from_args(args):
+    from ..config import ExperimentConfig
+
+    names = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    return ExperimentConfig(**{k: v for k, v in vars(args).items() if k in names}).normalize()
+
+
+def _logger(path: str) -> logging.Logger:
+    log = logging.getLogger("clip_ebc_tpu_torch.trainer")
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    for h in list(log.handlers):
+        log.removeHandler(h)
+        h.close()
+    fmt = logging.Formatter("%(asctime)s %(message)s")
+    for h in (logging.StreamHandler(sys.stdout), logging.FileHandler(path)):
+        h.setFormatter(fmt)
+        log.addHandler(h)
+    return log
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    _check_ported(args)
+    cfg = config_from_args(args)
+
+    import torch
+
+    from ..data.crowd import CrowdDataset
+    from ..data.loader import TrainLoader, make_eval_transforms, make_train_transforms
+    from ..losses import make_loss_fn
+    from ..models import get_model
+    from ..training.checkpoint import CheckpointManager
+    from ..training.evaluate import Evaluator, evaluate
+    from ..training.trainer import Trainer
+    from ..utils.platform import resolve_device
+
+    device = resolve_device(args.device)
+    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    log = _logger(os.path.join(cfg.ckpt_dir, "train.log"))
+    log.info("config: %s", cfg)
+
+    model = get_model(
+        cfg.model, cfg.input_size, cfg.reduction, cfg.bins, cfg.bin_anchors,
+        dtype=torch.bfloat16 if cfg.amp else torch.float32, prompt_type=cfg.prompt_type,
+        num_vpt=cfg.num_vpt, deep_vpt=not cfg.shallow_vpt, vpt_drop=cfg.vpt_drop,
+        attn_backend=args.attn_backend, fused_head=args.fused_head,
+        decoder_before_upsample=args.decoder_before_upsample, seed=cfg.seed, device=device,
+    )
+    trainer = Trainer(cfg, model, make_loss_fn(cfg))
+    train_ds = CrowdDataset(
+        cfg.dataset, "train", data_root=cfg.data_root, transforms=make_train_transforms(cfg),
+        num_crops=cfg.num_crops, check_sizes=not args.eval_disable_size_check,
+    )
+    loader = TrainLoader(
+        train_ds, batch_size=cfg.batch_size, reduction=cfg.reduction,
+        max_points=args.max_points or None, seed=cfg.seed, num_threads=cfg.num_workers,
+    )
+    val_ds = CrowdDataset(
+        cfg.dataset, "val", data_root=cfg.data_root, transforms=make_eval_transforms(cfg),
+        check_sizes=not args.eval_disable_size_check,
+    )
+    evaluator = Evaluator(
+        model, reduction=cfg.reduction, sliding_window=cfg.sliding_window,
+        window_size=cfg.window_size, stride=cfg.stride, strategy=args.strategy,
+        pad_to_multiple=args.pad_to_multiple,
+    )
+    ckpt = CheckpointManager(cfg.ckpt_dir, cfg.save_best_k)
+    start_epoch = 1
+    resumed = ckpt.restore_latest()
+    if resumed is not None:
+        state, start_epoch = resumed
+        trainer.load_state_dict(state)
+        log.info("resumed from %s at epoch %d", cfg.ckpt_dir, start_epoch)
+
+    for epoch in range(start_epoch, cfg.total_epochs + 1):
+        t0 = time.time()
+        metrics, steps = trainer.train_epoch(loader, epoch)
+        log.info("epoch %d/%d (%.1fs, %d steps): %s", epoch, cfg.total_epochs, time.time() - t0,
+                 steps, " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+        if epoch >= cfg.eval_start and (epoch - cfg.eval_start) % cfg.eval_freq == 0:
+            scores = evaluate(evaluator, val_ds)
+            best = ckpt.update_best(scores, epoch, model.state_dict())
+            log.info("eval epoch %d: mae=%.2f rmse=%.2f | best mae=%s", epoch, scores["mae"],
+                     scores["rmse"], [f"{s:.2f}@{e}" for s, e in best["mae"]])
+        if epoch % cfg.save_freq == 0 or epoch == cfg.total_epochs:
+            ckpt.save_latest(trainer.state_dict(), epoch, metrics)
+
+
+if __name__ == "__main__":
+    main()

@@ -600,6 +600,19 @@ mha_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int l, in
   }
 }
 
+cudaError_t launch_proj(const void* x, const void* gamma, const void* beta, const void* w,
+                        const void* bias, void* qkv, int m, int d, float eps, cudaStream_t st) {
+  const size_t proj_smem = proj_smem_bytes(d);
+  cudaError_t e = cudaFuncSetAttribute(ln_qkv_proj_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)proj_smem);
+  if (e != cudaSuccess) return e;
+  ln_qkv_proj_kernel<<<(m + kPM - 1) / kPM, kPThreads, proj_smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<bf16*>(qkv), m, d, 3 * d, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace ebc
 
@@ -612,19 +625,10 @@ extern "C" int ebc_ln_qkv_attention(const void* x, const void* gamma, const void
                                     float sm_scale, float eps, void* stream) {
   using namespace ebc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int m = batch * l, n = 3 * d;
   if (d != num_heads * kDh || d > kMaxDim || l < 1 || l > kMaxKeys || kv_len < 1 || kv_len > l)
     return (int)cudaErrorInvalidValue;
 
-  const size_t proj_smem = proj_smem_bytes(d);
-  cudaError_t e = cudaFuncSetAttribute(ln_qkv_proj_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)proj_smem);
-  if (e != cudaSuccess) return (int)e;
-  ln_qkv_proj_kernel<<<(m + kPM - 1) / kPM, kPThreads, proj_smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(qkv), m, d, n, eps);
-  e = cudaGetLastError();
+  cudaError_t e = launch_proj(x, gamma, beta, w, bias, qkv, batch * l, d, eps, st);
   if (e != cudaSuccess) return (int)e;
 
   const bf16* q = static_cast<const bf16*>(qkv);
@@ -638,6 +642,18 @@ extern "C" int ebc_ln_qkv_attention(const void* x, const void* gamma, const void
     default: e = cudaErrorInvalidValue;
   }
   return (int)e;
+}
+
+// The first launch of ebc_ln_qkv_attention alone, qkv = LN(x) W^T + bias
+// in bf16 (M = B L rows): the recompute of the frozen backward
+// (csrc/fused_attention_bwd.cu).
+extern "C" int ebc_ln_qkv_proj(const void* x, const void* gamma, const void* beta, const void* w,
+                               const void* bias, void* qkv, int m, int d, float eps,
+                               void* stream) {
+  using namespace ebc;
+  if (m < 1 || d < 64 || d % 64 || d > kMaxDim) return (int)cudaErrorInvalidValue;
+  return (int)launch_proj(x, gamma, beta, w, bias, qkv, m, d, eps,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The same in fp32: x, w, qkv and out fp32, with ebc_ln_qkv_attention's

@@ -5,7 +5,7 @@ them a channels-last view of its NHWC features, so no copy is made going
 in or out. Parameters are fp32 and convolutions compute in the input's
 dtype. Names follow the reference's torch decoder (``conv1``/``bn1``/
 ``conv2``/``bn2``/``downsample.{0,1}``), so its state dicts load as they
-are. BatchNorm is eval-only in this port: training is a later slice.
+are.
 """
 
 from __future__ import annotations
@@ -36,21 +36,33 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval BatchNorm (eps 1e-5; torch momentum 0.1 is flax 0.9): the
-    running statistics fold into a per-channel fp32 scale and shift,
-    applied in the input's dtype."""
+    """BatchNorm with the JAX package's (flax's) semantics, eps 1e-5.
+
+    Eval: the running statistics fold into a per-channel fp32 scale and
+    shift, applied in the input's dtype. Train: batch mean and biased
+    variance over (N, H, W) in fp32, applied in fp32 and cast back; the
+    running statistics move by torch momentum 0.1 (flax 0.9) towards the
+    batch mean and the BIASED batch variance, as flax updates them (torch's
+    own BatchNorm would take the unbiased one)."""
 
     def __init__(self, channels: int) -> None:
         super().__init__(channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm training statistics are not ported yet (ROADMAP Queue 1, VPT training)"
-            )
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
-        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        if not self.training:
+            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+            shift = self.bias - self.running_mean * scale
+            return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 class ConvBNAct(nn.Sequential):

@@ -8,7 +8,10 @@ then the patch grid. VPT prompts are owned by the CLIP-EBC model
 ``[1, 1 + num_vpt)`` for the whole trunk, and deep VPT overwrites those
 rows before blocks 1..depth-1, which equals the reference's
 strip-and-reinsert. No sequence padding: ``kv_len`` is the real length.
-The ModifiedResNet encoders are a later slice.
+In training mode, ``vpt_drop`` drops prompt entries (flax ``Dropout``
+semantics: keep with 1 - rate, scale by 1 / (1 - rate)) with noise from
+the caller's ``torch.Generator``. The ModifiedResNet encoders are a later
+slice.
 """
 
 from __future__ import annotations
@@ -35,10 +38,14 @@ class ClipViT(nn.Module):
         variant: str = "vit_b_16",
         dtype: torch.dtype = torch.float32,
         attn_backend: str = "auto",
+        vpt_drop: float = 0.0,
     ) -> None:
         super().__init__()
+        if not 0.0 <= vpt_drop < 1.0:
+            raise ValueError(f"vpt_drop must be in [0, 1), got {vpt_drop}")
         patch, width, layers, heads, _ = VIT_CONFIGS[variant]
         self.variant = variant
+        self.vpt_drop = vpt_drop
         self.patch = patch
         self.width = width
         self.base = 336 // patch if variant.endswith("336px") else 224 // patch
@@ -50,11 +57,15 @@ class ClipViT(nn.Module):
         self.ln_post = LayerNormF32(width)
 
     def forward(
-        self, x: torch.Tensor, vpt: Optional[Sequence[torch.Tensor]] = None
+        self,
+        x: torch.Tensor,
+        vpt: Optional[Sequence[torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """``(B, H, W, 3)`` pixels -> ``(B, H/p, W/p, width)`` features.
         ``vpt``: one ``(num_vpt, width)`` prompt per layer (deep VPT) or a
-        single one (shallow), or None."""
+        single one (shallow), or None. ``generator`` feeds the prompt
+        dropout in training mode when ``vpt_drop`` > 0."""
         p, width = self.patch, self.width
         b, h, w, _ = x.shape
         if h % p or w % p:
@@ -66,14 +77,21 @@ class ClipViT(nn.Module):
         pos = interpolate_pos_embed(self.positional_embedding, (self.base, self.base), (gh, gw))
         x = self.ln_pre(x + pos[None].to(x.dtype))
 
-        n_vpt = 0
+        n_vpt = vpt[0].shape[0] if vpt else 0
+
+        def prompts(i: int) -> torch.Tensor:
+            pr = vpt[i].to(x.dtype).expand(b, n_vpt, width)
+            if self.training and self.vpt_drop > 0:
+                keep = 1.0 - self.vpt_drop
+                noise = torch.rand(pr.shape, generator=generator, device=pr.device)
+                pr = torch.where(noise < keep, pr / keep, torch.zeros((), dtype=pr.dtype, device=pr.device))
+            return pr
+
         if vpt:
-            n_vpt = vpt[0].shape[0]
-            prompts = vpt[0].to(x.dtype).expand(b, n_vpt, width)
-            x = torch.cat([x[:, :1], prompts, x[:, 1:]], dim=1)
+            x = torch.cat([x[:, :1], prompts(0), x[:, 1:]], dim=1)
         for i, block in enumerate(self.transformer.resblocks):
             if vpt and 0 < i < len(vpt):
-                x[:, 1 : 1 + n_vpt] = vpt[i].to(x.dtype)
+                x[:, 1 : 1 + n_vpt] = prompts(i)
             x = block(x)
         # ln_post is per token: slice the patch grid straight out afterwards
         x = self.ln_post(x)

@@ -7,9 +7,15 @@ features x exp(logit_scale) -> softmax over the count bins . anchors
 = per-block density. The two orders of decoder and upsample
 (``decoder_before_upsample``) are both kept.
 
-Inference only in this port so far. Parameter names are the reference's
-torch names (``image_encoder.*``, ``vpt_{i}``, ``image_decoder.*``,
-``projection.*``, ``text_encoder.*``, ``logit_scale``).
+In training mode (``model.train()``) ``forward`` returns ``(logits,
+density)`` and always takes the plain head (the logits are needed).
+ViT backbones train by VPT: :func:`build_clip_ebc` freezes the trunk
+and the text tower with ``requires_grad_(False)`` (the JAX
+package's ``_vpt_frozen_predicate``), which is also what routes the
+trunk's attention backward to its frozen kernel. Parameter names are the
+reference's torch names (``image_encoder.*``, ``vpt_{i}``,
+``image_decoder.*``, ``projection.*``, ``text_encoder.*``,
+``logit_scale``).
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ class ClipEBC(nn.Module):
         attn_backend: str = "auto",
         fused_head: str = "auto",
         decoder_before_upsample: bool = False,
+        vpt_drop: float = 0.0,
     ) -> None:
         super().__init__()
         if backbone not in VIT_CONFIGS:
@@ -93,7 +100,9 @@ class ClipEBC(nn.Module):
         self.fused_head = fused_head
         self.decoder_before_upsample = decoder_before_upsample
 
-        self.image_encoder = ClipViT(backbone, dtype=dtype, attn_backend=attn_backend)
+        self.image_encoder = ClipViT(
+            backbone, dtype=dtype, attn_backend=attn_backend, vpt_drop=vpt_drop
+        )
         self.vpt_depth = (layers if deep_vpt else 1) if num_vpt > 0 else 0
         for i in range(self.vpt_depth):
             self.register_parameter(f"vpt_{i}", nn.Parameter(torch.empty(num_vpt, width)))
@@ -133,10 +142,15 @@ class ClipEBC(nn.Module):
         return self.text_encoder(self.text_tokens)
 
     def forward(
-        self, x: torch.Tensor, text_feats: Optional[torch.Tensor] = None
-    ) -> torch.Tensor:
-        """``(N, H, W, 3)`` windows -> ``(N, H/r, W/r)`` fp32 density."""
-        feats = self.image_encoder(x, self.vpt())  # (N, gh, gw, C)
+        self,
+        x: torch.Tensor,
+        text_feats: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """``(N, H, W, 3)`` windows -> ``(N, H/r, W/r)`` fp32 density, or
+        in training mode ``(logits (N, H/r, W/r, K), density)``.
+        ``generator`` feeds the prompt dropout."""
+        feats = self.image_encoder(x, self.vpt(), generator)  # (N, gh, gw, C)
         # NCHW view of the NHWC features: channels-last memory, no copy
         feats = feats.permute(0, 3, 1, 2)
         scale = self.encoder_reduction / self.out_reduction
@@ -152,9 +166,9 @@ class ClipEBC(nn.Module):
                 feats = self.projection(feats)
         feats = feats.permute(0, 2, 3, 1)  # (N, h, w, C)
 
-        if text_feats is None:
-            text_feats = self.encode_text()
-        if self._use_fused_head(feats):
+        # the text tower is frozen: its features are constants of the step
+        text_feats = (self.encode_text() if text_feats is None else text_feats).detach()
+        if not self.training and self._use_fused_head(feats):
             b, hh, ww, c = feats.shape
             density = fused_ebc_head(
                 feats.reshape(b * hh * ww, c), text_feats, self.logit_scale.exp(),
@@ -167,7 +181,8 @@ class ClipEBC(nn.Module):
         txt = text_feats.float()
         txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True).clamp_min(1e-12)
         logits = self.logit_scale.exp() * torch.einsum("bhwc,nc->bhwn", img, txt)
-        return expectation_from_logits(logits, self.anchor_points)
+        density = expectation_from_logits(logits, self.anchor_points)
+        return (logits, density) if self.training else density
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "ClipEBC":
@@ -212,6 +227,13 @@ class ClipEBC(nn.Module):
         return self
 
 
+def vpt_frozen_predicate(name: str) -> bool:
+    """The parameters VPT freezes: the ViT trunk (all of ``image_encoder``;
+    the prompts ``vpt_{i}`` live outside it) and the text tower. The JAX
+    package's ``_vpt_frozen_predicate`` on the port's names."""
+    return name.startswith(("image_encoder.", "text_encoder."))
+
+
 def build_clip_ebc(
     backbone: str,
     bins,
@@ -226,12 +248,15 @@ def build_clip_ebc(
     attn_backend: str = "auto",
     fused_head: str = "auto",
     decoder_before_upsample: bool = False,
+    vpt_drop: float = 0.0,
     seed: int = 0,
     device: Optional[Union[str, torch.device]] = None,
 ) -> ClipEBC:
     """Build a CLIP-EBC model in eval mode on ``device`` (default
     ``cuda``; raises without CUDA unless ``device="cpu"``), randomly
-    initialized from ``seed`` (load weights over it to use trained ones)."""
+    initialized from ``seed`` (load weights over it to use trained ones),
+    with the VPT-frozen parameters (:func:`vpt_frozen_predicate`) set to
+    ``requires_grad=False``."""
     device = resolve_device(device)
     if bins is None or anchor_points is None:
         raise ValueError("CLIP-EBC requires bins and anchor_points")
@@ -240,7 +265,9 @@ def build_clip_ebc(
         prompt_type=prompt_type, num_vpt=num_vpt, deep_vpt=deep_vpt,
         decoder_block=decoder_block, decoder_cfg=decoder_cfg, dtype=dtype,
         attn_backend=attn_backend, fused_head=fused_head,
-        decoder_before_upsample=decoder_before_upsample,
+        decoder_before_upsample=decoder_before_upsample, vpt_drop=vpt_drop,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
+    for name, p in model.named_parameters():
+        p.requires_grad_(not vpt_frozen_predicate(name))
     return model.to(device).eval()

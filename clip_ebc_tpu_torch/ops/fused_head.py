@@ -1,4 +1,4 @@
-"""Fused EBC head (inference path): counterpart of ``clip_ebc_tpu/ops/fused_head.py``.
+"""Fused EBC head (inference only): counterpart of ``clip_ebc_tpu/ops/fused_head.py``.
 
 Per feature row: L2-normalize, cosine against the normalized text
 embeddings, scale by ``exp(logit_scale)``, softmax over the bins, dot with
@@ -60,7 +60,18 @@ def fused_ebc_head(
 
     CPU tensors take :func:`ebc_head_plain`; CUDA tensors launch the
     kernel (and count the launch in ``fused_ebc_head.launches``) or raise.
+    Inference only, as in the JAX package: with grad enabled and an input
+    that requires grad it raises rather than return a result with no
+    gradient (a training forward needs the logits and takes the plain head).
     """
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in (features, text_features, logit_scale, anchor_points)
+    ):
+        raise RuntimeError(
+            "fused_ebc_head has no backward: call it under torch.no_grad() or "
+            "torch.inference_mode(), or take the plain head"
+        )
     if features.device.type == "cpu":
         return ebc_head_plain(features, text_features, logit_scale, anchor_points)
     if features.device.type != "cuda":

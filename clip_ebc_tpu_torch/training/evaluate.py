@@ -1,5 +1,6 @@
-"""Per-image count prediction: counterpart of ``clip_ebc_tpu/training/evaluate.py``
-``Evaluator`` (``predict_density``, ``predict_count``, ``_pad_image``).
+"""Per-image count prediction and dataset evaluation: counterpart of
+``clip_ebc_tpu/training/evaluate.py`` ``Evaluator`` (``predict_density``,
+``predict_count``, ``_pad_image``) and ``evaluate``.
 
 The model holds its own weights, so the methods take no variables
 argument. The prompt features are constant per weight set: they are
@@ -10,7 +11,10 @@ are later slices.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+import queue
+import threading
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -95,3 +99,44 @@ class Evaluator:
             padded[:h, :w] = image
             image = padded
         return image, (h, w)
+
+
+def evaluate(evaluator: Evaluator, dataset) -> Dict[str, float]:
+    """MAE and RMSE of the total counts over a labeled dataset (one crop,
+    eval transforms), with the model in eval mode. A background thread
+    decodes up to two images ahead while the device works, and the count of image
+    i is read on the host only after image i + 1 is dispatched."""
+    evaluator.model.eval()
+    n = len(dataset)
+    q: "queue.Queue" = queue.Queue(maxsize=2)
+    stop = threading.Event()
+
+    def producer():
+        for i in range(n):
+            if stop.is_set():
+                return
+            try:
+                images, labels, _ = dataset[i]
+                q.put((images[0], float(len(labels[0]))))
+            except Exception as e:  # surfaced to the consumer below
+                q.put(e)
+                return
+
+    threading.Thread(target=producer, daemon=True).start()
+    abs_sum = sq_sum = 0.0
+    pending = None  # (device count, ground truth)
+    try:
+        for i in range(n + 1):
+            item = q.get() if i < n else None
+            if isinstance(item, Exception):
+                raise item
+            if pending is not None:
+                diff = float(pending[0]) - pending[1]
+                abs_sum += abs(diff)
+                sq_sum += diff * diff
+            pending = None if item is None else (evaluator.predict_density(item[0]).sum(), item[1])
+    finally:
+        stop.set()
+    if n == 0:
+        return {"mae": float("nan"), "rmse": float("nan")}
+    return {"mae": abs_sum / n, "rmse": math.sqrt(sq_sum / n)}

@@ -1,0 +1,78 @@
+"""The train step and epoch: counterpart of ``clip_ebc_tpu/training/trainer.py``
+(``make_train_step``, ``Trainer``) and ``state.py``.
+
+One process on one device, no mesh. The train state is the model (its
+parameters and BatchNorm statistics), the optimizer and a step count;
+:meth:`Trainer.state_dict` gathers them for checkpoints. The frozen text
+features are encoded once per epoch and passed into every step. Step
+metrics stay on the device until the epoch ends, then are averaged with
+one host read.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from ..data.loader import Batch
+from .optim import make_optimizer, make_schedule
+
+
+class Trainer:
+    """Owns the optimizer, the schedule and the prompt-dropout generator
+    of a model that lives on its device."""
+
+    def __init__(self, cfg, model: torch.nn.Module, loss_fn: Callable) -> None:
+        self.cfg = cfg
+        self.model = model
+        self.loss_fn = loss_fn
+        self.device = next(model.parameters()).device
+        self.schedule = make_schedule(cfg)
+        self.optimizer = make_optimizer(model, cfg.weight_decay)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.step = 0
+
+    def text_features(self) -> torch.Tensor:
+        """The frozen prompt features of the current weights."""
+        with torch.no_grad():
+            return self.model.encode_text()
+
+    def set_epoch_lr(self, epoch: int) -> float:
+        """Set the learning rate of 1-based ``epoch`` from the schedule."""
+        lr = float(self.schedule(epoch - 1))
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        return lr
+
+    def train_step(self, batch: Batch, text_feats: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a batch already on the device; returns the
+        loss terms as device scalars."""
+        logits, density = self.model(batch.images, text_feats=text_feats, generator=self.generator)
+        loss, info = self.loss_fn(logits, density, batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return info
+
+    def train_epoch(self, loader, epoch: int) -> Tuple[Dict[str, float], int]:
+        """One epoch over ``loader``: ``(averaged loss terms + lr, steps)``."""
+        lr = self.set_epoch_lr(epoch)
+        self.model.train()
+        text_feats = self.text_features()
+        loader.set_epoch(epoch)
+        infos = [self.train_step(batch.to(self.device, non_blocking=True), text_feats)
+                 for batch in loader]
+        metrics = {k: float(torch.stack([i[k] for i in infos]).mean()) for k in (infos[0] if infos else {})}
+        metrics["lr"] = lr
+        return metrics, len(infos)
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])

@@ -1,0 +1,155 @@
+"""The backward of the port's fused LN + QKV + attention against the JAX
+package: the plain versions beside the CUDA kernels
+(``attention_bwd_plain``, ``ln_qkv_bwd_frozen_plain``) against the Pallas
+kernels ``_attention_bwd`` and ``_ln_qkv_bwd_frozen`` in interpret mode,
+and the autograd routing of ``fused_ln_qkv_attention`` (frozen kernel or
+split path, chosen by which inputs need a gradient) against the JAX
+``custom_vjp``. The CUDA kernels themselves are held against the plain
+versions in tests/test_torch_cuda_kernels.py.
+
+Shapes: D = 128, 2 heads, L = 40, B = 2, with kv_len = L and kv_len < L.
+Every row < L is compared: the JAX kernels compute the gradient of query
+rows >= kv_len too, and zero dK, dV there.
+
+Tolerances: fp32 1e-4 (the same math, fp32 sums in another order); bf16
+2e-2 of the largest magnitude (the JAX package's bf16 kernel tolerance:
+both round P, dS and the outputs to bf16 at the same points, but a sum
+taken in another order can land a rounding on the other side).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from clip_ebc_tpu.ops.fused_attention import _attention_bwd, _ln_qkv_bwd_frozen
+from clip_ebc_tpu.ops.fused_attention import fused_ln_qkv_attention as jax_fused
+from clip_ebc_tpu_torch.ops.fused_attention import (
+    attention_bwd,
+    attention_bwd_plain,
+    fused_ln_qkv_attention,
+    ln_qkv_bwd_frozen,
+    ln_qkv_bwd_frozen_plain,
+)
+
+torch.set_num_threads(2)
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+B, L, D, H = 2, 40, 128, 2
+SM = (D // H) ** -0.5
+
+
+def _inputs(seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, L, D)).astype(np.float32)
+    g = rng.normal(size=(B, L, D)).astype(np.float32)
+    ln_w = (1.0 + 0.1 * rng.normal(size=D)).astype(np.float32)
+    ln_b = (0.1 * rng.normal(size=D)).astype(np.float32)
+    w = (rng.normal(size=(D, 3 * D)) * D**-0.5).astype(np.float32)  # JAX (in, out)
+    bias = (0.02 * rng.normal(size=3 * D)).astype(np.float32)
+    return x, g, ln_w, ln_b, w, bias
+
+
+def _close(got, want, dtype):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    tol = TOL[dtype]
+    scale = 1.0 if dtype == "float32" else max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale)
+
+
+def _t(a, dtype="float32"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_len", [L, 31])
+def test_attention_bwd_plain_matches_jax_kernel(dtype, kv_len):
+    rng = np.random.default_rng(kv_len)
+    qkv = (0.5 * rng.normal(size=(B, L, 3 * D))).astype(np.float32)
+    g = rng.normal(size=(B, L, D)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    want = _attention_bwd(jnp.asarray(qkv, jdt), jnp.asarray(g, jdt), H, kv_len, SM, 1, True)
+    got = attention_bwd_plain(_t(qkv, dtype), _t(g, dtype), H, kv_len, SM)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, L, 3 * D)
+    _close(got.float().numpy(), np.asarray(want, np.float32), dtype)
+    # masked keys get exactly no gradient
+    assert not got[:, kv_len:, D:].float().abs().sum()
+    # the wrapper takes the plain version for CPU tensors, uncounted
+    before = attention_bwd.launches
+    assert torch.equal(attention_bwd(_t(qkv, dtype), _t(g, dtype), H, kv_len, SM), got)
+    assert attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_len", [L, 31])
+def test_ln_qkv_bwd_frozen_plain_matches_jax_kernel(dtype, kv_len):
+    x, g, ln_w, ln_b, w, bias = _inputs(seed=kv_len + 1)
+    jdt = getattr(jnp, dtype)
+    want = _ln_qkv_bwd_frozen(
+        jnp.asarray(x, jdt), jnp.asarray(g, jdt), jnp.asarray(ln_w), jnp.asarray(ln_b),
+        jnp.asarray(w, jdt), jnp.asarray(bias), H, kv_len, SM, 1e-5, 1, True,
+    )
+    args = (_t(x, dtype), _t(g, dtype), _t(ln_w), _t(ln_b), _t(w.T, dtype), _t(bias))
+    got = ln_qkv_bwd_frozen_plain(*args, H, kv_len, SM)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got.float().numpy(), np.asarray(want, np.float32), dtype)
+    before = ln_qkv_bwd_frozen.launches
+    assert torch.equal(ln_qkv_bwd_frozen(*args, H, kv_len, SM), got)
+    assert ln_qkv_bwd_frozen.launches == before
+
+
+def _port_grads(x, g, ln_w, ln_b, w, bias, dtype, kv_len, train_params):
+    xs = _t(x, dtype).requires_grad_(True)
+    params = [_t(ln_w).requires_grad_(train_params), _t(ln_b).requires_grad_(train_params)]
+    w_t = _t(w.T).requires_grad_(train_params)  # fp32 master, nn.Linear layout
+    b_t = _t(bias).requires_grad_(train_params)
+    out = fused_ln_qkv_attention(xs, *params, w_t.to(xs.dtype), b_t, H, kv_len, SM)
+    out.backward(_t(g, dtype))
+    return xs, params, w_t, b_t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_len", [L, 31])
+def test_frozen_params_route_to_frozen_backward(dtype, kv_len):
+    """Frozen LN and projection: bf16 takes the frozen kernel (here its
+    plain version: x.grad is bit-equal to it), fp32 the split path; both
+    agree with the JAX ``frozen=True`` backward (the Pallas frozen kernel,
+    interpreting) and leave the parameters without a gradient."""
+    x, g, ln_w, ln_b, w, bias = _inputs(seed=kv_len + 2)
+    xs, params, w_t, b_t = _port_grads(x, g, ln_w, ln_b, w, bias, dtype, kv_len, False)
+    assert all(p.grad is None for p in (*params, w_t, b_t))
+    if dtype == "bfloat16":
+        want_plain = ln_qkv_bwd_frozen_plain(
+            xs.detach(), _t(g, dtype), *params, w_t.to(xs.dtype), b_t, H, kv_len, SM
+        )
+        assert torch.equal(xs.grad, want_plain)
+    jdt = getattr(jnp, dtype)
+    _, vjp = jax.vjp(
+        lambda xx: jax_fused(xx, jnp.asarray(ln_w), jnp.asarray(ln_b), jnp.asarray(w, jdt),
+                             jnp.asarray(bias), H, kv_len, SM, 1e-5, 1, True, True),
+        jnp.asarray(x, jdt),
+    )
+    (want,) = vjp(jnp.asarray(g, jdt))
+    _close(xs.grad.float().numpy(), np.asarray(want, np.float32), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trainable_params_take_split_path(dtype):
+    """Trainable LN and projection: the split path gives x, LN, W and bias
+    gradients that agree with the JAX split backward (``_lqa_bwd`` with
+    ``frozen=False``: the ln_proj VJP around the Pallas attention
+    backward)."""
+    kv_len = 33
+    x, g, ln_w, ln_b, w, bias = _inputs(seed=5)
+    xs, params, w_t, b_t = _port_grads(x, g, ln_w, ln_b, w, bias, dtype, kv_len, True)
+    jdt = getattr(jnp, dtype)
+    _, vjp = jax.vjp(
+        lambda xx, gs, gb, ww, bb: jax_fused(xx, gs, gb, ww.astype(jdt), bb, H, kv_len, SM,
+                                             1e-5, 1, True, False),
+        jnp.asarray(x, jdt), jnp.asarray(ln_w), jnp.asarray(ln_b), jnp.asarray(w),
+        jnp.asarray(bias),
+    )
+    want = vjp(jnp.asarray(g, jdt))
+    got = (xs.grad, params[0].grad, params[1].grad, w_t.grad.T, b_t.grad)
+    for a, b in zip(got, want):
+        _close(a.float().numpy(), np.asarray(b, np.float32), dtype)
