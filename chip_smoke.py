@@ -23,6 +23,24 @@ Phases, each a hard failure (a raised exception, exit code 1):
    bf16 and 1e-3 in fp32; the time per image is measured for both paths
    and set beside the image's bound (its matmul and convolution FLOP,
    counted by ``FlopCounterMode`` on the plain path, over the card's peak).
+3b. the W8A8 path through the same entry point: the predict CLI with
+   ``--amp --quant int8_static`` on the same image, in full (calibration
+   on the image's first 16 windows through a dynamic twin, then static
+   inference), then ``--amp --quant int8`` (dynamic), then ``--quant
+   int8_static`` in fp32. Counters zeroed just before, read just after: 12
+   launches of the int8 LN + projection + attention kernel per static
+   forward, 12 of the qkv-attention kernel per calibration batch and per
+   dynamic forward. Then, through the Evaluator with one set of calibrated
+   scales, the kernel path against the plain path (``attn_backend="sdpa"``,
+   ``fused_head="off"``) within 1e-2 of the count, no zero leaf in the
+   quant state, and ms per image of int8_static and int8 beside the
+   unquantized bf16 path, the calibration time and the count's distance
+   from bf16 (a slower int8 path is printed, not failed). Before it, in
+   phase 2: both new kernels against their plain versions (max abs error
+   within 2e-2 and median within 1e-3 of the largest magnitude in bf16;
+   tighter in fp32), the int8 decoder convolution's accumulators on the
+   card equal to the plain int32 convolution's, and the times of its two
+   routes and of the trunk's int8 products beside their bf16 twins.
 4. the flagship training path through the user's entry point: the trainer
    CLI with the README's flagship flags (CLIP-EBC ViT-B/16, deep VPT-32,
    reduction 8, DACE + DMCount, 8 images x 2 crops = 16 windows of 224 px
@@ -67,12 +85,14 @@ import torch
 # Published peaks of the H100 SXM (NVIDIA data sheet, dense, 700 W):
 # bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores, HBM bytes/s.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_INT8 = 1979e12  # int8 tensor-core OP/s, dense
 
 B, L, D, H = 140, 229, 768, 12  # flagship trunk launch: 140 windows x (1 + 32 + 196) tokens
 IMAGE_HW = (2048, 3072)
 # flagship training step: 8 images x 2 crops of 224 px; a synthetic dataset
 # of 32 train images (4 steps an epoch) and 2 val images of 512 x 768
 TRAIN_SIZE, TRAIN_B, TRAIN_IMAGES, DATA_HW = 224, 16, 32, (512, 768)
+CALIB_B = 16  # windows of one calibration batch (the first 16 of an image)
 
 
 def train_flags() -> list:
@@ -305,6 +325,173 @@ def phase_ln_qkv_bwd_frozen(dev) -> dict:
     }
 
 
+def _check_max_median(who: str, got, want, max_tol: float, med_tol: float) -> float:
+    """Max and median abs error of ``got`` against ``want`` within
+    ``max_tol`` / ``med_tol`` x the largest magnitude of ``want``: int8
+    rounding turns a last-place difference upstream into a rare one-step
+    flip (the max), while a wrong scale or fold moves every entry (the
+    median)."""
+    diff = (got.float() - want.float()).abs()
+    err, med = diff.max().item(), diff.median().item()
+    top = want.float().abs().max().item()
+    print(f"{who}: max abs err {err:.3e} (limit {max_tol * top:.3e}), median {med:.3e} "
+          f"(limit {med_tol * top:.3e})")
+    check(math.isfinite(err) and err <= max_tol * top and med <= med_tol * top,
+          f"{who}: kernel disagrees with its plain version")
+    return err
+
+
+def phase_attention_int8(dev, dtype: torch.dtype) -> dict:
+    """The W8A8 LN + projection + attention kernel at the flagship shape
+    against its plain version, with the static scale a calibration would
+    record (the LN output's max-abs). bf16: max 2e-2, median 1e-3 of the
+    largest magnitude; fp32: max 2e-3, median 1e-4 (a flipped int8 step of
+    the LN output moves qkv by about 5e-5)."""
+    from clip_ebc_tpu_torch.ops.fused_attention import (
+        fused_ln_qkv_attention_int8, ln_qkv_attention_int8_plain)
+    from clip_ebc_tpu_torch.ops.quant import quantize_weight
+
+    fp32 = dtype == torch.float32
+    max_tol, med_tol, attn_peak, tag = (2e-3, 1e-4, PEAK_FP32, " fp32") if fp32 else (2e-2, 1e-3, PEAK_BF16, "")
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(B, L, D, generator=g, device=dev).to(dtype)
+    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
+    w = torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5  # the fp32 master weight
+    bias = 0.02 * torch.randn(3 * D, generator=g, device=dev)
+    y = torch.nn.functional.layer_norm(x.float(), (D,), ln_w, ln_b)
+    act_scale = y.abs().amax() / 127.0
+    del y
+    wq = quantize_weight(w)
+    sm = (D // H) ** -0.5
+    errs = []
+    for kv_len in (L, 200):
+        got = fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, kv_len, sm)
+        want = ln_qkv_attention_int8_plain(x, ln_w, ln_b, *wq, bias, act_scale, H, kv_len, sm)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype, f"int8 attention kernel returned {got.dtype}, expected {dtype}")
+        errs.append(_check_max_median(f"int8 attention{tag} kernel vs plain, kv_len={kv_len}",
+                                      got[:, :kv_len], want[:, :kv_len], max_tol, med_tol))
+    ms = time_ms(lambda: fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, L, sm,
+                                                     quantized=wq))
+    plain = time_ms(lambda: ln_qkv_attention_int8_plain(x, ln_w, ln_b, *wq, bias, act_scale, H, L, sm))
+    m, es = B * L, x.element_size()
+    proj_ops, attn_flops = 2 * m * D * 3 * D, 2 * 2 * B * H * L * L * (D // H)
+    nbytes = m * D * es * 2 + 3 * D * D + 2 * D * 4 + 2 * 3 * D * 4 + 4
+    t_ops = (proj_ops / PEAK_INT8 + attn_flops / attn_peak) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bnd, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    print(f"int8 attention{tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}: "
+          f"{proj_ops / 1e9:.1f} GOP int8 + {attn_flops / 1e9:.1f} GFLOP attention)")
+    return {
+        "name": "fused_ln_qkv_attention_int8" + ("_fp32" if fp32 else ""), "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/fused_attention_int8.cu",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:541", "max_abs_err": max(errs),
+        "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    }
+
+
+def phase_qkv_attention(dev, dtype: torch.dtype) -> dict:
+    """The attention from a precomputed qkv at a calibration batch (16
+    windows) against its plain version: bf16 max 2e-2 and median 1e-3 of
+    the largest magnitude, fp32 1e-4 and 1e-5 (fp32 throughout); library
+    yardstick: the forward of ``F.scaled_dot_product_attention`` on the
+    same q, k, v (timed here only)."""
+    from clip_ebc_tpu_torch.ops.fused_attention import fused_qkv_attention, qkv_attention_plain
+
+    fp32 = dtype == torch.float32
+    max_tol, med_tol, peak, tag = (1e-4, 1e-5, PEAK_FP32, " fp32") if fp32 else (2e-2, 1e-3, PEAK_BF16, "")
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(CALIB_B, L, 3 * D, generator=g, device=dev).to(dtype)
+    sm = (D // H) ** -0.5
+    errs = []
+    for kv_len in (L, 200):
+        got = fused_qkv_attention(qkv, H, kv_len, sm)
+        want = qkv_attention_plain(qkv, H, kv_len, sm)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype, f"qkv attention kernel returned {got.dtype}, expected {dtype}")
+        errs.append(_check_max_median(f"qkv attention{tag} kernel vs plain, kv_len={kv_len}",
+                                      got[:, :kv_len], want[:, :kv_len], max_tol, med_tol))
+    ms = time_ms(lambda: fused_qkv_attention(qkv, H, L, sm))
+    plain = time_ms(lambda: qkv_attention_plain(qkv, H, L, sm))
+    q, k, v = (t.reshape(CALIB_B, L, H, D // H).transpose(1, 2) for t in qkv.split(D, dim=-1))
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    es = qkv.element_size()
+    flops = 2 * 2 * CALIB_B * H * L * L * (D // H)
+    nbytes = CALIB_B * L * (3 * D + D) * es
+    bnd, by = bound_ms(flops, peak, nbytes)
+    print(f"qkv attention{tag}: kernel {ms:.4f} ms, plain {plain:.3f} ms, SDPA forward "
+          f"{library:.4f} ms, bound {bnd:.4f} ms ({by})")
+    return {
+        "name": "fused_qkv_attention" + ("_fp32" if fp32 else ""), "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/fused_attention.cu",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:386", "max_abs_err": max(errs),
+        "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": library,
+    }
+
+
+def phase_int8_products(dev) -> None:
+    """The integer products that lie outside the kernels (library calls, as
+    the JAX package leaves them to XLA). The decoder's int8 convolution on
+    the card must give the plain int32 convolution's accumulators exactly,
+    by both routes; then the time of each route at the flagship decoder
+    shape beside the bf16 convolution, and of the trunk's int8 products
+    beside their bf16 twins."""
+    from clip_ebc_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    conv = quant.Int8Conv2d(D, D, 3, padding=1, bias=False).to(dev)
+    with torch.no_grad():
+        conv.weight.normal_(0.0, 0.02, generator=g)
+    w_q, _ = conv.quantized_weight()
+    routes = {"im2col": quant.int8_conv2d_im2col, "shifted": quant.int8_conv2d_shifted}
+
+    def nchw_int8(n, hw):  # channels-last memory, as the model's features are
+        t = torch.randint(-127, 128, (n, hw, hw, D), generator=g, device=dev, dtype=torch.int8)
+        return t.permute(0, 3, 1, 2)
+
+    x_q = nchw_int8(3, 28)
+    want = quant.int8_conv2d_plain(x_q.cpu(), w_q.cpu(), conv.stride, conv.padding, conv.dilation)
+    for route, fn in routes.items():
+        got = fn(x_q, w_q, conv.stride, conv.padding, conv.dilation)
+        check(got.dtype == torch.int32 and torch.equal(got.cpu(), want),
+              f"int8 convolution ({route}) accumulators differ from the plain int32 convolution")
+    check(torch.equal(conv.accumulate(x_q, w_q).cpu(), want), "Int8Conv2d accumulators differ")
+    print(f"int8 decoder convolution: accumulators of both routes equal the plain int32 "
+          f"convolution's on {tuple(x_q.shape)} (max |acc| {int(want.abs().max())})")
+
+    x_q = nchw_int8(B, 28)
+    times = {route: time_ms(lambda fn=fn: fn(x_q, w_q, conv.stride, conv.padding, conv.dilation), iters=10)
+             for route, fn in routes.items()}
+    xb = torch.randn(B, 28, 28, D, generator=g, device=dev).to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = conv.weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cudnn = time_ms(lambda: torch.nn.functional.conv2d(xb, wb, padding=1), iters=10)
+    full = time_ms(lambda: conv(xb), iters=10)
+    ops = 2 * B * 28 * 28 * D * 9 * D
+    print(f"int8 decoder convolution at ({B}, {D}, 28, 28): "
+          + ", ".join(f"{r} {t:.3f} ms" for r, t in times.items())
+          + f" (accumulators only); Int8Conv2d in all (dynamic quantize, im2col, "
+          f"dequantize) {full:.3f} ms; bf16 convolution {cudnn:.3f} ms; bound {ops / PEAK_INT8 * 1e3:.3f} ms "
+          f"int8, {ops / PEAK_BF16 * 1e3:.3f} ms bf16")
+    del x_q, xb
+
+    m = B * L
+    for k, n in ((D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)):
+        a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        wgt = torch.randn(n, k, generator=g, device=dev) * k**-0.5
+        wq, s_w = quant.quantize_weight(wgt)
+        wb = wgt.to(torch.bfloat16)
+        a_q = quant.quantize_rowwise(a)[0]
+        scale = a.float().abs().amax() / 127.0
+        t_mm = time_ms(lambda: quant.int_mm(a_q, wq), iters=10)
+        t_dyn = time_ms(lambda: quant.int8_linear(a, wq, s_w, None), iters=10)
+        t_sta = time_ms(lambda: quant.int8_linear(a, wq, s_w, None, scale), iters=10)
+        t_bf = time_ms(lambda: torch.nn.functional.linear(a, wb), iters=10)
+        print(f"trunk product ({m}, {k}) x ({n}, {k})^T: _int_mm {t_mm:.3f} ms, int8 linear "
+              f"dynamic {t_dyn:.3f} / static {t_sta:.3f} ms (quantize, product, dequantize), "
+              f"bf16 linear {t_bf:.3f} ms; bound {2 * m * k * n / PEAK_INT8 * 1e3:.3f} ms int8")
+
+
 def time_image(evaluator, image, reps: int = 5) -> float:
     """Median wall ms of one image (upload, windows, forward, assembly,
     count on the host) after one warm-up."""
@@ -445,6 +632,127 @@ def phase_main_path(dev, kernels: dict, profile: bool) -> None:
             fast.predict_count(image)
             torch.cuda.synchronize()
         print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+
+def _int8_counters(reset: bool = False) -> dict:
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+    from clip_ebc_tpu_torch.ops.fused_head import fused_ebc_head
+
+    fns = {"fused_ln_qkv_attention_int8": fa.fused_ln_qkv_attention_int8,
+           "fused_qkv_attention": fa.fused_qkv_attention,
+           "fused_ln_qkv_attention": fa.fused_ln_qkv_attention, "fused_ebc_head": fused_ebc_head}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return {k: f.launches for k, f in fns.items()}
+
+
+def run_cli_int8(img_dir: str, out: str, quant: str, amp: bool) -> tuple:
+    """The predict CLI on ``img_dir`` with ``--quant``, counters zeroed just
+    before and read just after: ``(count, launches)``."""
+    from clip_ebc_tpu_torch.cli import predict
+
+    argv = [img_dir, "--model", "clip_vit_b_16", "--reduction", "8", "--truncation", "4",
+            "--num_vpt", "32", "--sliding_window", "--window_size", "224", "--stride", "224",
+            "--seed", "0", "--quant", quant, "--calib_images", "2", "--out", out]
+    argv += ["--amp"] if amp else []
+    _int8_counters(reset=True)
+    t0 = time.perf_counter()
+    predict.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _int8_counters()
+    mode = f"--quant {quant}, " + ("bf16 (--amp)" if amp else "fp32")
+    print(f"predict CLI, {mode}: {secs:.1f} s (model build, weights, "
+          f"{'calibration, ' if quant == 'int8_static' else ''}one image); launches {launches}")
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == 1, f"CSV has {len(rows)} rows")
+    count = float(rows[0]["count"])
+    check(math.isfinite(count), f"{mode}: CLI count {count} is not finite")
+    # one image: one calibration batch (its first 16 windows) and one forward
+    static = quant == "int8_static"
+    want = {"fused_ln_qkv_attention_int8": 12 if static else 0, "fused_qkv_attention": 12,
+            "fused_ln_qkv_attention": 0, "fused_ebc_head": 2 if static else 1}
+    check(launches == want, f"{mode}: launches {launches}, expected {want}")
+    return count, launches
+
+
+def phase_int8_path(dev, kernels: dict, profile: bool) -> None:
+    import argparse
+
+    from clip_ebc_tpu_torch.cli._common import calibrate_static_int8
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.data.crowd import _load_image, normalize_image
+    from clip_ebc_tpu_torch.models import get_model
+    from clip_ebc_tpu_torch.ops.quant import load_quant_state, quant_state
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        path = os.path.join(img_dir, "flagship.npy")
+        np.save(path, np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8))
+        cli_count, n = run_cli_int8(img_dir, os.path.join(tmp, "s.csv"), "int8_static", amp=True)
+        kernels["fused_ln_qkv_attention_int8"]["launches"] = n["fused_ln_qkv_attention_int8"]
+        kernels["fused_qkv_attention"]["launches"] = n["fused_qkv_attention"]
+        dyn_count, _ = run_cli_int8(img_dir, os.path.join(tmp, "d.csv"), "int8", amp=True)
+        cli32_count, n32 = run_cli_int8(img_dir, os.path.join(tmp, "s32.csv"), "int8_static", amp=False)
+        kernels["fused_ln_qkv_attention_int8_fp32"]["launches"] = n32["fused_ln_qkv_attention_int8"]
+        kernels["fused_qkv_attention_fp32"]["launches"] = n32["fused_qkv_attention"]
+        image = normalize_image(_load_image(path))
+
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    args = argparse.Namespace(model="clip_vit_b_16", input_size=224, reduction=8, window_size=224)
+
+    def evaluator(**kw):
+        kw = dict(dict(dtype=torch.bfloat16, num_vpt=32, seed=0, device=dev), **kw)
+        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, **kw)
+        return Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                         pad_to_multiple=16), kw
+
+    static, kw = evaluator(quant_int8=True, quant_mode="static")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calibrate_static_int8(args, {k: v for k, v in kw.items() if k != "quant_mode"}, bins, anchors,
+                          static.model, [image])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    state = quant_state(static.model)
+    zero = [k for k, v in state.items() if not bool((v > 0).all())]
+    check(len(state) == 12 * 5 + 2 and not zero, f"quant state has zero leaves: {zero[:4]}")
+    density = static.predict_density(image)
+    check(tuple(density.shape) == (IMAGE_HW[0] // 8, IMAGE_HW[1] // 8),
+          f"int8 density shape {tuple(density.shape)}")
+    check(bool(torch.isfinite(density).all()), "int8 density has non-finite values")
+    count = float(density.sum())
+    plain, _ = evaluator(quant_int8=True, quant_mode="static", attn_backend="sdpa", fused_head="off")
+    load_quant_state(plain.model, state)
+    plain_count = plain.predict_count(image)
+    rel = abs(count - plain_count) / abs(plain_count)
+    print(f"int8_static count: kernels {count:.4f}, plain path {plain_count:.4f}, CLI {cli_count:.2f}; "
+          f"|diff|/count {rel:.2e} (tol 1e-2); quant state: {len(state)} leaves, none zero")
+    check(rel <= 1e-2, "int8 kernel path and plain path disagree on the count")
+    check(abs(cli_count - count) <= 1e-2 * abs(count), "int8 CLI count differs from the Evaluator's")
+    del plain
+
+    bf16, _ = evaluator()
+    bf16_count = bf16.predict_count(image)
+    dynamic, _ = evaluator(quant_int8=True)
+    ms = {"int8_static": time_image(static, image), "bf16": time_image(bf16, image),
+          "int8 (dynamic)": time_image(dynamic, image)}
+    print(f"flagship image, W8A8: " + ", ".join(f"{k} {v:.2f} ms/image" for k, v in ms.items())
+          + f"; calibration {calib_s:.2f} s (twin build, one batch of {CALIB_B} windows); counts: "
+          f"bf16 {bf16_count:.2f}, int8_static {count:.2f} ({abs(count - bf16_count) / abs(bf16_count):.2e} "
+          f"from bf16), int8 dynamic (CLI) {dyn_count:.2f} "
+          f"({abs(dyn_count - bf16_count) / abs(bf16_count):.2e}), fp32 int8_static (CLI) {cli32_count:.2f}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            static.predict_count(image)
+            torch.cuda.synchronize()
+        print(p.key_averages().table(sort_by="cuda_time_total", row_limit=30))
 
 
 def _train_counters(reset: bool = False) -> dict:
@@ -683,12 +991,18 @@ def main(argv) -> int:
     phase_build()
     kernels = [phase_attention(dev, torch.bfloat16), phase_attention(dev, torch.float32),
                phase_head(dev), phase_attention_bwd(dev, torch.bfloat16),
-               phase_attention_bwd(dev, torch.float32), phase_ln_qkv_bwd_frozen(dev)]
+               phase_attention_bwd(dev, torch.float32), phase_ln_qkv_bwd_frozen(dev),
+               phase_attention_int8(dev, torch.bfloat16), phase_attention_int8(dev, torch.float32),
+               phase_qkv_attention(dev, torch.bfloat16), phase_qkv_attention(dev, torch.float32)]
+    phase_int8_products(dev)
     print(f"phases 1-2: {time.perf_counter() - t0:.1f} s")
     by_name = {k["name"]: k for k in kernels}
     t0 = time.perf_counter()
     phase_main_path(dev, by_name, "--profile" in argv)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_int8_path(dev, by_name, "--profile" in argv)
+    print(f"phase 3b: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_training(dev, by_name, "--profile" in argv)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s")

@@ -7,11 +7,18 @@ with the same flags and defaults, plus ``--device`` and ``--seed``.
 
 ``--weight_path`` takes a port ``.pt`` state dict or a JAX prepared-tree
 ``.npz``; without it the weights are random from ``--seed``. Runs on
-``cuda`` unless ``--device cpu`` is given. Not ported yet: ``--quant``
-other than ``none``, ``--quant_attn``, ``--packed_eval`` and
+``cuda`` unless ``--device cpu`` is given. ``--quant int8`` runs the trunk
+and the decoder W8A8 with dynamic activation scales; ``--quant
+int8_static`` first calibrates static scales on the first
+``--calib_images`` images:
+
+    python -m clip_ebc_tpu_torch.cli.predict IMAGES --sliding_window --amp \
+        --quant int8_static --calib_images 2
+
+Not ported yet: ``--quant_attn`` (int8 QK^T and PV), ``--packed_eval`` and
 ``--pretrained``; each raises. The options of those features
-(``--allow_byte_tokenizer``, ``--calib_images``, ``--batch_windows``) are
-not accepted until the features are.
+(``--allow_byte_tokenizer``, ``--batch_windows``) are not accepted until
+the features are.
 """
 
 from __future__ import annotations
@@ -52,8 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "valid region only). Default: the ViT patch size; 0 disables")
     p.add_argument("--amp", action="store_true", help="bf16 compute (fp32 parameters)")
     p.add_argument("--quant", type=str, default="none", choices=["none", "int8", "int8_static"])
+    p.add_argument("--calib_images", type=int, default=2,
+                   help="with --quant int8_static: images to calibrate the scales on")
     p.add_argument("--quant_attn", nargs="?", const="kernel", default=None,
-                   choices=["kernel", "xla"])
+                   choices=["kernel", "xla"],
+                   help="with --quant int8_static: int8 QK^T and PV (not ported yet)")
     p.add_argument("--packed_eval", action="store_true")
     p.add_argument("--out", type=str, default="predictions.csv")
     p.add_argument("--save_density", type=str, default=None,
@@ -80,8 +90,7 @@ def _list_images(spec: str):
 
 def _check_ported(args) -> None:
     todo = {
-        "--quant int8/int8_static (ROADMAP Queue 1, W8A8 int8)": args.quant != "none",
-        "--quant_attn (ROADMAP Queue 2, int8 attention)": args.quant_attn is not None,
+        "--quant_attn (ROADMAP Queue 2, the quant_attn branches)": args.quant_attn is not None,
         "--packed_eval (ROADMAP Queue 1, remaining tooling)": args.packed_eval,
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
         "--regression (ROADMAP Queue 1, non-CLIP models)": args.regression,
@@ -93,6 +102,8 @@ def _check_ported(args) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.quant_attn and args.quant != "int8_static":
+        raise SystemExit("--quant_attn requires --quant int8_static")
     _check_ported(args)
     if args.sliding_window:
         args.window_size = args.input_size if args.window_size is None else args.window_size
@@ -110,20 +121,30 @@ def main(argv=None) -> None:
     from ..models.convert import load_weights
     from ..training.evaluate import Evaluator
     from ..utils.platform import resolve_device
+    from ._common import calibrate_static_int8, check_quant_support
 
+    check_quant_support(args.quant, args.model)
     device = resolve_device(args.device)
     paths = _list_images(args.images)
     bins, anchors = get_bins_and_anchors(
         args.reduction, args.truncation, args.bins_dataset, args.granularity, args.anchor_points,
     )
-    model = get_model(
-        args.model, args.input_size, args.reduction, bins, anchors,
+    model_kw = dict(
         dtype=torch.bfloat16 if args.amp else torch.float32,
         prompt_type=args.prompt_type, num_vpt=args.num_vpt, deep_vpt=not args.shallow_vpt,
-        seed=args.seed, device=device,
+        quant_int8=args.quant.startswith("int8"), seed=args.seed, device=device,
+    )
+    model = get_model(
+        args.model, args.input_size, args.reduction, bins, anchors,
+        quant_mode="static" if args.quant == "int8_static" else "dynamic", **model_kw,
     )
     if args.weight_path is not None:
         load_weights(model, args.weight_path)
+    if args.quant == "int8_static":
+        calibrate_static_int8(
+            args, model_kw, bins, anchors, model,
+            (normalize_image(_load_image(p)) for p in paths[: args.calib_images]),
+        )
 
     evaluator = Evaluator(
         model, reduction=args.reduction, sliding_window=args.sliding_window,

@@ -600,6 +600,36 @@ mha_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int l, in
   }
 }
 
+// The bf16 attention launch for any l <= kMaxKeys: the padded key count
+// picks the instantiation.
+cudaError_t launch_mha_any(const bf16* q, bf16* o, int batch, int l, int num_heads, int kv_len,
+                           float sm_scale, cudaStream_t st) {
+  switch ((l + kKeyQuantum - 1) / kKeyQuantum) {
+    case 1: return launch_mha<4>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 2: return launch_mha<8>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 3: return launch_mha<12>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 4: return launch_mha<16>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 5: return launch_mha<20>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_mha_f32(const float* qkv, float* out, int batch, int l, int num_heads,
+                           int kv_len, float sm_scale, cudaStream_t st) {
+  const size_t smem = attn_f32_smem_bytes(l);
+  cudaError_t e =
+      cudaFuncSetAttribute(mha_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  mha_f32_kernel<<<dim3(num_heads, batch), kFAttnWarps * 32, smem, st>>>(qkv, out, l, num_heads,
+                                                                        kv_len, sm_scale);
+  return cudaGetLastError();
+}
+
+bool attention_shape_ok(int l, int d, int num_heads, int kv_len) {
+  return d == num_heads * kDh && d <= kMaxDim && l >= 1 && l <= kMaxKeys && kv_len >= 1 &&
+         kv_len <= l;
+}
+
 cudaError_t launch_proj(const void* x, const void* gamma, const void* beta, const void* w,
                         const void* bias, void* qkv, int m, int d, float eps, cudaStream_t st) {
   const size_t proj_smem = proj_smem_bytes(d);
@@ -625,23 +655,40 @@ extern "C" int ebc_ln_qkv_attention(const void* x, const void* gamma, const void
                                     float sm_scale, float eps, void* stream) {
   using namespace ebc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d != num_heads * kDh || d > kMaxDim || l < 1 || l > kMaxKeys || kv_len < 1 || kv_len > l)
-    return (int)cudaErrorInvalidValue;
+  if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
 
   cudaError_t e = launch_proj(x, gamma, beta, w, bias, qkv, batch * l, d, eps, st);
   if (e != cudaSuccess) return (int)e;
+  return (int)launch_mha_any(static_cast<const bf16*>(qkv), static_cast<bf16*>(out), batch, l,
+                             num_heads, kv_len, sm_scale, st);
+}
 
-  const bf16* q = static_cast<const bf16*>(qkv);
-  bf16* o = static_cast<bf16*>(out);
-  switch ((l + kKeyQuantum - 1) / kKeyQuantum) {
-    case 1: e = launch_mha<4>(q, o, batch, l, num_heads, kv_len, sm_scale, st); break;
-    case 2: e = launch_mha<8>(q, o, batch, l, num_heads, kv_len, sm_scale, st); break;
-    case 3: e = launch_mha<12>(q, o, batch, l, num_heads, kv_len, sm_scale, st); break;
-    case 4: e = launch_mha<16>(q, o, batch, l, num_heads, kv_len, sm_scale, st); break;
-    case 5: e = launch_mha<20>(q, o, batch, l, num_heads, kv_len, sm_scale, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return (int)e;
+// The masked attention alone, from a precomputed qkv (B, L, 3D) bf16 to out
+// (B, L, D) bf16 (ports clip_ebc_tpu/ops/fused_attention.py:
+// fused_qkv_attention -> _forward's pallas_call, body _kernel ->
+// _pair_attention_body): the mha_kernel launch above as an entry of its
+// own. It is what a block runs when the LayerNorm and the projection stay
+// outside the kernel: a calibration pass, dynamic int8, fuse_ln_mode="off";
+// the int8 projection kernel (csrc/fused_attention_int8.cu) is followed by
+// it too. Bound at a calibration batch (B=16, L=229, D=768): 2.6 GFLOP of
+// QK^T and PV against 22.5 MB (qkv in, out back): 0.007 ms of memory over
+// 0.003 ms of tensor work, so bytes bound it; K_h and V_h are read once
+// per 64-query tile (4 times at L = 229), from L2 after the first.
+extern "C" int ebc_qkv_attention(const void* qkv, void* out, int batch, int l, int d,
+                                 int num_heads, int kv_len, float sm_scale, void* stream) {
+  using namespace ebc;
+  if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
+  return (int)launch_mha_any(static_cast<const bf16*>(qkv), static_cast<bf16*>(out), batch, l,
+                             num_heads, kv_len, sm_scale, static_cast<cudaStream_t>(stream));
+}
+
+// The same in fp32 (mha_f32_kernel).
+extern "C" int ebc_qkv_attention_f32(const void* qkv, void* out, int batch, int l, int d,
+                                     int num_heads, int kv_len, float sm_scale, void* stream) {
+  using namespace ebc;
+  if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
+  return (int)launch_mha_f32(static_cast<const float*>(qkv), static_cast<float*>(out), batch, l,
+                             num_heads, kv_len, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 // The first launch of ebc_ln_qkv_attention alone, qkv = LN(x) W^T + bias
@@ -665,8 +712,7 @@ extern "C" int ebc_ln_qkv_attention_f32(const void* x, const void* gamma, const 
   using namespace ebc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int m = batch * l, n = 3 * d;
-  if (d != num_heads * kDh || d > kMaxDim || l < 1 || l > kMaxKeys || kv_len < 1 || kv_len > l)
-    return (int)cudaErrorInvalidValue;
+  if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
 
   const dim3 pgrid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);
   ln_qkv_proj_f32_kernel<<<pgrid, kFThreads, 0, st>>>(
@@ -676,10 +722,6 @@ extern "C" int ebc_ln_qkv_attention_f32(const void* x, const void* gamma, const 
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  const size_t smem = attn_f32_smem_bytes(l);
-  e = cudaFuncSetAttribute(mha_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  mha_f32_kernel<<<dim3(num_heads, batch), kFAttnWarps * 32, smem, st>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), l, num_heads, kv_len, sm_scale);
-  return (int)cudaGetLastError();
+  return (int)launch_mha_f32(static_cast<const float*>(qkv), static_cast<float*>(out), batch, l,
+                             num_heads, kv_len, sm_scale, st);
 }

@@ -69,9 +69,10 @@ class ConvBNAct(nn.Sequential):
     """Conv (no bias) -> BatchNorm -> optional ReLU, as ``0``/``1``/``2``."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
-                 act: bool = True) -> None:
+                 act: bool = True, conv_cls=None) -> None:
         layers = [
-            Conv2d(in_channels, features, kernel_size, padding=(kernel_size - 1) // 2, bias=False),
+            (conv_cls or Conv2d)(in_channels, features, kernel_size,
+                                 padding=(kernel_size - 1) // 2, bias=False),
             BatchNorm(features),
         ]
         if act:
@@ -81,16 +82,19 @@ class ConvBNAct(nn.Sequential):
 
 class BasicBlock(nn.Module):
     """Decoder residual block: 3x3 -> BN -> ReLU -> 3x3 -> BN, plus a
-    1x1 + BN shortcut when the channel count changes, then ReLU."""
+    1x1 + BN shortcut when the channel count changes, then ReLU.
+    ``conv_cls`` replaces every convolution (``ops.quant.Int8Conv2d``)."""
 
-    def __init__(self, in_channels: int, features: int) -> None:
+    def __init__(self, in_channels: int, features: int, conv_cls=None) -> None:
         super().__init__()
-        self.conv1 = Conv2d(in_channels, features, 3, padding=1, bias=False)
+        conv = conv_cls or Conv2d
+        self.conv1 = conv(in_channels, features, 3, padding=1, bias=False)
         self.bn1 = BatchNorm(features)
-        self.conv2 = Conv2d(features, features, 3, padding=1, bias=False)
+        self.conv2 = conv(features, features, 3, padding=1, bias=False)
         self.bn2 = BatchNorm(features)
         self.downsample = (
-            ConvBNAct(in_channels, features, 1, act=False) if in_channels != features else None
+            ConvBNAct(in_channels, features, 1, act=False, conv_cls=conv_cls)
+            if in_channels != features else None
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -111,7 +115,7 @@ class ResNetStage(nn.Sequential):
     as the reference's ``make_resnet_layers`` does."""
 
     def __init__(self, in_channels: int, cfg: Sequence[Union[int, str]],
-                 block: str = "basic") -> None:
+                 block: str = "basic", conv_cls=None) -> None:
         if block != "basic":
             raise NotImplementedError(
                 f"decoder block {block!r} (ResNet backbones) is not ported yet "
@@ -123,6 +127,6 @@ class ResNetStage(nn.Sequential):
             if v == "U":
                 layers.append(Upsample2x())
             else:
-                layers.append(BasicBlock(ch, int(v)))
+                layers.append(BasicBlock(ch, int(v), conv_cls))
                 ch = int(v)
         super().__init__(*layers)

@@ -10,8 +10,9 @@ rows before blocks 1..depth-1, which equals the reference's
 strip-and-reinsert. No sequence padding: ``kv_len`` is the real length.
 In training mode, ``vpt_drop`` drops prompt entries (flax ``Dropout``
 semantics: keep with 1 - rate, scale by 1 / (1 - rate)) with noise from
-the caller's ``torch.Generator``. The ModifiedResNet encoders are a later
-slice.
+the caller's ``torch.Generator``. ``quant_int8`` makes the trunk's
+projections W8A8 (``ops/quant.py``); the patchify stays unquantized. The
+ModifiedResNet encoders are a later slice.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ class ClipViT(nn.Module):
         dtype: torch.dtype = torch.float32,
         attn_backend: str = "auto",
         vpt_drop: float = 0.0,
+        quant_int8: bool = False,
+        quant_mode: str = "dynamic",
+        quant_attn=False,
+        fuse_ln_mode: str = "auto",
     ) -> None:
         super().__init__()
         if not 0.0 <= vpt_drop < 1.0:
@@ -53,7 +58,10 @@ class ClipViT(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(torch.empty(self.base * self.base + 1, width))
         self.ln_pre = LayerNormF32(width)
-        self.transformer = Transformer(width, layers, heads, attn_backend)
+        self.transformer = Transformer(
+            width, layers, heads, attn_backend, quant_int8=quant_int8, quant_mode=quant_mode,
+            quant_attn=quant_attn, fuse_ln_mode=fuse_ln_mode,
+        )
         self.ln_post = LayerNormF32(width)
 
     def forward(

@@ -20,6 +20,7 @@ reference's torch names (``image_encoder.*``, ``vpt_{i}``,
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -27,9 +28,16 @@ import torch
 from torch import nn
 
 from ...ops.fused_head import fused_ebc_head
+from ...ops.quant import Int8Conv2d, Int8Linear
 from ..blocks import BatchNorm, Conv2d, ResNetStage, resize_bilinear
 from ..heads import expectation_from_logits
-from ..transformer import ATTN_BACKENDS, Linear, MultiHeadAttention, PatchifyMatmul
+from ..transformer import (
+    ATTN_BACKENDS,
+    Linear,
+    MultiHeadAttention,
+    PatchifyMatmul,
+    check_quant_args,
+)
 from .image_encoder import VIT_CONFIGS, ClipViT
 from .prompts import bin_prompts
 from .text_encoder import ClipTextEncoder
@@ -62,7 +70,11 @@ class ClipEBC(nn.Module):
     ``attn_backend`` ("auto" | "fused" | "sdpa") picks the trunk's
     attention path and ``fused_head`` ("auto" | "on" | "off") the head's;
     "auto" means the CUDA kernels for CUDA tensors and the plain torch
-    versions for CPU tensors."""
+    versions for CPU tensors. ``quant_int8`` (inference only) makes the
+    trunk's projections and the decoder's convolutions W8A8; the 1x1
+    projection and the text tower stay unquantized. ``quant_mode="static"``
+    needs calibrated scales (``ops.quant.calibrate_int8`` on the dynamic
+    twin, then ``load_quant_state``)."""
 
     def __init__(
         self,
@@ -80,6 +92,10 @@ class ClipEBC(nn.Module):
         fused_head: str = "auto",
         decoder_before_upsample: bool = False,
         vpt_drop: float = 0.0,
+        quant_int8: bool = False,
+        quant_mode: str = "dynamic",
+        quant_attn=False,
+        fuse_ln_mode: str = "auto",
     ) -> None:
         super().__init__()
         if backbone not in VIT_CONFIGS:
@@ -92,8 +108,10 @@ class ClipEBC(nn.Module):
             raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {attn_backend!r}")
         if fused_head not in FUSED_HEAD_MODES:
             raise ValueError(f"fused_head must be one of {FUSED_HEAD_MODES}, got {fused_head!r}")
+        check_quant_args(quant_mode, quant_attn)
         patch, width, layers, _, embed_dim = VIT_CONFIGS[backbone]
         self.backbone = backbone
+        self.quant_int8, self.quant_mode = quant_int8, quant_mode
         self.bins = tuple(tuple(b) for b in bins)
         self.encoder_reduction = patch
         self.out_reduction = reduction or patch
@@ -101,7 +119,9 @@ class ClipEBC(nn.Module):
         self.decoder_before_upsample = decoder_before_upsample
 
         self.image_encoder = ClipViT(
-            backbone, dtype=dtype, attn_backend=attn_backend, vpt_drop=vpt_drop
+            backbone, dtype=dtype, attn_backend=attn_backend, vpt_drop=vpt_drop,
+            quant_int8=quant_int8, quant_mode=quant_mode, quant_attn=quant_attn,
+            fuse_ln_mode=fuse_ln_mode,
         )
         self.vpt_depth = (layers if deep_vpt else 1) if num_vpt > 0 else 0
         for i in range(self.vpt_depth):
@@ -111,7 +131,8 @@ class ClipEBC(nn.Module):
         block = decoder_block or block
         cfg = tuple(decoder_cfg) if decoder_cfg is not None else cfg
         self.decoder_cfg = cfg
-        self.image_decoder = ResNetStage(width, cfg, block)
+        conv_cls = functools.partial(Int8Conv2d, quant_mode=quant_mode) if quant_int8 else None
+        self.image_decoder = ResNetStage(width, cfg, block, conv_cls)
         dec_out = int([c for c in cfg if c != "U"][-1])
         self.projection = Conv2d(dec_out, embed_dim, 1) if dec_out != embed_dim else None
 
@@ -195,7 +216,7 @@ class ClipEBC(nn.Module):
             if isinstance(m, PatchifyMatmul):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, fan_in**-0.5, generator=g)
-            elif isinstance(m, Linear):
+            elif isinstance(m, (Linear, Int8Linear)):
                 m.weight.normal_(0.0, m.in_features**-0.5, generator=g)
                 m.bias.zero_()
             elif isinstance(m, MultiHeadAttention):
@@ -206,7 +227,7 @@ class ClipEBC(nn.Module):
                 m.bias.zero_()
             elif isinstance(m, BatchNorm):
                 m.reset_parameters()
-            elif isinstance(m, Conv2d):
+            elif isinstance(m, (Conv2d, Int8Conv2d)):
                 if m is self.projection:  # lecun normal, zero bias
                     m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=g)
                     m.bias.zero_()
@@ -249,6 +270,10 @@ def build_clip_ebc(
     fused_head: str = "auto",
     decoder_before_upsample: bool = False,
     vpt_drop: float = 0.0,
+    quant_int8: bool = False,
+    quant_mode: str = "dynamic",
+    quant_attn=False,
+    fuse_ln_mode: str = "auto",
     seed: int = 0,
     device: Optional[Union[str, torch.device]] = None,
 ) -> ClipEBC:
@@ -266,6 +291,8 @@ def build_clip_ebc(
         decoder_block=decoder_block, decoder_cfg=decoder_cfg, dtype=dtype,
         attn_backend=attn_backend, fused_head=fused_head,
         decoder_before_upsample=decoder_before_upsample, vpt_drop=vpt_drop,
+        quant_int8=quant_int8, quant_mode=quant_mode, quant_attn=quant_attn,
+        fuse_ln_mode=fuse_ln_mode,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
     for name, p in model.named_parameters():

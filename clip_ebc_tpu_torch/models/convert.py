@@ -14,6 +14,11 @@ Layout rules:
 - LayerNorm ``<name>/LayerNorm_0/{scale,bias}`` -> ``<name>.{weight,bias}``;
 - BatchNorm ``scale/bias`` + ``batch_stats`` ``mean/var`` -> ``weight/bias/running_mean/running_var``;
 - decoder ``BasicBlock_{j}`` -> the j-th block's index in the decoder Sequential.
+
+:func:`quant_state_from_jax` and :func:`quant_state_to_jax` carry the W8A8
+``quant`` collection (the calibrated ``act_amax`` / ``qkv_amax`` leaves)
+between a JAX variable tree and the port's ``ops.quant.quant_state``
+names, so both packages can be fed the same scales.
 """
 
 from __future__ import annotations
@@ -130,6 +135,66 @@ def from_jax_params(
         sd["projection.bias"] = _t(params["projection"]["bias"])
     sd["logit_scale"] = _t(params["logit_scale"]).reshape(())
     return sd
+
+
+_DECODER_CONVS = {"ConvBNAct_0": "conv1", "ConvBNAct_1": "conv2", "ConvBNAct_2": "downsample.0"}
+
+
+def _quant_names(n_blocks: int, decoder_cfg: Sequence[Union[int, str]]) -> Dict[str, str]:
+    """``{port buffer name: JAX quant-tree path}`` of a ViT ``ClipEBC``."""
+    names = {}
+    for i in range(n_blocks):
+        src, dst = f"image_encoder/resblock_{i}", f"image_encoder.transformer.resblocks.{i}"
+        names[f"{dst}.attn.in_proj_act_amax"] = f"{src}/attn/in_proj/act_amax"
+        names[f"{dst}.attn.qkv_amax"] = f"{src}/attn/qkv_amax"
+        names[f"{dst}.attn.out_proj.act_amax"] = f"{src}/attn/out_proj/act_amax"
+        names[f"{dst}.mlp.c_fc.act_amax"] = f"{src}/mlp_fc/act_amax"
+        names[f"{dst}.mlp.c_proj.act_amax"] = f"{src}/mlp_proj/act_amax"
+    block_idx = [i for i, v in enumerate(decoder_cfg) if v != "U"]
+    for j, idx in enumerate(block_idx):
+        for unit, conv in _DECODER_CONVS.items():
+            names[f"image_decoder.{idx}.{conv}.act_amax"] = (
+                f"image_decoder/BasicBlock_{j}/{unit}/Conv_0/act_amax"
+            )
+    return names
+
+
+def _flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            flat.update(_flatten_tree(v, key))
+        else:
+            flat[key] = v
+    return flat
+
+
+def quant_state_from_jax(
+    quant: Mapping[str, Any], decoder_cfg: Sequence[Union[int, str]] = (768,)
+) -> StateDict:
+    """A JAX ``variables["quant"]`` tree (nested dicts of numpy leaves) ->
+    the port's quant state (``ops.quant.load_quant_state``)."""
+    flat = _flatten_tree(quant)
+    n_blocks = len({k.split("/")[1] for k in flat if k.startswith("image_encoder/")})
+    names = _quant_names(n_blocks, decoder_cfg)
+    state = {dst: _t(flat[src]) for dst, src in names.items() if src in flat}
+    if len(state) != len(flat):
+        raise KeyError(f"unknown quant leaves: {sorted(set(flat) - set(names.values()))[:8]}")
+    return state
+
+
+def quant_state_to_jax(
+    state: Mapping[str, torch.Tensor], decoder_cfg: Sequence[Union[int, str]] = (768,)
+) -> Dict[str, Any]:
+    """The port's quant state (``ops.quant.quant_state``) -> a JAX
+    ``variables["quant"]`` tree of numpy leaves."""
+    n_blocks = len({k.split(".")[3] for k in state if k.startswith("image_encoder.")})
+    names = _quant_names(n_blocks, decoder_cfg)
+    unknown = sorted(set(state) - set(names))
+    if unknown:
+        raise KeyError(f"unknown quant buffers: {unknown[:8]}")
+    return _unflatten_tree({names[k]: np.asarray(v, np.float32) for k, v in state.items()})
 
 
 def _unflatten_tree(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:

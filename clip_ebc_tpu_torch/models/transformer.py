@@ -12,10 +12,17 @@ ln_1, the qkv projection and the attention to
 ``ops.fused_attention.fused_ln_qkv_attention``; ``"sdpa"`` runs them as
 plain torch ops; ``"auto"`` means the kernel for CUDA tensors and the
 plain ops for CPU tensors, as the JAX ``"auto"`` means Pallas on a TPU.
+
+``quant_int8`` makes every projection of a block W8A8 (``ops/quant.py``).
+On the kernel path a static block hands ln_1, the int8 projection and the
+attention to ``fused_ln_qkv_attention_int8``; a dynamic block, a
+calibration pass and ``fuse_ln_mode="off"`` keep ln_1 and the projection
+outside and hand the qkv to ``fused_qkv_attention``.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from typing import Optional, Tuple
 
@@ -23,10 +30,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_attention import fused_ln_qkv_attention, supports
+from ..ops.fused_attention import (
+    fused_ln_qkv_attention,
+    fused_ln_qkv_attention_int8,
+    fused_qkv_attention,
+    supports,
+)
 from ..ops.interpolate import torch_bicubic_resize
+from ..ops.quant import (
+    QUANT_MODES,
+    Int8Linear,
+    Cached,
+    checked_act_scale,
+    int8_linear,
+    quantize_weight,
+    record_amax,
+)
 
 ATTN_BACKENDS = ("auto", "fused", "sdpa")
+FUSE_LN_MODES = ("auto", "off")
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +82,23 @@ class Linear(nn.Linear):
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
+def make_linear_cls(quant_int8: bool, quant_mode: str = "dynamic"):
+    """``Linear``, or its W8A8 drop-in for inference."""
+    if not quant_int8:
+        return Linear
+    return functools.partial(Int8Linear, quant_mode=quant_mode)
+
+
+def check_quant_args(quant_mode: str, quant_attn) -> None:
+    if quant_mode not in QUANT_MODES:
+        raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got {quant_mode!r}")
+    if quant_attn:
+        raise NotImplementedError(
+            f"quant_attn={quant_attn!r} (int8 QK^T and PV) is not ported yet "
+            "(ROADMAP Queue 2, the quant_attn branches)"
+        )
+
+
 class LayerNormF32(nn.LayerNorm):
     """LayerNorm computed in fp32, output cast back to the input dtype."""
 
@@ -91,17 +130,47 @@ class MultiHeadAttention(nn.Module):
     ``out_proj``). ``kv_len`` < L masks keys at index >= kv_len.
 
     ``pre_ln=(weight, bias, eps)`` moves the preceding LayerNorm into the
-    fused kernel together with the qkv projection; then ``x`` is the
-    block input, not its LN output."""
+    fused kernel together with the qkv projection (bf16 or fp32, or int8
+    with ``quant_int8`` in static mode); then ``x`` is the block input, not
+    its LN output. ``fused_attn`` hands the attention of an unfused
+    projection to ``fused_qkv_attention``.
 
-    def __init__(self, dim: int, num_heads: int) -> None:
+    With ``quant_int8`` both projections run W8A8, and the in-projection's
+    recorded ranges live here: ``in_proj_act_amax`` (its input) and
+    ``qkv_amax`` (the q, k and v outputs, recorded on every calibration
+    pass)."""
+
+    def __init__(self, dim: int, num_heads: int, quant_int8: bool = False,
+                 quant_mode: str = "dynamic", quant_attn=False) -> None:
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by heads {num_heads}")
+        check_quant_args(quant_mode, quant_attn)
         self.num_heads = num_heads
+        self.quant_int8, self.quant_mode = quant_int8, quant_mode
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = Linear(dim, dim)
+        self.out_proj = make_linear_cls(quant_int8, quant_mode)(dim, dim)
+        if quant_int8:
+            self.calibrating = False
+            self.register_buffer("in_proj_act_amax", torch.zeros(()), persistent=False)
+            self.register_buffer("qkv_amax", torch.zeros(3), persistent=False)
+            self._wq, self._scale = Cached(), Cached()
+
+    def _in_proj(self, x: torch.Tensor) -> torch.Tensor:
+        """The unfused qkv projection; a calibration pass records."""
+        if not self.quant_int8:
+            return F.linear(x, self.in_proj_weight.to(x.dtype)) + self.in_proj_bias.to(x.dtype)
+        static = self.quant_mode == "static"
+        recording = self.calibrating and not static
+        if recording:
+            record_amax(self.in_proj_act_amax, x)
+        w_q, s_w = self._wq.get(self.in_proj_weight, quantize_weight)
+        scale = self._scale.get(self.in_proj_act_amax, checked_act_scale) if static else None
+        qkv = int8_linear(x, w_q, s_w, self.in_proj_bias, scale)
+        if recording:
+            record_amax(self.qkv_amax, qkv.reshape(-1, 3, x.shape[-1]), dims=(0, 2))
+        return qkv
 
     def forward(
         self,
@@ -109,6 +178,7 @@ class MultiHeadAttention(nn.Module):
         mask: Optional[torch.Tensor] = None,
         kv_len: Optional[int] = None,
         pre_ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None,
+        fused_attn: bool = False,
     ) -> torch.Tensor:
         b, l, d = x.shape
         dh = d // self.num_heads
@@ -116,13 +186,28 @@ class MultiHeadAttention(nn.Module):
             if mask is not None:
                 raise ValueError("pre_ln (the fused path) takes no mask")
             g, bb, eps = pre_ln
-            out = fused_ln_qkv_attention(
-                x, g, bb, self.in_proj_weight.to(x.dtype), self.in_proj_bias,
-                self.num_heads, kv_len or l, dh**-0.5, eps,
-            )
+            if self.quant_int8:
+                if self.quant_mode != "static":
+                    raise ValueError("the fused LN path of an int8 block needs quant_mode='static'")
+                out = fused_ln_qkv_attention_int8(
+                    x, g, bb, self.in_proj_weight, self.in_proj_bias,
+                    self._scale.get(self.in_proj_act_amax, checked_act_scale),
+                    self.num_heads, kv_len or l, dh**-0.5, eps,
+                    quantized=self._wq.get(self.in_proj_weight, quantize_weight),
+                )
+            else:
+                out = fused_ln_qkv_attention(
+                    x, g, bb, self.in_proj_weight.to(x.dtype), self.in_proj_bias,
+                    self.num_heads, kv_len or l, dh**-0.5, eps,
+                )
             return self.out_proj(out)
 
-        qkv = F.linear(x, self.in_proj_weight.to(x.dtype)) + self.in_proj_bias.to(x.dtype)
+        qkv = self._in_proj(x)
+        if fused_attn:
+            if mask is not None:
+                raise ValueError("fused_attn (the kernel path) takes no mask")
+            out = fused_qkv_attention(qkv.contiguous(), self.num_heads, kv_len or l, dh**-0.5)
+            return self.out_proj(out)
         q, k, v = qkv.split(d, dim=-1)
 
         def heads(t):
@@ -140,28 +225,40 @@ class MultiHeadAttention(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN block: x + MHA(ln_1(x)); x + MLP(ln_2(x)).
 
-    The fused path (ln_1 folded into the kernel) is taken when
-    ``attn_backend`` asks for it and the kernel applies: no mask, head
-    dim 64, D <= MAX_FUSED_DIM, L <= MAX_FUSED_SEQ. The same kind of
-    checks as transformer.py:356-377 of the JAX package, made here, up
-    front, so the kernel wrapper never has to fall back. bf16 and fp32
-    activations both take the kernel; any other dtype makes the wrapper
+    The kernel path is taken when ``attn_backend`` asks for it and the
+    kernels apply: no mask, head dim 64, D <= MAX_FUSED_DIM, L <=
+    MAX_FUSED_SEQ (:meth:`fused`). On it, ln_1 and the projection fold into
+    the kernel (:meth:`fuse_ln`) unless ``fuse_ln_mode="off"``, a
+    calibration pass is recording, or the block is dynamic int8, which has
+    no precalibrated scale the kernel could take; those keep ln_1 and the
+    projection outside and hand the qkv to ``fused_qkv_attention``. The
+    same checks as transformer.py:356-377 of the JAX package, made here, up
+    front, so a kernel wrapper never has to fall back. bf16 and fp32
+    activations both take the kernels; any other dtype makes the wrapper
     raise."""
 
     def __init__(
         self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
         ln_epsilon: float = 1e-5, attn_backend: str = "auto",
+        quant_int8: bool = False, quant_mode: str = "dynamic", quant_attn=False,
+        fuse_ln_mode: str = "auto",
     ) -> None:
         super().__init__()
         if attn_backend not in ATTN_BACKENDS:
             raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {attn_backend!r}")
+        if fuse_ln_mode not in FUSE_LN_MODES:
+            raise ValueError(f"fuse_ln_mode must be one of {FUSE_LN_MODES}, got {fuse_ln_mode!r}")
         self.attn_backend = attn_backend
+        self.fuse_ln_mode = fuse_ln_mode
+        self.quant_int8, self.quant_mode = quant_int8, quant_mode
+        self.calibrating = False
+        linear = make_linear_cls(quant_int8, quant_mode)
         self.ln_1 = LayerNormF32(dim, ln_epsilon)
-        self.attn = MultiHeadAttention(dim, num_heads)
+        self.attn = MultiHeadAttention(dim, num_heads, quant_int8, quant_mode, quant_attn)
         self.ln_2 = LayerNormF32(dim, ln_epsilon)
         hidden = int(dim * mlp_ratio)
         self.mlp = nn.Sequential(OrderedDict(
-            c_fc=Linear(dim, hidden), gelu=QuickGELU(), c_proj=Linear(hidden, dim)
+            c_fc=linear(dim, hidden), gelu=QuickGELU(), c_proj=linear(hidden, dim)
         ))
 
     def fused(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:
@@ -173,24 +270,36 @@ class ResidualAttentionBlock(nn.Module):
             and supports(heads, d // heads, l)
         )
 
+    def fuse_ln(self) -> bool:
+        """Whether a block on the kernel path folds ln_1 and the projection
+        into the kernel."""
+        return (
+            self.fuse_ln_mode != "off"
+            and not self.calibrating
+            and not (self.quant_int8 and self.quant_mode == "dynamic")
+        )
+
     def forward(
         self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
         kv_len: Optional[int] = None,
     ) -> torch.Tensor:
-        if self.fused(x, mask):
+        fused = self.fused(x, mask)
+        if fused and self.fuse_ln():
             x = x + self.attn(x, kv_len=kv_len, pre_ln=(self.ln_1.weight, self.ln_1.bias, self.ln_1.eps))
         else:
-            x = x + self.attn(self.ln_1(x), mask, kv_len)
+            x = x + self.attn(self.ln_1(x), mask, kv_len, fused_attn=fused)
         return x + self.mlp(self.ln_2(x))
 
 
 class Transformer(nn.Module):
-    """``resblocks`` stack (torch CLIP's ``transformer.resblocks.{i}``)."""
+    """``resblocks`` stack (torch CLIP's ``transformer.resblocks.{i}``);
+    ``block_kw`` (the quantization and ``fuse_ln_mode``) goes to each block."""
 
-    def __init__(self, width: int, layers: int, heads: int, attn_backend: str = "auto") -> None:
+    def __init__(self, width: int, layers: int, heads: int, attn_backend: str = "auto",
+                 **block_kw) -> None:
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, attn_backend=attn_backend)
+            ResidualAttentionBlock(width, heads, attn_backend=attn_backend, **block_kw)
             for _ in range(layers)
         )
 

@@ -1,11 +1,14 @@
 """LayerNorm + joint QKV projection + masked attention, one call per ViT
 block, and its backward: counterpart of ``clip_ebc_tpu/ops/fused_attention.py``
-``fused_ln_qkv_attention`` (forward and ``_lqa_bwd``), ``_attention_bwd``
-and ``_ln_qkv_bwd_frozen``.
+``fused_ln_qkv_attention`` (forward and ``_lqa_bwd``),
+``fused_ln_qkv_attention_int8`` (W8A8, static scales), ``fused_qkv_attention``
+(the attention alone, from a precomputed qkv), ``_attention_bwd`` and
+``_ln_qkv_bwd_frozen``.
 
 On a CUDA tensor each wrapper launches the hand-written kernels in
-``csrc/fused_attention.cu`` (forward: LN + projection, then attention)
-and ``csrc/fused_attention_bwd.cu`` (backward); on a CPU tensor it runs
+``csrc/fused_attention.cu`` (forward: LN + projection, then attention),
+``csrc/fused_attention_int8.cu`` (LN + quantize + int8 projection) and
+``csrc/fused_attention_bwd.cu`` (backward); on a CPU tensor it runs
 the plain version beside it. It never falls back from one to the other:
 whether the kernel applies (head dim 64, no mask, width, sequence length)
 is decided up front by the model (models/transformer.py), and the wrapper
@@ -32,6 +35,7 @@ import ctypes
 import torch
 
 from . import _build
+from .quant import int_mm, quantize_weight
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM = 64
@@ -93,17 +97,56 @@ def ln_qkv_attention_plain(
     rounded to x's dtype are taken in fp32, which is what a bf16 matrix
     unit with fp32 accumulation computes."""
     dt = x.dtype
-    b, l, d = x.shape
     xhat, _ = _layer_norm_parts(x, eps)
     y = xhat * ln_weight.float() + ln_bias.float()
-    qkv = (y.to(dt).float() @ w.to(dt).float().T + bias.float()).to(dt).float()
-    q, k, v = (_heads(t, num_heads) for t in qkv.split(d, dim=-1))
+    qkv = (y.to(dt).float() @ w.to(dt).float().T + bias.float()).to(dt)
+    return qkv_attention_plain(qkv, num_heads, kv_len, sm_scale)
+
+
+def qkv_attention_plain(
+    qkv: torch.Tensor, num_heads: int, kv_len: int, sm_scale: float
+) -> torch.Tensor:
+    """The masked attention from a precomputed qkv ``(B, L, 3D)``, rounding
+    where ``_pair_attention_body`` rounds: fp32 scores x sm_scale with keys
+    >= kv_len at NEG_INF; unnormalized probabilities in qkv's dtype; P.V
+    in fp32 divided by the fp32 row sum; output ``(B, L, D)`` in qkv's
+    dtype."""
+    dt = qkv.dtype
+    l, d = qkv.shape[1], qkv.shape[2] // 3
+    q, k, v = (_heads(t, num_heads) for t in qkv.float().split(d, dim=-1))
     s = (q @ k.transpose(-1, -2)) * sm_scale
-    keys = torch.arange(l, device=x.device)
+    keys = torch.arange(l, device=qkv.device)
     s = s.masked_fill(keys >= kv_len, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     o = (p.to(dt).float() @ v) / p.sum(-1, keepdim=True)
     return _merge_heads(o.to(dt))
+
+
+def ln_qkv_attention_int8_plain(
+    x: torch.Tensor,
+    ln_weight: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w_q: torch.Tensor,
+    s_col: torch.Tensor,
+    bias: torch.Tensor,
+    act_scale: torch.Tensor,
+    num_heads: int,
+    kv_len: int,
+    sm_scale: float,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """The plain W8A8 version, rounding where ``_ln_qkv_kernel`` rounds:
+    fp32 LN, not rounded to x's dtype; ``yq = clip(round(y * (1 /
+    act_scale)))`` (the reciprocal, as the kernel multiplies); an exact
+    int8 x int8 -> int32 product; ``acc * (s_col * act_scale) + bias`` in
+    fp32, qkv rounded to x's dtype; then :func:`qkv_attention_plain`."""
+    b, l, d = x.shape
+    xhat, _ = _layer_norm_parts(x, eps)
+    y = xhat * ln_weight.float() + ln_bias.float()
+    yq = torch.clamp(torch.round(y * (1.0 / act_scale)), -127, 127).to(torch.int8)
+    acc = int_mm(yq.reshape(b * l, d), w_q).reshape(b, l, 3 * d).float()
+    qkv = (acc * (s_col * act_scale) + bias.float()).to(x.dtype)
+    return qkv_attention_plain(qkv, num_heads, kv_len, sm_scale)
 
 
 def attention_bwd_plain(
@@ -183,6 +226,7 @@ def ln_qkv_proj_plain(
 # C entries of each activation dtype (csrc/fused_attention.cu, csrc/fused_attention_bwd.cu).
 _FWD_ENTRIES = {torch.bfloat16: "ebc_ln_qkv_attention", torch.float32: "ebc_ln_qkv_attention_f32"}
 _BWD_ENTRIES = {torch.bfloat16: "ebc_attention_bwd", torch.float32: "ebc_attention_bwd_f32"}
+_ATTN_ENTRIES = {torch.bfloat16: "ebc_qkv_attention", torch.float32: "ebc_qkv_attention_f32"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "ebc_ln_qkv_attention": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
@@ -191,6 +235,9 @@ _ARGTYPES = {
     "ebc_attention_bwd": [_P] * 4 + [_I] * 5 + [_F, _P],
     "ebc_attention_bwd_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
     "ebc_ln_bwd_dx": [_P] * 5 + [_I, _I, _F, _P],
+    "ebc_qkv_attention": [_P, _P] + [_I] * 5 + [_F, _P],
+    "ebc_qkv_attention_f32": [_P, _P] + [_I] * 5 + [_F, _P],
+    "ebc_ln_qkv_proj_int8": [_P] * 8 + [_I] * 3 + [_F, _P],
 }
 
 
@@ -349,6 +396,116 @@ def ln_qkv_bwd_frozen(
     return dx
 
 
+def _launch_qkv_attention(who: str, qkv: torch.Tensor, num_heads: int, kv_len: int,
+                          sm_scale: float) -> torch.Tensor:
+    """The attention launch on a checked CUDA qkv ``(B, L, 3D)`` (not
+    counted here: each public wrapper counts its own call)."""
+    b, l, three_d = qkv.shape
+    out = torch.empty(b, l, three_d // 3, dtype=qkv.dtype, device=qkv.device)
+    _run(who, _entry("fused_attention", _ATTN_ENTRIES[qkv.dtype])(
+        qkv.data_ptr(), out.data_ptr(), b, l, three_d // 3, num_heads, kv_len,
+        float(sm_scale), _stream(qkv.device),
+    ))
+    return out
+
+
+class _FusedQkvAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, num_heads, kv_len, sm_scale):
+        ctx.save_for_backward(qkv)
+        ctx.cfg = (num_heads, kv_len, sm_scale)
+        if qkv.device.type == "cpu":
+            return qkv_attention_plain(qkv, num_heads, kv_len, sm_scale)
+        who = "fused_qkv_attention"
+        if qkv.dim() != 3 or qkv.shape[-1] % 3:
+            raise ValueError(f"{who}: expected a (B, L, 3D) qkv, got {tuple(qkv.shape)}")
+        b, l, d = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+        _check_attention(who, qkv[..., :d], num_heads, kv_len)
+        _check(who, qkv, "qkv", (b, l, 3 * d), qkv.dtype, qkv.device)
+        out = _launch_qkv_attention(who, qkv, num_heads, kv_len, sm_scale)
+        fused_qkv_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return attention_bwd(qkv, g.contiguous(), *ctx.cfg), None, None, None
+
+
+def fused_qkv_attention(
+    qkv: torch.Tensor, num_heads: int, kv_len: int, sm_scale: float
+) -> torch.Tensor:
+    """``(B, L, 3D)`` joint qkv -> ``(B, L, D)`` head-concatenated masked
+    attention output. Keys at index >= ``kv_len`` are masked; outputs of
+    rows >= ``kv_len`` are not specified.
+
+    CPU tensors take :func:`qkv_attention_plain`. CUDA tensors need a
+    contiguous bf16 or fp32 qkv and launch the attention kernel of that
+    dtype (counted in ``fused_qkv_attention.launches``) or raise.
+    Differentiable: the backward is :func:`attention_bwd`."""
+    return _FusedQkvAttention.apply(qkv, num_heads, kv_len, sm_scale)
+
+
+def fused_ln_qkv_attention_int8(
+    x: torch.Tensor,  # (B, L, D)
+    ln_weight: torch.Tensor,  # (D,)
+    ln_bias: torch.Tensor,  # (D,)
+    w: torch.Tensor,  # (3D, D) fp32 master weight, nn.Linear layout
+    bias: torch.Tensor,  # (3D,)
+    act_scale: torch.Tensor,  # scalar: calibrated per-tensor scale of the LN output
+    num_heads: int,
+    kv_len: int,
+    sm_scale: float,
+    eps: float = 1e-5,
+    quantized: tuple = None,
+) -> torch.Tensor:
+    """W8A8 variant of :func:`fused_ln_qkv_attention` (inference only, not
+    differentiable): LayerNorm in fp32, the LN output quantized with the
+    calibrated per-tensor ``act_scale``, an int8 x int8 -> int32 projection
+    against ``w`` quantized per output column, dequantized to x's dtype,
+    then the masked attention. ``quantized`` hands in
+    ``ops.quant.quantize_weight(w)`` made earlier (a module keeps it
+    per weight set); without it ``w`` is quantized here.
+
+    CPU tensors take :func:`ln_qkv_attention_int8_plain`. CUDA tensors need
+    bf16 or fp32 x, fp32 LN parameters, bias and scales, D a multiple of
+    128, and launch the int8 projection kernel and the attention kernel of
+    x's dtype (one call counted in ``fused_ln_qkv_attention_int8.launches``)
+    or raise."""
+    who = "fused_ln_qkv_attention_int8"
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, ln_weight, ln_bias, w, bias)
+    ):
+        raise RuntimeError(f"{who} has no backward: run it under torch.no_grad()")
+    w_q, s_col = quantized if quantized is not None else quantize_weight(w)
+    act_scale = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device).reshape(())
+    if x.device.type == "cpu":
+        return ln_qkv_attention_int8_plain(
+            x, ln_weight, ln_bias, w_q, s_col, bias, act_scale, num_heads, kv_len, sm_scale, eps
+        )
+    b, l, d = _check_attention(who, x, num_heads, kv_len)
+    if d % 128:
+        raise ValueError(f"{who}: needs D % 128 == 0, got D={d}")
+    dev, dt = x.device, x.dtype
+    _check(who, x, "x", (b, l, d), dt, dev)
+    _check(who, ln_weight, "ln_weight", (d,), torch.float32, dev)
+    _check(who, ln_bias, "ln_bias", (d,), torch.float32, dev)
+    _check(who, w_q, "w_q", (3 * d, d), torch.int8, dev)
+    _check(who, s_col, "s_col", (3 * d,), torch.float32, dev)
+    _check(who, bias, "bias", (3 * d,), torch.float32, dev)
+    sw = s_col * act_scale  # (3D,) dequant of the int32 accumulator
+    inv_act = (1.0 / act_scale).reshape(1)
+    qkv = torch.empty(b, l, 3 * d, dtype=dt, device=dev)
+    _run(who, _entry("fused_attention_int8", "ebc_ln_qkv_proj_int8")(
+        x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
+        bias.data_ptr(), inv_act.data_ptr(), qkv.data_ptr(), b * l, d,
+        int(dt == torch.float32), float(eps), _stream(dev),
+    ))
+    out = _launch_qkv_attention(who, qkv, num_heads, kv_len, sm_scale)
+    fused_ln_qkv_attention_int8.launches += 1
+    return out
+
+
 class _FusedLnQkvAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_weight, ln_bias, w, bias, num_heads, kv_len, sm_scale, eps):
@@ -406,5 +563,7 @@ def fused_ln_qkv_attention(
 
 
 fused_ln_qkv_attention.launches = 0
+fused_ln_qkv_attention_int8.launches = 0
+fused_qkv_attention.launches = 0
 attention_bwd.launches = 0
 ln_qkv_bwd_frozen.launches = 0

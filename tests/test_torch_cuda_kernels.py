@@ -14,7 +14,12 @@ largest magnitude of each of dQ, dK, dV and dx on its own, at inputs of
 the trunk's scale (unit-variance qkv, a peaked softmax); head rtol 1e-4
 (both sides do all the math in fp32 on the same inputs). Model gradients
 against the plain path (``attn_backend="sdpa"``) in the same dtype:
-relative L2 error 5e-2 in bf16, 1e-3 in fp32.
+relative L2 error 5e-2 in bf16, 1e-3 in fp32. The W8A8 kernel: max 2e-2
+and median 1e-3 of the largest output in bf16, 2e-3 and 1e-4 in fp32 (the
+kernel and the plain version take the LayerNorm sums in another order, so
+an int8 step of the LN output flips here and there, about 5e-5 of qkv
+each; a wrong scale or fold would move the median); its int32
+accumulators are exact on both sides.
 """
 
 import numpy as np
@@ -27,10 +32,15 @@ from clip_ebc_tpu_torch.ops.fused_attention import (
     attention_bwd,
     attention_bwd_plain,
     fused_ln_qkv_attention,
+    fused_ln_qkv_attention_int8,
+    fused_qkv_attention,
+    ln_qkv_attention_int8_plain,
     ln_qkv_attention_plain,
     ln_qkv_bwd_frozen,
     ln_qkv_bwd_frozen_plain,
+    qkv_attention_plain,
 )
+from clip_ebc_tpu_torch.ops import quant
 from clip_ebc_tpu_torch.ops.fused_head import ebc_head_plain, fused_ebc_head
 from clip_ebc_tpu_torch.training.evaluate import Evaluator
 
@@ -277,3 +287,139 @@ def test_fused_head_refuses_grad(cuda):
         fused_ebc_head(feats, *args)
     with torch.no_grad():
         assert fused_ebc_head(feats, *args).shape == (8,)
+
+
+@pytest.mark.parametrize("shape", [
+    (16, 229, 768, 12, 229, "bfloat16"),  # a calibration batch of the flagship
+    (16, 229, 768, 12, 200, "bfloat16"),  # masked keys
+    (3, 37, 128, 2, 33, "bfloat16"),  # ragged length, narrow width
+    (16, 229, 768, 12, 229, "float32"),
+    (3, 37, 128, 2, 33, "float32"),
+])
+def test_qkv_attention_kernel_matches_plain_and_differentiates(cuda, shape):
+    b, l, d, h, kv_len, dtype = shape
+    dtype = getattr(torch, dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    rng = np.random.default_rng(l + kv_len)
+    qkv = torch.from_numpy(rng.normal(size=(b, l, 3 * d)).astype(np.float32)).to(cuda, dtype)
+    g = torch.from_numpy(rng.normal(size=(b, l, d)).astype(np.float32)).to(cuda, dtype)
+    sm = (d // h) ** -0.5
+    before, before_bwd = fused_qkv_attention.launches, attention_bwd.launches
+    leaf = qkv.clone().requires_grad_()
+    got = fused_qkv_attention(leaf, h, kv_len, sm)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention.launches == before + 1
+    assert attention_bwd.launches == before_bwd + 1  # the backward is the attention_bwd kernel
+    assert got.dtype == dtype
+    want = qkv_attention_plain(qkv, h, kv_len, sm)
+    np.testing.assert_allclose(got[:, :kv_len].detach().float().cpu().numpy(),
+                               want[:, :kv_len].float().cpu().numpy(), rtol=tol, atol=tol)
+    want_grad = attention_bwd_plain(qkv, g, h, kv_len, sm)
+    for i in range(3):
+        cols = slice(i * d, (i + 1) * d)
+        _assert_close_scaled(leaf.grad[..., cols], want_grad[..., cols], tol)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_qkv_attention(qkv.transpose(0, 1).contiguous().transpose(0, 1), h, kv_len, sm)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        fused_qkv_attention(qkv.half(), h, kv_len, sm)
+
+
+def _max_median(got, want):
+    diff = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    return float(diff.max()) / top, float(diff.median()) / top
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 229, 768, 12, 229, "bfloat16"),  # flagship block
+    (8, 229, 768, 12, 200, "bfloat16"),  # masked keys
+    (3, 37, 128, 2, 33, "bfloat16"),  # ragged length, one W tile deep
+    (8, 229, 768, 12, 229, "float32"),  # fp32 activations (no --amp)
+    (3, 37, 128, 2, 33, "float32"),
+])
+def test_int8_attention_kernel_matches_plain(cuda, shape):
+    b, l, d, h, kv_len, dtype = shape
+    dtype = getattr(torch, dtype)
+    x, gam, be, w, bias = _attn_inputs(b, l, d, seed=l + kv_len, dev=cuda, dtype=torch.float32)
+    x = x.to(dtype)
+    y = torch.nn.functional.layer_norm(x.float(), (d,), gam, be)
+    act_scale = y.abs().amax() / 127.0  # what a calibration records
+    sm = (d // h) ** -0.5
+    before = fused_ln_qkv_attention_int8.launches
+    got = fused_ln_qkv_attention_int8(x, gam, be, w, bias, act_scale, h, kv_len, sm)
+    torch.cuda.synchronize()
+    assert fused_ln_qkv_attention_int8.launches == before + 1
+    assert got.dtype == dtype
+    w_q, s_col = quant.quantize_weight(w)
+    want = ln_qkv_attention_int8_plain(x, gam, be, w_q, s_col, bias, act_scale, h, kv_len, sm)
+    err, med = _max_median(got[:, :kv_len], want[:, :kv_len])
+    max_tol, med_tol = (2e-2, 1e-3) if dtype == torch.bfloat16 else (2e-3, 1e-4)
+    assert err <= max_tol and med <= med_tol, (err, med)
+    # a prequantized weight gives the same bits; unsupported tensors raise
+    again = fused_ln_qkv_attention_int8(x, gam, be, w, bias, act_scale, h, kv_len, sm,
+                                        quantized=(w_q, s_col))
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        fused_ln_qkv_attention_int8(x.half(), gam, be, w, bias, act_scale, h, kv_len, sm)
+    with pytest.raises(ValueError, match="w_q must be"):
+        fused_ln_qkv_attention_int8(x, gam, be, w, bias, act_scale, h, kv_len, sm,
+                                    quantized=(w_q.int(), s_col))
+
+
+def test_int8_products_are_exact_on_the_card(cuda):
+    """``int_mm`` and both convolution routes give the int32 accumulators of
+    the plain integer product and convolution, computed on the CPU."""
+    rng = np.random.default_rng(0)
+    for m, k, n in ((3664, 768, 2304), (5, 3072, 768), (784, 6912, 768)):
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8))
+        assert torch.equal(quant.int_mm(a.to(cuda), b.to(cuda)).cpu(), a.int() @ b.int().T)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int_mm(torch.zeros(32, 12, dtype=torch.int8, device=cuda),
+                     torch.zeros(8, 12, dtype=torch.int8, device=cuda))
+    x_q = torch.from_numpy(rng.integers(-127, 128, (2, 14, 14, 768)).astype(np.int8)).permute(0, 3, 1, 2)
+    w_q = torch.from_numpy(rng.integers(-127, 128, (768, 768, 3, 3)).astype(np.int8))
+    want = quant.int8_conv2d_plain(x_q, w_q, (1, 1), (1, 1), (1, 1))
+    for route in (quant.int8_conv2d_im2col, quant.int8_conv2d_shifted):
+        assert torch.equal(route(x_q.to(cuda), w_q.to(cuda), (1, 1), (1, 1), (1, 1)).cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_int8_model_takes_both_kernels_and_matches_plain_path(cuda, dtype):
+    """A whole W8A8 ViT-B/16 CLIP-EBC on 64 px windows: a calibration pass
+    and a dynamic forward launch ``fused_qkv_attention`` 12 times, a static
+    forward ``fused_ln_qkv_attention_int8`` 12 times, and on one set of
+    scales the static count is within 1e-2 of the plain path's
+    (``attn_backend="sdpa"``, ``fused_head="off"``)."""
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    image = np.random.default_rng(0).normal(size=(96, 144, 3)).astype(np.float32)
+    windows = torch.from_numpy(image[None, :64, :64]).to(cuda)
+    kw = dict(dtype=getattr(torch, dtype), num_vpt=32, seed=0, device=cuda, quant_int8=True)
+    counters = (fused_ln_qkv_attention_int8, fused_qkv_attention, fused_ln_qkv_attention)
+
+    def launches(fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(c.launches for c in counters)
+
+    dyn = get_model("clip_vit_b_16", 64, 8, bins, anchors, **kw)
+    state, n = launches(lambda: quant.calibrate_int8(dyn, [windows]))
+    assert n == (0, 12, 0)
+    with torch.no_grad():
+        _, n = launches(lambda: dyn(windows))
+    assert n == (0, 12, 0)
+    counts = {}
+    for paths in ({}, {"attn_backend": "sdpa", "fused_head": "off"}):
+        model = get_model("clip_vit_b_16", 64, 8, bins, anchors, quant_mode="static", **kw, **paths)
+        quant.load_quant_state(model, state)
+        ev = Evaluator(model, reduction=8, sliding_window=True, window_size=64, stride=32,
+                       pad_to_multiple=16)
+        ev.text_features()
+        density, n = launches(lambda: ev.predict_density(image))
+        assert n == ((12, 0, 0) if not paths else (0, 0, 0))
+        assert bool(torch.isfinite(density).all())
+        counts[not paths] = float(density.sum())
+    assert abs(counts[True] - counts[False]) <= 1e-2 * abs(counts[False])

@@ -127,11 +127,11 @@ def test_predict_cli_with_jax_weights_matches_jax(port_weights, jax_variables, j
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--quant", "int8"], NotImplementedError),
+    (["--quant", "int8_static", "--quant_attn"], NotImplementedError),
     (["--packed_eval"], NotImplementedError),
     (["--pretrained", "clip.pt"], NotImplementedError),
     (["--batch_windows", "8"], SystemExit),  # options of unported features are not accepted
-    (["--calib_images", "2"], SystemExit),
+    (["--quant_attn"], SystemExit),  # needs --quant int8_static, as the JAX CLI says
     (["--allow_byte_tokenizer"], SystemExit),
 ])
 def test_predict_cli_rejects_unported_options(tmp_path, extra, error):

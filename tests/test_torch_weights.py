@@ -106,12 +106,26 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'clip_ebc_tpu'))\n"
         "print(len([k for k in sys.modules if k.startswith('clip_ebc_tpu_torch')]))\n"
         "assert not bad, bad\n"
+        "for name in ('ops.quant', 'cli._common', 'ops.fused_attention', 'models.convert'):\n"
+        "    assert 'clip_ebc_tpu_torch.' + name in sys.modules, name\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module was imported
+    assert int(out.stdout.strip()) >= 22  # every module was imported, the int8 slice's too
+    # and no source of the port, nor the chip script, names the JAX package in an import
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "clip_ebc_tpu_torch")):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert any(p.endswith(os.path.join("ops", "quant.py")) for p in sources)
+    assert any(p.endswith(os.path.join("cli", "_common.py")) for p in sources)
+    for path in sources:
+        with open(path) as f:
+            for line in f:
+                words = line.split()
+                if words and words[0] in ("import", "from"):
+                    assert words[1].split(".")[0] not in ("jax", "flax", "clip_ebc_tpu"), (path, line)
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
