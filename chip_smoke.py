@@ -60,6 +60,31 @@ Phases, each a hard failure (a raised exception, exit code 1):
    + backward FLOP of the plain path by ``FlopCounterMode`` over the
    card's peak).
 
+Phase 2 also holds both flash-attention kernels against their plain
+versions, in bf16 and fp32: the tiled kernel at the flagship full image
+(1, 12, 24609, 64) and on a ragged causal sequence, the short kernel at
+the windows' shape (140, 12, 229, 64) and at the text tower's, causal;
+limits 2e-2 x max|want| in bf16 and 1e-4 in fp32; times beside the SDPA
+forward and the bound.
+3c. full-image inference through the same entry point: the predict CLI
+   without ``--sliding_window`` on the same 2048 x 3072 image (one
+   sequence of 1 + 32 + 128 x 192 = 24,609 tokens), bf16 (``--amp``) and
+   fp32. Counters zeroed just before, read just after: 12 tiled flash
+   launches per image, none of the fused kernel, 1 head launch. Then ms per
+   image (median of 5 in bf16, of 2 in fp32) and peak device memory beside
+   the image's bound (matmul and convolution FLOP by ``FlopCounterMode`` on
+   the kernel path plus the attention's 4 L^2 64 per head and layer); the
+   kernel path against the plain path (``attn_backend="sdpa"``) at 1024 x
+   1536, where the plain path's (L, L) scores fit, within 1e-2 (bf16) and
+   1e-3 (fp32) of the count; and the flagship windows and the text tower
+   through ``attn_backend="flash"`` (12 short launches each), whose count
+   agrees with the fused kernel path within the same limits.
+3d. the NWPU entry point: ``cli/test_nwpu.py`` on a synthetic 2-image
+   ``nwpu/test/images`` tree it writes (768 x 1024 and 1024 x 768 JPEGs),
+   bf16, with a weights file of the seeded model: 24 tiled launches, the
+   submission file's format, and counts equal to the predict CLI's on the
+   same images and weights.
+
 The last lines are the card line, one JSON line describing every kernel
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX. With
 ``--profile`` it also prints the device time of one kernel-path forward
@@ -93,6 +118,9 @@ IMAGE_HW = (2048, 3072)
 # of 32 train images (4 steps an epoch) and 2 val images of 512 x 768
 TRAIN_SIZE, TRAIN_B, TRAIN_IMAGES, DATA_HW = 224, 16, 32, (512, 768)
 CALIB_B = 16  # windows of one calibration batch (the first 16 of an image)
+# the flagship image run whole: 1 CLS + 32 prompts + its 128 x 192 patch grid
+FULL_L = 1 + 32 + (IMAGE_HW[0] // 16) * (IMAGE_HW[1] // 16)
+PLAIN_HW = (1024, 1536)  # the largest image whose plain-path (L, L) scores fit in fp32
 
 
 def train_flags() -> list:
@@ -430,6 +458,68 @@ def phase_qkv_attention(dev, dtype: torch.dtype) -> dict:
     }
 
 
+def _flash_inputs(dev, dtype, b, h, l, seed):
+    """q, k, v as the model hands them to the kernels: strided head views
+    of a unit-variance joint qkv (B, L, 3 H 64)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, l, 3 * h * 64, generator=g, device=dev).to(dtype)
+    return [t.reshape(b, l, h, 64).transpose(1, 2) for t in qkv.split(h * 64, dim=-1)]
+
+
+def phase_flash(dev, route: str, dtype: torch.dtype) -> dict:
+    """One flash-attention kernel against its plain version, max abs error
+    within 2e-2 x max|want| (bf16: P rounded at the same points, sums in
+    another order) or 1e-4 (fp32): the tiled kernel at the flagship full
+    image and on a ragged causal sequence, the short kernel at the
+    windows' shape and at the text tower's (causal). Timed at the first
+    shape, beside the SDPA forward on the same q, k, v (timed here only)."""
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.ops import flash_attention as fa
+
+    fp32 = dtype == torch.float32
+    peak, tag = (PEAK_FP32, "_fp32") if fp32 else (PEAK_BF16, "")
+    wrapper = fa.flash_tiled if route == "tiled" else fa.flash_short
+    plain = fa.flash_tiled_plain if route == "tiled" else fa.flash_short_plain
+    n_prompts = len(get_bins_and_anchors(8, 4, "qnrf")[1])
+    shapes = ([(1, H, FULL_L, False), (2, H, 1100, True)] if route == "tiled"
+              else [(B, H, L, False), (n_prompts, 8, 77, True)])
+    errs = []
+    for i, (b, h, l, causal) in enumerate(shapes):
+        q, k, v = _flash_inputs(dev, dtype, b, h, l, 7 + i)
+        got = wrapper(q, k, v, 0.125, causal)
+        want = plain(q, k, v, 0.125, causal)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == want.shape, f"flash_{route}{tag}: {got.dtype} {tuple(got.shape)}")
+        who = f"flash_{route}{tag} kernel vs plain at ({b}, {h}, {l}, 64){' causal' if causal else ''}"
+        if fp32:
+            err = (got - want).abs().max().item()
+            print(f"{who}: max abs err {err:.3e} (tol 1e-4)")
+            check(math.isfinite(err) and err <= 1e-4, f"{who}: kernel disagrees")
+        else:
+            err = _check_scaled(who, got, want, 2e-2)
+        errs.append(err)
+        del got, want
+    b, h, l, _ = shapes[0]
+    q, k, v = _flash_inputs(dev, dtype, b, h, l, 7)
+    ms = time_ms(lambda: wrapper(q, k, v, 0.125))
+    plain_ms = time_ms(lambda: plain(q, k, v, 0.125, False), iters=5, warmup=1)
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125))
+    flops = 4 * b * h * l * l * 64  # QK^T and PV
+    nbytes = 4 * b * h * l * 64 * q.element_size()  # q, k, v read, out written
+    bnd, by = bound_ms(flops, peak, nbytes)
+    print(f"flash_{route}{tag} at ({b}, {h}, {l}, 64): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"SDPA forward {library:.4f} ms, bound {bnd:.4f} ms ({by}); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return {
+        "name": f"flash_{route}{tag}", "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/flash_attention.cu",
+        "replaces": ("clip_ebc_tpu/ops/flash_attention.py:197" if route == "tiled"
+                     else "clip_ebc_tpu/ops/flash_attention.py:154"),
+        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": library,
+    }
+
+
 def phase_int8_products(dev) -> None:
     """The integer products that lie outside the kernels (library calls, as
     the JAX package leaves them to XLA). The decoder's int8 convolution on
@@ -755,6 +845,195 @@ def phase_int8_path(dev, kernels: dict, profile: bool) -> None:
         print(p.key_averages().table(sort_by="cuda_time_total", row_limit=30))
 
 
+def _full_counters(reset: bool = False) -> dict:
+    from clip_ebc_tpu_torch.ops import flash_attention as fl
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+    from clip_ebc_tpu_torch.ops.fused_head import fused_ebc_head
+
+    fns = {"flash_tiled": fl.flash_tiled, "flash_short": fl.flash_short,
+           "fused_ln_qkv_attention": fa.fused_ln_qkv_attention, "fused_ebc_head": fused_ebc_head}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return {k: f.launches for k, f in fns.items()}
+
+
+def run_cli_full(img_dir: str, out: str, amp: bool) -> tuple:
+    """The predict CLI without ``--sliding_window`` on ``img_dir``, counters
+    zeroed just before and read just after: ``(count, launches)``."""
+    from clip_ebc_tpu_torch.cli import predict
+
+    argv = [img_dir, "--model", "clip_vit_b_16", "--reduction", "8", "--truncation", "4",
+            "--num_vpt", "32", "--seed", "0", "--out", out] + (["--amp"] if amp else [])
+    _full_counters(reset=True)
+    t0 = time.perf_counter()
+    predict.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _full_counters()
+    mode = "full image, " + ("bf16 (--amp)" if amp else "fp32 (default)")
+    print(f"predict CLI, {mode}: {secs:.1f} s (model build, weights, one image); launches {launches}")
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == 1, f"CSV has {len(rows)} rows")
+    count = float(rows[0]["count"])
+    check(math.isfinite(count), f"{mode}: CLI count {count} is not finite")
+    want = {"flash_tiled": 12, "flash_short": 0, "fused_ln_qkv_attention": 0, "fused_ebc_head": 1}
+    check(launches == want, f"{mode}: launches {launches}, expected {want}")
+    return count, launches
+
+
+def phase_full_image(dev, kernels: dict, profile: bool) -> None:
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.data.crowd import _load_image, normalize_image
+    from clip_ebc_tpu_torch.models import get_model
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        path = os.path.join(img_dir, "flagship.npy")
+        np.save(path, np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8))
+        cli_count, n = run_cli_full(img_dir, os.path.join(tmp, "full.csv"), amp=True)
+        kernels["flash_tiled"]["launches"] = n["flash_tiled"]
+        cli32_count, n32 = run_cli_full(img_dir, os.path.join(tmp, "full32.csv"), amp=False)
+        kernels["flash_tiled_fp32"]["launches"] = n32["flash_tiled"]
+        image = normalize_image(_load_image(path))
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+
+    def evaluator(dtype, windows=False, **paths):
+        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, dtype=dtype, num_vpt=32,
+                          seed=0, device=dev, **paths)
+        if windows:
+            return Evaluator(model, reduction=8, sliding_window=True, window_size=224,
+                             stride=224, pad_to_multiple=16)
+        return Evaluator(model, reduction=8, pad_to_multiple=16)
+
+    # ms per image and peak memory, bf16 then fp32; the bound: matmul and
+    # convolution FLOP of the kernel path (FlopCounterMode sees no kernel)
+    # plus the attention's 4 L^2 64 per head and layer
+    attn_flops = 12 * 4 * H * FULL_L * FULL_L * 64
+    for dtype, reps, peak, cli in ((torch.bfloat16, 5, PEAK_BF16, cli_count),
+                                   (torch.float32, 2, PEAK_FP32, cli32_count)):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        ev = evaluator(dtype)
+        density = ev.predict_density(image)
+        check(tuple(density.shape) == (IMAGE_HW[0] // 8, IMAGE_HW[1] // 8),
+              f"full-image density shape {tuple(density.shape)}")
+        check(bool(torch.isfinite(density).all()), "full-image density has non-finite values")
+        count = float(density.sum())
+        check(abs(cli - count) <= 1e-2 * abs(count), f"{tag}: CLI count {cli} differs from {count}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = time_image(ev, image, reps=reps)
+        peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        ev.model.requires_grad_(False)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            ev.predict_count(image)
+        flops = float(counter.get_total_flops()) + attn_flops
+        print(f"full image {IMAGE_HW[0]}x{IMAGE_HW[1]} ({FULL_L} tokens), {tag}: {ms:.2f} ms/image "
+              f"(median of {reps} after one warm-up), peak memory {peak_mem:.2f} GiB, count "
+              f"{count:.4f}; bound {flops / 1e12:.3f} TFLOP ({attn_flops / 1e12:.3f} of attention) / "
+              f"{peak / 1e12:.0f} TFLOP/s = {flops / peak * 1e3:.2f} ms ({ms / (flops / peak * 1e3):.1f}x)")
+        if profile and dtype == torch.bfloat16:
+            from torch.profiler import ProfilerActivity, profile as prof
+
+            with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                ev.predict_count(image)
+                torch.cuda.synchronize()
+            print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+        del ev, density
+
+    # kernel path against the plain path where the plain path's scores fit
+    small = normalize_image(np.random.default_rng(1).integers(0, 256, PLAIN_HW + (3,)).astype(np.float32) / 255.0)
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-3)):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        _full_counters(reset=True)
+        got = evaluator(dtype).predict_count(small)
+        torch.cuda.synchronize()
+        check(_full_counters()["flash_tiled"] == 12, f"{tag}: the {PLAIN_HW} image took no tiled kernel")
+        want = evaluator(dtype, attn_backend="sdpa", fused_head="off").predict_count(small)
+        rel = abs(got - want) / abs(want)
+        print(f"full image {PLAIN_HW[0]}x{PLAIN_HW[1]}, {tag}: kernels {got:.4f}, plain path {want:.4f}; "
+              f"|diff|/count {rel:.2e} (tol {tol:g})")
+        check(rel <= tol, f"{tag}: full-image kernel path and plain path disagree")
+
+    # the flagship windows and the text tower through attn_backend="flash"
+    for dtype, tol, name in ((torch.bfloat16, 1e-2, "flash_short"), (torch.float32, 1e-3, "flash_short_fp32")):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        ev = evaluator(dtype, windows=True, attn_backend="flash")
+        _full_counters(reset=True)
+        ev.text_features()
+        text_n = _full_counters()["flash_short"]
+        _full_counters(reset=True)
+        got = ev.predict_count(image)
+        torch.cuda.synchronize()
+        n = _full_counters()
+        check(text_n == 12 and n["flash_short"] == 12 and n["fused_ln_qkv_attention"] == 0,
+              f"{tag}: attn_backend='flash' launched {text_n} (text) and {n} (windows)")
+        kernels[name]["launches"] = text_n + n["flash_short"]
+        want = evaluator(dtype, windows=True).predict_count(image)
+        rel = abs(got - want) / abs(want)
+        ms = time_image(ev, image) if dtype == torch.bfloat16 else float("nan")
+        print(f"windows, attn_backend='flash', {tag}: 12 short launches in the text tower and 12 "
+              f"per forward; count {got:.4f} vs fused kernel path {want:.4f}, |diff|/count {rel:.2e} "
+              f"(tol {tol:g})" + (f"; {ms:.2f} ms/image" if dtype == torch.bfloat16 else ""))
+        check(rel <= tol, f"{tag}: flash-backend windows and the fused kernel path disagree")
+        del ev
+
+
+def phase_nwpu(dev) -> None:
+    """``cli/test_nwpu.py`` on a synthetic NWPU test tree, whole images in
+    bf16, against the predict CLI on the same images and weights."""
+    from PIL import Image
+
+    from clip_ebc_tpu_torch.cli import predict, test_nwpu
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.models import get_model
+
+    sizes = {3099: (1024, 768), 3098: (768, 1024)}
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "data", "nwpu", "test", "images")
+        os.makedirs(img_dir)
+        rng = np.random.default_rng(2)
+        for iid, hw in sizes.items():
+            Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8), "RGB").save(
+                os.path.join(img_dir, f"{iid}.jpg"))
+        bins, anchors = get_bins_and_anchors(8, 4, "nwpu")
+        weights = os.path.join(tmp, "ckpt", "best", "1.pt")
+        os.makedirs(os.path.dirname(weights))
+        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, seed=5, device=dev)
+        torch.save(model.state_dict(), weights)
+        del model
+        _full_counters(reset=True)
+        t0 = time.perf_counter()
+        test_nwpu.main(["--data_root", os.path.join(tmp, "data"), "--weight_path", weights,
+                        "--result_dir", os.path.join(tmp, "results"), "--amp", "--disable_size_check"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = _full_counters()
+        with open(os.path.join(tmp, "results", "best_1.txt")) as f:
+            text = f.read()
+        check(not text.endswith("\n"), "the submission file ends in a newline")
+        lines = [line.split(" ") for line in text.split("\n")]
+        check([r[0] for r in lines] == ["3098", "3099"], f"submission ids {[r[0] for r in lines]}")
+        check(n["flash_tiled"] == 24 and n["fused_ln_qkv_attention"] == 0,
+              f"test_nwpu launches {n}, expected 24 tiled")
+        dens = os.path.join(tmp, "dens")
+        predict.main([img_dir, "--bins_dataset", "nwpu", "--weight_path", weights, "--amp",
+                      "--save_density", dens, "--out", os.path.join(tmp, "p.csv"), "--device", str(dev)])
+        for iid, count in lines:
+            want = float(np.load(os.path.join(dens, f"{iid}.npy")).astype(np.float64).sum())
+            check(math.isfinite(float(count)) and abs(float(count) - want) <= 1e-5 * abs(want),
+                  f"test_nwpu count {count} of {iid} differs from the predict CLI's {want}")
+        print(f"test_nwpu CLI, 2 whole images ({sizes[3098][0]}x{sizes[3098][1]}, "
+              f"{sizes[3099][0]}x{sizes[3099][1]}), bf16: {secs:.1f} s (model build, weights, "
+              f"2 images); launches {n}; counts {[c for _, c in lines]} equal the predict CLI's")
+
+
 def _train_counters(reset: bool = False) -> dict:
     from clip_ebc_tpu_torch.ops import fused_attention as fa
     from clip_ebc_tpu_torch.ops.fused_head import fused_ebc_head
@@ -993,7 +1272,9 @@ def main(argv) -> int:
                phase_head(dev), phase_attention_bwd(dev, torch.bfloat16),
                phase_attention_bwd(dev, torch.float32), phase_ln_qkv_bwd_frozen(dev),
                phase_attention_int8(dev, torch.bfloat16), phase_attention_int8(dev, torch.float32),
-               phase_qkv_attention(dev, torch.bfloat16), phase_qkv_attention(dev, torch.float32)]
+               phase_qkv_attention(dev, torch.bfloat16), phase_qkv_attention(dev, torch.float32),
+               phase_flash(dev, "tiled", torch.bfloat16), phase_flash(dev, "tiled", torch.float32),
+               phase_flash(dev, "short", torch.bfloat16), phase_flash(dev, "short", torch.float32)]
     phase_int8_products(dev)
     print(f"phases 1-2: {time.perf_counter() - t0:.1f} s")
     by_name = {k["name"]: k for k in kernels}
@@ -1003,6 +1284,12 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_int8_path(dev, by_name, "--profile" in argv)
     print(f"phase 3b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_full_image(dev, by_name, "--profile" in argv)
+    print(f"phase 3c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_nwpu(dev)
+    print(f"phase 3d: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_training(dev, by_name, "--profile" in argv)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s")

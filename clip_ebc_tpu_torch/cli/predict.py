@@ -5,6 +5,10 @@ with the same flags and defaults, plus ``--device`` and ``--seed``.
     python -m clip_ebc_tpu_torch.cli.predict IMAGES --sliding_window \\
         --window_size 224 --stride 224 --amp --weight_path W.npz --out counts.csv
 
+Without ``--sliding_window`` each image runs whole, as one sequence: on
+the card the trunk's attention of a full image (L >= 1024 tokens; 24,609
+on a 2048 x 3072 image) is the tiled flash kernel
+(``ops/flash_attention.py``), and the windows' attention the fused kernel.
 ``--weight_path`` takes a port ``.pt`` state dict or a JAX prepared-tree
 ``.npz``; without it the weights are random from ``--seed``. Runs on
 ``cuda`` unless ``--device cpu`` is given. ``--quant int8`` runs the trunk

@@ -103,7 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     # Observability
     p.add_argument("--profile_dir", type=str, default=None)
     # Paths of the model
-    p.add_argument("--attn_backend", type=str, default="auto", choices=["auto", "fused", "sdpa"])
+    p.add_argument("--attn_backend", type=str, default="auto",
+                   choices=["auto", "fused", "flash", "sdpa"])
     p.add_argument("--fused_head", type=str, default="auto", choices=["auto", "on", "off"])
     p.add_argument("--decoder_before_upsample", action="store_true")
     p.add_argument("--device", type=str, default="cuda")

@@ -9,7 +9,9 @@ Canonical layout (as the JAX package's preprocessing writes it):
 
 ``CrowdDataset.__getitem__`` returns ``num_crops`` augmented crops of one
 image (float32 NHWC, ImageNet-normalized), their point lists and dot
-density maps.
+density maps. ``NWPUTestDataset`` lists the 1500 unlabeled NWPU-Crowd test
+images (``{root}/nwpu/test/images``) and returns one normalized image and
+its file name.
 """
 
 from __future__ import annotations
@@ -130,3 +132,40 @@ class CrowdDataset:
             axis=0,
         )
         return np.stack(images, axis=0), labels, densities
+
+
+class NWPUTestDataset:
+    """The 1500 unlabeled NWPU test images, ``.npy`` files if there are
+    any, else ``.jpg``, sorted by id; ``check_sizes`` asserts the split's
+    size."""
+
+    def __init__(
+        self,
+        data_root: str = "data",
+        transforms: Optional[Callable] = None,
+        check_sizes: bool = True,
+    ) -> None:
+        self.root = os.path.join(data_root, "nwpu")
+        image_dir = os.path.join(self.root, "test", "images")
+        npys = sorted(glob.glob(os.path.join(image_dir, "*.npy")), key=_get_id)
+        self.image_paths = npys if npys else sorted(
+            glob.glob(os.path.join(image_dir, "*.jpg")), key=_get_id
+        )
+        expected = SPLIT_SIZES["nwpu"]["test"]
+        if check_sizes and len(self.image_paths) != expected:
+            raise ValueError(
+                f"NWPU test split should have {expected} images, found {len(self.image_paths)}"
+            )
+        self.transforms = transforms
+
+    def __len__(self) -> int:
+        return len(self.image_paths)
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, str]:
+        """``(normalized (H, W, 3) image, file name)``; transforms see the
+        image with an empty point list and a fixed generator."""
+        path = self.image_paths[index]
+        image = _load_image(path)
+        if self.transforms is not None:
+            image, _ = self.transforms(image, np.zeros((0, 2), np.float32), np.random.default_rng(0))
+        return normalize_image(image), os.path.basename(path)

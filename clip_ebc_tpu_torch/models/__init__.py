@@ -36,7 +36,8 @@ def get_model(
     """The JAX factory's signature; ``input_size`` sets no weight shape of
     a ViT (its positional embedding resizes to any window) and is unused.
     ``kwargs`` go to :func:`build_clip_ebc` (``device``, ``seed``,
-    ``attn_backend``, ``fused_head`` ...)."""
+    ``attn_backend`` "auto" | "fused" | "flash" | "sdpa", ``fused_head``
+    ...)."""
     del input_size
     backbone = backbone.lower()
     if not backbone.startswith("clip_"):

@@ -7,7 +7,10 @@ then the patch grid. VPT prompts are owned by the CLIP-EBC model
 (``vpt_{i}``, the reference's names) and passed in: they sit at rows
 ``[1, 1 + num_vpt)`` for the whole trunk, and deep VPT overwrites those
 rows before blocks 1..depth-1, which equals the reference's
-strip-and-reinsert. No sequence padding: ``kv_len`` is the real length.
+strip-and-reinsert. No sequence padding: ``kv_len`` is the real length,
+so a full image's trunk (L >= 1024 tokens) goes to the flash kernel with
+no mask under ``attn_backend="auto"`` and every token attends to every
+other, as in the reference.
 In training mode, ``vpt_drop`` drops prompt entries (flax ``Dropout``
 semantics: keep with 1 - rate, scale by 1 / (1 - rate)) with noise from
 the caller's ``torch.Generator``. ``quant_int8`` makes the trunk's

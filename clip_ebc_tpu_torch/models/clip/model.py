@@ -67,14 +67,17 @@ FUSED_HEAD_MODES = ("auto", "on", "off")
 class ClipEBC(nn.Module):
     """CLIP-EBC blockwise count classifier over a ViT backbone.
 
-    ``attn_backend`` ("auto" | "fused" | "sdpa") picks the trunk's
-    attention path and ``fused_head`` ("auto" | "on" | "off") the head's;
-    "auto" means the CUDA kernels for CUDA tensors and the plain torch
-    versions for CPU tensors. ``quant_int8`` (inference only) makes the
-    trunk's projections and the decoder's convolutions W8A8; the 1x1
-    projection and the text tower stay unquantized. ``quant_mode="static"``
-    needs calibrated scales (``ops.quant.calibrate_int8`` on the dynamic
-    twin, then ``load_quant_state``)."""
+    ``attn_backend`` ("auto" | "fused" | "flash" | "sdpa") picks the
+    attention path of the trunk and the text tower
+    (``models/transformer.py`` ``attention_route``) and ``fused_head``
+    ("auto" | "on" | "off") the head's; "auto" means the CUDA kernels for
+    CUDA tensors (the fused attention kernel on windows, the tiled flash
+    kernel on a full image) and the plain torch versions for CPU tensors.
+    ``quant_int8`` (inference only) makes the trunk's projections and the
+    decoder's convolutions W8A8; the 1x1 projection and the text tower
+    stay unquantized. ``quant_mode="static"`` needs calibrated scales
+    (``ops.quant.calibrate_int8`` on the dynamic twin, then
+    ``load_quant_state``)."""
 
     def __init__(
         self,
@@ -138,7 +141,8 @@ class ClipEBC(nn.Module):
 
         text_width, text_heads = TEXT_CONFIGS[backbone]
         self.text_encoder = ClipTextEncoder(
-            embed_dim=embed_dim, width=text_width, heads=text_heads, layers=12, dtype=dtype
+            embed_dim=embed_dim, width=text_width, heads=text_heads, layers=12, dtype=dtype,
+            attn_backend=attn_backend,
         )
         tokens = tokenize(list(bin_prompts(self.bins, prompt_type)))
         self.register_buffer("text_tokens", torch.as_tensor(tokens, dtype=torch.long), persistent=False)

@@ -1,8 +1,12 @@
 """CLIP text encoder: counterpart of ``clip_ebc_tpu/models/clip/text_encoder.py``.
 
 Token + positional embedding -> causal-masked pre-LN transformer
-(QuickGELU, plain attention: the mask keeps it off the fused kernel) ->
-``ln_final`` -> EOT-token pooling through ``text_projection``.
+(QuickGELU) -> ``ln_final`` -> EOT-token pooling through
+``text_projection``. ``attn_backend`` routes each block's attention
+(``models/transformer.py`` ``attention_route``): ``"flash"`` takes the
+flash kernel with ``causal=True``; every other backend, ``"auto"``
+included (77 tokens are below ``FLASH_MIN_SEQ_LEN``, as the JAX
+``adaptive`` keeps them), the plain attention with the additive mask.
 """
 
 from __future__ import annotations
@@ -28,12 +32,13 @@ class ClipTextEncoder(nn.Module):
         heads: int = 8,
         layers: int = 12,
         dtype: torch.dtype = torch.float32,
+        attn_backend: str = "auto",
     ) -> None:
         super().__init__()
         self.dtype = dtype
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
-        self.transformer = Transformer(width, layers, heads, attn_backend="sdpa")
+        self.transformer = Transformer(width, layers, heads, attn_backend=attn_backend)
         self.ln_final = LayerNormF32(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 
@@ -43,7 +48,7 @@ class ClipTextEncoder(nn.Module):
         x = x + self.positional_embedding[None, : x.shape[1]].to(self.dtype)
         mask = causal_mask(x.shape[1], x.device)[None, None]
         for block in self.transformer.resblocks:
-            x = block(x, mask)
+            x = block(x, mask, causal=True)
         x = self.ln_final(x)
         # EOT pooling: the EOT token holds the largest id in each sequence
         pooled = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(-1)]

@@ -7,11 +7,16 @@ are fp32; linear layers compute in the dtype of their input, which the
 tower's first layer sets (``PatchifyMatmul``/the token embedding), and
 LayerNorm computes in fp32 and casts back.
 
-``attn_backend`` picks the attention path of a block: ``"fused"`` hands
-ln_1, the qkv projection and the attention to
-``ops.fused_attention.fused_ln_qkv_attention``; ``"sdpa"`` runs them as
-plain torch ops; ``"auto"`` means the kernel for CUDA tensors and the
-plain ops for CPU tensors, as the JAX ``"auto"`` means Pallas on a TPU.
+``attn_backend`` picks the attention path of a block (the table is
+:func:`attention_route`): ``"fused"`` hands ln_1, the qkv projection and
+the attention to ``ops.fused_attention.fused_ln_qkv_attention`` where its
+kernel applies; ``"flash"`` hands every attention to
+``ops.flash_attention.flash_attention`` (the text tower's with
+``causal=True``); ``"sdpa"`` runs them as plain torch ops; ``"auto"``
+means, on a CUDA tensor, the fused kernel where it applies, the flash
+kernel for an unmasked sequence of at least ``FLASH_MIN_SEQ_LEN`` tokens
+(the full image) and the plain ops otherwise, and the plain ops on a CPU
+tensor, as the JAX ``"auto"`` means Pallas on a TPU.
 
 ``quant_int8`` makes every projection of a block W8A8 (``ops/quant.py``).
 On the kernel path a static block hands ln_1, the int8 projection and the
@@ -30,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import HEAD_DIM as FLASH_HEAD_DIM
+from ..ops.flash_attention import flash_attention
 from ..ops.fused_attention import (
     fused_ln_qkv_attention,
     fused_ln_qkv_attention_int8,
@@ -47,8 +54,14 @@ from ..ops.quant import (
     record_amax,
 )
 
-ATTN_BACKENDS = ("auto", "fused", "sdpa")
+ATTN_BACKENDS = ("auto", "fused", "flash", "sdpa")
 FUSE_LN_MODES = ("auto", "off")
+# Shortest sequence "auto" sends to the flash kernel (JAX transformer.py:31):
+# below it the plain attention's (L, L) scores are small.
+FLASH_MIN_SEQ_LEN = 1024
+# What a block's attention may be masked by: nothing, the causal text mask,
+# keys >= kv_len, or another additive mask.
+MASK_KINDS = ("none", "causal", "padding", "other")
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -60,16 +73,39 @@ class QuickGELU(nn.Module):
         return quick_gelu(x)
 
 
-def use_fused_qkv(backend: str, x: torch.Tensor) -> bool:
-    """Whether a block should take the fused LN+qkv+attention call:
-    explicit ``"fused"``, or ``"auto"`` on a CUDA tensor."""
+def attention_route(backend: str, device_type: str, seq_len: int, mask: str,
+                    num_heads: int = 12, head_dim: int = 64) -> str:
+    """The attention path of a block: ``"fused"`` (the LN + qkv + attention
+    kernel, which masks keys >= kv_len itself), ``"flash"``
+    (``flash_attention``; a causal mask goes in as ``causal=True``) or
+    ``"plain"`` (``sdpa_attention`` with the additive mask).
+
+    * ``"sdpa"``: plain.
+    * ``"fused"``: fused where the kernel applies (no mask tensor, the
+      shapes of :func:`~..ops.fused_attention.supports`), else plain.
+    * ``"flash"``: flash for no mask and for the causal mask, plain for a
+      key-padding or any other mask (the flash kernel has no ``kv_len``).
+    * ``"auto"``: on ``cuda``, fused where it applies, then flash for an
+      unmasked sequence of at least FLASH_MIN_SEQ_LEN tokens, else plain
+      (the JAX package's einsum path below that length); plain on any
+      other device.
+
+    A key-padding mask is never read as causal."""
+    if backend not in ATTN_BACKENDS:
+        raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {backend!r}")
+    if mask not in MASK_KINDS:
+        raise ValueError(f"mask must be one of {MASK_KINDS}, got {mask!r}")
+    fits = mask in ("none", "padding") and supports(num_heads, head_dim, seq_len)
     if backend == "fused":
-        return True
-    if backend == "auto":
-        return x.is_cuda
-    if backend == "sdpa":
-        return False
-    raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {backend!r}")
+        return "fused" if fits else "plain"
+    if backend == "flash":
+        return "flash" if mask in ("none", "causal") and head_dim == FLASH_HEAD_DIM else "plain"
+    if backend == "auto" and device_type == "cuda":
+        if fits:
+            return "fused"
+        if mask == "none" and seq_len >= FLASH_MIN_SEQ_LEN and head_dim == FLASH_HEAD_DIM:
+            return "flash"
+    return "plain"
 
 
 class Linear(nn.Linear):
@@ -133,7 +169,9 @@ class MultiHeadAttention(nn.Module):
     fused kernel together with the qkv projection (bf16 or fp32, or int8
     with ``quant_int8`` in static mode); then ``x`` is the block input, not
     its LN output. ``fused_attn`` hands the attention of an unfused
-    projection to ``fused_qkv_attention``.
+    projection to ``fused_qkv_attention``, ``flash`` to
+    ``flash_attention``. ``causal`` says that ``mask`` is the causal mask:
+    the flash path takes it as ``causal=True``, the plain path adds it.
 
     With ``quant_int8`` both projections run W8A8, and the in-projection's
     recorded ranges live here: ``in_proj_act_amax`` (its input) and
@@ -179,6 +217,8 @@ class MultiHeadAttention(nn.Module):
         kv_len: Optional[int] = None,
         pre_ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None,
         fused_attn: bool = False,
+        flash: bool = False,
+        causal: bool = False,
     ) -> torch.Tensor:
         b, l, d = x.shape
         dh = d // self.num_heads
@@ -213,6 +253,13 @@ class MultiHeadAttention(nn.Module):
         def heads(t):
             return t.reshape(b, l, self.num_heads, dh).transpose(1, 2)
 
+        if flash:
+            if kv_len is not None and kv_len < l:
+                raise ValueError("flash (the kernel path) takes no key-padding mask")
+            # the kernel reads the head views through their strides, and its
+            # (B, H, L, dh) output is a view of a (B, L, H, dh) tensor
+            out = flash_attention(heads(q), heads(k), heads(v), dh**-0.5, causal)
+            return self.out_proj(out.transpose(1, 2).reshape(b, l, d))
         attn_mask = mask
         if kv_len is not None and kv_len < l:
             keys = torch.arange(l, device=x.device)
@@ -225,9 +272,9 @@ class MultiHeadAttention(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN block: x + MHA(ln_1(x)); x + MLP(ln_2(x)).
 
-    The kernel path is taken when ``attn_backend`` asks for it and the
-    kernels apply: no mask, head dim 64, D <= MAX_FUSED_DIM, L <=
-    MAX_FUSED_SEQ (:meth:`fused`). On it, ln_1 and the projection fold into
+    The path is :func:`attention_route`'s (:meth:`route`). On the fused
+    kernel path (no mask, head dim 64, D <= MAX_FUSED_DIM, L <=
+    MAX_FUSED_SEQ), ln_1 and the projection fold into
     the kernel (:meth:`fuse_ln`) unless ``fuse_ln_mode="off"``, a
     calibration pass is recording, or the block is dynamic int8, which has
     no precalibrated scale the kernel could take; those keep ln_1 and the
@@ -261,14 +308,17 @@ class ResidualAttentionBlock(nn.Module):
             c_fc=linear(dim, hidden), gelu=QuickGELU(), c_proj=linear(hidden, dim)
         ))
 
-    def fused(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:
+    def route(self, x: torch.Tensor, mask: Optional[torch.Tensor], kv_len: Optional[int],
+              causal: bool) -> str:
         _, l, d = x.shape
         heads = self.attn.num_heads
-        return (
-            use_fused_qkv(self.attn_backend, x)
-            and mask is None
-            and supports(heads, d // heads, l)
-        )
+        if causal:
+            kind = "causal"
+        elif mask is not None:
+            kind = "other"
+        else:
+            kind = "padding" if kv_len is not None and kv_len < l else "none"
+        return attention_route(self.attn_backend, x.device.type, l, kind, heads, d // heads)
 
     def fuse_ln(self) -> bool:
         """Whether a block on the kernel path folds ln_1 and the projection
@@ -281,13 +331,16 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(
         self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-        kv_len: Optional[int] = None,
+        kv_len: Optional[int] = None, causal: bool = False,
     ) -> torch.Tensor:
-        fused = self.fused(x, mask)
-        if fused and self.fuse_ln():
+        """``causal`` says that ``mask`` is the causal mask (the text
+        tower); the flash path then takes ``causal=True`` instead of it."""
+        route = self.route(x, mask, kv_len, causal)
+        if route == "fused" and self.fuse_ln():
             x = x + self.attn(x, kv_len=kv_len, pre_ln=(self.ln_1.weight, self.ln_1.bias, self.ln_1.eps))
         else:
-            x = x + self.attn(self.ln_1(x), mask, kv_len, fused_attn=fused)
+            x = x + self.attn(self.ln_1(x), mask, kv_len, fused_attn=route == "fused",
+                              flash=route == "flash", causal=causal)
         return x + self.mlp(self.ln_2(x))
 
 

@@ -23,7 +23,10 @@ from typing import Dict, List
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("fused_attention", "fused_attention_bwd", "fused_attention_int8", "fused_head")
+SOURCES = (
+    "flash_attention", "fused_attention", "fused_attention_bwd", "fused_attention_int8",
+    "fused_head",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

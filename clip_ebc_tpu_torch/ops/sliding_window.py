@@ -5,7 +5,8 @@ Windows are cut out with one advanced-indexing gather (the counterpart of
 both ``gather_windows_dense`` and the vmapped ``dynamic_slice`` path), run
 through the model as one batch, and reassembled by overlap-averaging
 (or max) with one scatter. Eager torch does not recompile per window
-count, so the batch is not padded to a bucket.
+count, so the batch is not padded to a bucket. :func:`resize_density_map`
+resizes a density map and keeps its mass.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def window_grid(
@@ -110,3 +112,16 @@ def sliding_window_predict(
             f"at reduction {reduction}"
         )
     return assemble_windows(preds, (h, w), window, stride, reduction, strategy)
+
+
+def resize_density_map(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of an ``(H, W)`` density map, rescaled to keep its
+    total mass (0 when the resized map sums to 0). ``jax.image.resize``'s
+    bilinear filter widens with the scale when it downsamples; here that
+    is ``antialias=True`` (upsampling is the same either way)."""
+    total = x.sum()
+    out = F.interpolate(x[None, None].float(), size=tuple(size), mode="bilinear",
+                        align_corners=False, antialias=True)[0, 0]
+    new_total = out.sum()
+    scale = torch.where(new_total > 0, total / new_total, torch.zeros_like(new_total))
+    return out * scale

@@ -19,7 +19,10 @@ and median 1e-3 of the largest output in bf16, 2e-3 and 1e-4 in fp32 (the
 kernel and the plain version take the LayerNorm sums in another order, so
 an int8 step of the LN output flips here and there, about 5e-5 of qkv
 each; a wrong scale or fold would move the median); its int32
-accumulators are exact on both sides.
+accumulators are exact on both sides. Flash attention: 2e-2 of the
+largest output in bf16 (P rounded at the same points), 1e-4 in fp32; the
+whole-image model against the plain path 1e-2 (bf16) and 1e-3 (fp32) of
+the count.
 """
 
 import numpy as np
@@ -40,6 +43,7 @@ from clip_ebc_tpu_torch.ops.fused_attention import (
     ln_qkv_bwd_frozen_plain,
     qkv_attention_plain,
 )
+from clip_ebc_tpu_torch.ops import flash_attention as fa
 from clip_ebc_tpu_torch.ops import quant
 from clip_ebc_tpu_torch.ops.fused_head import ebc_head_plain, fused_ebc_head
 from clip_ebc_tpu_torch.training.evaluate import Evaluator
@@ -423,3 +427,112 @@ def test_int8_model_takes_both_kernels_and_matches_plain_path(cuda, dtype):
         assert bool(torch.isfinite(density).all())
         counts[not paths] = float(density.sum())
     assert abs(counts[True] - counts[False]) <= 1e-2 * abs(counts[False])
+
+
+def _flash_inputs(b, h, l, seed, dev, dtype):
+    """q, k, v as the model hands them in: strided head views of a joint
+    qkv (B, L, 3 H 64) of unit variance."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.normal(size=(b, l, 3 * h * 64)).astype(np.float32)).to(dev, dtype)
+    return [t.reshape(b, l, h, 64).transpose(1, 2) for t in qkv.split(h * 64, dim=-1)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("route,b,h,l,causal", [
+    ("short", 4, 12, 229, False),  # flagship windows under attn_backend="flash"
+    ("short", 5, 8, 77, True),  # the text tower
+    ("short", 2, 2, 512, False),  # the longest short sequence: two key tiles, two sweeps
+    ("short", 2, 2, 300, True),
+    ("tiled", 1, 2, 1100, False),  # ragged: 8 full key tiles and one of 76 keys
+    ("tiled", 2, 3, 1100, True),
+    ("tiled", 1, 2, 513, False),
+])
+def test_flash_kernels_match_plain(cuda, route, b, h, l, causal, dtype):
+    dtype = getattr(torch, dtype)
+    q, k, v = _flash_inputs(b, h, l, seed=l + causal, dev=cuda, dtype=dtype)
+    wrapper = fa.flash_short if route == "short" else fa.flash_tiled
+    plain = fa.flash_short_plain if route == "short" else fa.flash_tiled_plain
+    before = wrapper.launches
+    got = wrapper(q, k, v, 0.125, causal)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, l, 64)
+    want = plain(q, k, v, 0.125, causal).float()
+    tol = 2e-2 * want.abs().max().item() if dtype == torch.bfloat16 else 1e-4
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+def test_flash_attention_routes_and_differentiates(cuda):
+    """``flash_attention`` launches the short kernel up to 512 tokens and
+    the tiled one above; its gradient is the einsum reference's."""
+    for l, wrapper in ((512, fa.flash_short), (513, fa.flash_tiled)):
+        q, k, v = (t.detach().requires_grad_(True) for t in
+                   _flash_inputs(1, 2, l, seed=l, dev=cuda, dtype=torch.float32))
+        before = wrapper.launches
+        out = fa.flash_attention(q, k, v)
+        assert wrapper.launches == before + 1
+        g = torch.randn_like(out)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        want = torch.autograd.grad(fa.attention_reference(q, k, v, 0.125, False), (q, k, v), g)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_wrappers_raise_instead_of_falling_back(cuda):
+    q, k, v = _flash_inputs(1, 2, 300, seed=0, dev=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        fa.flash_short(q.half(), k.half(), v.half(), 0.125)
+    with pytest.raises(ValueError, match="must be a"):
+        fa.flash_tiled(q.float(), k, v, 0.125)  # mixed dtypes
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_tiled(q[..., :32], k[..., :32], v[..., :32], 0.125)
+    long = _flash_inputs(1, 2, 600, seed=0, dev=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="flash_tiled"):
+        fa.flash_short(*long, 0.125)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_full_image_takes_the_tiled_kernel_and_matches_plain_path(cuda, dtype):
+    """A whole ViT-B/16 CLIP-EBC on a 512 x 512 image run whole (1 + 32 +
+    1024 = 1057 tokens): "auto" launches the tiled kernel 12 times and the
+    fused kernel never, and the count is that of the plain path."""
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    image = np.random.default_rng(2).normal(size=(512, 512, 3)).astype(np.float32)
+    tol = 1e-2 if dtype == "bfloat16" else 1e-3
+    counts = {}
+    for backend in ("auto", "sdpa"):
+        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, dtype=getattr(torch, dtype),
+                          num_vpt=32, seed=0, device=cuda, attn_backend=backend)
+        ev = Evaluator(model, reduction=8, pad_to_multiple=16)
+        ev.text_features()
+        fa.flash_tiled.launches = fused_ln_qkv_attention.launches = 0
+        density = ev.predict_density(image)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(density).all())
+        assert fa.flash_tiled.launches == (12 if backend == "auto" else 0)
+        assert fused_ln_qkv_attention.launches == 0
+        counts[backend] = float(density.sum())
+    assert abs(counts["auto"] - counts["sdpa"]) <= tol * abs(counts["sdpa"])
+
+
+def test_flash_backend_takes_the_short_kernel(cuda):
+    """``attn_backend="flash"`` on 64 px windows: the text tower (causal)
+    and the trunk each launch the short kernel 12 times, and the count is
+    that of the fused kernel path within the bf16 tolerance."""
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    image = np.random.default_rng(3).normal(size=(96, 144, 3)).astype(np.float32)
+    counts = {}
+    for backend in ("flash", "auto"):
+        model = get_model("clip_vit_b_16", 64, 8, bins, anchors, dtype=torch.bfloat16,
+                          num_vpt=32, seed=0, device=cuda, attn_backend=backend)
+        ev = Evaluator(model, reduction=8, sliding_window=True, window_size=64, stride=32,
+                       pad_to_multiple=16)
+        fa.flash_short.launches = 0
+        ev.text_features()
+        assert fa.flash_short.launches == (12 if backend == "flash" else 0)
+        fa.flash_short.launches = 0
+        density = ev.predict_density(image)
+        torch.cuda.synchronize()
+        assert fa.flash_short.launches == (12 if backend == "flash" else 0)
+        counts[backend] = float(density.sum())
+    assert abs(counts["flash"] - counts["auto"]) <= 1e-2 * abs(counts["auto"])

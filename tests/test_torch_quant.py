@@ -338,7 +338,8 @@ def test_block_static_int8_matches_jax_with_carried_and_own_calibration():
 
     static, dyn = port("static"), port("dynamic")
     block = static.resblocks[0]
-    assert block.fused(_t(x), None) and block.fuse_ln() and not dyn.resblocks[0].fuse_ln()
+    assert block.route(_t(x), None, None, False) == "fused"
+    assert block.fuse_ln() and not dyn.resblocks[0].fuse_ln()
     tq.load_quant_state(static, jax_state)
     with torch.no_grad():
         assert_close_max_median(block(_t(x)).numpy(), want)

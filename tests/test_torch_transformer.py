@@ -80,7 +80,7 @@ def test_residual_block_matches_jax(kv_len, backend, dtype):
         k[len("transformer."):]: v for k, v in sd.items()
     }).resblocks[0]
     assert isinstance(port, ResidualAttentionBlock)
-    assert port.fused(torch.zeros(1, l, d), None) == (backend == "fused")
+    assert (port.route(torch.zeros(1, l, d), None, kv_len, False) == "fused") == (backend == "fused")
     with torch.no_grad():
         got = port(torch.from_numpy(x).to(getattr(torch, dtype)), kv_len=kv_len).float().numpy()
     tol = TOL[dtype]

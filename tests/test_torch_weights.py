@@ -129,7 +129,7 @@ def test_port_imports_no_jax():
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
-    from clip_ebc_tpu_torch.cli import predict
+    from clip_ebc_tpu_torch.cli import predict, test_nwpu
     from clip_ebc_tpu_torch.utils.platform import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -141,4 +141,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     np.save(tmp_path / "img.npy", np.zeros((32, 32, 3), np.uint8))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         predict.main([str(tmp_path), "--out", str(tmp_path / "c.csv")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        test_nwpu.main(["--data_root", str(tmp_path), "--weight_path", str(tmp_path / "w.pt"),
+                        "--disable_size_check", "--result_dir", str(tmp_path / "r")])
+    assert not (tmp_path / "r").exists()  # nothing was written
     assert resolve_device("cpu") == torch.device("cpu")
