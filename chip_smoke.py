@@ -84,6 +84,23 @@ forward and the bound.
    bf16, with a weights file of the seeded model: 24 tiled launches, the
    submission file's format, and counts equal to the predict CLI's on the
    same images and weights.
+3e. the fully int8 attention through the same entry point: the predict CLI
+   on the flagship image by windows with ``--quant int8_static
+   --quant_attn`` in bf16 and fp32 (12 launches of the int8 attention
+   kernel per forward, none of the float one) and ``--quant_attn xla`` in
+   bf16 (no attention kernel on the static forward). Then, through the
+   Evaluator on one set of calibrated scales, ms per image of both modes
+   beside ``int8_static`` without ``--quant_attn`` and the unquantized
+   bf16 path, all in this call; the kernel and xla counts within 2e-2 of
+   each other (the JAX package's tolerance between the two modes) and each
+   count within 8e-2 of the bf16 count (its int8 tolerance). Before it, in
+   phase 2: the int8 attention on calibrated scales (static) and on
+   dynamic per-tile scales, and the W8A8 MLP (QuickGELU in bf16 and fp32,
+   the tanh GELU once), each against its plain version at the flagship
+   shapes (max 2e-2 and median 1e-3 of the largest output; the MLP's
+   median 1e-4 in fp32), timed beside the bound and the plain version. The
+   dynamic branch and the MLP are on no path of the package (the JAX
+   package calls them from its tests only): their launches are 0.
 
 The last lines are the card line, one JSON line describing every kernel
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX. With
@@ -121,6 +138,10 @@ CALIB_B = 16  # windows of one calibration batch (the first 16 of an image)
 # the flagship image run whole: 1 CLS + 32 prompts + its 128 x 192 patch grid
 FULL_L = 1 + 32 + (IMAGE_HW[0] // 16) * (IMAGE_HW[1] // 16)
 PLAIN_HW = (1024, 1536)  # the largest image whose plain-path (L, L) scores fit in fp32
+# kernels on no path of the package (the JAX package calls these TPU kernels
+# from its tests only): checked and timed in phase 2, launched 0 times
+OFF_PATH = ("int8_attention_dynamic", "int8_attention_dynamic_fp32", "fused_ln_mlp_int8",
+            "fused_ln_mlp_int8_fp32")
 
 
 def train_flags() -> list:
@@ -416,6 +437,137 @@ def phase_attention_int8(dev, dtype: torch.dtype) -> dict:
         "source": "clip_ebc_tpu_torch/csrc/fused_attention_int8.cu",
         "replaces": "clip_ebc_tpu/ops/fused_attention.py:541", "max_abs_err": max(errs),
         "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    }
+
+
+def _int8_attn_inputs(dev, dtype, seed):
+    """The flagship block's inputs with the scales a calibration records:
+    the LN output's max-abs / 127 and each of q, k, v's."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, L, D, generator=g, device=dev).to(dtype)
+    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
+    w = torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5  # the fp32 master weight
+    bias = 0.02 * torch.randn(3 * D, generator=g, device=dev)
+    y = torch.nn.functional.layer_norm(x.float(), (D,), ln_w, ln_b)
+    act_scale = y.abs().amax() / 127.0
+    aq = (y @ w.T + bias).reshape(-1, 3, D).abs().amax((0, 2)) / 127.0
+    return x, ln_w, ln_b, w, bias, act_scale, aq
+
+
+def phase_int8_attention_q(dev, dtype: torch.dtype, branch: str) -> dict:
+    """The fully int8 block attention at the flagship shape against its
+    plain version: ``static`` (calibrated q, k, v scales: the projection
+    writes int8 q, k, v, then the int8 attention kernel) or ``dynamic``
+    (the float projection, the per-tile scale pass, the same int8 attention
+    kernel). Max 2e-2 and median 1e-3 of the largest output in both dtypes:
+    a flipped int8 step of q, k, v or p moves an output by up to 1/127 of
+    its range, a wrong scale every output."""
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+    from clip_ebc_tpu_torch.ops.quant import quantize_weight
+
+    fp32 = dtype == torch.float32
+    tag = " fp32" if fp32 else ""
+    x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, dtype, 12)
+    wq = quantize_weight(w)
+    sm = (D // H) ** -0.5
+    block_b = 1 if fp32 else 2
+    kw = dict(attn_scales=aq) if branch == "static" else dict(quant_attn=True)
+
+    def plain(kv_len):
+        if branch == "static":
+            return fa.ln_qkv_attention_int8_static_plain(x, ln_w, ln_b, *wq, bias, act_scale, aq, H,
+                                                         kv_len, sm)
+        return fa.ln_qkv_attention_int8_dynamic_plain(x, ln_w, ln_b, *wq, bias, act_scale, H, kv_len,
+                                                      sm, block_b=block_b)
+
+    errs = []
+    for kv_len in (L, 200):
+        got = fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, kv_len, sm,
+                                             quantized=wq, **kw)
+        want = plain(kv_len)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype, f"int8 attention ({branch}) returned {got.dtype}, expected {dtype}")
+        errs.append(_check_max_median(f"int8 attention, {branch} scales{tag}, kernel vs plain, "
+                                      f"kv_len={kv_len}", got[:, :kv_len], want[:, :kv_len],
+                                      2e-2, 1e-3))
+        del got, want
+    ms = time_ms(lambda: fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, L, sm,
+                                                        quantized=wq, **kw))
+    plain_ms = time_ms(lambda: plain(L), iters=5, warmup=1)
+    m, es = B * L, x.element_size()
+    ops = 2 * m * D * 3 * D + 2 * 2 * B * H * L * L * (D // H)  # projection, QK^T and PV: all int8
+    nbytes = m * D * es * 2 + 3 * D * D + 2 * D * 4 + 2 * 3 * D * 4 + 4 + 3 * 4
+    bnd, by = bound_ms(ops, PEAK_INT8, nbytes)
+    print(f"int8 attention, {branch} scales{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bnd:.4f} ms ({by}: {ops / 1e9:.1f} GOP int8); {ops / ms / 1e9:.1f} TOP/s")
+    return {
+        "name": f"int8_attention_{branch}" + ("_fp32" if fp32 else ""), "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/fused_attention_int8.cu",
+        "replaces": ("clip_ebc_tpu/ops/fused_attention.py:195" if branch == "static"
+                     else "clip_ebc_tpu/ops/fused_attention.py:152"),
+        "launches": 0, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+        "bound_by": by, "library_ms": None,
+    }
+
+
+def phase_mlp_int8(dev, dtype: torch.dtype) -> dict:
+    """The W8A8 MLP (LN, int8 fc, GELU, int8 proj, residual) at the
+    flagship shape (140 windows x 229 tokens, D = 768, hidden 3072) against
+    its plain version: QuickGELU, and in bf16 the tanh GELU once. Max 2e-2
+    of the largest output (one flipped int8 step of an LN output moves all
+    3072 hidden units of its row: 6.6e-2 on outputs of magnitude 12 in
+    fp32 at this shape on an H100) and median 1e-3 in bf16, 1e-4 in fp32; in
+    fp32 the MLP branch (output - x) alone is also held to 5e-2 and 1e-3 of
+    its own largest magnitude (the residual would hide a wrong branch)."""
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+    from clip_ebc_tpu_torch.ops.quant import quantize_weight
+
+    fp32 = dtype == torch.float32
+    tag = " fp32" if fp32 else ""
+    hidden = 4 * D
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(B, L, D, generator=g, device=dev).to(dtype)
+    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
+    w_fc = 0.06 * torch.randn(hidden, D, generator=g, device=dev)
+    b_fc = 0.02 * torch.randn(hidden, generator=g, device=dev)
+    w_pj = 0.03 * torch.randn(D, hidden, generator=g, device=dev)
+    b_pj = 0.02 * torch.randn(D, generator=g, device=dev)
+    y = torch.nn.functional.layer_norm(x.float(), (D,), ln_w, ln_b)
+    hh = y @ w_fc.T + b_fc
+    act1 = y.abs().amax() / 127.0
+    act2 = (hh * torch.sigmoid(1.702 * hh)).abs().amax() / 127.0
+    del y, hh
+    qz = (*quantize_weight(w_fc), *quantize_weight(w_pj))
+    args = (x, ln_w, ln_b, w_fc, b_fc, act1, w_pj, b_pj, act2)
+    med_tol = 1e-4 if fp32 else 1e-3
+    errs = []
+    for quick in ((True,) if fp32 else (True, False)):
+        got = fa.fused_ln_mlp_int8(*args, quick_gelu=quick, quantized=qz)
+        want = fa.ln_mlp_int8_plain(x, ln_w, ln_b, *qz[:2], b_fc, act1, *qz[2:], b_pj, act2, quick)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype, f"int8 MLP returned {got.dtype}, expected {dtype}")
+        who = f"int8 MLP{tag} ({'QuickGELU' if quick else 'tanh GELU'}) kernel vs plain"
+        errs.append(_check_max_median(who, got, want, 2e-2, med_tol))
+        if fp32:
+            _check_max_median(who + ", MLP branch", got - x, want - x, 5e-2, 1e-3)
+        del got, want
+    ms = time_ms(lambda: fa.fused_ln_mlp_int8(*args, quantized=qz))
+    plain_ms = time_ms(lambda: fa.ln_mlp_int8_plain(x, ln_w, ln_b, *qz[:2], b_fc, act1, *qz[2:], b_pj,
+                                                    act2, True), iters=5, warmup=1)
+    m, es = B * L, x.element_size()
+    ops = 2 * 2 * m * D * hidden
+    nbytes = m * D * es * 2 + 2 * D * hidden + (2 * hidden + 2 * D + 2 * D) * 4 + 8
+    bnd, by = bound_ms(ops, PEAK_INT8, nbytes)
+    print(f"int8 MLP{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}: "
+          f"{ops / 1e9:.1f} GOP int8); {ops / ms / 1e9:.1f} TOP/s")
+    return {
+        "name": "fused_ln_mlp_int8" + ("_fp32" if fp32 else ""), "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/fused_mlp_int8.cu",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:850", "launches": 0,
+        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None,
     }
 
 
@@ -985,6 +1137,134 @@ def phase_full_image(dev, kernels: dict, profile: bool) -> None:
         del ev
 
 
+def _quant_attn_counters(reset: bool = False) -> dict:
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+    from clip_ebc_tpu_torch.ops.fused_head import fused_ebc_head
+
+    q = fa.fused_ln_qkv_attention_int8
+    names = {"int8_attention_static": (q, "launches_static"),
+             "int8_attention_dynamic": (q, "launches_dynamic"),
+             "fused_ln_qkv_attention_int8": (q, "launches"),
+             "fused_qkv_attention": (fa.fused_qkv_attention, "launches"),
+             "fused_ln_qkv_attention": (fa.fused_ln_qkv_attention, "launches"),
+             "fused_ebc_head": (fused_ebc_head, "launches")}
+    if reset:
+        for f, attr in names.values():
+            setattr(f, attr, 0)
+    return {k: getattr(f, attr) for k, (f, attr) in names.items()}
+
+
+def run_cli_quant_attn(img_dir: str, out: str, mode: str, amp: bool) -> tuple:
+    """The predict CLI by windows with ``--quant int8_static --quant_attn
+    MODE``, counters zeroed just before and read just after: ``(count,
+    launches)``."""
+    from clip_ebc_tpu_torch.cli import predict
+
+    argv = [img_dir, "--model", "clip_vit_b_16", "--reduction", "8", "--truncation", "4",
+            "--num_vpt", "32", "--sliding_window", "--window_size", "224", "--stride", "224",
+            "--seed", "0", "--quant", "int8_static", "--calib_images", "2", "--out", out,
+            "--quant_attn"] + ([] if mode == "kernel" else [mode]) + (["--amp"] if amp else [])
+    _quant_attn_counters(reset=True)
+    t0 = time.perf_counter()
+    predict.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _quant_attn_counters()
+    tag = f"--quant int8_static --quant_attn {mode}, " + ("bf16 (--amp)" if amp else "fp32")
+    print(f"predict CLI, {tag}: {secs:.1f} s (model build, weights, calibration, one image); "
+          f"launches {launches}")
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == 1, f"CSV has {len(rows)} rows")
+    count = float(rows[0]["count"])
+    check(math.isfinite(count), f"{tag}: CLI count {count} is not finite")
+    # one calibration batch (the float attention of the dynamic twin) and one
+    # static forward: the int8 attention kernel in every block ("kernel"), or
+    # the plain integer products and no attention kernel ("xla")
+    want = {"int8_attention_static": 12 if mode == "kernel" else 0, "int8_attention_dynamic": 0,
+            "fused_ln_qkv_attention_int8": 0, "fused_qkv_attention": 12,
+            "fused_ln_qkv_attention": 0, "fused_ebc_head": 2}
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    return count, launches
+
+
+def phase_quant_attn(dev, kernels: dict, profile: bool) -> None:
+    import argparse
+
+    from clip_ebc_tpu_torch.cli._common import calibrate_static_int8
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.data.crowd import _load_image, normalize_image
+    from clip_ebc_tpu_torch.models import get_model
+    from clip_ebc_tpu_torch.ops.quant import load_quant_state, quant_state
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        path = os.path.join(img_dir, "flagship.npy")
+        np.save(path, np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8))
+        cli_counts = {}
+        for mode, amp in (("kernel", True), ("kernel", False), ("xla", True)):
+            tag = f"{mode} {'bf16' if amp else 'fp32'}"
+            cli_counts[tag], n = run_cli_quant_attn(img_dir, os.path.join(tmp, f"{mode}{amp}.csv"),
+                                                    mode, amp)
+            if mode == "kernel":
+                kernels["int8_attention_static" + ("" if amp else "_fp32")]["launches"] = \
+                    n["int8_attention_static"]
+        image = normalize_image(_load_image(path))
+
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    args = argparse.Namespace(model="clip_vit_b_16", input_size=224, reduction=8, window_size=224)
+
+    def evaluator(**kw):
+        kw = dict(dict(dtype=torch.bfloat16, num_vpt=32, seed=0, device=dev), **kw)
+        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, **kw)
+        return Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                         pad_to_multiple=16), kw
+
+    kernel, kw = evaluator(quant_int8=True, quant_mode="static", quant_attn=True)
+    calibrate_static_int8(args, {k: v for k, v in kw.items() if k != "quant_mode"}, bins, anchors,
+                          kernel.model, [image])
+    state = quant_state(kernel.model)
+    xla, _ = evaluator(quant_int8=True, quant_mode="static", quant_attn="xla")
+    static, _ = evaluator(quant_int8=True, quant_mode="static")
+    for ev in (xla, static):
+        load_quant_state(ev.model, state)
+    bf16, _ = evaluator()
+    paths = {"int8_static --quant_attn kernel": kernel, "int8_static --quant_attn xla": xla,
+             "int8_static": static, "bf16": bf16}
+    counts, ms = {}, {}
+    for name, ev in paths.items():
+        density = ev.predict_density(image)
+        check(tuple(density.shape) == (IMAGE_HW[0] // 8, IMAGE_HW[1] // 8),
+              f"{name}: density shape {tuple(density.shape)}")
+        check(bool(torch.isfinite(density).all()), f"{name}: density has non-finite values")
+        counts[name] = float(density.sum())
+    for name, ev in paths.items():
+        ms[name] = time_image(ev, image)
+    ref = counts["bf16"]
+    k_count, x_count = counts["int8_static --quant_attn kernel"], counts["int8_static --quant_attn xla"]
+    rel_kx = abs(k_count - x_count) / abs(k_count)
+    print(f"flagship image, --quant_attn: " + ", ".join(f"{k} {v:.2f} ms/image" for k, v in ms.items())
+          + "; counts " + ", ".join(f"{k} {v:.4f}" for k, v in counts.items())
+          + f"; kernel vs xla |diff|/count {rel_kx:.2e} (tol 2e-2); CLI counts "
+          + ", ".join(f"{k} {v:.2f}" for k, v in cli_counts.items()))
+    check(rel_kx <= 2e-2, "--quant_attn kernel and xla counts disagree")
+    for name, count in list(counts.items())[:3] + [(f"CLI {k}", v) for k, v in cli_counts.items()]:
+        rel = abs(count - ref) / abs(ref)
+        print(f"  {name}: |count - bf16 count|/count {rel:.2e} (tol 8e-2)")
+        check(rel <= 8e-2, f"{name}: count {count} is more than 8e-2 from the bf16 count {ref}")
+    check(abs(cli_counts["kernel bf16"] - k_count) <= 1e-2 * abs(k_count),
+          "--quant_attn CLI count differs from the Evaluator's")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            kernel.predict_count(image)
+            torch.cuda.synchronize()
+        print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+
 def phase_nwpu(dev) -> None:
     """``cli/test_nwpu.py`` on a synthetic NWPU test tree, whole images in
     bf16, against the predict CLI on the same images and weights."""
@@ -1274,7 +1554,12 @@ def main(argv) -> int:
                phase_attention_int8(dev, torch.bfloat16), phase_attention_int8(dev, torch.float32),
                phase_qkv_attention(dev, torch.bfloat16), phase_qkv_attention(dev, torch.float32),
                phase_flash(dev, "tiled", torch.bfloat16), phase_flash(dev, "tiled", torch.float32),
-               phase_flash(dev, "short", torch.bfloat16), phase_flash(dev, "short", torch.float32)]
+               phase_flash(dev, "short", torch.bfloat16), phase_flash(dev, "short", torch.float32),
+               phase_int8_attention_q(dev, torch.bfloat16, "static"),
+               phase_int8_attention_q(dev, torch.float32, "static"),
+               phase_int8_attention_q(dev, torch.bfloat16, "dynamic"),
+               phase_int8_attention_q(dev, torch.float32, "dynamic"),
+               phase_mlp_int8(dev, torch.bfloat16), phase_mlp_int8(dev, torch.float32)]
     phase_int8_products(dev)
     print(f"phases 1-2: {time.perf_counter() - t0:.1f} s")
     by_name = {k["name"]: k for k in kernels}
@@ -1291,9 +1576,14 @@ def main(argv) -> int:
     phase_nwpu(dev)
     print(f"phase 3d: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    phase_quant_attn(dev, by_name, "--profile" in argv)
+    print(f"phase 3e: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_training(dev, by_name, "--profile" in argv)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s")
-    check(all(k.get("launches", 0) > 0 for k in kernels), "a kernel of the path was never launched")
+    check(all(k.get("launches", 0) > 0 for k in kernels if k["name"] not in OFF_PATH),
+          "a kernel of the path was never launched")
+    check(all("launches" in k for k in kernels), "a kernel has no launch count")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,9 @@ from __future__ import annotations
 
 from typing import Iterable
 
+# --quant_attn -> the models' quant_attn (the JAX CLIs' mapping)
+QUANT_ATTN = {"kernel": True, "xla": "xla", None: False}
+
 
 def check_quant_support(quant: str, model_name: str) -> None:
     """``--quant`` only quantizes the CLIP trunk and decoder: reject it for
@@ -21,7 +24,8 @@ def check_quant_support(quant: str, model_name: str) -> None:
 
 def calibrate_static_int8(args, model_kw, bins, anchors, model, images: Iterable) -> None:
     """Fill the quant state of ``model`` (built with ``quant_mode="static"``):
-    run a dynamic-quant twin with the same weights over window batches
+    run a dynamic-quant twin (``model_kw``, its ``quant_attn`` included,
+    as the JAX CLI builds it) with the same weights over window batches
     cut from ``images`` (arrays, already normalized): the first 16
     stride-``win`` windows of each, recording every quantized layer's
     activation max-abs (``ops.quant.calibrate_int8``), then load the

@@ -17,12 +17,16 @@ int8_static`` first calibrates static scales on the first
 ``--calib_images`` images:
 
     python -m clip_ebc_tpu_torch.cli.predict IMAGES --sliding_window --amp \
-        --quant int8_static --calib_images 2
+        --quant int8_static --calib_images 2 [--quant_attn [kernel|xla]]
 
-Not ported yet: ``--quant_attn`` (int8 QK^T and PV), ``--packed_eval`` and
-``--pretrained``; each raises. The options of those features
-(``--allow_byte_tokenizer``, ``--batch_windows``) are not accepted until
-the features are.
+``--quant_attn`` (with ``--quant int8_static`` only) runs QK^T and PV in
+int8 too, on the calibrated q, k and v scales: bare or ``kernel`` inside
+the int8 attention kernel of each window block, ``xla`` as plain integer
+products (``ops/int8_attention.py``) after the unfused int8 projection.
+
+Not ported yet: ``--packed_eval`` and ``--pretrained``; each raises. The
+options of those features (``--allow_byte_tokenizer``, ``--batch_windows``)
+are not accepted until the features are.
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --quant int8_static: images to calibrate the scales on")
     p.add_argument("--quant_attn", nargs="?", const="kernel", default=None,
                    choices=["kernel", "xla"],
-                   help="with --quant int8_static: int8 QK^T and PV (not ported yet)")
+                   help="with --quant int8_static: int8 QK^T and PV, in the attention "
+                   "kernel (bare or 'kernel') or as plain integer products ('xla')")
     p.add_argument("--packed_eval", action="store_true")
     p.add_argument("--out", type=str, default="predictions.csv")
     p.add_argument("--save_density", type=str, default=None,
@@ -94,7 +99,6 @@ def _list_images(spec: str):
 
 def _check_ported(args) -> None:
     todo = {
-        "--quant_attn (ROADMAP Queue 2, the quant_attn branches)": args.quant_attn is not None,
         "--packed_eval (ROADMAP Queue 1, remaining tooling)": args.packed_eval,
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
         "--regression (ROADMAP Queue 1, non-CLIP models)": args.regression,
@@ -125,7 +129,7 @@ def main(argv=None) -> None:
     from ..models.convert import load_weights
     from ..training.evaluate import Evaluator
     from ..utils.platform import resolve_device
-    from ._common import calibrate_static_int8, check_quant_support
+    from ._common import QUANT_ATTN, calibrate_static_int8, check_quant_support
 
     check_quant_support(args.quant, args.model)
     device = resolve_device(args.device)
@@ -137,6 +141,7 @@ def main(argv=None) -> None:
         dtype=torch.bfloat16 if args.amp else torch.float32,
         prompt_type=args.prompt_type, num_vpt=args.num_vpt, deep_vpt=not args.shallow_vpt,
         quant_int8=args.quant.startswith("int8"), seed=args.seed, device=device,
+        quant_attn=QUANT_ATTN[args.quant_attn],
     )
     model = get_model(
         args.model, args.input_size, args.reduction, bins, anchors,

@@ -17,11 +17,13 @@ weights file (a ``best/{epoch}.pt`` state dict) or a JAX prepared-tree
 extension, ``parent`` its directory's name, so ``CKPT/best/12.pt`` writes
 ``best_12.txt`` as the JAX CLI does for ``CKPT/best/12``. ``--quant int8``
 and ``--quant int8_static`` (calibrated on the first ``--calib_images``
-test images) run the trunk and the decoder W8A8. Runs on ``cuda`` unless
-``--device cpu`` is given.
+test images) run the trunk and the decoder W8A8; ``--quant_attn
+[kernel|xla]`` with ``--quant int8_static`` runs the attention in int8 too
+(see ``cli/predict.py``). Runs on ``cuda`` unless ``--device cpu`` is
+given.
 
-Not ported yet: ``--quant_attn``, ``--packed_eval``, ``--pretrained`` and
-``--regression``; each raises ``NotImplementedError``. The options of
+Not ported yet: ``--packed_eval``, ``--pretrained`` and ``--regression``;
+each raises ``NotImplementedError``. The options of
 those features (``--allow_byte_tokenizer``, ``--batch_windows``) are not
 accepted until the features are.
 """
@@ -65,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --quant int8_static: test images to calibrate the scales on")
     p.add_argument("--quant_attn", nargs="?", const="kernel", default=None,
                    choices=["kernel", "xla"],
-                   help="with --quant int8_static: int8 QK^T and PV (not ported yet)")
+                   help="with --quant int8_static: int8 QK^T and PV, in the attention "
+                   "kernel (bare or 'kernel') or as plain integer products ('xla')")
     p.add_argument("--packed_eval", action="store_true")
     p.add_argument("--limit", type=int, default=None,
                    help="process only the first N images (smoke tests)")
@@ -76,7 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args) -> None:
     todo = {
-        "--quant_attn (ROADMAP Queue 2, the quant_attn branches)": args.quant_attn is not None,
         "--packed_eval (ROADMAP Queue 1, remaining tooling)": args.packed_eval,
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
         "--regression (ROADMAP Queue 1, non-CLIP models)": args.regression,
@@ -134,7 +136,7 @@ def main(argv=None) -> None:
     from ..models import get_model
     from ..training.evaluate import Evaluator
     from ..utils.platform import resolve_device
-    from ._common import calibrate_static_int8, check_quant_support
+    from ._common import QUANT_ATTN, calibrate_static_int8, check_quant_support
 
     check_quant_support(args.quant, args.model)
     device = resolve_device(args.device)
@@ -147,6 +149,7 @@ def main(argv=None) -> None:
         dtype=torch.bfloat16 if args.amp else torch.float32,
         prompt_type=args.prompt_type, num_vpt=args.num_vpt, deep_vpt=not args.shallow_vpt,
         vpt_drop=args.vpt_drop, quant_int8=args.quant.startswith("int8"), device=device,
+        quant_attn=QUANT_ATTN[args.quant_attn],
     )
     model = get_model(
         args.model, args.input_size, args.reduction, bins, anchors,

@@ -1,289 +1,369 @@
-// LayerNorm -> static int8 quantize -> int8 x int8 -> int32 joint QKV
-// projection -> dequantize, the W8A8 pre-attention half of a ViT trunk block
-// (ports the int8 branch of the Pallas kernel
-// clip_ebc_tpu/ops/fused_attention.py: fused_ln_qkv_attention_int8 ->
-// _ln_qkv_forward's pallas_call, body _ln_qkv_kernel with an int8 w_ref and
-// quant_attn off). The masked attention that follows in the same Pallas body
-// is the attention launch of csrc/fused_attention.cu on the qkv written here
-// (ebc_qkv_attention / ebc_qkv_attention_f32), as in the unquantized port.
+// The W8A8 attention half of a ViT trunk block: LayerNorm -> static int8
+// quantize -> int8 x int8 -> int32 joint QKV projection, then the masked
+// attention in float or in int8. Ports the int8 branches of the Pallas
+// kernel clip_ebc_tpu/ops/fused_attention.py: fused_ln_qkv_attention_int8
+// -> _ln_qkv_forward's pallas_call, body _ln_qkv_kernel with an int8 w_ref:
+//  * attn_scales=None, quant_attn off (the float attention): the projection
+//    of csrc/int8_proj.cuh writing qkv in the activation dtype, then the
+//    attention launch of csrc/fused_attention.cu (ebc_ln_qkv_proj_int8);
+//  * attn_scales given (quant_attn="static", _pair_attention_body_static):
+//    the projection writes q, k and v as int8 with the calibrated scales
+//    folded into its dequantize multiply and bias (ebc_ln_qkv_proj_int8_q),
+//    then mha_int8_kernel on static scales (ebc_int8_attention, dynamic=0);
+//  * quant_attn=True without attn_scales (_pair_attention_body's int8
+//    branch): the float projection, then the scale pass below
+//    (ebc_qkv_quant_dynamic: max-abs per tile of block_b windows and head,
+//    per head pair for k; quantized q, k, v), then mha_int8_kernel on those
+//    scales (dynamic=1).
 //
-// What it computes, rounding where the TPU kernel rounds: fp32 LayerNorm of
-// x (M, D), not rounded to the activation dtype; yq = clip(round-half-even(y
-// * inv_act), -127, 127) with inv_act = 1 / act_scale read from device memory
-// (no host read of the calibrated scale); acc = yq . w_q^T in exact int32
-// (|acc| <= 127 * 127 * 768 < 2^24, so the conversion to fp32 is exact too);
-// qkv = acc * sw + bias in fp32 (sw = s_col * act_scale per output column,
-// folded on the host side of the launch), rounded to the activation dtype.
+// Bound of the fully int8 block attention at the flagship shape (B = 140
+// windows, L = 229, D = 768, 12 heads): 113.5 GOP for the projection and
+// 22.5 GOP for QK^T and PV, all int8, over the published H100 SXM peak
+// (1,979 TOP/s int8 dense, 700 W) = 0.069 ms; the bytes the function must
+// move (x in, out back, W) take 0.03 ms at 3.35 TB/s: operations bound it.
+// The split into two launches adds the int8 qkv round trip (74 MB, 0.022 ms
+// each way), half the bf16 qkv of the float attention.
 //
-// Bound. At the flagship shape (M = 140 x 229 = 32060 rows, D = 768, N =
-// 2304) the product is 113.5 GOP of int8; at the published H100 SXM peaks
-// (1,979 TOP/s int8 dense, 989 TFLOP/s bf16, 3.35 TB/s, 700 W) that is 0.057
-// ms of tensor work, plus 0.023 ms for the 22.5 GFLOP of the attention that
-// follows: 0.08 ms for the whole function, against ~100 MB that it must move
-// (x in, out back, W) = 0.03 ms, so operations bound it. This launch on its
-// own also writes qkv for the attention launch to read back (148 MB in
-// bf16, 0.044 ms each way): the cost of the two-launch split.
+// mha_int8_kernel, simple first (mma.sync.m16n8k32.s8, no wgmma): one block
+// (4 warps) per (64-query tile, head, window), as the bf16 mha_kernel.
+//  * K_h of the window lands in shared memory as it is, key-major, which is
+//    the K-major B operand of QK^T. Each warp keeps its 16 query rows' int32
+//    scores over the whole key range in registers, so the softmax is exact
+//    over the row, as on the TPU: scores dequantized in fp32 (static: acc *
+//    (s_q s_k sm_scale); dynamic: (acc * (s_q s_k)) * sm_scale), keys >=
+//    kv_len at kNegInf, row max, p = exp(s - max), r = sum of the unrounded
+//    p, p8 = round(p * 127) in [0, 127].
+//  * PV needs B = V K-major over keys, but int8 mma takes B only as
+//    row.col and ldmatrix.trans / movmatrix exist for 16-bit elements only.
+//    So V_h is transposed while it is staged into shared memory (64 rows of
+//    keys). Its keys are also permuted within each 16: lane t of a quad
+//    holds in its score accumulators keys 2t, 2t+1 of each 8-key tile,
+//    while the A operand wants 4 consecutive k slots a lane; mapping slot
+//    4t + e to key 2t + e (e < 2) or 8 + 2t + e - 2 (e >= 2) lets P go from
+//    the accumulators to the A operand without a shuffle, and V^T's rows
+//    hold the keys in that slot order (vt_slot), so ldmatrix reads B as for
+//    K. The key axis pads to a multiple of 64 with p8 = 0 and v = 0.
+//  * Output: static (PV / r) * (s_v / 127), dynamic (PV * (s_v / 127)) / r,
+//    the rounding order of each Pallas body; stored in the activation dtype
+//    as pairs, head-concatenated.
+//  * Each query tile of a (head, window) stages K and V again (4 times at L
+//    = 229, from L2 after the first).
 //
-// Design, simple first (mma.sync, no wgmma yet):
-//  * one block of 8 warps per 128 rows. Each warp LayerNorms 16 rows straight
-//    from device memory (a row in registers, two-pass mean / variance, 8
-//    columns a lane at a time, coalesced 16-byte loads) and writes them
-//    quantized into shared memory as int8: 128 rows x D bytes stay resident
-//    (pitch D + 16, so the 8 rows of an ldmatrix hit distinct banks), half
-//    the bf16 tile of the unquantized kernel, so a block takes twice its
-//    rows and W is streamed half as often.
-//  * W is read in torch's (out, in) layout, which is the K-major ("col") B
-//    operand of mma.sync.m16n8k32.s8 as it stands. A 4-stage cp.async ring
-//    of 128-column x 128-deep int8 tiles (pitch 144) streams all 3D columns
-//    past the resident rows, tile p + 2 landing while p computes: one
-//    __syncthreads a tile.
-//  * warps tile the 128 x 128 output chunk 4 x 2: a warp owns 32 rows x 64
-//    columns = 2 x 8 m16n8 accumulators (64 int32 registers), fed by
-//    ldmatrix.x4 (an 8 x 16-byte matrix is an 8-row x 16-deep int8 fragment).
-//  * epilogue per 128-column chunk, from the accumulators: int32 -> fp32,
-//    * sw + bias with separate multiply and add (as the plain version
-//    rounds), stored as bf16 pairs or float pairs.
-//  * fp32 activations (a model run without --amp) take the same int8
-//    product; only the loads of x and the stores of qkv differ.
-//
-// Limits: D a multiple of 128, D <= 768 (the resident rows and the ring fill
-// shared memory; a lane holds a row's 8-column chunks in registers).
+// Limits: D a multiple of 128, D <= 768 (the projection), head dim 64, L <=
+// 320 (the score rows live in registers).
 
-#include "common.cuh"
+#include "int8_proj.cuh"
 
 namespace ebc {
 namespace {
 
-constexpr int kQM = 128;        // rows per block
-constexpr int kQN = 128;        // output columns per chunk
-constexpr int kQK = 128;        // depth (bytes) of one W tile
-constexpr int kQStages = 4;     // W tiles in the ring ...
-constexpr int kQAhead = 2;      // ... tile p + 2 lands while p computes and p - 1 may still be read
-constexpr int kQThreads = 256;  // 8 warps: 4 along rows x 2 along columns
-constexpr int kQWPitch = kQK + 16;  // W tile row pitch: ldmatrix rows hit distinct banks
-constexpr int kQLnChunks = 3;   // 8-column chunks a lane holds in the LayerNorm
-constexpr int kQMaxDim = kQLnChunks * 256;
+// ---- the int8 attention ----------------------------------------------------
+constexpr int kDh8 = 64;
+constexpr int kKPitch8 = kDh8 + 16;  // K rows: 80 B, the 8 rows of an ldmatrix hit distinct banks
+constexpr int kI8Warps = 4;          // 16 query rows each
+constexpr int kI8QTile = 16 * kI8Warps;
+constexpr int kI8KeyQuantum = 64;    // keys are padded to a multiple of this
+constexpr int kI8MaxKeys = 320;
+constexpr int kI8MaxHeads = kQMaxDim / kDh8;
 
-size_t qproj_smem_bytes(int d) {
-  return (size_t)kQM * (d + 16) + (size_t)kQStages * kQN * kQWPitch;
+// K rows + V^T (64 rows of lp + 16 bytes: an odd multiple of 16, so the 8
+// rows of an ldmatrix hit distinct banks)
+size_t i8_attn_smem_bytes(int lp) { return (size_t)lp * kKPitch8 + (size_t)kDh8 * (lp + 16); }
+
+// Position of key r in V^T's row: the k slot order of the PV A operand
+// within each 16 keys (slot 4t + e holds key 2t + e for e < 2, 8 + 2t + e -
+// 2 for e >= 2).
+__device__ __forceinline__ int vt_slot(int r) {
+  const int k = r & 15;
+  return (r & ~15) + 4 * ((k & 7) >> 1) + (k & 1) + ((k >> 3) << 1);
 }
 
-// c (16x8 int32) += a (16x32 int8, row-major) . b (32x8 int8, column-major).
-// Lane (g = lane / 4, t = lane % 4) holds a = {(g, 4t..4t+3), (g+8, 4t..),
-// (g, 16+4t..), (g+8, 16+4t..)}, b = {(4t..4t+3, g), (16+4t.., g)} and
-// c = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// p in [0, 1] -> round(p * 127), four of them packed, the first lowest
+__device__ __forceinline__ uint32_t pack_p8(float a, float b, float c, float d) {
+  return (uint32_t)__float2int_rn(__fmul_rn(a, 127.f)) |
+         ((uint32_t)__float2int_rn(__fmul_rn(b, 127.f)) << 8) |
+         ((uint32_t)__float2int_rn(__fmul_rn(c, 127.f)) << 16) |
+         ((uint32_t)__float2int_rn(__fmul_rn(d, 127.f)) << 24);
 }
 
-// 8 consecutive values of a row as floats.
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h2[e]);
-    v[2 * e] = f.x;
-    v[2 * e + 1] = f.y;
-  }
-}
+// KC = padded key count / 32; the scores of a warp's 16 rows are 4 KC
+// accumulator tiles of 16 x 8 held in registers. scales: static (3,) =
+// (s_q, s_k, s_v); dynamic (B, H, 3).
+template <typename T, int KC>
+__global__ void __launch_bounds__(kI8Warps * 32, 2)
+mha_int8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ scales,
+                T* __restrict__ out, int l, int num_heads, int kv_len, float sm_scale,
+                int dynamic) {
+  constexpr int LP = KC * 32, VP = LP + 16, NT = LP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ks = smem;
+  unsigned char* vt = smem + (size_t)LP * kKPitch8;
 
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// round-half-even to int, clipped to the symmetric int8 range
-__device__ __forceinline__ int quant8(float y, float inv_act) {
-  return max(-127, min(127, __float2int_rn(__fmul_rn(y, inv_act))));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kQThreads, 1)
-ln_qkv_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, const int8_t* __restrict__ w,
-                        const float* __restrict__ sw, const float* __restrict__ bias,
-                        const float* __restrict__ inv_act_ptr, T* __restrict__ qkv, int m, int d,
-                        int n, float eps) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int apitch = d + 16;
-  unsigned char* as = smem_raw;
-  unsigned char* ws = smem_raw + (size_t)kQM * apitch;
-  constexpr int kWStage = kQN * kQWPitch;
-
-  const int row0 = blockIdx.x * kQM;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int d = num_heads * kDh8, three_d = 3 * d;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nk = d / kQK;            // W tiles per column chunk
-  const int total = (n / kQN) * nk;  // W tiles over all chunks
-
-  // W tile p: column chunk p / nk, depth tile p % nk
-  auto load_w = [&](int p) {
-    unsigned char* dst = ws + (size_t)(p % kQStages) * kWStage;
-    const int col0 = (p / nk) * kQN, k0 = (p % nk) * kQK;
-    for (int i = tid; i < kQN * (kQK / 16); i += kQThreads) {
-      const int r = i >> 3, c = i & 7;
-      cp_async16(dst + r * kQWPitch + c * 16, w + (size_t)(col0 + r) * d + k0 + c * 16, true);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < kQAhead; ++s) {
-    if (s < total) load_w(s);
-    cp_async_commit();
-  }
-
-  // 1. LayerNorm in fp32 and quantize, a warp 16 rows, a lane 8 columns at a
-  //    time (the same columns in every row: gamma and beta loaded once),
-  //    while the first W tiles land
-  const float inv_act = *inv_act_ptr;
-  const int xvec = d / 8;
-  float gam[kQLnChunks][8], bet[kQLnChunks][8];
-#pragma unroll
-  for (int c = 0; c < kQLnChunks; ++c) {
-    const int cc = c * 32 + lane;
-    if (cc < xvec) {
-      load8(gamma + cc * 8, gam[c]);
-      load8(beta + cc * 8, bet[c]);
-    }
-  }
-  for (int r = warp * (kQM / 8); r < (warp + 1) * (kQM / 8); ++r) {
-    const int gr = row0 + r;
-    float v[kQLnChunks][8];
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kQLnChunks; ++c) {
-      const int cc = c * 32 + lane;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[c][e] = 0.f;
-      if (cc < xvec && gr < m) load8(x + (size_t)gr * d + cc * 8, v[c]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sum += v[c][e];
-    }
-    const float mu = warp_sum(sum) / d;
-    float var = 0.f;
-#pragma unroll
-    for (int c = 0; c < kQLnChunks; ++c) {
-      if (c * 32 + lane < xvec) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) var += (v[c][e] - mu) * (v[c][e] - mu);
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(var) / d + eps);
-#pragma unroll
-    for (int c = 0; c < kQLnChunks; ++c) {
-      const int cc = c * 32 + lane;
-      if (cc < xvec) {
-        uint32_t packed[2] = {0u, 0u};
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float y = __fadd_rn(__fmul_rn(__fmul_rn(v[c][e] - mu, rstd), gam[c][e]), bet[c][e]);
-          packed[e >> 2] |= (uint32_t)(quant8(y, inv_act) & 0xff) << (8 * (e & 3));
-        }
-        *reinterpret_cast<uint2*>(as + (size_t)r * apitch + cc * 8) =
-            make_uint2(packed[0], packed[1]);
-      }
-    }
-  }
-  // (the first __syncthreads of the main loop publishes the quantized rows)
-
-  // 2. for each 128-column chunk: C[128 x 128] = Yq[128 x d] . Wq[chunk, :]^T,
-  //    warp (wm, wn) taking rows [32 wm, +32) x columns [64 wn, +64)
-  const int wm = warp >> 1, wn = warp & 1;
   const int g = lane >> 2, t = lane & 3;
-  // ldmatrix addresses: A matrices {rows 0-7, k 0-15}, {rows 8-15, k 0-15},
-  // {rows 0-7, k 16-31}, {rows 8-15, k 16-31}; B matrices {n 0-7, k 0-15},
-  // {n 0-7, k 16-31}, {n 8-15, k 0-15}, {n 8-15, k 16-31}
-  const int a_row = wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8, a_k = (lane >> 4) * 16;
-  const int b_row = wn * 64 + (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 16;
-  int acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  const int8_t* base = qkv + (size_t)b * l * three_d + h * kDh8;
 
-  for (int p = 0; p < total; ++p) {
-    const int kt = p % nk;
-    cp_async_wait<kQAhead - 1>();
-    __syncthreads();  // tile p landed for everyone; tile p-2's reads are done
-    if (p + kQAhead < total) load_w(p + kQAhead);  // into tile p-2's stage
-    cp_async_commit();
+  // K_h rows (zero past l) by cp.async, all in flight at once
+  for (int i = tid; i < LP * (kDh8 / 16); i += kI8Warps * 32) {
+    const int r = i >> 2, c = i & 3;
+    cp_async16(ks + (size_t)r * kKPitch8 + c * 16, base + (size_t)(r < l ? r : 0) * three_d + d + c * 16,
+               r < l);
+  }
+  cp_async_commit();
+  // V_h transposed into V^T rows, keys in slot order (zero past l)
+  for (int i = tid; i < LP * (kDh8 / 4); i += kI8Warps * 32) {
+    const int r = i >> 4, c = i & 15;
+    const uint32_t v = r < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r * three_d + 2 * d + c * 4) : 0u;
+    const int pos = vt_slot(r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) vt[(size_t)(4 * c + e) * VP + pos] = (unsigned char)(v >> (8 * e));
+  }
 
-    const unsigned char* at = as + (size_t)a_row * apitch + kt * kQK + a_k;
-    const unsigned char* bt = ws + (size_t)(p % kQStages) * kWStage + b_row * kQWPitch + b_k;
-#pragma unroll
-    for (int kk = 0; kk < kQK / 32; ++kk) {
-      uint32_t af[2][4];
-      ldmatrix_x4(af[0], at + kk * 32);
-      ldmatrix_x4(af[1], at + 16 * apitch + kk * 32);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t bf[4];  // column tiles 2jj and 2jj+1: {b0, b1} each
-        ldmatrix_x4(bf, bt + jj * 16 * kQWPitch + kk * 32);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_s8(acc[i][2 * jj], af[i], bf[0], bf[1]);
-          mma_s8(acc[i][2 * jj + 1], af[i], bf[2], bf[3]);
-        }
-      }
-    }
+  // dequantize factors, in each Pallas body's order
+  float s_qk, s_pv;
+  if (dynamic) {
+    const float* sc = scales + ((size_t)b * num_heads + h) * 3;
+    s_qk = __fmul_rn(sc[0], sc[1]);
+    s_pv = __fdiv_rn(sc[2], 127.f);
+  } else {
+    s_qk = __fmul_rn(__fmul_rn(scales[0], scales[1]), sm_scale);
+    s_pv = __fmul_rn(scales[2], 1.f / 127.f);
+  }
 
-    if (kt == nk - 1) {
-      // epilogue of the chunk: dequantize, + bias, round, store
-      const int col0 = (p / nk) * kQN + wn * 64;
+  // Q fragments of the warp's 16 rows straight from device memory, while K
+  // and V land
+  const int q0 = blockIdx.x * kI8QTile + warp * 16;
+  const int r0 = q0 + g, r1 = q0 + g + 8;
+  uint32_t qa[kDh8 / 32][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = col0 + j * 8 + 2 * t;
-        const float s0 = sw[col], s1 = sw[col + 1], b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r0 = row0 + wm * 32 + i * 16 + g, r1 = r0 + 8;
-          if (r0 < m)
-            store2(qkv + (size_t)r0 * n + col,
-                   __fadd_rn(__fmul_rn((float)acc[i][j][0], s0), b0),
-                   __fadd_rn(__fmul_rn((float)acc[i][j][1], s1), b1));
-          if (r1 < m)
-            store2(qkv + (size_t)r1 * n + col,
-                   __fadd_rn(__fmul_rn((float)acc[i][j][2], s0), b0),
-                   __fadd_rn(__fmul_rn((float)acc[i][j][3], s1), b1));
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-        }
-      }
-    }
+  for (int kk = 0; kk < kDh8 / 32; ++kk) {
+    const int c = kk * 32 + 4 * t;
+    qa[kk][0] = r0 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * three_d + c) : 0u;
+    qa[kk][1] = r1 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * three_d + c) : 0u;
+    qa[kk][2] = r0 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * three_d + c + 16) : 0u;
+    qa[kk][3] = r1 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * three_d + c + 16) : 0u;
   }
   cp_async_wait<0>();
+  __syncthreads();
+  if (q0 >= l) return;  // no block-wide barrier follows
+
+  // S = Q K^T in int32: tile j holds keys 8j..8j+7
+  int acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < kDh8 / 32; ++kk) {
+      uint32_t kb[4];  // key tiles 2j and 2j+1: {b0, b1} each
+      ldmatrix_x4(kb, ks + (size_t)(j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kKPitch8 + kk * 32 +
+                          ((lane >> 3) & 1) * 16);
+      mma_s8(acc[2 * j], qa[kk], kb[0], kb[1]);
+      mma_s8(acc[2 * j + 1], qa[kk], kb[2], kb[3]);
+    }
+  }
+
+  // dequantize, mask, row max; rows g and g+8 are spread over the lane quad
+  float s[NT][4];
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool valid = j * 8 + 2 * t + (e & 1) < kv_len;
+      const float v = dynamic ? __fmul_rn(__fmul_rn((float)acc[j][e], s_qk), sm_scale)
+                              : __fmul_rn((float)acc[j][e], s_qk);
+      s[j][e] = valid ? v : kNegInf;
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  // unnormalized softmax: p = exp(s - rowmax) in fp32, rowsum of the unrounded p
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = expf(s[j][e] - mx0);
+      s[j][2 + e] = expf(s[j][2 + e] - mx1);
+      sum0 += s[j][e];
+      sum1 += s[j][2 + e];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+  }
+
+  // O = p8 V in int32: score tiles 4i..4i+3 are the A operand of the keys of
+  // chunk i in slot order
+  int o[kDh8 / 8][4];
+#pragma unroll
+  for (int i = 0; i < kDh8 / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0;
+#pragma unroll
+  for (int i = 0; i < KC; ++i) {
+    const int j = 4 * i;
+    const uint32_t pa[4] = {
+        pack_p8(s[j][0], s[j][1], s[j + 1][0], s[j + 1][1]),
+        pack_p8(s[j][2], s[j][3], s[j + 1][2], s[j + 1][3]),
+        pack_p8(s[j + 2][0], s[j + 2][1], s[j + 3][0], s[j + 3][1]),
+        pack_p8(s[j + 2][2], s[j + 2][3], s[j + 3][2], s[j + 3][3])};
+#pragma unroll
+    for (int dn = 0; dn < kDh8 / 16; ++dn) {
+      uint32_t vb[4];  // dh tiles 2dn and 2dn+1: {b0, b1} each
+      ldmatrix_x4(vb, vt + (size_t)(dn * 16 + (lane & 7) + ((lane >> 4) << 3)) * VP + i * 32 +
+                          ((lane >> 3) & 1) * 16);
+      mma_s8(o[2 * dn], pa, vb[0], vb[1]);
+      mma_s8(o[2 * dn + 1], pa, vb[2], vb[3]);
+    }
+  }
+
+  // dequantize and normalize, head-concatenated
+  T* orow0 = out + ((size_t)b * l + r0) * d + h * kDh8;
+  T* orow1 = out + ((size_t)b * l + r1) * d + h * kDh8;
+#pragma unroll
+  for (int i = 0; i < kDh8 / 8; ++i) {
+    const int c = i * 8 + 2 * t;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float sum = e < 2 ? sum0 : sum1;
+      v[e] = dynamic ? __fdiv_rn(__fmul_rn((float)o[i][e], s_pv), sum)
+                     : __fmul_rn(__fdiv_rn((float)o[i][e], sum), s_pv);
+    }
+    if (r0 < l) store2(orow0 + c, v[0], v[1]);
+    if (r1 < l) store2(orow1 + c, v[2], v[3]);
+  }
+}
+
+template <typename T, int KC>
+cudaError_t launch_mha_int8(const int8_t* qkv, const float* scales, T* out, int batch, int l,
+                            int num_heads, int kv_len, float sm_scale, int dynamic,
+                            cudaStream_t st) {
+  const size_t smem = i8_attn_smem_bytes(KC * 32);
+  cudaError_t e = cudaFuncSetAttribute(mha_int8_kernel<T, KC>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((l + kI8QTile - 1) / kI8QTile, num_heads, batch);
+  mha_int8_kernel<T, KC><<<grid, kI8Warps * 32, smem, st>>>(qkv, scales, out, l, num_heads, kv_len,
+                                                            sm_scale, dynamic);
+  return cudaGetLastError();
+}
+
+// The padded key count picks the instantiation.
+template <typename T>
+cudaError_t launch_mha_int8_any(const void* qkv, const void* scales, void* out, int batch, int l,
+                                int num_heads, int kv_len, float sm_scale, int dynamic,
+                                cudaStream_t st) {
+  const int8_t* q = static_cast<const int8_t*>(qkv);
+  const float* sc = static_cast<const float*>(scales);
+  T* o = static_cast<T*>(out);
+  switch ((l + kI8KeyQuantum - 1) / kI8KeyQuantum) {
+    case 1: return launch_mha_int8<T, 2>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
+    case 2: return launch_mha_int8<T, 4>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
+    case 3: return launch_mha_int8<T, 6>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
+    case 4: return launch_mha_int8<T, 8>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
+    case 5: return launch_mha_int8<T, 10>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- the dynamic scale pass ---------------------------------------------------
+constexpr int kAmaxThreads = 256;
+constexpr int kQuantRows = 16;  // rows per block of the quantize launch
+
+// amax[b][h][p] = max |qkv[b, :, p D + 64 h .. + 64]| (p = 0, 1, 2: q, k, v)
+template <typename T>
+__global__ void __launch_bounds__(kAmaxThreads)
+qkv_amax_kernel(const T* __restrict__ qkv, float* __restrict__ amax, int l, int num_heads) {
+  __shared__ float part[kAmaxThreads / 32];
+  const int p = blockIdx.x / num_heads, h = blockIdx.x % num_heads, b = blockIdx.y;
+  const int d = num_heads * kDh8, three_d = 3 * d;
+  const T* base = qkv + (size_t)b * l * three_d + p * d + h * kDh8;
+  float mx = 0.f;
+  for (int i = threadIdx.x; i < l * (kDh8 / 8); i += kAmaxThreads) {
+    float v[8];
+    load8(base + (size_t)(i >> 3) * three_d + (i & 7) * 8, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) mx = fmaxf(mx, fabsf(v[e]));
+  }
+  mx = warp_max(mx);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kAmaxThreads / 32; ++w) mx = fmaxf(mx, part[w]);
+    amax[((size_t)b * num_heads + h) * 3 + p] = mx;
+  }
+}
+
+// The scales of window b (its tile's max over block_b windows; k's over the
+// head pair too): s = max(amax, 1e-8) / 127, written to scales[b][h][p] by
+// the row block 0; then q8 = clip(round(v / s)) of the block's rows.
+template <typename T>
+__global__ void __launch_bounds__(kAmaxThreads)
+qkv_quant_kernel(const T* __restrict__ qkv, const float* __restrict__ amax,
+                 int8_t* __restrict__ qkv_q, float* __restrict__ scales, int batch, int l,
+                 int num_heads, int block_b) {
+  __shared__ float sc[3 * kI8MaxHeads];
+  const int b = blockIdx.y;
+  const int d = num_heads * kDh8, three_d = 3 * d;
+  if (threadIdx.x < 3 * num_heads) {
+    const int p = threadIdx.x / num_heads, h = threadIdx.x % num_heads;
+    const int t0 = b / block_b * block_b, t1 = min(t0 + block_b, batch);
+    float mx = 0.f;
+    for (int bb = t0; bb < t1; ++bb) {
+      mx = fmaxf(mx, amax[((size_t)bb * num_heads + h) * 3 + p]);
+      if (p == 1) mx = fmaxf(mx, amax[((size_t)bb * num_heads + (h ^ 1)) * 3 + p]);
+    }
+    const float s = __fdiv_rn(fmaxf(mx, 1e-8f), 127.f);
+    sc[p * num_heads + h] = s;
+    if (blockIdx.x == 0) scales[((size_t)b * num_heads + h) * 3 + p] = s;
+  }
+  __syncthreads();
+  const int r0 = blockIdx.x * kQuantRows, rows = min(kQuantRows, l - r0);
+  const int vecs = three_d / 8;
+  for (int i = threadIdx.x; i < rows * vecs; i += kAmaxThreads) {
+    const int r = r0 + i / vecs, c = (i % vecs) * 8;
+    const float s = sc[(c / d) * num_heads + (c % d) / kDh8];
+    const size_t off = ((size_t)b * l + r) * three_d + c;
+    float v[8];
+    load8(qkv + off, v);
+    uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      packed[e >> 2] |= (uint32_t)(clip8(__fdiv_rn(v[e], s)) & 0xff) << (8 * (e & 3));
+    *reinterpret_cast<uint2*>(qkv_q + off) = make_uint2(packed[0], packed[1]);
+  }
 }
 
 template <typename T>
-cudaError_t launch_qproj(const void* x, const void* gamma, const void* beta, const void* w,
-                         const void* sw, const void* bias, const void* inv_act, void* qkv, int m,
-                         int d, float eps, cudaStream_t st) {
-  const size_t smem = qproj_smem_bytes(d);
-  cudaError_t e = cudaFuncSetAttribute(ln_qkv_proj_int8_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_quant_dynamic(const void* qkv, void* amax, void* qkv_q, void* scales, int batch,
+                                 int l, int num_heads, int block_b, cudaStream_t st) {
+  qkv_amax_kernel<T><<<dim3(3 * num_heads, batch), kAmaxThreads, 0, st>>>(
+      static_cast<const T*>(qkv), static_cast<float*>(amax), l, num_heads);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  ln_qkv_proj_int8_kernel<T><<<(m + kQM - 1) / kQM, kQThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const int8_t*>(w), static_cast<const float*>(sw),
-      static_cast<const float*>(bias), static_cast<const float*>(inv_act), static_cast<T*>(qkv),
-      m, d, 3 * d, eps);
+  qkv_quant_kernel<T><<<dim3((l + kQuantRows - 1) / kQuantRows, batch), kAmaxThreads, 0, st>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(amax), static_cast<int8_t*>(qkv_q),
+      static_cast<float*>(scales), batch, l, num_heads, block_b);
   return cudaGetLastError();
+}
+
+bool attention_shape_ok(int l, int d, int num_heads, int kv_len) {
+  return d == num_heads * kDh8 && d % kQK == 0 && d <= kQMaxDim && l >= 1 && l <= kI8MaxKeys &&
+         kv_len >= 1 && kv_len <= l;
 }
 
 }  // namespace
@@ -299,7 +379,52 @@ extern "C" int ebc_ln_qkv_proj_int8(const void* x, const void* gamma, const void
                                     float eps, void* stream) {
   using namespace ebc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m < 1 || d < kQK || d % kQK || d > kQMaxDim) return (int)cudaErrorInvalidValue;
-  return (int)(is_f32 ? launch_qproj<float>(x, gamma, beta, w_q, sw, bias, inv_act, qkv, m, d, eps, st)
-                      : launch_qproj<bf16>(x, gamma, beta, w_q, sw, bias, inv_act, qkv, m, d, eps, st));
+  if (!qproj_shape_ok(m, d, 3 * d)) return (int)cudaErrorInvalidValue;
+  return (int)(is_f32 ? launch_ln_proj_int8<float, kEpiFloat>(x, gamma, beta, w_q, sw, bias, inv_act,
+                                                              qkv, m, d, 3 * d, eps, nullptr, 0, st)
+                      : launch_ln_proj_int8<bf16, kEpiFloat>(x, gamma, beta, w_q, sw, bias, inv_act,
+                                                             qkv, m, d, 3 * d, eps, nullptr, 0, st));
+}
+
+// The same projection writing q, k and v as int8: sw and bias with the
+// calibrated 1 / (s_q, s_k, s_v) folded in per third; qkv_q (M, 3D) int8.
+extern "C" int ebc_ln_qkv_proj_int8_q(const void* x, const void* gamma, const void* beta,
+                                      const void* w_q, const void* sw, const void* bias,
+                                      const void* inv_act, void* qkv_q, int m, int d, int is_f32,
+                                      float eps, void* stream) {
+  using namespace ebc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!qproj_shape_ok(m, d, 3 * d)) return (int)cudaErrorInvalidValue;
+  return (int)(is_f32 ? launch_ln_proj_int8<float, kEpiInt8>(x, gamma, beta, w_q, sw, bias, inv_act,
+                                                             qkv_q, m, d, 3 * d, eps, nullptr, 0, st)
+                      : launch_ln_proj_int8<bf16, kEpiInt8>(x, gamma, beta, w_q, sw, bias, inv_act,
+                                                            qkv_q, m, d, 3 * d, eps, nullptr, 0, st));
+}
+
+// The dynamic scale pass: qkv (B, L, 3D) bf16, or fp32 when is_f32; amax
+// (B, H, 3) fp32 scratch; qkv_q (B, L, 3D) int8 and scales (B, H, 3) fp32
+// out (s_q, s_k, s_v of each window and head, tiles of block_b windows).
+extern "C" int ebc_qkv_quant_dynamic(const void* qkv, void* amax, void* qkv_q, void* scales,
+                                     int batch, int l, int d, int num_heads, int block_b,
+                                     int is_f32, void* stream) {
+  using namespace ebc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!attention_shape_ok(l, d, num_heads, l) || num_heads % 2 || batch < 1 || block_b < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)(is_f32 ? launch_quant_dynamic<float>(qkv, amax, qkv_q, scales, batch, l, num_heads, block_b, st)
+                      : launch_quant_dynamic<bf16>(qkv, amax, qkv_q, scales, batch, l, num_heads, block_b, st));
+}
+
+// The int8 masked attention: qkv_q (B, L, 3D) int8; scales (3,) fp32 when
+// dynamic == 0, else (B, H, 3); out (B, L, D) bf16, or fp32 when is_f32.
+extern "C" int ebc_int8_attention(const void* qkv_q, const void* scales, void* out, int batch,
+                                  int l, int d, int num_heads, int kv_len, int dynamic, int is_f32,
+                                  float sm_scale, void* stream) {
+  using namespace ebc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!attention_shape_ok(l, d, num_heads, kv_len) || batch < 1) return (int)cudaErrorInvalidValue;
+  return (int)(is_f32 ? launch_mha_int8_any<float>(qkv_q, scales, out, batch, l, num_heads, kv_len,
+                                                   sm_scale, dynamic, st)
+                      : launch_mha_int8_any<bf16>(qkv_q, scales, out, batch, l, num_heads, kv_len,
+                                                  sm_scale, dynamic, st));
 }

@@ -22,7 +22,12 @@ tensor, as the JAX ``"auto"`` means Pallas on a TPU.
 On the kernel path a static block hands ln_1, the int8 projection and the
 attention to ``fused_ln_qkv_attention_int8``; a dynamic block, a
 calibration pass and ``fuse_ln_mode="off"`` keep ln_1 and the projection
-outside and hand the qkv to ``fused_qkv_attention``.
+outside and hand the qkv to ``fused_qkv_attention``. ``quant_attn`` (the
+JAX package's False | True | "xla") makes a static block's attention int8
+too: ``True`` on that fused LN route only (the kernel takes the calibrated
+``qkv_amax`` scales), ``"xla"`` on every unmasked attention of the block
+through ``ops.int8_attention.int8_qkv_attention``, after the unfused int8
+projection.
 """
 
 from __future__ import annotations
@@ -43,12 +48,15 @@ from ..ops.fused_attention import (
     fused_qkv_attention,
     supports,
 )
+from ..ops.int8_attention import int8_qkv_attention
 from ..ops.interpolate import torch_bicubic_resize
 from ..ops.quant import (
+    QUANT_ATTN_MODES,
     QUANT_MODES,
     Int8Linear,
     Cached,
     checked_act_scale,
+    checked_attn_scales,
     int8_linear,
     quantize_weight,
     record_amax,
@@ -128,11 +136,8 @@ def make_linear_cls(quant_int8: bool, quant_mode: str = "dynamic"):
 def check_quant_args(quant_mode: str, quant_attn) -> None:
     if quant_mode not in QUANT_MODES:
         raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got {quant_mode!r}")
-    if quant_attn:
-        raise NotImplementedError(
-            f"quant_attn={quant_attn!r} (int8 QK^T and PV) is not ported yet "
-            "(ROADMAP Queue 2, the quant_attn branches)"
-        )
+    if not (quant_attn is False or quant_attn is True or quant_attn == "xla"):
+        raise ValueError(f"quant_attn must be one of {QUANT_ATTN_MODES}, got {quant_attn!r}")
 
 
 class LayerNormF32(nn.LayerNorm):
@@ -176,7 +181,10 @@ class MultiHeadAttention(nn.Module):
     With ``quant_int8`` both projections run W8A8, and the in-projection's
     recorded ranges live here: ``in_proj_act_amax`` (its input) and
     ``qkv_amax`` (the q, k and v outputs, recorded on every calibration
-    pass)."""
+    pass). A static block with ``quant_attn`` reads ``qkv_amax`` as the
+    int8 attention's scales (raising while any is zero): ``True`` on the
+    fused LN route, ``"xla"`` on the unfused projection of any unmasked
+    attention outside a calibration pass, ahead of the kernel routes."""
 
     def __init__(self, dim: int, num_heads: int, quant_int8: bool = False,
                  quant_mode: str = "dynamic", quant_attn=False) -> None:
@@ -185,7 +193,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"dim {dim} not divisible by heads {num_heads}")
         check_quant_args(quant_mode, quant_attn)
         self.num_heads = num_heads
-        self.quant_int8, self.quant_mode = quant_int8, quant_mode
+        self.quant_int8, self.quant_mode, self.quant_attn = quant_int8, quant_mode, quant_attn
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = make_linear_cls(quant_int8, quant_mode)(dim, dim)
@@ -193,7 +201,7 @@ class MultiHeadAttention(nn.Module):
             self.calibrating = False
             self.register_buffer("in_proj_act_amax", torch.zeros(()), persistent=False)
             self.register_buffer("qkv_amax", torch.zeros(3), persistent=False)
-            self._wq, self._scale = Cached(), Cached()
+            self._wq, self._scale, self._attn_scales = Cached(), Cached(), Cached()
 
     def _in_proj(self, x: torch.Tensor) -> torch.Tensor:
         """The unfused qkv projection; a calibration pass records."""
@@ -229,11 +237,14 @@ class MultiHeadAttention(nn.Module):
             if self.quant_int8:
                 if self.quant_mode != "static":
                     raise ValueError("the fused LN path of an int8 block needs quant_mode='static'")
+                attn_scales = (self._attn_scales.get(self.qkv_amax, checked_attn_scales)
+                               if self.quant_attn else None)
                 out = fused_ln_qkv_attention_int8(
                     x, g, bb, self.in_proj_weight, self.in_proj_bias,
                     self._scale.get(self.in_proj_act_amax, checked_act_scale),
                     self.num_heads, kv_len or l, dh**-0.5, eps,
                     quantized=self._wq.get(self.in_proj_weight, quantize_weight),
+                    attn_scales=attn_scales,
                 )
             else:
                 out = fused_ln_qkv_attention(
@@ -243,6 +254,11 @@ class MultiHeadAttention(nn.Module):
             return self.out_proj(out)
 
         qkv = self._in_proj(x)
+        if (self.quant_attn == "xla" and self.quant_int8 and self.quant_mode == "static"
+                and mask is None and not self.calibrating):
+            out = int8_qkv_attention(qkv, self.num_heads, kv_len or l, dh**-0.5,
+                                     self._attn_scales.get(self.qkv_amax, checked_attn_scales))
+            return self.out_proj(out)
         if fused_attn:
             if mask is not None:
                 raise ValueError("fused_attn (the kernel path) takes no mask")
@@ -276,9 +292,11 @@ class ResidualAttentionBlock(nn.Module):
     kernel path (no mask, head dim 64, D <= MAX_FUSED_DIM, L <=
     MAX_FUSED_SEQ), ln_1 and the projection fold into
     the kernel (:meth:`fuse_ln`) unless ``fuse_ln_mode="off"``, a
-    calibration pass is recording, or the block is dynamic int8, which has
-    no precalibrated scale the kernel could take; those keep ln_1 and the
-    projection outside and hand the qkv to ``fused_qkv_attention``. The
+    calibration pass is recording, the block is dynamic int8, which has
+    no precalibrated scale the kernel could take, or ``quant_attn="xla"``,
+    whose attention reads the projection's qkv; those keep ln_1 and the
+    projection outside and hand the qkv to ``fused_qkv_attention`` (or, for
+    ``"xla"``, to ``int8_qkv_attention``). The
     same checks as transformer.py:356-377 of the JAX package, made here, up
     front, so a kernel wrapper never has to fall back. bf16 and fp32
     activations both take the kernels; any other dtype makes the wrapper
@@ -327,6 +345,7 @@ class ResidualAttentionBlock(nn.Module):
             self.fuse_ln_mode != "off"
             and not self.calibrating
             and not (self.quant_int8 and self.quant_mode == "dynamic")
+            and self.attn.quant_attn != "xla"
         )
 
     def forward(

@@ -25,7 +25,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = (
     "flash_attention", "fused_attention", "fused_attention_bwd", "fused_attention_int8",
-    "fused_head",
+    "fused_head", "fused_mlp_int8",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,15 +1,18 @@
 """LayerNorm + joint QKV projection + masked attention, one call per ViT
 block, and its backward: counterpart of ``clip_ebc_tpu/ops/fused_attention.py``
 ``fused_ln_qkv_attention`` (forward and ``_lqa_bwd``),
-``fused_ln_qkv_attention_int8`` (W8A8, static scales), ``fused_qkv_attention``
-(the attention alone, from a precomputed qkv), ``_attention_bwd`` and
-``_ln_qkv_bwd_frozen``.
+``fused_ln_qkv_attention_int8`` (W8A8, static scales; with ``attn_scales``
+or ``quant_attn`` its attention runs in int8 too), ``fused_qkv_attention``
+(the attention alone, from a precomputed qkv), ``_attention_bwd``,
+``_ln_qkv_bwd_frozen`` and ``fused_ln_mlp_int8`` (the W8A8 MLP half of a
+block).
 
 On a CUDA tensor each wrapper launches the hand-written kernels in
 ``csrc/fused_attention.cu`` (forward: LN + projection, then attention),
-``csrc/fused_attention_int8.cu`` (LN + quantize + int8 projection) and
-``csrc/fused_attention_bwd.cu`` (backward); on a CPU tensor it runs
-the plain version beside it. It never falls back from one to the other:
+``csrc/fused_attention_int8.cu`` (LN + quantize + int8 projection, the
+int8 attention and its dynamic scale pass), ``csrc/fused_mlp_int8.cu``
+(the W8A8 MLP) and ``csrc/fused_attention_bwd.cu`` (backward); on a CPU
+tensor it runs the plain version beside it. It never falls back from one to the other:
 whether the kernel applies (head dim 64, no mask, width, sequence length)
 is decided up front by the model (models/transformer.py), and the wrapper
 raises on anything else. bf16 activations take the tensor-core kernels,
@@ -35,6 +38,7 @@ import ctypes
 import torch
 
 from . import _build
+from .int8_attention import int_bmm
 from .quant import int_mm, quantize_weight
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -140,13 +144,177 @@ def ln_qkv_attention_int8_plain(
     act_scale)))`` (the reciprocal, as the kernel multiplies); an exact
     int8 x int8 -> int32 product; ``acc * (s_col * act_scale) + bias`` in
     fp32, qkv rounded to x's dtype; then :func:`qkv_attention_plain`."""
+    acc = _int8_ln_project(x, ln_weight, ln_bias, w_q, act_scale, eps)
+    qkv = (acc * (s_col * act_scale) + bias.float()).to(x.dtype)
+    return qkv_attention_plain(qkv, num_heads, kv_len, sm_scale)
+
+
+def _int8_ln_project(x, ln_weight, ln_bias, w_q, act_scale, eps) -> torch.Tensor:
+    """fp32 LN of x; ``yq = clip(round(y * (1 / act_scale)))``; the exact
+    int32 product with ``w_q`` (N, D), as fp32 ``(B, L, N)``."""
     b, l, d = x.shape
     xhat, _ = _layer_norm_parts(x, eps)
     y = xhat * ln_weight.float() + ln_bias.float()
     yq = torch.clamp(torch.round(y * (1.0 / act_scale)), -127, 127).to(torch.int8)
-    acc = int_mm(yq.reshape(b * l, d), w_q).reshape(b, l, 3 * d).float()
+    return int_mm(yq.reshape(b * l, d), w_q).reshape(b, l, -1).float()
+
+
+def fold_attn_scales(s_col, bias, act_scale, attn_scales, d: int) -> tuple:
+    """``(sw, bias)`` of the projection that writes q, k and v already in
+    the int8 domain (JAX ``fused_ln_qkv_attention_int8`` :919-930):
+    ``sw = s_col * act_scale``, then ``sw * repeat(1 / aq, D)`` and
+    ``bias * repeat(1 / aq, D)``."""
+    inv_lane = (1.0 / attn_scales).repeat_interleave(d)
+    return s_col * act_scale * inv_lane, bias.float() * inv_lane
+
+
+def int8_attention_static_plain(
+    qkv_q: torch.Tensor, attn_scales: torch.Tensor, num_heads: int, kv_len: int,
+    sm_scale: float, out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The masked attention of an int8 qkv ``(B, L, 3D)`` with calibrated
+    per-tensor scales ``aq = (s_q, s_k, s_v)``, rounding where
+    ``_pair_attention_body_static`` rounds: scores ``int32 * (aq0 aq1
+    sm_scale)`` with keys >= kv_len at NEG_INF; unnormalized ``p = exp(s -
+    m)``, ``r = sum(p)`` in fp32, ``p8 = round(p * 127)``; the output
+    ``(PV_int32 / r) * (aq2 * (1 / 127))`` in ``out_dtype``."""
+    l, d = qkv_q.shape[1], qkv_q.shape[2] // 3
+    q, k, v = (_heads(t, num_heads) for t in qkv_q.split(d, dim=-1))
+    s = int_bmm(q, k.transpose(-1, -2)).float() * (attn_scales[0] * attn_scales[1] * sm_scale)
+    s = s.masked_fill(torch.arange(l, device=qkv_q.device) >= kv_len, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    r = p.sum(-1, keepdim=True)
+    p8 = torch.round(p * 127.0).to(torch.int8)
+    o = (int_bmm(p8, v).float() / r) * (attn_scales[2] * (1.0 / 127.0))
+    return _merge_heads(o.to(out_dtype))
+
+
+def ln_qkv_attention_int8_static_plain(
+    x: torch.Tensor,
+    ln_weight: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w_q: torch.Tensor,
+    s_col: torch.Tensor,
+    bias: torch.Tensor,
+    act_scale: torch.Tensor,
+    attn_scales: torch.Tensor,
+    num_heads: int,
+    kv_len: int,
+    sm_scale: float,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """The plain version of the fully int8 block attention (``attn_scales``
+    given), rounding where ``_ln_qkv_kernel`` with ``quant_attn="static"``
+    rounds: the W8A8 projection's int32 accumulators, ``qkv_q =
+    clip(round(acc * sw + bias))`` with the folded ``sw`` and ``bias`` of
+    :func:`fold_attn_scales` (multiply and add apart), then
+    :func:`int8_attention_static_plain`."""
+    acc = _int8_ln_project(x, ln_weight, ln_bias, w_q, act_scale, eps)
+    sw, bias_f = fold_attn_scales(s_col, bias, act_scale, attn_scales, x.shape[-1])
+    qkv_q = torch.clamp(torch.round(acc * sw + bias_f), -127, 127).to(torch.int8)
+    return int8_attention_static_plain(qkv_q, attn_scales, num_heads, kv_len, sm_scale, x.dtype)
+
+
+def dynamic_attn_scales(qkv: torch.Tensor, num_heads: int, block_b: int) -> torch.Tensor:
+    """The per-tile max-abs scales of the dynamic int8 attention
+    (``_pair_attention_body`` with ``quant_attn=True``), ``(B, H, 3)`` fp32
+    (s_q, s_k, s_v of each window and head): a tile is ``block_b``
+    consecutive windows and all their rows; q and v take one scale per head,
+    k one per head pair (the JAX kernel quantizes the pair's 128 lanes of k
+    together). ``s = max(max|t|, 1e-8) / 127``."""
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    amax = qkv.float().abs().reshape(b, l, 3, num_heads, d // num_heads).amax((1, 4))
+    tiles = -(-b // block_b)
+    amax = torch.nn.functional.pad(amax, (0, 0, 0, 0, 0, tiles * block_b - b))
+    amax = amax.reshape(tiles, block_b, 3, num_heads).amax(1).repeat_interleave(block_b, 0)[:b]
+    amax[:, 1] = amax[:, 1].reshape(b, num_heads // 2, 2).amax(-1).repeat_interleave(2, -1)
+    return (amax.clamp_min(1e-8) / 127.0).transpose(1, 2).contiguous()
+
+
+def int8_attention_dynamic_plain(
+    qkv: torch.Tensor, num_heads: int, kv_len: int, sm_scale: float, block_b: int
+) -> torch.Tensor:
+    """The masked attention of ``qkv`` ``(B, L, 3D)`` with int8 QK^T and PV
+    on dynamic per-tile scales (:func:`dynamic_attn_scales`), rounding where
+    ``_pair_attention_body`` with ``quant_attn=True`` rounds: ``q8 =
+    clip(round(t / s))`` (a division); scores ``(int32 * (s_q s_k)) *
+    sm_scale``, keys >= kv_len at NEG_INF; unnormalized ``p``, ``r =
+    sum(p)`` in fp32, ``p8 = round(p * 127)``; the output ``(PV_int32 *
+    (s_v / 127)) / r`` in qkv's dtype."""
+    l, d = qkv.shape[1], qkv.shape[2] // 3
+    sc = dynamic_attn_scales(qkv, num_heads, block_b)[..., None, None]  # (B, H, 3, 1, 1)
+    sq, sk, sv = sc[:, :, 0], sc[:, :, 1], sc[:, :, 2]
+    q, k, v = (torch.clamp(torch.round(_heads(t, num_heads) / s), -127, 127).to(torch.int8)
+               for t, s in zip(qkv.float().split(d, dim=-1), (sq, sk, sv)))
+    s = int_bmm(q, k.transpose(-1, -2)).float() * (sq * sk)
+    s = torch.where(torch.arange(l, device=qkv.device) < kv_len, s * sm_scale, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    r = p.sum(-1, keepdim=True)
+    p8 = torch.round(p * 127.0).to(torch.int8)
+    o = int_bmm(p8, v).float() * (sv / 127.0) / r
+    return _merge_heads(o.to(qkv.dtype))
+
+
+def ln_qkv_attention_int8_dynamic_plain(
+    x: torch.Tensor,
+    ln_weight: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w_q: torch.Tensor,
+    s_col: torch.Tensor,
+    bias: torch.Tensor,
+    act_scale: torch.Tensor,
+    num_heads: int,
+    kv_len: int,
+    sm_scale: float,
+    eps: float = 1e-5,
+    block_b: int = 2,
+) -> torch.Tensor:
+    """The plain version of ``quant_attn=True`` without ``attn_scales``:
+    the W8A8 projection as :func:`ln_qkv_attention_int8_plain` (qkv in
+    x's dtype), then :func:`int8_attention_dynamic_plain`."""
+    acc = _int8_ln_project(x, ln_weight, ln_bias, w_q, act_scale, eps)
     qkv = (acc * (s_col * act_scale) + bias.float()).to(x.dtype)
-    return qkv_attention_plain(qkv, num_heads, kv_len, sm_scale)
+    return int8_attention_dynamic_plain(qkv, num_heads, kv_len, sm_scale, block_b)
+
+
+def _gelu(h: torch.Tensor, quick: bool) -> torch.Tensor:
+    """QuickGELU ``h * sigmoid(1.702 h)`` or the tanh GELU with the
+    constants of ``_ln_mlp_kernel``, in fp32."""
+    if quick:
+        return h * torch.sigmoid(1.702 * h)
+    c = 0.7978845608028654  # sqrt(2 / pi)
+    return 0.5 * h * (1.0 + torch.tanh(c * (h + 0.044715 * h * h * h)))
+
+
+def ln_mlp_int8_plain(
+    x: torch.Tensor,
+    ln_weight: torch.Tensor,
+    ln_bias: torch.Tensor,
+    wfc_q: torch.Tensor,
+    s_fc: torch.Tensor,
+    b_fc: torch.Tensor,
+    act1: torch.Tensor,
+    wpj_q: torch.Tensor,
+    s_pj: torch.Tensor,
+    b_proj: torch.Tensor,
+    act2: torch.Tensor,
+    quick_gelu: bool = True,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """The plain W8A8 MLP half of a block, rounding where ``_ln_mlp_kernel``
+    rounds: fp32 LN, ``yq = clip(round(y * (1 / act1)))``; ``h = acc *
+    (s_fc act1) + b_fc`` in fp32; the GELU (:func:`_gelu`); ``hq =
+    clip(round(h * (1 / act2)))``; ``out = acc2 * (s_pj act2) + b_proj``;
+    ``(x_f32 + out)`` in x's dtype. ``wfc_q`` (4D, D) and ``wpj_q`` (D, 4D)
+    int8 in torch's (out, in) layout, ``s_fc`` and ``s_pj`` their
+    per-output-column scales."""
+    b, l, d = x.shape
+    acc = _int8_ln_project(x, ln_weight, ln_bias, wfc_q, act1, eps)
+    h = _gelu(acc * (s_fc * act1) + b_fc.float(), quick_gelu)
+    hq = torch.clamp(torch.round(h * (1.0 / act2)), -127, 127).to(torch.int8)
+    acc2 = int_mm(hq.reshape(b * l, -1), wpj_q).reshape(b, l, d).float()
+    return (x.float() + (acc2 * (s_pj * act2) + b_proj.float())).to(x.dtype)
 
 
 def attention_bwd_plain(
@@ -238,6 +406,10 @@ _ARGTYPES = {
     "ebc_qkv_attention": [_P, _P] + [_I] * 5 + [_F, _P],
     "ebc_qkv_attention_f32": [_P, _P] + [_I] * 5 + [_F, _P],
     "ebc_ln_qkv_proj_int8": [_P] * 8 + [_I] * 3 + [_F, _P],
+    "ebc_ln_qkv_proj_int8_q": [_P] * 8 + [_I] * 3 + [_F, _P],
+    "ebc_qkv_quant_dynamic": [_P] * 4 + [_I] * 6 + [_P],
+    "ebc_int8_attention": [_P] * 3 + [_I] * 7 + [_F, _P],
+    "ebc_ln_mlp_int8": [_P] * 13 + [_I] * 5 + [_F, _P],
 }
 
 
@@ -458,28 +630,59 @@ def fused_ln_qkv_attention_int8(
     sm_scale: float,
     eps: float = 1e-5,
     quantized: tuple = None,
+    quant_attn: bool = False,
+    attn_scales: torch.Tensor = None,
+    block_b: int = 2,
 ) -> torch.Tensor:
     """W8A8 variant of :func:`fused_ln_qkv_attention` (inference only, not
     differentiable): LayerNorm in fp32, the LN output quantized with the
     calibrated per-tensor ``act_scale``, an int8 x int8 -> int32 projection
-    against ``w`` quantized per output column, dequantized to x's dtype,
-    then the masked attention. ``quantized`` hands in
-    ``ops.quant.quantize_weight(w)`` made earlier (a module keeps it
-    per weight set); without it ``w`` is quantized here.
+    against ``w`` quantized per output column, then the masked attention.
+    ``quantized`` hands in ``ops.quant.quantize_weight(w)`` made earlier (a
+    module keeps it per weight set); without it ``w`` is quantized here.
 
-    CPU tensors take :func:`ln_qkv_attention_int8_plain`. CUDA tensors need
-    bf16 or fp32 x, fp32 LN parameters, bias and scales, D a multiple of
-    128, and launch the int8 projection kernel and the attention kernel of
-    x's dtype (one call counted in ``fused_ln_qkv_attention_int8.launches``)
-    or raise."""
+    The attention, as in the JAX function of the same signature:
+
+    * ``attn_scales`` (3,): the calibrated per-tensor scales of q, k and v
+      (max-abs / 127). The projection writes q, k and v as int8 (the scales
+      folded into its dequantize multiply and bias) and QK^T and PV run in
+      int8 (the JAX ``quant_attn="static"``).
+    * else ``quant_attn``: qkv is dequantized to x's dtype, then quantized
+      again with dynamic max-abs scales per tile of ``block_b`` windows (1
+      for fp32 activations, as in the JAX package) and head (head pair for
+      k), and QK^T and PV run in int8.
+    * else the attention runs in x's dtype.
+
+    CPU tensors take the plain version of the branch
+    (:func:`ln_qkv_attention_int8_static_plain`,
+    :func:`ln_qkv_attention_int8_dynamic_plain`,
+    :func:`ln_qkv_attention_int8_plain`). CUDA tensors need bf16 or fp32 x,
+    fp32 LN parameters, bias and scales, D a multiple of 128, and launch
+    the branch's kernels, one call counted in
+    ``fused_ln_qkv_attention_int8.launches_static``, ``.launches_dynamic``
+    or ``.launches`` (the float attention), or raise."""
     who = "fused_ln_qkv_attention_int8"
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, ln_weight, ln_bias, w, bias)
     ):
         raise RuntimeError(f"{who} has no backward: run it under torch.no_grad()")
+    if block_b < 1:
+        raise ValueError(f"{who}: block_b must be >= 1, got {block_b}")
+    if x.dtype == torch.float32:
+        block_b = 1
     w_q, s_col = quantized if quantized is not None else quantize_weight(w)
     act_scale = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device).reshape(())
+    if attn_scales is not None:
+        attn_scales = torch.as_tensor(attn_scales, dtype=torch.float32, device=x.device).reshape(3).contiguous()
     if x.device.type == "cpu":
+        if attn_scales is not None:
+            return ln_qkv_attention_int8_static_plain(
+                x, ln_weight, ln_bias, w_q, s_col, bias, act_scale, attn_scales, num_heads,
+                kv_len, sm_scale, eps)
+        if quant_attn:
+            return ln_qkv_attention_int8_dynamic_plain(
+                x, ln_weight, ln_bias, w_q, s_col, bias, act_scale, num_heads, kv_len, sm_scale,
+                eps, block_b)
         return ln_qkv_attention_int8_plain(
             x, ln_weight, ln_bias, w_q, s_col, bias, act_scale, num_heads, kv_len, sm_scale, eps
         )
@@ -493,16 +696,124 @@ def fused_ln_qkv_attention_int8(
     _check(who, w_q, "w_q", (3 * d, d), torch.int8, dev)
     _check(who, s_col, "s_col", (3 * d,), torch.float32, dev)
     _check(who, bias, "bias", (3 * d,), torch.float32, dev)
-    sw = s_col * act_scale  # (3D,) dequant of the int32 accumulator
     inv_act = (1.0 / act_scale).reshape(1)
+    is_f32 = int(dt == torch.float32)
+    out = torch.empty(b, l, d, dtype=dt, device=dev)
+    if attn_scales is not None:
+        sw, bias_f = fold_attn_scales(s_col, bias, act_scale, attn_scales, d)
+        qkv_q = torch.empty(b, l, 3 * d, dtype=torch.int8, device=dev)
+        _run(who, _entry("fused_attention_int8", "ebc_ln_qkv_proj_int8_q")(
+            x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
+            bias_f.data_ptr(), inv_act.data_ptr(), qkv_q.data_ptr(), b * l, d, is_f32,
+            float(eps), _stream(dev),
+        ))
+        _launch_int8_attention(who, qkv_q, attn_scales, out, num_heads, kv_len, sm_scale, False)
+        fused_ln_qkv_attention_int8.launches_static += 1
+        return out
+    sw = s_col * act_scale  # (3D,) dequant of the int32 accumulator
     qkv = torch.empty(b, l, 3 * d, dtype=dt, device=dev)
     _run(who, _entry("fused_attention_int8", "ebc_ln_qkv_proj_int8")(
         x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
-        bias.data_ptr(), inv_act.data_ptr(), qkv.data_ptr(), b * l, d,
-        int(dt == torch.float32), float(eps), _stream(dev),
+        bias.data_ptr(), inv_act.data_ptr(), qkv.data_ptr(), b * l, d, is_f32,
+        float(eps), _stream(dev),
     ))
+    if quant_attn:
+        qkv_q = torch.empty(b, l, 3 * d, dtype=torch.int8, device=dev)
+        amax = torch.empty(b, num_heads, 3, dtype=torch.float32, device=dev)
+        scales = torch.empty_like(amax)
+        _run(who, _entry("fused_attention_int8", "ebc_qkv_quant_dynamic")(
+            qkv.data_ptr(), amax.data_ptr(), qkv_q.data_ptr(), scales.data_ptr(), b, l, d,
+            num_heads, block_b, is_f32, _stream(dev),
+        ))
+        _launch_int8_attention(who, qkv_q, scales, out, num_heads, kv_len, sm_scale, True)
+        fused_ln_qkv_attention_int8.launches_dynamic += 1
+        return out
     out = _launch_qkv_attention(who, qkv, num_heads, kv_len, sm_scale)
     fused_ln_qkv_attention_int8.launches += 1
+    return out
+
+
+def _launch_int8_attention(who, qkv_q, scales, out, num_heads, kv_len, sm_scale, dynamic) -> None:
+    """The int8 attention launch: ``scales`` is (3,) (static) or (B, H, 3)
+    (dynamic); ``out`` (B, L, D) in the activation dtype."""
+    b, l, d = out.shape
+    _run(who, _entry("fused_attention_int8", "ebc_int8_attention")(
+        qkv_q.data_ptr(), scales.data_ptr(), out.data_ptr(), b, l, d, num_heads, kv_len,
+        int(dynamic), int(out.dtype == torch.float32), float(sm_scale), _stream(out.device),
+    ))
+
+
+def fused_ln_mlp_int8(
+    x: torch.Tensor,  # (B, L, D)
+    ln_weight: torch.Tensor,  # (D,)
+    ln_bias: torch.Tensor,  # (D,)
+    w_fc: torch.Tensor,  # (4D, D) fp32 master weight, nn.Linear layout
+    b_fc: torch.Tensor,  # (4D,)
+    act1: torch.Tensor,  # scalar: calibrated scale of the LN output
+    w_proj: torch.Tensor,  # (D, 4D) fp32 master weight
+    b_proj: torch.Tensor,  # (D,)
+    act2: torch.Tensor,  # scalar: calibrated scale of the GELU output
+    quick_gelu: bool = True,
+    eps: float = 1e-5,
+    quantized: tuple = None,
+) -> torch.Tensor:
+    """``x + proj(gelu(fc(LN(x))))`` with both products W8A8 (inference
+    only): counterpart of the JAX ``fused_ln_mlp_int8``. ``w_fc`` and
+    ``w_proj`` are the fp32 master weights, quantized per output column
+    here unless ``quantized = (*quantize_weight(w_fc),
+    *quantize_weight(w_proj))`` hands them in; ``act1`` and ``act2`` the
+    calibrated per-tensor scales of the LN output and of the GELU output;
+    ``quick_gelu`` picks QuickGELU (CLIP) over the tanh GELU. Rows are
+    independent (no padding enters a real row).
+
+    CPU tensors take :func:`ln_mlp_int8_plain`. CUDA tensors need bf16 or
+    fp32 x, fp32 LN parameters, biases and scales, D a multiple of 128 and
+    at most 768, the hidden width a multiple of 128, and launch
+    ``csrc/fused_mlp_int8.cu`` (one call counted in
+    ``fused_ln_mlp_int8.launches``) or raise."""
+    who = "fused_ln_mlp_int8"
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, ln_weight, ln_bias, w_fc, b_fc, w_proj, b_proj)
+    ):
+        raise RuntimeError(f"{who} has no backward: run it under torch.no_grad()")
+    wfc_q, s_fc, wpj_q, s_pj = (quantized if quantized is not None
+                                else (*quantize_weight(w_fc), *quantize_weight(w_proj)))
+    act1, act2 = (torch.as_tensor(a, dtype=torch.float32, device=x.device).reshape(())
+                  for a in (act1, act2))
+    if x.device.type == "cpu":
+        return ln_mlp_int8_plain(x, ln_weight, ln_bias, wfc_q, s_fc, b_fc, act1, wpj_q, s_pj,
+                                 b_proj, act2, quick_gelu, eps)
+    if x.device.type != "cuda" or x.dim() != 3:
+        raise ValueError(f"{who}: expected a (B, L, D) CUDA or CPU activation, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    b, l, d = x.shape
+    hidden = wfc_q.shape[0]
+    if d % 128 or d > MAX_FUSED_DIM or hidden % 128 or hidden < 128:
+        raise ValueError(f"{who}: needs D % 128 == 0, D <= {MAX_FUSED_DIM} and a hidden width "
+                         f"that is a multiple of 128; got D={d}, hidden={hidden}")
+    if x.dtype not in _FWD_ENTRIES:
+        raise ValueError(f"{who}: activations must be torch.bfloat16 or torch.float32, got {x.dtype}")
+    dev, dt = x.device, x.dtype
+    _check(who, x, "x", (b, l, d), dt, dev)
+    _check(who, ln_weight, "ln_weight", (d,), torch.float32, dev)
+    _check(who, ln_bias, "ln_bias", (d,), torch.float32, dev)
+    _check(who, wfc_q, "wfc_q", (hidden, d), torch.int8, dev)
+    _check(who, s_fc, "s_fc", (hidden,), torch.float32, dev)
+    _check(who, b_fc, "b_fc", (hidden,), torch.float32, dev)
+    _check(who, wpj_q, "wpj_q", (d, hidden), torch.int8, dev)
+    _check(who, s_pj, "s_pj", (d,), torch.float32, dev)
+    _check(who, b_proj, "b_proj", (d,), torch.float32, dev)
+    sw1, sw2 = s_fc * act1, s_pj * act2
+    inv = torch.stack([1.0 / act1, 1.0 / act2])
+    hq = torch.empty(b * l, hidden, dtype=torch.int8, device=dev)
+    out = torch.empty_like(x)
+    _run(who, _entry("fused_mlp_int8", "ebc_ln_mlp_int8")(
+        x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), wfc_q.data_ptr(), sw1.data_ptr(),
+        b_fc.data_ptr(), inv[0:1].data_ptr(), inv[1:2].data_ptr(), hq.data_ptr(), wpj_q.data_ptr(),
+        sw2.data_ptr(), b_proj.data_ptr(), out.data_ptr(), b * l, d, hidden, int(quick_gelu),
+        int(dt == torch.float32), float(eps), _stream(dev),
+    ))
+    fused_ln_mlp_int8.launches += 1
     return out
 
 
@@ -564,6 +875,9 @@ def fused_ln_qkv_attention(
 
 fused_ln_qkv_attention.launches = 0
 fused_ln_qkv_attention_int8.launches = 0
+fused_ln_qkv_attention_int8.launches_static = 0
+fused_ln_qkv_attention_int8.launches_dynamic = 0
+fused_ln_mlp_int8.launches = 0
 fused_qkv_attention.launches = 0
 attention_bwd.launches = 0
 ln_qkv_bwd_frozen.launches = 0

@@ -36,6 +36,9 @@ from torch import nn
 
 _EPS = 1e-8
 QUANT_MODES = ("dynamic", "static")
+# quant_attn of a model (the JAX package's values): float attention, the
+# int8 attention kernel, or int8 attention as plain integer products
+QUANT_ATTN_MODES = (False, True, "xla")
 QUANT_BUFFERS = ("act_amax", "qkv_amax")  # suffixes of the quant buffers' names
 
 
@@ -150,6 +153,18 @@ def checked_act_scale(amax: torch.Tensor) -> torch.Tensor:
             "(calibrate_int8, load_quant_state)"
         )
     return amax.clamp_min(_EPS * 127.0) / 127.0
+
+
+def checked_attn_scales(qkv_amax: torch.Tensor) -> torch.Tensor:
+    """The int8 attention's static scales of q, k and v from the recorded
+    ``qkv_amax`` (3,); raises while any of them is zero."""
+    if not bool((qkv_amax > 0).all()):
+        raise RuntimeError(
+            "quant_attn run with an uncalibrated attention scale (qkv_amax has a zero): "
+            "calibrate the dynamic-mode twin on representative data first "
+            "(calibrate_int8, load_quant_state)"
+        )
+    return qkv_amax.clamp_min(_EPS * 127.0) / 127.0
 
 
 class _QuantLayer:
@@ -327,22 +342,28 @@ def calibrate_int8(model: nn.Module, batches: Iterable, forward: Optional[Callab
         for batch in batches:
             forward(batch)
     state = quant_state(model)
-    validate_quant_scales(state)
+    validate_quant_scales(
+        state, quant_attn=any(getattr(m, "quant_attn", False) for m in model.modules()))
     return state
 
 
-def validate_quant_scales(state: Mapping[str, torch.Tensor], strict: bool = False) -> None:
+def validate_quant_scales(state: Mapping[str, torch.Tensor], strict: bool = False,
+                          quant_attn=False) -> None:
     """Check recorded scales after calibration. A zero max-abs means the
     layer was never exercised. All zero: the calibration recorded nothing
     (a static-mode model calibrated in place of its dynamic twin), always
     an error. Single zero leaves are a branch the calibration forward never
     took; static inference reads only the scales of layers it runs, so
-    those are a warning naming each leaf, an error with ``strict``."""
+    those are a warning naming each leaf, an error with ``strict``, and an
+    error for a ``qkv_amax`` when ``quant_attn`` is set (the int8
+    attention of every block reads it)."""
     if not state:
         raise ValueError("no quant state: run calibrate_int8 first")
     bad = [n for n, v in state.items() if not bool((torch.as_tensor(v) > 0).all())]
     if not bad:
         return
+    if quant_attn:
+        strict = strict or any(n.endswith("qkv_amax") for n in bad)
     msg = (
         "uncalibrated int8 activation scales (act_amax == 0) at: "
         + ", ".join(bad[:8]) + (" ..." if len(bad) > 8 else "")

@@ -22,7 +22,14 @@ each; a wrong scale or fold would move the median); its int32
 accumulators are exact on both sides. Flash attention: 2e-2 of the
 largest output in bf16 (P rounded at the same points), 1e-4 in fp32; the
 whole-image model against the plain path 1e-2 (bf16) and 1e-3 (fp32) of
-the count.
+the count. The int8 attention (static and dynamic scales): max 2e-2 and
+median 1e-3 of the largest output in both dtypes (a flipped int8 step of
+q, k, v or of p moves an output by up to 1/127 of its range). The W8A8
+MLP: max 2e-2 / median 1e-3 in bf16, 2e-3 / 1e-4 in fp32 of the output,
+and in fp32 the MLP branch (output - x) alone 2e-2 / 1e-3 of its own
+largest magnitude. The ``--quant_attn`` model: the kernel and xla modes
+within 2e-2 of each other's count (the JAX package's tolerance between
+the two), each within 8e-2 of the float-attention plain path's.
 """
 
 import numpy as np
@@ -34,10 +41,14 @@ from clip_ebc_tpu_torch.models import get_model
 from clip_ebc_tpu_torch.ops.fused_attention import (
     attention_bwd,
     attention_bwd_plain,
+    fused_ln_mlp_int8,
     fused_ln_qkv_attention,
     fused_ln_qkv_attention_int8,
     fused_qkv_attention,
+    ln_mlp_int8_plain,
+    ln_qkv_attention_int8_dynamic_plain,
     ln_qkv_attention_int8_plain,
+    ln_qkv_attention_int8_static_plain,
     ln_qkv_attention_plain,
     ln_qkv_bwd_frozen,
     ln_qkv_bwd_frozen_plain,
@@ -427,6 +438,145 @@ def test_int8_model_takes_both_kernels_and_matches_plain_path(cuda, dtype):
         assert bool(torch.isfinite(density).all())
         counts[not paths] = float(density.sum())
     assert abs(counts[True] - counts[False]) <= 1e-2 * abs(counts[False])
+
+
+def _int8_attn_inputs(b, l, d, kv_len, dev, dtype):
+    """Block inputs with the scales a calibration records: the LN output's
+    max-abs / 127, and each of q, k, v's."""
+    x, gam, be, w, bias = _attn_inputs(b, l, d, seed=l + kv_len + 1, dev=dev, dtype=torch.float32)
+    x = x.to(dtype)
+    y = torch.nn.functional.layer_norm(x.float(), (d,), gam, be)
+    act_scale = y.abs().amax() / 127.0
+    aq = (y @ w.T + bias).reshape(-1, 3, d).abs().amax((0, 2)) / 127.0
+    return x, gam, be, w, bias, act_scale, aq
+
+
+INT8_ATTN_SHAPES = [
+    (8, 229, 768, 12, 229, "bfloat16"),  # flagship block
+    (8, 229, 768, 12, 200, "bfloat16"),  # masked keys
+    (3, 37, 256, 4, 33, "bfloat16"),  # ragged length and batch, narrow width
+    (8, 229, 768, 12, 229, "float32"),  # fp32 activations (no --amp)
+    (3, 300, 256, 4, 290, "float32"),  # the longest key instantiation
+]
+
+
+@pytest.mark.parametrize("shape", INT8_ATTN_SHAPES)
+@pytest.mark.parametrize("branch", ["static", "dynamic"])
+def test_int8_attention_branches_match_plain(cuda, shape, branch):
+    """The fully int8 attention: calibrated ``attn_scales`` (the projection
+    writes int8 q, k, v) or dynamic ``quant_attn`` scales (the float
+    projection, the scale pass, then the same int8 attention kernel)."""
+    b, l, d, h, kv_len, dtype = shape
+    dtype = getattr(torch, dtype)
+    x, gam, be, w, bias, act_scale, aq = _int8_attn_inputs(b, l, d, kv_len, cuda, dtype)
+    sm = (d // h) ** -0.5
+    w_q, s_col = quant.quantize_weight(w)
+    counter = "launches_" + branch
+    before = (getattr(fused_ln_qkv_attention_int8, counter), fused_ln_qkv_attention_int8.launches)
+    kw = dict(attn_scales=aq) if branch == "static" else dict(quant_attn=True)
+    got = fused_ln_qkv_attention_int8(x, gam, be, w, bias, act_scale, h, kv_len, sm, **kw)
+    torch.cuda.synchronize()
+    assert (getattr(fused_ln_qkv_attention_int8, counter), fused_ln_qkv_attention_int8.launches) == (
+        before[0] + 1, before[1])
+    assert got.dtype == dtype
+    if branch == "static":
+        want = ln_qkv_attention_int8_static_plain(x, gam, be, w_q, s_col, bias, act_scale, aq, h,
+                                                  kv_len, sm)
+    else:
+        want = ln_qkv_attention_int8_dynamic_plain(x, gam, be, w_q, s_col, bias, act_scale, h,
+                                                   kv_len, sm, block_b=2 if dtype == torch.bfloat16 else 1)
+    err, med = _max_median(got[:, :kv_len], want[:, :kv_len])
+    assert err <= 2e-2 and med <= 1e-3, (err, med)
+
+
+def test_int8_attention_wrapper_raises_instead_of_falling_back(cuda):
+    x, gam, be, w, bias, act_scale, aq = _int8_attn_inputs(2, 400, 256, 400, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="L <= 320"):
+        fused_ln_qkv_attention_int8(x, gam, be, w, bias, act_scale, 4, 400, 0.125, attn_scales=aq)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        fused_ln_qkv_attention_int8(x[:, :64].half(), gam, be, w, bias, act_scale, 4, 64, 0.125,
+                                    quant_attn=True)
+
+
+def _mlp_inputs(b, l, d, hidden, dev, dtype, seed=11):
+    """x, the LN parameters, torch-layout weights at a trained CLIP MLP's
+    scale, and the scales a calibration records (the LN output's and the
+    GELU output's max-abs / 127)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, l, d, generator=g, device=dev).to(dtype)
+    gam = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+    be = 0.1 * torch.randn(d, generator=g, device=dev)
+    w_fc = 0.06 * torch.randn(hidden, d, generator=g, device=dev)
+    b_fc = 0.02 * torch.randn(hidden, generator=g, device=dev)
+    w_pj = 0.03 * torch.randn(d, hidden, generator=g, device=dev)
+    b_pj = 0.02 * torch.randn(d, generator=g, device=dev)
+    y = torch.nn.functional.layer_norm(x.float(), (d,), gam, be)
+    hh = y @ w_fc.T + b_fc
+    act1 = y.abs().amax() / 127.0
+    act2 = (hh * torch.sigmoid(1.702 * hh)).abs().amax() / 127.0
+    return x, gam, be, w_fc, b_fc, act1, w_pj, b_pj, act2
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 229, 768, 3072, True, "bfloat16"),  # flagship block's MLP
+    (8, 229, 768, 3072, True, "float32"),
+    (3, 37, 256, 1024, False, "float32"),  # ragged rows, narrow width, the tanh GELU
+    (3, 37, 256, 1024, False, "bfloat16"),
+])
+def test_mlp_int8_kernel_matches_plain(cuda, shape):
+    b, l, d, hidden, quick, dtype = shape
+    dtype = getattr(torch, dtype)
+    args = _mlp_inputs(b, l, d, hidden, cuda, dtype)
+    before = fused_ln_mlp_int8.launches
+    got = fused_ln_mlp_int8(*args, quick_gelu=quick)
+    torch.cuda.synchronize()
+    assert fused_ln_mlp_int8.launches == before + 1 and got.dtype == dtype
+    x, gam, be, w_fc, b_fc, act1, w_pj, b_pj, act2 = args
+    want = ln_mlp_int8_plain(x, gam, be, *quant.quantize_weight(w_fc), b_fc, act1,
+                             *quant.quantize_weight(w_pj), b_pj, act2, quick)
+    err, med = _max_median(got, want)
+    max_tol, med_tol = (2e-2, 1e-3) if dtype == torch.bfloat16 else (2e-3, 1e-4)
+    assert err <= max_tol and med <= med_tol, (err, med)
+    if dtype == torch.float32:
+        err, med = _max_median(got - x, want - x)
+        assert err <= 2e-2 and med <= 1e-3, (err, med)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_ln_mlp_int8(x[..., :96].contiguous(), gam[:96], be[:96], w_fc[:, :96], b_fc, act1,
+                          w_pj[:96], b_pj[:96], act2)
+
+
+def test_quant_attn_model_takes_the_int8_attention(cuda):
+    """A W8A8 ViT-B/16 CLIP-EBC with ``quant_attn``: on 64 px windows a
+    static forward with ``True`` launches the int8 attention 12 times and
+    the float attention never; ``"xla"`` launches neither. The two modes'
+    counts are within 2e-2 of each other, and each within 8e-2 (the JAX
+    package's int8 tolerance) of the plain path's (``attn_backend="sdpa"``,
+    ``fused_head="off"``, whose blocks keep the float attention there, as
+    in the JAX package)."""
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    image = np.random.default_rng(0).normal(size=(96, 144, 3)).astype(np.float32)
+    windows = torch.from_numpy(image[None, :64, :64]).to(cuda)
+    kw = dict(dtype=torch.bfloat16, num_vpt=32, seed=0, device=cuda, quant_int8=True)
+    state = quant.calibrate_int8(get_model("clip_vit_b_16", 64, 8, bins, anchors, quant_attn=True, **kw),
+                                 [windows])
+    counts = {}
+    for name, extra in (("kernel", dict(quant_attn=True)), ("xla", dict(quant_attn="xla")),
+                        ("plain", dict(quant_attn=True, attn_backend="sdpa", fused_head="off"))):
+        model = get_model("clip_vit_b_16", 64, 8, bins, anchors, quant_mode="static", **kw, **extra)
+        quant.load_quant_state(model, state)
+        ev = Evaluator(model, reduction=8, sliding_window=True, window_size=64, stride=32,
+                       pad_to_multiple=16)
+        ev.text_features()
+        fused_ln_qkv_attention_int8.launches = fused_ln_qkv_attention_int8.launches_static = 0
+        density = ev.predict_density(image)
+        torch.cuda.synchronize()
+        n = (fused_ln_qkv_attention_int8.launches_static, fused_ln_qkv_attention_int8.launches)
+        assert n == ((12, 0) if name == "kernel" else (0, 0)), (name, n)
+        assert bool(torch.isfinite(density).all())
+        counts[name] = float(density.sum())
+    assert abs(counts["kernel"] - counts["xla"]) <= 2e-2 * abs(counts["kernel"])
+    for name in ("kernel", "xla"):
+        assert abs(counts[name] - counts["plain"]) <= 8e-2 * abs(counts["plain"]), counts
 
 
 def _flash_inputs(b, h, l, seed, dev, dtype):

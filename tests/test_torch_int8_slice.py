@@ -205,5 +205,9 @@ def test_quant_buffers_stay_out_of_the_state_dict_and_uncalibrated_static_raises
     assert "quant" not in params and set(params) >= {"image_encoder", "image_decoder"}
     with pytest.raises(RuntimeError, match="uncalibrated activation scale"):
         Evaluator(model, **EVAL_KW).predict_density(images[0])
-    with pytest.raises(NotImplementedError, match="quant_attn"):
-        _port_model(port_weights, quant_int8=True, quant_mode="static", quant_attn=True)
+    # quant_attn builds (the same quant state: qkv_amax is always recorded);
+    # a value outside False, True, "xla" is refused
+    assert sorted(quant_state(_port_model(port_weights, quant_int8=True, quant_mode="static",
+                                          quant_attn=True))) == sorted(quant_state(model))
+    with pytest.raises(ValueError, match="quant_attn"):
+        _port_model(port_weights, quant_int8=True, quant_mode="static", quant_attn="bogus")

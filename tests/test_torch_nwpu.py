@@ -128,7 +128,7 @@ def test_nwpu_cli_matches_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--quant", "int8_static", "--quant_attn"], NotImplementedError),
+    (["--quant", "int8", "--quant_attn", "xla"], SystemExit),  # int8 attention needs static scales
     (["--packed_eval", "--sliding_window"], NotImplementedError),
     (["--pretrained", "clip.pt"], NotImplementedError),
     (["--regression"], NotImplementedError),

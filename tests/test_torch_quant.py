@@ -203,8 +203,13 @@ def test_static_layer_raises_uncalibrated_and_quant_buffers_stay_out_of_state_di
         "mlp.c_fc.act_amax", "mlp.c_proj.act_amax"]
     with torch.no_grad(), pytest.raises(RuntimeError, match="uncalibrated activation scale"):
         block(torch.zeros(1, 8, 128))
-    with pytest.raises(NotImplementedError, match="quant_attn"):
-        ResidualAttentionBlock(128, 2, quant_int8=True, quant_mode="static", quant_attn=True)
+    # quant_attn builds with the same buffers; a value outside False, True,
+    # "xla" is refused
+    for quant_attn in (True, "xla"):
+        qa = ResidualAttentionBlock(128, 2, quant_int8=True, quant_mode="static", quant_attn=quant_attn)
+        assert sorted(tq.quant_state(qa)) == sorted(tq.quant_state(block))
+    with pytest.raises(ValueError, match="quant_attn"):
+        ResidualAttentionBlock(128, 2, quant_int8=True, quant_mode="static", quant_attn="bogus")
     with pytest.raises(KeyError):
         tq.load_quant_state(block, {"attn.qkv_amax": torch.ones(3)})
 

@@ -127,7 +127,7 @@ def test_predict_cli_with_jax_weights_matches_jax(port_weights, jax_variables, j
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--quant", "int8_static", "--quant_attn"], NotImplementedError),
+    (["--quant", "int8", "--quant_attn", "xla"], SystemExit),  # int8 attention needs static scales
     (["--packed_eval"], NotImplementedError),
     (["--pretrained", "clip.pt"], NotImplementedError),
     (["--batch_windows", "8"], SystemExit),  # options of unported features are not accepted
