@@ -56,9 +56,11 @@ Phases, each a hard failure (a raised exception, exit code 1):
    the plain path's (``attn_backend="sdpa"``): relative L2 <= 1e-3 in
    fp32, <= 5e-2 in bf16 (printed beside the plain path's own bf16-vs-fp32
    error). Then ms per step, windows/s and peak memory
-   (median of 10 steps after 2 warm-up) beside the step's bound (forward
+   (medians of 5 steps after 2 warm-up, in turns: plain, kernels,
+   kernels, plain) beside the step's bound (forward
    + backward FLOP of the plain path by ``FlopCounterMode`` over the
-   card's peak).
+   card's peak), the kernel path and the plain path of each dtype timed in
+   the same call.
 
 Phase 2 also holds both flash-attention kernels against their plain
 versions, in bf16 and fp32: the tiled kernel at the flagship full image
@@ -93,8 +95,13 @@ forward and the bound.
    beside ``int8_static`` without ``--quant_attn`` and the unquantized
    bf16 path, all in this call; the kernel and xla counts within 2e-2 of
    each other (the JAX package's tolerance between the two modes) and each
-   count within 8e-2 of the bf16 count (its int8 tolerance). Before it, in
-   phase 2: the int8 attention on calibrated scales (static) and on
+   count within 8e-2 of the bf16 count (its int8 tolerance). Then the
+   predict CLI with ``--window_size 320 --stride 320 --quant int8_static
+   --quant_attn`` and ``--quant_attn xla`` in bf16 (70 windows of 433
+   tokens, past the float kernels' 320): 12 launches of the int8 attention
+   kernel per forward, and the two counts within 2e-2 of each other. Before
+   it, in phase 2: the int8 attention on calibrated scales (static; also at
+   70 windows of 433 tokens) and on
    dynamic per-tile scales, and the W8A8 MLP (QuickGELU in bf16 and fp32,
    the tanh GELU once), each against its plain version at the flagship
    shapes (max 2e-2 and median 1e-3 of the largest output; the MLP's
@@ -102,11 +109,17 @@ forward and the bound.
    dynamic branch and the MLP are on no path of the package (the JAX
    package calls them from its tests only): their launches are 0.
 
+5. the kernels behind the PyTorch yardsticks of the redesigned rows (the
+   SDPA forward at the windows' shape, the SDPA backward at the training
+   shape), named by torch.profiler after every timing; not under
+   ``--profile``, where the earlier profiles leave it no device time.
+
 The last lines are the card line, one JSON line describing every kernel
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX. With
 ``--profile`` it also prints the device time of one kernel-path forward
-and of one training step (bf16 and fp32) by CUDA kernel (torch.profiler),
-with the step's device idle share.
+and of one training step (bf16 and fp32, on the kernel path and on the
+plain path) by CUDA kernel (torch.profiler), with the step's device idle
+share.
 """
 
 from __future__ import annotations
@@ -138,6 +151,12 @@ CALIB_B = 16  # windows of one calibration batch (the first 16 of an image)
 # the flagship image run whole: 1 CLS + 32 prompts + its 128 x 192 patch grid
 FULL_L = 1 + 32 + (IMAGE_HW[0] // 16) * (IMAGE_HW[1] // 16)
 PLAIN_HW = (1024, 1536)  # the largest image whose plain-path (L, L) scores fit in fp32
+# --window_size 320 --stride 320 on the flagship image: 7 x 10 windows of
+# 1 + 32 + 20 x 20 tokens, past the float kernels' 320 keys
+LONG_WINDOW = 320
+LONG_L = 1 + 32 + (LONG_WINDOW // 16) ** 2
+LONG_B = math.ceil((IMAGE_HW[0] - LONG_WINDOW) / LONG_WINDOW + 1) * math.ceil(
+    (IMAGE_HW[1] - LONG_WINDOW) / LONG_WINDOW + 1)
 # kernels on no path of the package (the JAX package calls these TPU kernels
 # from its tests only): checked and timed in phase 2, launched 0 times
 OFF_PATH = ("int8_attention_dynamic", "int8_attention_dynamic_fp32", "fused_ln_mlp_int8",
@@ -440,11 +459,12 @@ def phase_attention_int8(dev, dtype: torch.dtype) -> dict:
     }
 
 
-def _int8_attn_inputs(dev, dtype, seed):
-    """The flagship block's inputs with the scales a calibration records:
-    the LN output's max-abs / 127 and each of q, k, v's."""
+def _int8_attn_inputs(dev, dtype, seed, b=B, l=L):
+    """The block's inputs (the flagship's, or b windows of l tokens) with
+    the scales a calibration records: the LN output's max-abs / 127 and
+    each of q, k, v's."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(B, L, D, generator=g, device=dev).to(dtype)
+    x = torch.randn(b, l, D, generator=g, device=dev).to(dtype)
     ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
     ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
     w = torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5  # the fp32 master weight
@@ -455,20 +475,22 @@ def _int8_attn_inputs(dev, dtype, seed):
     return x, ln_w, ln_b, w, bias, act_scale, aq
 
 
-def phase_int8_attention_q(dev, dtype: torch.dtype, branch: str) -> dict:
+def phase_int8_attention_q(dev, dtype: torch.dtype, branch: str, b: int = B, l: int = L) -> dict:
     """The fully int8 block attention at the flagship shape against its
     plain version: ``static`` (calibrated q, k, v scales: the projection
     writes int8 q, k, v, then the int8 attention kernel) or ``dynamic``
     (the float projection, the per-tile scale pass, the same int8 attention
-    kernel). Max 2e-2 and median 1e-3 of the largest output in both dtypes:
-    a flipped int8 step of q, k, v or p moves an output by up to 1/127 of
-    its range, a wrong scale every output."""
+    kernel). With ``l`` = LONG_L, the static branch at the shape of
+    ``--window_size 320`` (LONG_B windows of 433 tokens), whose attention
+    sweeps the keys twice. Max 2e-2 and median 1e-3 of the largest output
+    in both dtypes: a flipped int8 step of q, k, v or p moves an output by
+    up to 1/127 of its range, a wrong scale every output."""
     from clip_ebc_tpu_torch.ops import fused_attention as fa
     from clip_ebc_tpu_torch.ops.quant import quantize_weight
 
     fp32 = dtype == torch.float32
-    tag = " fp32" if fp32 else ""
-    x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, dtype, 12)
+    tag = (" fp32" if fp32 else "") + (f" at L = {l}" if l != L else "")
+    x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, dtype, 12, b, l)
     wq = quantize_weight(w)
     sm = (D // H) ** -0.5
     block_b = 1 if fp32 else 2
@@ -482,7 +504,7 @@ def phase_int8_attention_q(dev, dtype: torch.dtype, branch: str) -> dict:
                                                       sm, block_b=block_b)
 
     errs = []
-    for kv_len in (L, 200):
+    for kv_len in (l, l - 29):
         got = fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, kv_len, sm,
                                              quantized=wq, **kw)
         want = plain(kv_len)
@@ -492,17 +514,18 @@ def phase_int8_attention_q(dev, dtype: torch.dtype, branch: str) -> dict:
                                       f"kv_len={kv_len}", got[:, :kv_len], want[:, :kv_len],
                                       2e-2, 1e-3))
         del got, want
-    ms = time_ms(lambda: fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, L, sm,
+    ms = time_ms(lambda: fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, l, sm,
                                                         quantized=wq, **kw))
-    plain_ms = time_ms(lambda: plain(L), iters=5, warmup=1)
-    m, es = B * L, x.element_size()
-    ops = 2 * m * D * 3 * D + 2 * 2 * B * H * L * L * (D // H)  # projection, QK^T and PV: all int8
+    plain_ms = time_ms(lambda: plain(l), iters=5, warmup=1)
+    m, es = b * l, x.element_size()
+    ops = 2 * m * D * 3 * D + 2 * 2 * b * H * l * l * (D // H)  # projection, QK^T and PV: all int8
     nbytes = m * D * es * 2 + 3 * D * D + 2 * D * 4 + 2 * 3 * D * 4 + 4 + 3 * 4
     bnd, by = bound_ms(ops, PEAK_INT8, nbytes)
     print(f"int8 attention, {branch} scales{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bnd:.4f} ms ({by}: {ops / 1e9:.1f} GOP int8); {ops / ms / 1e9:.1f} TOP/s")
     return {
-        "name": f"int8_attention_{branch}" + ("_fp32" if fp32 else ""), "route": "cuda",
+        "name": f"int8_attention_{branch}" + ("_fp32" if fp32 else "") + (f"_l{l}" if l != L else ""),
+        "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention_int8.cu",
         "replaces": ("clip_ebc_tpu/ops/fused_attention.py:195" if branch == "static"
                      else "clip_ebc_tpu/ops/fused_attention.py:152"),
@@ -670,6 +693,39 @@ def phase_flash(dev, route: str, dtype: torch.dtype) -> dict:
         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
         "library_ms": library,
     }
+
+
+def phase_library_kernels(dev) -> None:
+    """The kernels behind the PyTorch yardsticks of the redesigned rows (the
+    SDPA forward of the short flash route's windows, the SDPA backward of
+    the training step), by device time under torch.profiler. Run last: the
+    profiler's tracing stays attached to the process and slows the launches
+    of every timing after it. Under ``--profile`` it is not run: after the
+    earlier phases' profiles it recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    def kernels(fn) -> str:
+        fn()
+        torch.cuda.synchronize()
+        with prof(activities=[ProfilerActivity.CUDA]) as p:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in sorted(p.key_averages(), key=lambda e: -e.device_time_total)
+                if e.device_time_total > 0]
+        check(bool(rows), "torch.profiler recorded no device time for a library call")
+        return "; ".join(f"{e.key[:110]} ({e.device_time_total / 1e3:.3f} ms)" for e in rows[:3])
+
+    q, k, v = _flash_inputs(dev, torch.bfloat16, B, H, L, 7)
+    print(f"SDPA forward at ({B}, {H}, {L}, 64), bf16: "
+          f"{kernels(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125))}")
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv, gout = _bwd_inputs(dev, dtype, 2)
+        q, k, v = (t.reshape(TRAIN_B, L, H, D // H).transpose(1, 2).detach().requires_grad_(True)
+                   for t in qkv.split(D, dim=-1))
+        out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        go = gout.reshape(TRAIN_B, L, H, D // H).transpose(1, 2)
+        print(f"SDPA backward at ({TRAIN_B}, {H}, {L}, 64), {str(dtype)[6:]}: "
+              f"{kernels(lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True))}")
 
 
 def phase_int8_products(dev) -> None:
@@ -1154,23 +1210,24 @@ def _quant_attn_counters(reset: bool = False) -> dict:
     return {k: getattr(f, attr) for k, (f, attr) in names.items()}
 
 
-def run_cli_quant_attn(img_dir: str, out: str, mode: str, amp: bool) -> tuple:
-    """The predict CLI by windows with ``--quant int8_static --quant_attn
-    MODE``, counters zeroed just before and read just after: ``(count,
-    launches)``."""
+def run_cli_quant_attn(img_dir: str, out: str, mode: str, amp: bool, window: int = 224) -> tuple:
+    """The predict CLI by windows of ``window`` px with ``--quant
+    int8_static --quant_attn MODE``, counters zeroed just before and read
+    just after: ``(count, launches)``."""
     from clip_ebc_tpu_torch.cli import predict
 
     argv = [img_dir, "--model", "clip_vit_b_16", "--reduction", "8", "--truncation", "4",
-            "--num_vpt", "32", "--sliding_window", "--window_size", "224", "--stride", "224",
-            "--seed", "0", "--quant", "int8_static", "--calib_images", "2", "--out", out,
-            "--quant_attn"] + ([] if mode == "kernel" else [mode]) + (["--amp"] if amp else [])
+            "--num_vpt", "32", "--sliding_window", "--window_size", str(window), "--stride",
+            str(window), "--seed", "0", "--quant", "int8_static", "--calib_images", "2", "--out",
+            out, "--quant_attn"] + ([] if mode == "kernel" else [mode]) + (["--amp"] if amp else [])
     _quant_attn_counters(reset=True)
     t0 = time.perf_counter()
     predict.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = _quant_attn_counters()
-    tag = f"--quant int8_static --quant_attn {mode}, " + ("bf16 (--amp)" if amp else "fp32")
+    tag = (f"--window_size {window} --quant int8_static --quant_attn {mode}, "
+           + ("bf16 (--amp)" if amp else "fp32"))
     print(f"predict CLI, {tag}: {secs:.1f} s (model build, weights, calibration, one image); "
           f"launches {launches}")
     with open(out) as f:
@@ -1178,11 +1235,12 @@ def run_cli_quant_attn(img_dir: str, out: str, mode: str, amp: bool) -> tuple:
     check(len(rows) == 1, f"CSV has {len(rows)} rows")
     count = float(rows[0]["count"])
     check(math.isfinite(count), f"{tag}: CLI count {count} is not finite")
-    # one calibration batch (the float attention of the dynamic twin) and one
-    # static forward: the int8 attention kernel in every block ("kernel"), or
-    # the plain integer products and no attention kernel ("xla")
+    # one calibration batch (the float attention of the dynamic twin: the
+    # kernel up to 320 tokens, plain past them) and one static forward: the
+    # int8 attention kernel in every block ("kernel", to 512 tokens), or the
+    # plain integer products and no attention kernel ("xla")
     want = {"int8_attention_static": 12 if mode == "kernel" else 0, "int8_attention_dynamic": 0,
-            "fused_ln_qkv_attention_int8": 0, "fused_qkv_attention": 12,
+            "fused_ln_qkv_attention_int8": 0, "fused_qkv_attention": 12 if window == 224 else 0,
             "fused_ln_qkv_attention": 0, "fused_ebc_head": 2}
     check(launches == want, f"{tag}: launches {launches}, expected {want}")
     return count, launches
@@ -1211,6 +1269,19 @@ def phase_quant_attn(dev, kernels: dict, profile: bool) -> None:
             if mode == "kernel":
                 kernels["int8_attention_static" + ("" if amp else "_fp32")]["launches"] = \
                     n["int8_attention_static"]
+        # windows of 433 tokens: the kernel route where the parent ran float
+        # attention; its count against the xla mode's at the same windows
+        long_counts = {}
+        for mode in ("kernel", "xla"):
+            long_counts[mode], n = run_cli_quant_attn(
+                img_dir, os.path.join(tmp, f"long_{mode}.csv"), mode, True, LONG_WINDOW)
+            if mode == "kernel":
+                kernels[f"int8_attention_static_l{LONG_L}"]["launches"] = n["int8_attention_static"]
+        rel = abs(long_counts["kernel"] - long_counts["xla"]) / abs(long_counts["xla"])
+        print(f"--window_size {LONG_WINDOW} ({LONG_B} windows of {LONG_L} tokens), bf16: counts "
+              f"kernel {long_counts['kernel']:.4f}, xla {long_counts['xla']:.4f}; |diff|/count "
+              f"{rel:.2e} (tol 2e-2)")
+        check(rel <= 2e-2, f"--window_size {LONG_WINDOW}: --quant_attn kernel and xla counts disagree")
         image = normalize_image(_load_image(path))
 
     bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
@@ -1508,6 +1579,13 @@ def phase_training(dev, kernels: dict, profile: bool) -> None:
 
     for dtype, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FP32)):
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        model = _flagship_model(dev, dtype).train()
+        trainer = Trainer(cfg, model, make_loss_fn(cfg))
+        trainer.set_epoch_lr(1)
+        text = trainer.text_features()
+        torch.cuda.reset_peak_memory_stats(dev)  # the kernel path's peak, its model alone
+        time_steps(trainer, batch, text, reps=1, warmup=1)
+        peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
         plain_model = _flagship_model(dev, dtype, attn_backend="sdpa").train()
         plain_trainer = Trainer(cfg, plain_model, make_loss_fn(cfg))
         plain_trainer.set_epoch_lr(1)
@@ -1515,23 +1593,24 @@ def phase_training(dev, kernels: dict, profile: bool) -> None:
         with counter:
             plain_trainer.train_step(batch, plain_trainer.text_features())
         flops = float(counter.get_total_flops())
-        plain_ms = time_steps(plain_trainer, batch, plain_trainer.text_features())
+        plain_text = plain_trainer.text_features()
+        # in turns (plain, kernels, kernels, plain): the host clock drifts
+        turns = [time_steps(plain_trainer, batch, plain_text, reps=5),
+                 time_steps(trainer, batch, text, reps=5), time_steps(trainer, batch, text, reps=5),
+                 time_steps(plain_trainer, batch, plain_text, reps=5)]
+        ms, plain_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        if profile:
+            profile_step(plain_trainer, batch, plain_text, tag + ", plain path")
         del plain_model, plain_trainer
-        model = _flagship_model(dev, dtype).train()
-        trainer = Trainer(cfg, model, make_loss_fn(cfg))
-        trainer.set_epoch_lr(1)
-        text = trainer.text_features()
-        torch.cuda.reset_peak_memory_stats(dev)
-        ms = time_steps(trainer, batch, text)
-        peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
         bnd = flops / peak * 1e3
         print(f"training step {tag} ({TRAIN_B} windows of {TRAIN_SIZE}): kernels {ms:.2f} ms/step "
-              f"({TRAIN_B / ms * 1e3:.0f} windows/s), peak memory {peak_mem:.2f} GiB; plain path "
-              f"{plain_ms:.2f} ms/step; bound {flops / 1e12:.3f} TFLOP (FlopCounterMode, plain "
-              f"path, forward + backward) / {peak / 1e12:.0f} TFLOP/s = {bnd:.2f} ms "
-              f"({ms / bnd:.1f}x)")
+              f"({TRAIN_B / ms * 1e3:.0f} windows/s), plain path {plain_ms:.2f} ms/step "
+              f"(turns plain, kernels, kernels, plain: {', '.join(f'{t:.2f}' for t in turns)}); "
+              f"kernel path / plain path {ms / plain_ms:.3f}; peak memory {peak_mem:.2f} GiB; "
+              f"bound {flops / 1e12:.3f} TFLOP (FlopCounterMode, plain path, forward + backward) "
+              f"/ {peak / 1e12:.0f} TFLOP/s = {bnd:.2f} ms ({ms / bnd:.1f}x)")
         if profile:
-            profile_step(trainer, batch, text, tag)
+            profile_step(trainer, batch, text, tag + ", kernel path")
         del model, trainer
 
 
@@ -1557,6 +1636,7 @@ def main(argv) -> int:
                phase_flash(dev, "short", torch.bfloat16), phase_flash(dev, "short", torch.float32),
                phase_int8_attention_q(dev, torch.bfloat16, "static"),
                phase_int8_attention_q(dev, torch.float32, "static"),
+               phase_int8_attention_q(dev, torch.bfloat16, "static", LONG_B, LONG_L),
                phase_int8_attention_q(dev, torch.bfloat16, "dynamic"),
                phase_int8_attention_q(dev, torch.float32, "dynamic"),
                phase_mlp_int8(dev, torch.bfloat16), phase_mlp_int8(dev, torch.float32)]
@@ -1581,6 +1661,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_training(dev, by_name, "--profile" in argv)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s")
+    if "--profile" not in argv:
+        phase_library_kernels(dev)
     check(all(k.get("launches", 0) > 0 for k in kernels if k["name"] not in OFF_PATH),
           "a kernel of the path was never launched")
     check(all("launches" in k for k in kernels), "a kernel has no launch count")

@@ -27,6 +27,24 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// max (sum) of the two rows a thread holds (g and g + 8 of an mma tile)
+// over the lane quad that shares them
+__device__ __forceinline__ void quad_max(float& a, float& b) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
+  }
+}
+
+__device__ __forceinline__ void quad_sum(float& a, float& b) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+}
+
 __host__ __device__ constexpr size_t round_up(size_t x, size_t m) {
   return (x + m - 1) / m * m;
 }

@@ -7,7 +7,7 @@
 //    the diagonal are skipped; keys >= Lk are masked.
 //  * short (ports _flash_forward_short's pallas_call, kernel _short_kernel):
 //    the whole row's softmax, p = exp(s - max) / sum normalized BEFORE it is
-//    rounded and multiplied by V.
+//    rounded and multiplied by V (the sum's reciprocal times each p).
 // Both: fp32 scores, x scale unless it is 1.0, masked entries at kNegInf
 // (-0.7 * float max, the JAX constant), P.V accumulated in fp32.
 //
@@ -18,7 +18,7 @@
 // fed from shared memory. The short route at the windows' shape (B = 140,
 // L = 229) does 22.6 GFLOP against 197 MB: bytes bound it (0.059 ms).
 //
-// Design, bf16 (mma.sync m16n8k16, the layout of mha_kernel in
+// Design, tiled bf16 (mma.sync m16n8k16, the layout of mha_kernel in
 // fused_attention.cu): one block of 4 warps per (64-query tile, head,
 // batch), each warp 16 query rows whose Q fragments stay in registers. K and
 // V tiles of 128 keys (the JAX block_k, so the online softmax rescales at
@@ -28,10 +28,29 @@
 // stands; V goes through ldmatrix.trans. The scores of a warp's 16 rows x
 // 128 keys are 64 fp32 accumulators a thread; the row max and sum are
 // quad shuffles; P is rounded to bf16 in registers and is the A operand of
-// P.V as it stands. The short route's row does not fit in registers at L =
-// 512 (256 accumulators a thread), so it makes two sweeps over K: the
-// first takes the row max and sum online (K only), the second recomputes
-// the scores and multiplies the normalized P by V.
+// P.V as it stands.
+//
+// Design, short bf16 (wgmma, sm_90a; redesigned after the first port, which
+// swept K twice in each of 4 query-tile blocks of a (batch, head) and
+// waited on its loads): a persistent block of two warpgroups on each SM
+// walks the (batch, head) pairs. A pair's Q, K and V land in shared memory
+// once, by cp.async, in 128-byte-swizzled rows of 64 values, in one of two
+// stages, so the next pair's loads run under this pair's products. Each
+// warpgroup takes every other 64-row query tile. S = Q K^T is wgmma
+// m64n128k16 per 128-key chunk, Q and K both K-major from shared memory, S
+// in registers (64 fp32 a thread a chunk). Up to 256 keys the whole score
+// row stays in registers and the softmax is one exact pass: mask, the row
+// max of the raw scores (scale > 0) over the lane quad, p = exp(s scale -
+// max scale) as 2^(s c2 - max c2), c2 = scale log2(e), one FMA and one
+// ex2.approx an element, the row sum, P normalized in fp32 and rounded to
+// bf16, the rounding point of _short_kernel. P goes from the accumulators to the
+// register A operand of wgmma m64n64k16 in their own layout, and V is the B
+// operand as its rows stand (MN-major: the descriptor's transpose bit), so
+// nothing is transposed. O is rounded to bf16, staged in the tile's Q rows
+// and written in 16-byte stores. Past 256 keys (up to the route's 512) the
+// row no longer fits and a pair takes all of shared memory: the first sweep
+// over the chunks takes the row max and sum online, the second recomputes S
+// and multiplies the normalized P by V, as the first port did.
 //
 // fp32 (no --amp): the tensor cores take no fp32 operands short of TF32,
 // which would round where the plain version does not, so the same tiling
@@ -156,8 +175,7 @@ __device__ __forceinline__ void tile_pv(float (&o)[kDh / 8][4], const float (&s)
   }
 }
 
-template <bool kShort>
-__global__ void __launch_bounds__(kThreads) flash_bf16_kernel(const FlashArgs a) {
+__global__ void __launch_bounds__(kThreads) flash_tiled_bf16_kernel(const FlashArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kBk][kLdh]
   bf16* vs = ks + 2 * kBk * kLdh;            // [2][kBk][kLdh]
@@ -208,38 +226,7 @@ __global__ void __launch_bounds__(kThreads) flash_bf16_kernel(const FlashArgs a)
   // thread's share of the row sum, rows g and g + 8
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  if (kShort) {
-    // sweep 1: the row max and sum, online, over K alone
-    load(0, 0, false);
-    for (int it = 0; it < n_tiles; ++it) {
-      if (it + 1 < n_tiles) load(it + 1, (it + 1) & 1, false);
-      else cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      tile_scores(s, qa, ks + (it & 1) * kBk * kLdh, lane);
-      float mx0, mx1;
-      scale_mask_max(s, a, it * kBk, r0, t, mx0, mx1);
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      float p0 = 0.f, p1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBk / 8; ++j) {
-        p0 += expf(s[j][0] - mn0) + expf(s[j][1] - mn0);
-        p1 += expf(s[j][2] - mn1) + expf(s[j][3] - mn1);
-      }
-      l0 = expf(m0 - mn0) * l0 + p0;
-      l1 = expf(m1 - mn1) * l1 + p1;
-      m0 = mn0;
-      m1 = mn1;
-      __syncthreads();
-    }
-#pragma unroll
-    for (int x = 1; x < 4; x <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, x);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, x);
-    }
-  }
-
-  // the P.V sweep: short, p = exp(s - max) / sum; tiled, online
+  // the online softmax over the key tiles
   load(0, 0, true);
   for (int it = 0; it < n_tiles; ++it) {
     if (it + 1 < n_tiles) load(it + 1, (it + 1) & 1, true);
@@ -250,53 +237,39 @@ __global__ void __launch_bounds__(kThreads) flash_bf16_kernel(const FlashArgs a)
     tile_scores(s, qa, ks + st * kBk * kLdh, lane);
     float mx0, mx1;
     scale_mask_max(s, a, it * kBk, r0, t, mx0, mx1);
-    if (kShort) {
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    float p0 = 0.f, p1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < kBk / 8; ++j) {
-        s[j][0] = expf(s[j][0] - m0) / l0;
-        s[j][1] = expf(s[j][1] - m0) / l0;
-        s[j][2] = expf(s[j][2] - m1) / l1;
-        s[j][3] = expf(s[j][3] - m1) / l1;
-      }
-    } else {
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-      float p0 = 0.f, p1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBk / 8; ++j) {
-        s[j][0] = expf(s[j][0] - mn0);
-        s[j][1] = expf(s[j][1] - mn0);
-        s[j][2] = expf(s[j][2] - mn1);
-        s[j][3] = expf(s[j][3] - mn1);
-        p0 += s[j][0] + s[j][1];
-        p1 += s[j][2] + s[j][3];
-      }
-      l0 = al0 * l0 + p0;
-      l1 = al1 * l1 + p1;
-#pragma unroll
-      for (int i = 0; i < kDh / 8; ++i) {
-        o[i][0] *= al0;
-        o[i][1] *= al0;
-        o[i][2] *= al1;
-        o[i][3] *= al1;
-      }
-      m0 = mn0;
-      m1 = mn1;
+    for (int j = 0; j < kBk / 8; ++j) {
+      s[j][0] = expf(s[j][0] - mn0);
+      s[j][1] = expf(s[j][1] - mn0);
+      s[j][2] = expf(s[j][2] - mn1);
+      s[j][3] = expf(s[j][3] - mn1);
+      p0 += s[j][0] + s[j][1];
+      p1 += s[j][2] + s[j][3];
     }
+    l0 = al0 * l0 + p0;
+    l1 = al1 * l1 + p1;
+#pragma unroll
+    for (int i = 0; i < kDh / 8; ++i) {
+      o[i][0] *= al0;
+      o[i][1] *= al0;
+      o[i][2] *= al1;
+      o[i][3] *= al1;
+    }
+    m0 = mn0;
+    m1 = mn1;
     tile_pv(o, s, vs + st * kBk * kLdh, lane);
     __syncthreads();
   }
 
-  float inv0 = 1.f, inv1 = 1.f;
-  if (!kShort) {
 #pragma unroll
-    for (int x = 1; x < 4; x <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, x);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, x);
-    }
-    inv0 = l0 == 0.f ? 1.f : 1.f / l0;
-    inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
+  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0, inv1 = l1 == 0.f ? 1.f : 1.f / l1;
 #pragma unroll
   for (int i = 0; i < kDh / 8; ++i) {
     const int c = i * 8 + 2 * t;
@@ -304,6 +277,319 @@ __global__ void __launch_bounds__(kThreads) flash_bf16_kernel(const FlashArgs a)
       *reinterpret_cast<uint32_t*>(ob + r0 * a.os[2] + c) = pack_bf16(o[i][0] * inv0, o[i][1] * inv0);
     if (r1 < a.lq)
       *reinterpret_cast<uint32_t*>(ob + r1 * a.os[2] + c) = pack_bf16(o[i][2] * inv1, o[i][3] * inv1);
+  }
+}
+
+// ---- bf16 short route (wgmma) ------------------------------------------------
+
+constexpr int kSThreads = 256;  // two warpgroups
+constexpr int kSChunk = 128;    // keys of one S = Q K^T wgmma (its N)
+constexpr int kSRegChunks = 2;  // up to 256 keys the whole score row stays in registers
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One stage: QT Q tiles of 64 rows, then K and V of KC chunks, rows of 128 B.
+__host__ __device__ constexpr size_t short_stage_bytes(int kc, int qt) { return (size_t)(qt * kBq + 2 * kc * kSChunk) * 128; }
+__host__ __device__ constexpr int short_stages(int kc, int qt) { return kc <= kSRegChunks && qt <= 4 ? 2 : 1; }
+size_t short_smem_bytes(int kc, int qt) { return short_stages(kc, qt) * short_stage_bytes(kc, qt) + 1024; }
+
+// d (64 x 64 fp32) (+)= A (64 x 16 bf16 in registers: warp w's 16 rows in the
+// mma_bf16 A layout) . B (16 x 64 bf16, MN-major in shared memory: 16 rows of
+// 64 values, 128B-swizzled, the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+      "1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// Issues S (64 x 128) = Q tile . K chunk^T (4 wgmma along the head dim; no
+// commit). Thread i of the warpgroup holds rows 16 (i / 32) + g and + 8,
+// keys 8 j + 2t, + 1 of the chunk in s[4 j .. 4 j + 3], as in mma_bf16.
+__device__ __forceinline__ void short_scores(float (&s)[64], const unsigned char* qt,
+                                             const unsigned char* kc) {
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk)
+    wgmma_m64n128k16(s, sw128_desc(qt + kk * 32), sw128_desc(kc + kk * 32), kk > 0);
+}
+
+// 2^x (ex2.approx.ftz: a p below 2^-126 of its row max flushes to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Masks the raw scores of a chunk in place (keys >= lim0 of row r0, >= lim1
+// of row r0 + 8 at kNegInf; nothing to do when the chunk lies below both)
+// and takes its max of the two rows (this thread's share; the caller
+// reduces over the lane quad). The scale is applied after the max: scale >
+// 0, so max(s scale) = max(s) scale.
+__device__ __forceinline__ void short_mask_max(float (&s)[64], int col0, int lim0, int lim1, int t,
+                                               float& mx0, float& mx1) {
+  if (col0 + kSChunk > min(lim0, lim1)) {
+#pragma unroll
+    for (int j = 0; j < kSChunk / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + j * 8 + 2 * t + e;
+        if (col >= lim0) s[4 * j + e] = kNegInf;
+        if (col >= lim1) s[4 * j + 2 + e] = kNegInf;
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < kSChunk / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+}
+
+// p = exp(s scale - max scale) = 2^(s c2 - max c2) in place, c2 = scale
+// log2(e); adds each row's p to l0, l1. A masked s (kNegInf) gives 0.
+__device__ __forceinline__ void short_exp(float (&s)[64], float c2, float mc0, float mc1, float& l0,
+                                          float& l1) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = fast_exp2(fmaf(s[i], c2, (i & 2) ? mc1 : mc0));
+    ((i & 2) ? l1 : l0) += s[i];
+  }
+}
+
+// P of a chunk rounded to bf16 in the register A operand layout of its 8
+// 16-key steps: the accumulators as they lie.
+__device__ __forceinline__ void short_pack(uint32_t (&pa)[kSChunk / 16][4], const float (&p)[64]) {
+#pragma unroll
+  for (int k = 0; k < kSChunk / 16; ++k) {
+    pa[k][0] = pack_bf16(p[8 * k], p[8 * k + 1]);
+    pa[k][1] = pack_bf16(p[8 * k + 2], p[8 * k + 3]);
+    pa[k][2] = pack_bf16(p[8 * k + 4], p[8 * k + 5]);
+    pa[k][3] = pack_bf16(p[8 * k + 6], p[8 * k + 7]);
+  }
+}
+
+// Issues O += P chunk . V chunk (8 wgmma of 16 keys; no commit). The
+// caller fences after packing P: wgmma reads its A registers asynchronously.
+__device__ __forceinline__ void short_pv(float (&o)[32], const uint32_t (&pa)[kSChunk / 16][4],
+                                         const unsigned char* vc, bool first) {
+#pragma unroll
+  for (int k = 0; k < kSChunk / 16; ++k)
+    wgmma_m64n64k16_rs(o, pa[k], sw128_desc(vc + k * 16 * 128), !first || k > 0);
+}
+
+// O (64 x 64) of one query tile: the softmax of its rows against the KC key
+// chunks at ks, times V at vs. r0 = the thread's first row.
+template <int KC>
+__device__ __forceinline__ void short_tile(float (&o)[32], const FlashArgs& a, const unsigned char* qt,
+                                           const unsigned char* ks, const unsigned char* vs, int r0,
+                                           int t) {
+  const float c2 = a.scale * kLog2e;
+  // valid keys of rows r0 and r0 + 8: below lk, and up to the row when causal
+  const int lim0 = a.causal ? min(a.lk, r0 + 1) : a.lk;
+  const int lim1 = a.causal ? min(a.lk, r0 + 9) : a.lk;
+  if constexpr (KC <= kSRegChunks) {
+    // one pass: the whole score row in registers
+    float s[KC][64];
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[c][i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < KC; ++c) short_scores(s[c], qt, ks + c * kSChunk * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) short_mask_max(s[c], c * kSChunk, lim0, lim1, t, mx0, mx1);
+    quad_max(mx0, mx1);
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) short_exp(s[c], c2, -mx0 * c2, -mx1 * c2, l0, l1);
+    quad_sum(l0, l1);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    uint32_t pa[KC][kSChunk / 16][4];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[c][i] *= (i & 2) ? inv1 : inv0;
+      short_pack(pa[c], s[c]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < KC; ++c) short_pv(o, pa[c], vs + c * kSChunk * 128, c == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+  } else {
+    // two sweeps: the row max and sum online, then P V chunk by chunk
+    float s[64];
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < KC; ++c) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      wgmma_fence();
+      short_scores(s, qt, ks + c * kSChunk * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      float mx0 = m0, mx1 = m1;
+      short_mask_max(s, c * kSChunk, lim0, lim1, t, mx0, mx1);
+      quad_max(mx0, mx1);
+      float p0 = 0.f, p1 = 0.f;
+      short_exp(s, c2, -mx0 * c2, -mx1 * c2, p0, p1);
+      l0 = fast_exp2((m0 - mx0) * c2) * l0 + p0;
+      l1 = fast_exp2((m1 - mx1) * c2) * l1 + p1;
+      m0 = mx0;
+      m1 = mx1;
+    }
+    quad_sum(l0, l1);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll 1
+    for (int c = 0; c < KC; ++c) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      wgmma_fence();
+      short_scores(s, qt, ks + c * kSChunk * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      float mx0 = kNegInf, mx1 = kNegInf;
+      short_mask_max(s, c * kSChunk, lim0, lim1, t, mx0, mx1);
+      float d0 = 0.f, d1 = 0.f;
+      short_exp(s, c2, -m0 * c2, -m1 * c2, d0, d1);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] *= (i & 2) ? inv1 : inv0;
+      uint32_t pa[kSChunk / 16][4];
+      short_pack(pa, s);
+      wgmma_fence();
+      short_pv(o, pa, vs + c * kSChunk * 128, c == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+  }
+}
+
+// Persistent: block i takes the (batch, head) pairs i, i + gridDim.x, ...;
+// KC = ceil(lk / 128) key chunks, QT = Q tiles a stage holds (4 or 8).
+template <int KC, int QT>
+__global__ void __launch_bounds__(kSThreads, 1) flash_short_bf16_kernel(const FlashArgs a) {
+  constexpr int kStages = short_stages(KC, QT);
+  constexpr size_t kStage = short_stage_bytes(KC, QT);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_items = a.b * a.h, n_qt = (a.lq + kBq - 1) / kBq;
+
+  // Q tiles, K and V of pair w into stage st, swizzled; rows past lq and
+  // keys past lk zero (0 * V stays finite). Not committed.
+  auto load = [&](int w, int st) {
+    const int b = w / a.h, h = w % a.h;
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1];
+    const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + h * a.ks[1];
+    const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + h * a.vs[1];
+    unsigned char* qd = sm + st * kStage;
+    unsigned char* kd = qd + QT * kBq * 128;
+    unsigned char* vd = kd + KC * kSChunk * 128;
+    for (int i = tid; i < n_qt * kBq * 8; i += kSThreads) {
+      const int r = i >> 3, c = i & 7;
+      const bool ok = r < a.lq;
+      cp_async16(qd + sw128_offset(r, c), qb + (long long)(ok ? r : 0) * a.qs[2] + c * 8, ok);
+    }
+    for (int i = tid; i < KC * kSChunk * 8; i += kSThreads) {
+      const int r = i >> 3, c = i & 7;
+      const bool ok = r < a.lk;
+      const long long kr = ok ? r : 0;
+      cp_async16(kd + sw128_offset(r, c), kb + kr * a.ks[2] + c * 8, ok);
+      cp_async16(vd + sw128_offset(r, c), vb + kr * a.vs[2] + c * 8, ok);
+    }
+  };
+
+  const int first = blockIdx.x, step = gridDim.x;
+  if (first < n_items) load(first, 0);
+  cp_async_commit();
+  int i = 0;
+  for (int w = first; w < n_items; w += step, ++i) {
+    const int st = kStages == 2 ? (i & 1) : 0;
+    if (kStages == 2) {
+      if (w + step < n_items) load(w + step, st ^ 1);  // lands while this pair computes
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // pair w landed for all
+
+    const int b = w / a.h, h = w % a.h;
+    bf16* ob = static_cast<bf16*>(a.o) + b * a.os[0] + h * a.os[1];
+    unsigned char* qs = sm + st * kStage;
+    const unsigned char* ks = qs + QT * kBq * 128;
+    const unsigned char* vs = ks + KC * kSChunk * 128;
+    for (int qt = wg; qt < n_qt; qt += 2) {  // warpgroup wg takes every other query tile
+      unsigned char* q_tile = qs + qt * kBq * 128;
+      const int rl = warp * 16 + g, r0 = qt * kBq + rl;
+      float o[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) o[k] = 0.f;
+      short_tile<KC>(o, a, q_tile, ks, vs, r0, t);
+      // O rounded to bf16 and staged swizzled in the tile's Q rows (read by
+      // its finished products only), then written out in 16-byte stores
+#pragma unroll
+      for (int j = 0; j < kDh / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(q_tile + sw128_offset(rl, j) + 4 * t) = pack_bf16(o[4 * j], o[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(q_tile + sw128_offset(rl + 8, j) + 4 * t) =
+            pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+      }
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
+      for (int k = tid & 127; k < kBq * 8; k += 128) {
+        const int r = k >> 3, c = k & 7, row = qt * kBq + r;
+        if (row < a.lq)
+          *reinterpret_cast<uint4*>(ob + row * a.os[2] + c * 8) =
+              *reinterpret_cast<const uint4*>(q_tile + sw128_offset(r, c));
+      }
+    }
+    __syncthreads();  // stage st is read: the pair after next may land in it
+    if (kStages == 1) {
+      if (w + step < n_items) load(w + step, 0);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int KC, int QT>
+cudaError_t launch_short_bf16(const FlashArgs& a, int blocks, cudaStream_t st) {
+  const size_t smem = short_smem_bytes(KC, QT);
+  cudaError_t e = cudaFuncSetAttribute(flash_short_bf16_kernel<KC, QT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  flash_short_bf16_kernel<KC, QT><<<blocks, kSThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// One block an SM (or one a pair); the key chunks and the Q tiles pick the
+// instantiation (the short route takes lq, lk <= 512).
+cudaError_t launch_short_bf16_any(const FlashArgs& a, cudaStream_t st) {
+  if (a.b < 1 || a.h < 1 || a.lq < 1 || a.lk < 1 || a.lq > 512 || a.lk > 512) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)a.b * a.h;
+  const int blocks = (int)(items < sms ? items : sms);
+  const bool long_q = a.lq > 4 * kBq;
+  switch ((a.lk + kSChunk - 1) / kSChunk) {
+    case 1: return long_q ? launch_short_bf16<1, 8>(a, blocks, st) : launch_short_bf16<1, 4>(a, blocks, st);
+    case 2: return long_q ? launch_short_bf16<2, 8>(a, blocks, st) : launch_short_bf16<2, 4>(a, blocks, st);
+    case 3: return long_q ? launch_short_bf16<3, 8>(a, blocks, st) : launch_short_bf16<3, 4>(a, blocks, st);
+    default: return long_q ? launch_short_bf16<4, 8>(a, blocks, st) : launch_short_bf16<4, 4>(a, blocks, st);
   }
 }
 
@@ -522,7 +808,7 @@ FlashArgs make_args(const void* q, const void* k, const void* v, void* o, int b,
 // head, row) strides in elements that follow (q, k, v, out in turn); rows
 // contiguous and 16-byte aligned. Returns the CUDA error code of the launch
 // (0 = ok).
-#define EBC_FLASH_ENTRY(NAME, KERNEL, THREADS, SMEM)                                              \
+#define EBC_FLASH_ENTRY(NAME, LAUNCH)                                                              \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o, int b, int h, int lq, \
                       int lk, long long qsb, long long qsh, long long qsr, long long ksb,           \
                       long long ksh, long long ksr, long long vsb, long long vsh, long long vsr,    \
@@ -530,11 +816,12 @@ FlashArgs make_args(const void* q, const void* k, const void* v, void* o, int b,
                       void* stream) {                                                               \
     using namespace ebc;                                                                            \
     const long long st[12] = {qsb, qsh, qsr, ksb, ksh, ksr, vsb, vsh, vsr, osb, osh, osr};          \
-    return (int)launch(KERNEL, THREADS, SMEM, make_args(q, k, v, o, b, h, lq, lk, st, scale, causal), \
-                       static_cast<cudaStream_t>(stream));                                          \
+    const FlashArgs args = make_args(q, k, v, o, b, h, lq, lk, st, scale, causal);                 \
+    const cudaStream_t cs = static_cast<cudaStream_t>(stream);                                      \
+    return (int)(LAUNCH);                                                                           \
   }
 
-EBC_FLASH_ENTRY(ebc_flash_short, flash_bf16_kernel<true>, kThreads, bf16_smem_bytes())
-EBC_FLASH_ENTRY(ebc_flash_tiled, flash_bf16_kernel<false>, kThreads, bf16_smem_bytes())
-EBC_FLASH_ENTRY(ebc_flash_short_f32, flash_f32_kernel<true>, kFThreads, f32_smem_bytes())
-EBC_FLASH_ENTRY(ebc_flash_tiled_f32, flash_f32_kernel<false>, kFThreads, f32_smem_bytes())
+EBC_FLASH_ENTRY(ebc_flash_short, launch_short_bf16_any(args, cs))
+EBC_FLASH_ENTRY(ebc_flash_tiled, launch(flash_tiled_bf16_kernel, kThreads, bf16_smem_bytes(), args, cs))
+EBC_FLASH_ENTRY(ebc_flash_short_f32, launch(flash_f32_kernel<true>, kFThreads, f32_smem_bytes(), args, cs))
+EBC_FLASH_ENTRY(ebc_flash_tiled_f32, launch(flash_f32_kernel<false>, kFThreads, f32_smem_bytes(), args, cs))

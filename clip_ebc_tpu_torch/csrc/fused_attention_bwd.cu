@@ -46,15 +46,26 @@
 //    What this costs: S is recomputed four times and dP twice (about 2x
 //    the FLOP of a single-pass kernel), which at these sizes the card
 //    hides; nothing of size L x L touches device memory.
-//  * fp32 (training without --amp): the same split in plain CUDA,
-//    attn_bwd_dq_f32_kernel and attn_bwd_dkv_f32_kernel, one block of 8
-//    warps per (64-row tile, head, window), a warp a query row (or key
-//    row) with the whole other side in shared memory (pitch 65, so lane j
-//    reads row j conflict-free) and the 64-wide row in registers; products
-//    broadcast by warp shuffle, as in mha_f32_kernel. Every product reads
-//    one fp32 operand from shared memory, so shared-memory bandwidth, not
-//    the FMA rate, bounds it; the other side (~120 KB at L = 229) allows
-//    one block per SM.
+//  * fp32 (training without --amp; redesigned after the first port, a warp
+//    a row reading one shared-memory operand per FMA): the same split, in
+//    register-blocked SIMT fp32 (the tensor cores take no fp32 short of
+//    TF32, which would round where the plain version does not).
+//    attn_bwd_dq_f32_kernel: one block of 8 warps per (64-query tile, head,
+//    window) with the tile's Q and g rows and all of K_h and V_h in shared
+//    memory (rows padded to 68 floats, so a quarter warp's float4 reads of 8
+//    rows hit distinct banks). A warp owns 8 query rows, a lane keys lane +
+//    32 j, so the whole row (up to 320 keys, 10 a lane) stays in registers:
+//    S and dP in one pass, each float4 of K or V feeding 32 FMAs of the 8
+//    rows, whose float4s are broadcast; the softmax is exact over the row
+//    (warp shuffles), then dS = P (dP - D) sm_scale. dS^T goes to shared
+//    memory in V's place and dQ = dS K is 4 x 4 outputs a thread.
+//    attn_bwd_dkv_f32_kernel: one block per (64-key tile, head, window),
+//    the same layout with keys for queries, the queries in chunks of 128: a
+//    warp owns 8 keys, a lane queries lane + 32 j; S^T and dP^T, P^T and
+//    dS^T from the row statistics, both written transposed, then dV += P^T
+//    g and dK += dS^T Q, 4 x 4 outputs of each a thread. S and dP are
+//    computed twice (once a launch), 1.7x the FLOP of one pass; a single
+//    launch has not been tried against this split.
 //  * ln_bwd_dx_kernel: a block owns 32 rows x all D columns of dy (8
 //    warps, each 32 rows x D/8 columns, mma.sync from shared memory), so
 //    the LayerNorm's row means of dy gamma and dy gamma xhat close inside
@@ -400,194 +411,267 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gout,
   }
 }
 
-// ---- fp32: a warp a row ---------------------------------------------------
+// ---- fp32: register-blocked SIMT ---------------------------------------------
 
-constexpr int kFWarps = 8;
-constexpr int kFRows = 64;                   // rows of one block's tile
-constexpr int kFPitch = kDh + 1;             // lane j reads row j from its own bank
-constexpr int kFPerLane = kMaxL / 32;        // rows of the other side a lane holds
+constexpr int kFThreads = 256;            // 8 warps
+constexpr int kFRowsW = 8;                // rows (queries in dQ, keys in dK/dV) a warp owns
+constexpr int kFTile = 8 * kFRowsW;       // rows of a block
+constexpr int kFChunk = 128;              // queries of one dK/dV step: 4 a lane
+constexpr int kFPitch = kDh + 4;          // 68: a quarter warp's float4s on 8 rows hit distinct banks
 
-size_t f32_smem(int l) { return (size_t)l * 2 * kFPitch * sizeof(float) + (size_t)3 * l * sizeof(float); }
+size_t dq_f32_smem(int lp) { return (size_t)(2 * kFTile + 2 * lp) * kFPitch * sizeof(float); }
+size_t dkv_f32_smem() {
+  return ((size_t)(4 * kFChunk + 2 * kFTile) * kFPitch + 3 * kMaxL) * sizeof(float);
+}
 
-// Copies columns [col, col + 64) of ``rows`` rows (pitch ``pitch``) into
-// shared memory at pitch kFPitch.
-__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, int rows, size_t pitch) {
-  for (int i = threadIdx.x; i < rows * kDh; i += kFWarps * 32) {
-    const int r = i / kDh, c = i % kDh;
-    dst[r * kFPitch + c] = src[(size_t)r * pitch + c];
+// rows [0, n) of a (rows, 64) fp32 slice with row pitch ``pitch`` into
+// shared memory at pitch kFPitch, rows [n, total) zero (cp.async, uncommitted)
+__device__ __forceinline__ void stage_f32(float* dst, const float* src, int n, int total, size_t pitch) {
+  for (int i = threadIdx.x; i < total * (kDh / 4); i += kFThreads) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    cp_async16(dst + r * kFPitch + c, src + (size_t)(r < n ? r : 0) * pitch + c, r < n);
   }
 }
 
-__device__ __forceinline__ void load_row_f32(float (&v)[kDh], const float* src) {
-  const float4* p = reinterpret_cast<const float4*>(src);
+// acc[i][j] = row i of ``rows`` (kFRowsW rows, the same for the whole warp:
+// broadcast) . row lane + 32 j of ``cols``, over the head dim in order. Each
+// float4 read of ``cols`` feeds 4 kFRowsW FMAs.
+template <int NJ>
+__device__ __forceinline__ void rows_dot_cols(float (&acc)[kFRowsW][NJ], const float* rows,
+                                              const float* cols, int lane) {
 #pragma unroll
-  for (int c = 0; c < kDh / 4; ++c) {
-    const float4 t4 = p[c];
-    v[4 * c] = t4.x;
-    v[4 * c + 1] = t4.y;
-    v[4 * c + 2] = t4.z;
-    v[4 * c + 3] = t4.w;
+  for (int i = 0; i < kFRowsW; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int dd = 0; dd < kDh; dd += 4) {
+    float4 a[kFRowsW];
+#pragma unroll
+    for (int i = 0; i < kFRowsW; ++i) a[i] = *reinterpret_cast<const float4*>(rows + i * kFPitch + dd);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 c = *reinterpret_cast<const float4*>(cols + (lane + 32 * j) * kFPitch + dd);
+#pragma unroll
+      for (int i = 0; i < kFRowsW; ++i) {
+        acc[i][j] = fmaf(a[i].x, c.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, c.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, c.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, c.w, acc[i][j]);
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(kFWarps * 32)
+// acc[e][c] += a[e] * v[c], four rows by four columns
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float4 a, const float4 v) {
+  const float av[4] = {a.x, a.y, a.z, a.w}, vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[e][c] = fmaf(av[e], vv[c], acc[e][c]);
+}
+
+// Writes the warp's kFRowsW x (32 NJ) register tile transposed: xt[lane +
+// 32 j][8 warp + i] = x[i][j] (pitch kFPitch).
+template <int NJ>
+__device__ __forceinline__ void store_transposed(float* xt, const float (&x)[kFRowsW][NJ], int warp,
+                                                 int lane) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float* p = xt + (lane + 32 * j) * kFPitch + kFRowsW * warp;
+    *reinterpret_cast<float4*>(p) = make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
+    *reinterpret_cast<float4*>(p + 4) = make_float4(x[4][j], x[5][j], x[6][j], x[7][j]);
+  }
+}
+
+// dQ and each query row's (max, sum, D): one block per (64-query tile, head,
+// window), NJ = keys padded to a multiple of 64, / 32.
+template <int NJ>
+__global__ void __launch_bounds__(kFThreads, 1)
 attn_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ gout,
                        float* __restrict__ dqkv, float* __restrict__ stats, int l,
                        int num_heads, int kv_len, float sm_scale) {
+  constexpr int LP = NJ * 32;
   extern __shared__ __align__(16) float fsm[];
-  float* ks = fsm;
-  float* vs = fsm + (size_t)l * kFPitch;
-  const int h = blockIdx.x, b = blockIdx.y, row_end = min(l, (int)(blockIdx.z + 1) * kFRows);
+  float* qs = fsm;                    // [kFTile][kFPitch]
+  float* gs = qs + kFTile * kFPitch;  // [kFTile][kFPitch]
+  float* ks = gs + kFTile * kFPitch;  // [LP][kFPitch]
+  float* vs = ks + LP * kFPitch;      // [LP][kFPitch], then dS^T
+  const int q0 = blockIdx.x * kFTile, h = blockIdx.y, b = blockIdx.z;
   const int d = num_heads * kDh, three_d = 3 * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float* base = qkv + (size_t)b * l * three_d + h * kDh;
   const float* gbase = gout + (size_t)b * l * d + h * kDh;
-  stage_rows_f32(ks, base + d, l, three_d);
-  stage_rows_f32(vs, base + 2 * d, l, three_d);
+  stage_f32(qs, base + (size_t)q0 * three_d, l - q0, kFTile, three_d);
+  stage_f32(gs, gbase + (size_t)q0 * d, l - q0, kFTile, d);
+  stage_f32(ks, base + d, l, LP, three_d);
+  stage_f32(vs, base + 2 * d, l, LP, three_d);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  float* st = stats + (size_t)(b * num_heads + h) * 3 * l;
-  for (int r = blockIdx.z * kFRows + warp; r < row_end; r += kFWarps) {
-    float q[kDh];
-    load_row_f32(q, base + (size_t)r * three_d);
-    // lane holds keys lane, lane + 32, ...: scores, softmax over the row
-    float p[kFPerLane];
-    float mx = kNegInf;
+  // S and dP of the warp's rows: row i, key lane + 32 j
+  const int r0 = q0 + kFRowsW * warp;
+  float p[kFRowsW][NJ], ds[kFRowsW][NJ];
+  if (r0 < l) {
+    rows_dot_cols<NJ>(p, qs + kFRowsW * warp * kFPitch, ks, lane);
+    rows_dot_cols<NJ>(ds, gs + kFRowsW * warp * kFPitch, vs, lane);
 #pragma unroll
-    for (int i = 0; i < kFPerLane; ++i) {
-      const int j = i * 32 + lane;
-      float acc = 0.f;
-      if (j < l) {
-        const float* kr = ks + j * kFPitch;
+    for (int i = 0; i < kFRowsW; ++i) {
+      float mx = kNegInf;
 #pragma unroll
-        for (int c = 0; c < kDh; ++c) acc = fmaf(q[c], kr[c], acc);
+      for (int j = 0; j < NJ; ++j) {
+        p[i][j] = lane + 32 * j < kv_len ? p[i][j] * sm_scale : kNegInf;
+        mx = fmaxf(mx, p[i][j]);
       }
-      p[i] = j < kv_len ? acc * sm_scale : kNegInf;
-      mx = fmaxf(mx, p[i]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
+      mx = warp_max(mx);
+      float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kFPerLane; ++i) {
-      p[i] = i * 32 + lane < l ? expf(p[i] - mx) : 0.f;
-      sum += p[i];
-    }
-    sum = warp_sum(sum);
-    float gr[kDh];
-    load_row_f32(gr, gbase + (size_t)r * d);
-    float dp[kFPerLane];
-    float dsum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kFPerLane; ++i) {
-      const int j = i * 32 + lane;
-      p[i] = p[i] / sum;
-      float acc = 0.f;
-      if (j < l) {
-        const float* vr = vs + j * kFPitch;
-#pragma unroll
-        for (int c = 0; c < kDh; ++c) acc = fmaf(gr[c], vr[c], acc);
+      for (int j = 0; j < NJ; ++j) {
+        p[i][j] = expf(p[i][j] - mx);
+        sum += p[i][j];
       }
-      dp[i] = acc;
-      dsum += acc * p[i];
-    }
-    dsum = warp_sum(dsum);
-    // dQ = dS K: lane owns columns lane and lane + 32
-    float o0 = 0.f, o1 = 0.f;
+      sum = warp_sum(sum);
+      float dsum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kFPerLane; ++i) {
-      if (i * 32 >= l) break;
-      const float ds = p[i] * (dp[i] - dsum) * sm_scale;
-      const int nj = min(32, l - i * 32);
-      for (int jj = 0; jj < nj; ++jj) {
-        const float dsj = __shfl_sync(0xffffffffu, ds, jj);
-        const float* kr = ks + (i * 32 + jj) * kFPitch;
-        o0 = fmaf(dsj, kr[lane], o0);
-        o1 = fmaf(dsj, kr[lane + 32], o1);
+      for (int j = 0; j < NJ; ++j) {
+        p[i][j] = p[i][j] / sum;
+        dsum += ds[i][j] * p[i][j];
+      }
+      dsum = warp_sum(dsum);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) ds[i][j] = p[i][j] * (ds[i][j] - dsum) * sm_scale;
+      if (lane == 0 && r0 + i < l) {
+        float* st = stats + (size_t)(b * num_heads + h) * 3 * l + r0 + i;
+        st[0] = mx;
+        st[l] = sum;
+        st[2 * l] = dsum;
       }
     }
-    float* drow = dqkv + ((size_t)b * l + r) * three_d + h * kDh;
-    drow[lane] = o0;
-    drow[lane + 32] = o1;
-    if (lane == 0) {
-      st[r] = mx;
-      st[l + r] = sum;
-      st[2 * l + r] = dsum;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kFRowsW; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) ds[i][j] = 0.f;
+  }
+  __syncthreads();  // V is read: dS^T takes its place
+  store_transposed<NJ>(vs, ds, warp, lane);
+  __syncthreads();
+
+  // dQ = dS K over the unmasked keys (dS is exactly 0 at the others):
+  // thread rows 4 ty .. + 3, columns 4 tx .. + 3
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[4][4] = {};
+  const int nk = min(l, kv_len);
+#pragma unroll 4
+  for (int k = 0; k < nk; ++k)
+    outer4(acc, *reinterpret_cast<const float4*>(vs + k * kFPitch + 4 * ty),
+           *reinterpret_cast<const float4*>(ks + k * kFPitch + 4 * tx));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = q0 + 4 * ty + e;
+    if (r < l)
+      *reinterpret_cast<float4*>(dqkv + ((size_t)b * l + r) * three_d + h * kDh + 4 * tx) =
+          make_float4(acc[e][0], acc[e][1], acc[e][2], acc[e][3]);
+  }
+}
+
+// dK and dV: one block per (64-key tile, head, window), the queries swept in
+// chunks of 128 (a lane's 4), P^T and dS^T from the row statistics.
+__global__ void __launch_bounds__(kFThreads, 1)
+attn_bwd_dkv_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ gout,
+                        float* __restrict__ dqkv, const float* __restrict__ stats, int l,
+                        int num_heads, int kv_len, float sm_scale) {
+  constexpr int NJ = kFChunk / 32;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                      // [kFChunk][kFPitch]
+  float* gs = qs + kFChunk * kFPitch;   // [kFChunk][kFPitch]
+  float* xp = gs + kFChunk * kFPitch;   // [kFChunk][kFPitch]: P^T
+  float* xd = xp + kFChunk * kFPitch;   // [kFChunk][kFPitch]: dS^T
+  float* kt = xd + kFChunk * kFPitch;   // [kFTile][kFPitch]
+  float* vt = kt + kFTile * kFPitch;    // [kFTile][kFPitch]
+  float* mx_s = vt + kFTile * kFPitch;  // [3][kMaxL]: max, sum, D of each query
+  const int k0 = blockIdx.x * kFTile, h = blockIdx.y, b = blockIdx.z;
+  const int d = num_heads * kDh, three_d = 3 * d;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = tid >> 4, tx = tid & 15;
+  const float* base = qkv + (size_t)b * l * three_d + h * kDh;
+  const float* gbase = gout + (size_t)b * l * d + h * kDh;
+  stage_f32(kt, base + (size_t)k0 * three_d + d, l - k0, kFTile, three_d);
+  stage_f32(vt, base + (size_t)k0 * three_d + 2 * d, l - k0, kFTile, three_d);
+  const float* st = stats + (size_t)(b * num_heads + h) * 3 * l;
+  for (int r = tid; r < l; r += kFThreads) {
+    mx_s[r] = st[r];
+    mx_s[kMaxL + r] = st[l + r];
+    mx_s[2 * kMaxL + r] = st[2 * l + r];
+  }
+
+  const int key0 = k0 + kFRowsW * warp;
+  const bool active = key0 < min(l, kv_len);  // else every key of the warp is masked: P = 0
+  float dk[4][4] = {}, dv[4][4] = {};
+  for (int c0 = 0; c0 < l; c0 += kFChunk) {
+    const int nq = min(kFChunk, l - c0);
+    __syncthreads();  // the last chunk's tiles are read
+    stage_f32(qs, base + (size_t)c0 * three_d, nq, kFChunk, three_d);
+    stage_f32(gs, gbase + (size_t)c0 * d, nq, kFChunk, d);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float p[kFRowsW][NJ], ds[kFRowsW][NJ];
+    if (active) {
+      // S^T and dP^T: key row i, query c0 + lane + 32 j
+      rows_dot_cols<NJ>(p, kt + kFRowsW * warp * kFPitch, qs, lane);
+      rows_dot_cols<NJ>(ds, vt + kFRowsW * warp * kFPitch, gs, lane);
+#pragma unroll
+      for (int i = 0; i < kFRowsW; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int q = c0 + lane + 32 * j;
+          const bool ok = key0 + i < kv_len && q < l;
+          const int qi = ok ? q : 0;  // the statistics hold the l real queries only
+          p[i][j] = ok ? expf(p[i][j] * sm_scale - mx_s[qi]) / mx_s[kMaxL + qi] : 0.f;
+          ds[i][j] = ok ? p[i][j] * (ds[i][j] - mx_s[2 * kMaxL + qi]) * sm_scale : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kFRowsW; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) p[i][j] = ds[i][j] = 0.f;
+    }
+    store_transposed<NJ>(xp, p, warp, lane);
+    store_transposed<NJ>(xd, ds, warp, lane);
+    __syncthreads();
+    // dV += P^T g, dK += dS^T Q: thread keys 4 ty .. + 3, columns 4 tx .. + 3
+#pragma unroll 2
+    for (int r = 0; r < nq; ++r) {
+      outer4(dv, *reinterpret_cast<const float4*>(xp + r * kFPitch + 4 * ty),
+             *reinterpret_cast<const float4*>(gs + r * kFPitch + 4 * tx));
+      outer4(dk, *reinterpret_cast<const float4*>(xd + r * kFPitch + 4 * ty),
+             *reinterpret_cast<const float4*>(qs + r * kFPitch + 4 * tx));
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = k0 + 4 * ty + e;
+    if (r < l) {
+      float* krow = dqkv + ((size_t)b * l + r) * three_d + d + h * kDh + 4 * tx;
+      *reinterpret_cast<float4*>(krow) = make_float4(dk[e][0], dk[e][1], dk[e][2], dk[e][3]);
+      *reinterpret_cast<float4*>(krow + d) = make_float4(dv[e][0], dv[e][1], dv[e][2], dv[e][3]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kFWarps * 32)
-attn_bwd_dkv_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ gout,
-                        float* __restrict__ dqkv, const float* __restrict__ stats, int l,
-                        int num_heads, int kv_len, float sm_scale) {
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;
-  float* gs = fsm + (size_t)l * kFPitch;
-  float* mx_s = gs + (size_t)l * kFPitch;
-  float* sm_s = mx_s + l;
-  float* ds_s = sm_s + l;
-  const int h = blockIdx.x, b = blockIdx.y, row_end = min(l, (int)(blockIdx.z + 1) * kFRows);
-  const int d = num_heads * kDh, three_d = 3 * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* base = qkv + (size_t)b * l * three_d + h * kDh;
-  const float* gbase = gout + (size_t)b * l * d + h * kDh;
-  stage_rows_f32(qs, base, l, three_d);
-  stage_rows_f32(gs, gbase, l, d);
-  const float* st = stats + (size_t)(b * num_heads + h) * 3 * l;
-  for (int r = threadIdx.x; r < 3 * l; r += kFWarps * 32) mx_s[r] = st[r];
-  __syncthreads();
-
-  for (int r = blockIdx.z * kFRows + warp; r < row_end; r += kFWarps) {
-    float* krow = dqkv + ((size_t)b * l + r) * three_d + d + h * kDh;
-    if (r >= kv_len) {  // a masked key: P = 0 for every query
-      krow[lane] = krow[lane + 32] = 0.f;
-      krow[d + lane] = krow[d + lane + 32] = 0.f;
-      continue;
-    }
-    float k[kDh], v[kDh];
-    load_row_f32(k, base + (size_t)r * three_d + d);
-    load_row_f32(v, base + (size_t)r * three_d + 2 * d);
-    // lane holds queries lane, lane + 32, ...
-    float p[kFPerLane], ds[kFPerLane];
-#pragma unroll
-    for (int i = 0; i < kFPerLane; ++i) {
-      const int q = i * 32 + lane;
-      p[i] = ds[i] = 0.f;
-      if (q < l) {
-        const float* qr = qs + q * kFPitch;
-        const float* gr = gs + q * kFPitch;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < kDh; ++c) {
-          s = fmaf(qr[c], k[c], s);
-          dp = fmaf(gr[c], v[c], dp);
-        }
-        p[i] = expf(s * sm_scale - mx_s[q]) / sm_s[q];
-        ds[i] = p[i] * (dp - ds_s[q]) * sm_scale;
-      }
-    }
-    // dK = dS^T Q, dV = P^T g: lane owns columns lane and lane + 32
-    float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < kFPerLane; ++i) {
-      if (i * 32 >= l) break;
-      const int nq = min(32, l - i * 32);
-      for (int qq = 0; qq < nq; ++qq) {
-        const float dsq = __shfl_sync(0xffffffffu, ds[i], qq);
-        const float pq = __shfl_sync(0xffffffffu, p[i], qq);
-        const float* qr = qs + (i * 32 + qq) * kFPitch;
-        const float* gr = gs + (i * 32 + qq) * kFPitch;
-        k0 = fmaf(dsq, qr[lane], k0);
-        k1 = fmaf(dsq, qr[lane + 32], k1);
-        v0 = fmaf(pq, gr[lane], v0);
-        v1 = fmaf(pq, gr[lane + 32], v1);
-      }
-    }
-    krow[lane] = k0;
-    krow[lane + 32] = k1;
-    krow[d + lane] = v0;
-    krow[d + lane + 32] = v1;
-  }
+template <int NJ>
+cudaError_t launch_dq_f32(const float* qkv, const float* g, float* dqkv, float* stats, int batch,
+                          int l, int num_heads, int kv_len, float sm_scale, cudaStream_t st) {
+  const size_t smem = dq_f32_smem(NJ * 32);
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_f32_kernel<NJ>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((l + kFTile - 1) / kFTile, num_heads, batch);
+  attn_bwd_dq_f32_kernel<NJ><<<grid, kFThreads, smem, st>>>(qkv, g, dqkv, stats, l, num_heads,
+                                                            kv_len, sm_scale);
+  return cudaGetLastError();
 }
 
 // ---- bf16: dy = d_qkv . W and the frozen LayerNorm's backward ---------------
@@ -832,22 +916,24 @@ extern "C" int ebc_attention_bwd_f32(const void* qkv, const void* g, void* dqkv,
   using namespace ebc;
   if (!attn_shapes_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(num_heads, batch, (l + kFRows - 1) / kFRows);
-  const size_t smem = f32_smem(l);
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_f32_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  attn_bwd_dq_f32_kernel<<<grid, kFWarps * 32, smem, st>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(g), static_cast<float*>(dqkv),
-      static_cast<float*>(stats), l, num_heads, kv_len, sm_scale);
-  e = cudaGetLastError();
+  const float* q = static_cast<const float*>(qkv);
+  const float* go = static_cast<const float*>(g);
+  float* dq = static_cast<float*>(dqkv);
+  float* sts = static_cast<float*>(stats);
+  cudaError_t e;
+  switch ((l + 63) / 64) {  // keys padded to a multiple of 64 pick the instantiation
+    case 1: e = launch_dq_f32<2>(q, go, dq, sts, batch, l, num_heads, kv_len, sm_scale, st); break;
+    case 2: e = launch_dq_f32<4>(q, go, dq, sts, batch, l, num_heads, kv_len, sm_scale, st); break;
+    case 3: e = launch_dq_f32<6>(q, go, dq, sts, batch, l, num_heads, kv_len, sm_scale, st); break;
+    case 4: e = launch_dq_f32<8>(q, go, dq, sts, batch, l, num_heads, kv_len, sm_scale, st); break;
+    default: e = launch_dq_f32<10>(q, go, dq, sts, batch, l, num_heads, kv_len, sm_scale, st); break;
+  }
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(attn_bwd_dkv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+                           (int)dkv_f32_smem());
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dkv_f32_kernel<<<grid, kFWarps * 32, smem, st>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(g), static_cast<float*>(dqkv),
-      static_cast<const float*>(stats), l, num_heads, kv_len, sm_scale);
+  attn_bwd_dkv_f32_kernel<<<dim3((l + kFTile - 1) / kFTile, num_heads, batch), kFThreads,
+                            dkv_f32_smem(), st>>>(q, go, dq, sts, l, num_heads, kv_len, sm_scale);
   return (int)cudaGetLastError();
 }
 

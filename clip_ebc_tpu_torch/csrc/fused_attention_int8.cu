@@ -27,12 +27,18 @@
 // mha_int8_kernel, simple first (mma.sync.m16n8k32.s8, no wgmma): one block
 // (4 warps) per (64-query tile, head, window), as the bf16 mha_kernel.
 //  * K_h of the window lands in shared memory as it is, key-major, which is
-//    the K-major B operand of QK^T. Each warp keeps its 16 query rows' int32
-//    scores over the whole key range in registers, so the softmax is exact
-//    over the row, as on the TPU: scores dequantized in fp32 (static: acc *
-//    (s_q s_k sm_scale); dynamic: (acc * (s_q s_k)) * sm_scale), keys >=
-//    kv_len at kNegInf, row max, p = exp(s - max), r = sum of the unrounded
-//    p, p8 = round(p * 127) in [0, 127].
+//    the K-major B operand of QK^T.
+//  * The static body computes p = exp(s - m) with m the row's FINAL max and
+//    rounds p * 127 to int8 before PV, so a one-sweep online rescale would
+//    round other values. Each warp sweeps the keys twice in chunks of 64:
+//    sweep 1 takes the row max only of its 16 rows' scores, dequantized in
+//    fp32 (static: acc * (s_q s_k sm_scale); dynamic: (acc * (s_q s_k)) *
+//    sm_scale), keys >= kv_len at kNegInf; sweep 2 recomputes the same int32
+//    scores (so the same fp32 s), then p = exp(s - max), r = sum of the
+//    unrounded p, p8 = round(p * 127) in [0, 127] and PV in int32. QK^T is
+//    done twice, but a chunk's scores take 32 registers where a whole row
+//    held in registers took 255 a thread at L = 229 (the first port's body,
+//    slower there: PERF.md).
 //  * PV needs B = V K-major over keys, but int8 mma takes B only as
 //    row.col and ldmatrix.trans / movmatrix exist for 16-bit elements only.
 //    So V_h is transposed while it is staged into shared memory (64 rows of
@@ -50,7 +56,7 @@
 //    = 229, from L2 after the first).
 //
 // Limits: D a multiple of 128, D <= 768 (the projection), head dim 64, L <=
-// 320 (the score rows live in registers).
+// 512 (--window_size 320: 433 tokens).
 
 #include "int8_proj.cuh"
 
@@ -62,8 +68,9 @@ constexpr int kDh8 = 64;
 constexpr int kKPitch8 = kDh8 + 16;  // K rows: 80 B, the 8 rows of an ldmatrix hit distinct banks
 constexpr int kI8Warps = 4;          // 16 query rows each
 constexpr int kI8QTile = 16 * kI8Warps;
-constexpr int kI8KeyQuantum = 64;    // keys are padded to a multiple of this
-constexpr int kI8MaxKeys = 320;
+constexpr int kI8KeyQuantum = 64;    // keys are padded to a multiple of this, the chunk
+constexpr int kI8Tiles = kI8KeyQuantum / 8;  // score tiles of a chunk
+constexpr int kI8MaxKeys = 512;
 constexpr int kI8MaxHeads = kQMaxDim / kDh8;
 
 // K rows + V^T (64 rows of lp + 16 bytes: an odd multiple of 16, so the 8
@@ -86,43 +93,30 @@ __device__ __forceinline__ uint32_t pack_p8(float a, float b, float c, float d) 
          ((uint32_t)__float2int_rn(__fmul_rn(d, 127.f)) << 24);
 }
 
-// KC = padded key count / 32; the scores of a warp's 16 rows are 4 KC
-// accumulator tiles of 16 x 8 held in registers. scales: static (3,) =
-// (s_q, s_k, s_v); dynamic (B, H, 3).
-template <typename T, int KC>
-__global__ void __launch_bounds__(kI8Warps * 32, 2)
-mha_int8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ scales,
-                T* __restrict__ out, int l, int num_heads, int kv_len, float sm_scale,
-                int dynamic) {
-  constexpr int LP = KC * 32, VP = LP + 16, NT = LP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ks = smem;
-  unsigned char* vt = smem + (size_t)LP * kKPitch8;
+// ---- pieces of the body ----------------------------------------
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int d = num_heads * kDh8, three_d = 3 * d;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int8_t* base = qkv + (size_t)b * l * three_d + h * kDh8;
-
-  // K_h rows (zero past l) by cp.async, all in flight at once
-  for (int i = tid; i < LP * (kDh8 / 16); i += kI8Warps * 32) {
+// K_h rows (zero past l) by cp.async, then V_h transposed into V^T rows with
+// the keys in slot order (zero past l); LP keys, V^T rows of VP bytes.
+__device__ __forceinline__ void i8_stage_kv(unsigned char* ks, unsigned char* vt, const int8_t* base,
+                                            int l, int lp, int vp, int d, int three_d, int tid) {
+  for (int i = tid; i < lp * (kDh8 / 16); i += kI8Warps * 32) {
     const int r = i >> 2, c = i & 3;
     cp_async16(ks + (size_t)r * kKPitch8 + c * 16, base + (size_t)(r < l ? r : 0) * three_d + d + c * 16,
                r < l);
   }
   cp_async_commit();
-  // V_h transposed into V^T rows, keys in slot order (zero past l)
-  for (int i = tid; i < LP * (kDh8 / 4); i += kI8Warps * 32) {
+  for (int i = tid; i < lp * (kDh8 / 4); i += kI8Warps * 32) {
     const int r = i >> 4, c = i & 15;
     const uint32_t v = r < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r * three_d + 2 * d + c * 4) : 0u;
     const int pos = vt_slot(r);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) vt[(size_t)(4 * c + e) * VP + pos] = (unsigned char)(v >> (8 * e));
+    for (int e = 0; e < 4; ++e) vt[(size_t)(4 * c + e) * vp + pos] = (unsigned char)(v >> (8 * e));
   }
+}
 
-  // dequantize factors, in each Pallas body's order
-  float s_qk, s_pv;
+// The dequantize factors, in each Pallas body's order.
+__device__ __forceinline__ void i8_factors(const float* scales, int b, int h, int num_heads,
+                                           float sm_scale, int dynamic, float& s_qk, float& s_pv) {
   if (dynamic) {
     const float* sc = scales + ((size_t)b * num_heads + h) * 3;
     s_qk = __fmul_rn(sc[0], sc[1]);
@@ -131,12 +125,11 @@ mha_int8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ scales
     s_qk = __fmul_rn(__fmul_rn(scales[0], scales[1]), sm_scale);
     s_pv = __fmul_rn(scales[2], 1.f / 127.f);
   }
+}
 
-  // Q fragments of the warp's 16 rows straight from device memory, while K
-  // and V land
-  const int q0 = blockIdx.x * kI8QTile + warp * 16;
-  const int r0 = q0 + g, r1 = q0 + g + 8;
-  uint32_t qa[kDh8 / 32][4];
+// Q fragments (A operands) of rows r0 and r1, straight from device memory.
+__device__ __forceinline__ void i8_load_q(uint32_t (&qa)[kDh8 / 32][4], const int8_t* base, int r0,
+                                          int r1, int l, int three_d, int t) {
 #pragma unroll
   for (int kk = 0; kk < kDh8 / 32; ++kk) {
     const int c = kk * 32 + 4 * t;
@@ -145,92 +138,60 @@ mha_int8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ scales
     qa[kk][2] = r0 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * three_d + c + 16) : 0u;
     qa[kk][3] = r1 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * three_d + c + 16) : 0u;
   }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (q0 >= l) return;  // no block-wide barrier follows
+}
 
-  // S = Q K^T in int32: tile j holds keys 8j..8j+7
-  int acc[NT][4];
+// acc[j] = int32 scores of rows g, g+8 against keys 8 (j0 + j) .. + 7, a chunk
+// of kI8Tiles tiles.
+__device__ __forceinline__ void i8_scores(int (&acc)[kI8Tiles][4], const uint32_t (&qa)[kDh8 / 32][4],
+                                          const unsigned char* ks, int j0, int lane) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < kI8Tiles; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0;
 #pragma unroll
-  for (int j = 0; j < NT / 2; ++j) {
+  for (int j = 0; j < kI8Tiles / 2; ++j) {
 #pragma unroll
     for (int kk = 0; kk < kDh8 / 32; ++kk) {
       uint32_t kb[4];  // key tiles 2j and 2j+1: {b0, b1} each
-      ldmatrix_x4(kb, ks + (size_t)(j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kKPitch8 + kk * 32 +
-                          ((lane >> 3) & 1) * 16);
+      ldmatrix_x4(kb, ks + (size_t)(j0 * 8 + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kKPitch8 +
+                          kk * 32 + ((lane >> 3) & 1) * 16);
       mma_s8(acc[2 * j], qa[kk], kb[0], kb[1]);
       mma_s8(acc[2 * j + 1], qa[kk], kb[2], kb[3]);
     }
   }
+}
 
-  // dequantize, mask, row max; rows g and g+8 are spread over the lane quad
-  float s[NT][4];
-  float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool valid = j * 8 + 2 * t + (e & 1) < kv_len;
-      const float v = dynamic ? __fmul_rn(__fmul_rn((float)acc[j][e], s_qk), sm_scale)
-                              : __fmul_rn((float)acc[j][e], s_qk);
-      s[j][e] = valid ? v : kNegInf;
-    }
-    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  // unnormalized softmax: p = exp(s - rowmax) in fp32, rowsum of the unrounded p
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[j][e] = expf(s[j][e] - mx0);
-      s[j][2 + e] = expf(s[j][2 + e] - mx1);
-      sum0 += s[j][e];
-      sum1 += s[j][2 + e];
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
+// The dequantized fp32 score of an int32 accumulator, kNegInf for key >= kv_len.
+__device__ __forceinline__ float i8_score(int acc, int key, int kv_len, float s_qk, float sm_scale,
+                                          int dynamic) {
+  const float v = dynamic ? __fmul_rn(__fmul_rn((float)acc, s_qk), sm_scale) : __fmul_rn((float)acc, s_qk);
+  return key < kv_len ? v : kNegInf;
+}
 
-  // O = p8 V in int32: score tiles 4i..4i+3 are the A operand of the keys of
-  // chunk i in slot order
-  int o[kDh8 / 8][4];
+// o += p8 V over the 32 keys i * 32 ..: tiles s[j0..j0+3] hold p of those
+// keys, packed into the A operand in slot order.
+__device__ __forceinline__ void i8_pv(int (&o)[kDh8 / 8][4], const float (&s)[kI8Tiles][4], int j0,
+                                      const unsigned char* vt, int vp, int i, int lane) {
+  const uint32_t pa[4] = {
+      pack_p8(s[j0][0], s[j0][1], s[j0 + 1][0], s[j0 + 1][1]),
+      pack_p8(s[j0][2], s[j0][3], s[j0 + 1][2], s[j0 + 1][3]),
+      pack_p8(s[j0 + 2][0], s[j0 + 2][1], s[j0 + 3][0], s[j0 + 3][1]),
+      pack_p8(s[j0 + 2][2], s[j0 + 2][3], s[j0 + 3][2], s[j0 + 3][3])};
 #pragma unroll
-  for (int i = 0; i < kDh8 / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0;
-#pragma unroll
-  for (int i = 0; i < KC; ++i) {
-    const int j = 4 * i;
-    const uint32_t pa[4] = {
-        pack_p8(s[j][0], s[j][1], s[j + 1][0], s[j + 1][1]),
-        pack_p8(s[j][2], s[j][3], s[j + 1][2], s[j + 1][3]),
-        pack_p8(s[j + 2][0], s[j + 2][1], s[j + 3][0], s[j + 3][1]),
-        pack_p8(s[j + 2][2], s[j + 2][3], s[j + 3][2], s[j + 3][3])};
-#pragma unroll
-    for (int dn = 0; dn < kDh8 / 16; ++dn) {
-      uint32_t vb[4];  // dh tiles 2dn and 2dn+1: {b0, b1} each
-      ldmatrix_x4(vb, vt + (size_t)(dn * 16 + (lane & 7) + ((lane >> 4) << 3)) * VP + i * 32 +
-                          ((lane >> 3) & 1) * 16);
-      mma_s8(o[2 * dn], pa, vb[0], vb[1]);
-      mma_s8(o[2 * dn + 1], pa, vb[2], vb[3]);
-    }
+  for (int dn = 0; dn < kDh8 / 16; ++dn) {
+    uint32_t vb[4];  // dh tiles 2dn and 2dn+1: {b0, b1} each
+    ldmatrix_x4(vb, vt + (size_t)(dn * 16 + (lane & 7) + ((lane >> 4) << 3)) * vp + i * 32 +
+                        ((lane >> 3) & 1) * 16);
+    mma_s8(o[2 * dn], pa, vb[0], vb[1]);
+    mma_s8(o[2 * dn + 1], pa, vb[2], vb[3]);
   }
+}
 
-  // dequantize and normalize, head-concatenated
+// Dequantize and normalize, head-concatenated, in each Pallas body's order.
+template <typename T>
+__device__ __forceinline__ void i8_store(T* out, const int (&o)[kDh8 / 8][4], float sum0, float sum1,
+                                         float s_pv, int dynamic, int b, int h, int l, int d, int r0,
+                                         int r1, int t) {
   T* orow0 = out + ((size_t)b * l + r0) * d + h * kDh8;
   T* orow1 = out + ((size_t)b * l + r1) * d + h * kDh8;
 #pragma unroll
@@ -248,17 +209,96 @@ mha_int8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ scales
   }
 }
 
+// ---- the attention body --------------------------------------------------------
+
+// KC = padded key count / 32; the keys are swept in chunks of 64 (8 score
+// tiles of 16 x 8 a warp), twice. scales: static (3,) = (s_q, s_k, s_v);
+// dynamic (B, H, 3).
+template <typename T, int KC>
+__global__ void __launch_bounds__(kI8Warps * 32, 2)
+mha_int8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ scales,
+                T* __restrict__ out, int l, int num_heads, int kv_len, float sm_scale,
+                int dynamic) {
+  constexpr int LP = KC * 32, VP = LP + 16, NCH = LP / kI8KeyQuantum;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ks = smem;
+  unsigned char* vt = smem + (size_t)LP * kKPitch8;
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int d = num_heads * kDh8, three_d = 3 * d;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int8_t* base = qkv + (size_t)b * l * three_d + h * kDh8;
+
+  i8_stage_kv(ks, vt, base, l, LP, VP, d, three_d, tid);
+  float s_qk, s_pv;
+  i8_factors(scales, b, h, num_heads, sm_scale, dynamic, s_qk, s_pv);
+  const int q0 = blockIdx.x * kI8QTile + warp * 16;
+  const int r0 = q0 + g, r1 = q0 + g + 8;
+  uint32_t qa[kDh8 / 32][4];
+  i8_load_q(qa, base, r0, r1, l, three_d, t);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (q0 >= l) return;  // no block-wide barrier follows
+
+  // sweep 1: the row max of the dequantized, masked scores
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll 1
+  for (int c = 0; c < NCH; ++c) {
+    int acc[kI8Tiles][4];
+    i8_scores(acc, qa, ks, kI8Tiles * c, lane);
+#pragma unroll
+    for (int j = 0; j < kI8Tiles; ++j) {
+      const int k0 = c * kI8KeyQuantum + j * 8 + 2 * t;
+      mx0 = fmaxf(mx0, fmaxf(i8_score(acc[j][0], k0, kv_len, s_qk, sm_scale, dynamic),
+                             i8_score(acc[j][1], k0 + 1, kv_len, s_qk, sm_scale, dynamic)));
+      mx1 = fmaxf(mx1, fmaxf(i8_score(acc[j][2], k0, kv_len, s_qk, sm_scale, dynamic),
+                             i8_score(acc[j][3], k0 + 1, kv_len, s_qk, sm_scale, dynamic)));
+    }
+  }
+  quad_max(mx0, mx1);
+
+  // sweep 2: the same scores, p = exp(s - max), r = sum of the unrounded p,
+  // O += p8 V
+  float sum0 = 0.f, sum1 = 0.f;
+  int o[kDh8 / 8][4];
+#pragma unroll
+  for (int i = 0; i < kDh8 / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0;
+#pragma unroll 1
+  for (int c = 0; c < NCH; ++c) {
+    int acc[kI8Tiles][4];
+    i8_scores(acc, qa, ks, kI8Tiles * c, lane);
+    float s[kI8Tiles][4];
+#pragma unroll
+    for (int j = 0; j < kI8Tiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = i8_score(acc[j][e], c * kI8KeyQuantum + j * 8 + 2 * t + (e & 1), kv_len, s_qk,
+                                 sm_scale, dynamic);
+        s[j][e] = expf(v - (e < 2 ? mx0 : mx1));
+      }
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+    i8_pv(o, s, 0, vt, VP, 2 * c, lane);
+    i8_pv(o, s, 4, vt, VP, 2 * c + 1, lane);
+  }
+  quad_sum(sum0, sum1);
+  i8_store(out, o, sum0, sum1, s_pv, dynamic, b, h, l, d, r0, r1, t);
+}
+
 template <typename T, int KC>
 cudaError_t launch_mha_int8(const int8_t* qkv, const float* scales, T* out, int batch, int l,
                             int num_heads, int kv_len, float sm_scale, int dynamic,
                             cudaStream_t st) {
+  auto kernel = mha_int8_kernel<T, KC>;
   const size_t smem = i8_attn_smem_bytes(KC * 32);
-  cudaError_t e = cudaFuncSetAttribute(mha_int8_kernel<T, KC>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((l + kI8QTile - 1) / kI8QTile, num_heads, batch);
-  mha_int8_kernel<T, KC><<<grid, kI8Warps * 32, smem, st>>>(qkv, scales, out, l, num_heads, kv_len,
-                                                            sm_scale, dynamic);
+  kernel<<<grid, kI8Warps * 32, smem, st>>>(qkv, scales, out, l, num_heads, kv_len, sm_scale, dynamic);
   return cudaGetLastError();
 }
 
@@ -276,6 +316,9 @@ cudaError_t launch_mha_int8_any(const void* qkv, const void* scales, void* out, 
     case 3: return launch_mha_int8<T, 6>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
     case 4: return launch_mha_int8<T, 8>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
     case 5: return launch_mha_int8<T, 10>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
+    case 6: return launch_mha_int8<T, 12>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
+    case 7: return launch_mha_int8<T, 14>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
+    case 8: return launch_mha_int8<T, 16>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -43,6 +43,8 @@ from torch import nn
 from ..ops.flash_attention import HEAD_DIM as FLASH_HEAD_DIM
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_attention import (
+    MAX_FUSED_SEQ,
+    MAX_FUSED_SEQ_INT8_ATTN,
     fused_ln_qkv_attention,
     fused_ln_qkv_attention_int8,
     fused_qkv_attention,
@@ -82,7 +84,7 @@ class QuickGELU(nn.Module):
 
 
 def attention_route(backend: str, device_type: str, seq_len: int, mask: str,
-                    num_heads: int = 12, head_dim: int = 64) -> str:
+                    num_heads: int = 12, head_dim: int = 64, int8_attn: bool = False) -> str:
     """The attention path of a block: ``"fused"`` (the LN + qkv + attention
     kernel, which masks keys >= kv_len itself), ``"flash"``
     (``flash_attention``; a causal mask goes in as ``causal=True``) or
@@ -90,7 +92,10 @@ def attention_route(backend: str, device_type: str, seq_len: int, mask: str,
 
     * ``"sdpa"``: plain.
     * ``"fused"``: fused where the kernel applies (no mask tensor, the
-      shapes of :func:`~..ops.fused_attention.supports`), else plain.
+      shapes of :func:`~..ops.fused_attention.supports`: up to
+      MAX_FUSED_SEQ tokens, up to MAX_FUSED_SEQ_INT8_ATTN for a block
+      whose attention is int8 on the fused LN route, ``int8_attn``), else
+      plain.
     * ``"flash"``: flash for no mask and for the causal mask, plain for a
       key-padding or any other mask (the flash kernel has no ``kv_len``).
     * ``"auto"``: on ``cuda``, fused where it applies, then flash for an
@@ -103,7 +108,8 @@ def attention_route(backend: str, device_type: str, seq_len: int, mask: str,
         raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {backend!r}")
     if mask not in MASK_KINDS:
         raise ValueError(f"mask must be one of {MASK_KINDS}, got {mask!r}")
-    fits = mask in ("none", "padding") and supports(num_heads, head_dim, seq_len)
+    max_seq = MAX_FUSED_SEQ_INT8_ATTN if int8_attn else MAX_FUSED_SEQ
+    fits = mask in ("none", "padding") and supports(num_heads, head_dim, seq_len, max_seq)
     if backend == "fused":
         return "fused" if fits else "plain"
     if backend == "flash":
@@ -290,7 +296,8 @@ class ResidualAttentionBlock(nn.Module):
 
     The path is :func:`attention_route`'s (:meth:`route`). On the fused
     kernel path (no mask, head dim 64, D <= MAX_FUSED_DIM, L <=
-    MAX_FUSED_SEQ), ln_1 and the projection fold into
+    MAX_FUSED_SEQ, or L <= MAX_FUSED_SEQ_INT8_ATTN for a static block whose
+    attention is int8 on the fused LN route), ln_1 and the projection fold into
     the kernel (:meth:`fuse_ln`) unless ``fuse_ln_mode="off"``, a
     calibration pass is recording, the block is dynamic int8, which has
     no precalibrated scale the kernel could take, or ``quant_attn="xla"``,
@@ -336,7 +343,13 @@ class ResidualAttentionBlock(nn.Module):
             kind = "other"
         else:
             kind = "padding" if kv_len is not None and kv_len < l else "none"
-        return attention_route(self.attn_backend, x.device.type, l, kind, heads, d // heads)
+        # a static calibrated block with quant_attn=True on the fused LN route
+        # runs its attention in int8, which the kernel takes to 512 tokens
+        # (JAX transformer.py:356-377)
+        int8_attn = (self.quant_int8 and self.quant_mode == "static"
+                     and self.attn.quant_attn is True and self.fuse_ln())
+        return attention_route(self.attn_backend, x.device.type, l, kind, heads, d // heads,
+                               int8_attn)
 
     def fuse_ln(self) -> bool:
         """Whether a block on the kernel path folds ln_1 and the projection

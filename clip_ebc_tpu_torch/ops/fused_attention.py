@@ -46,6 +46,10 @@ HEAD_DIM = 64
 # Longest sequence the kernels take: a warp keeps its 16 query rows'
 # scores over every key in registers (csrc/fused_attention.cu, kMaxKeys).
 MAX_FUSED_SEQ = 320
+# Longest sequence of the int8 attention (``attn_scales`` or ``quant_attn``
+# of fused_ln_qkv_attention_int8): it sweeps the keys twice in chunks
+# (csrc/fused_attention_int8.cu, kI8MaxKeys); the JAX package's padded limit.
+MAX_FUSED_SEQ_INT8_ATTN = 512
 # Widest model the kernel takes: 64 LayerNormed rows of D bf16 values stay
 # in shared memory beside the weight tiles (csrc/fused_attention.cu, kPM,
 # kMaxDim, proj_smem_bytes); the fp32 variant's LayerNorm statistics pass
@@ -53,13 +57,14 @@ MAX_FUSED_SEQ = 320
 MAX_FUSED_DIM = 768
 
 
-def supports(num_heads: int, head_dim: int, seq_len: int) -> bool:
+def supports(num_heads: int, head_dim: int, seq_len: int, max_seq: int = MAX_FUSED_SEQ) -> bool:
     """Shapes the kernel handles: 64-wide heads, D <= MAX_FUSED_DIM,
-    L <= MAX_FUSED_SEQ."""
+    L <= ``max_seq`` (MAX_FUSED_SEQ, or MAX_FUSED_SEQ_INT8_ATTN for the int8
+    attention)."""
     return (
         head_dim == HEAD_DIM
         and 1 <= num_heads * head_dim <= MAX_FUSED_DIM
-        and 1 <= seq_len <= MAX_FUSED_SEQ
+        and 1 <= seq_len <= max_seq
     )
 
 
@@ -440,18 +445,19 @@ def _check(who: str, t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtyp
         raise ValueError(f"{who}: {name} must be 16-byte aligned")
 
 
-def _check_attention(who: str, t: torch.Tensor, num_heads: int, kv_len: int) -> tuple:
+def _check_attention(who: str, t: torch.Tensor, num_heads: int, kv_len: int,
+                     max_seq: int = MAX_FUSED_SEQ) -> tuple:
     """Device, dtype and shape checks shared by the wrappers: ``t`` is the
-    ``(B, L, D)`` activation; returns ``(b, l, d)``."""
+    ``(B, L, D)`` activation, L at most ``max_seq``; returns ``(b, l, d)``."""
     if t.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {t.device}")
     if t.dim() != 3:
         raise ValueError(f"{who}: expected a (B, L, D) activation, got {tuple(t.shape)}")
     b, l, d = t.shape
-    if d % num_heads or not supports(num_heads, d // num_heads, l):
+    if d % num_heads or not supports(num_heads, d // num_heads, l, max_seq):
         raise ValueError(
             f"{who}: needs head dim {HEAD_DIM}, D <= {MAX_FUSED_DIM} and "
-            f"1 <= L <= {MAX_FUSED_SEQ}; got D={d}, heads={num_heads}, L={l}"
+            f"1 <= L <= {max_seq}; got D={d}, heads={num_heads}, L={l}"
         )
     if not 1 <= kv_len <= l:
         raise ValueError(f"{who}: kv_len={kv_len} outside 1..{l}")
@@ -657,7 +663,9 @@ def fused_ln_qkv_attention_int8(
     (:func:`ln_qkv_attention_int8_static_plain`,
     :func:`ln_qkv_attention_int8_dynamic_plain`,
     :func:`ln_qkv_attention_int8_plain`). CUDA tensors need bf16 or fp32 x,
-    fp32 LN parameters, bias and scales, D a multiple of 128, and launch
+    fp32 LN parameters, bias and scales, D a multiple of 128, L at most
+    MAX_FUSED_SEQ_INT8_ATTN with an int8 attention (MAX_FUSED_SEQ with the
+    float one), and launch
     the branch's kernels, one call counted in
     ``fused_ln_qkv_attention_int8.launches_static``, ``.launches_dynamic``
     or ``.launches`` (the float attention), or raise."""
@@ -686,7 +694,9 @@ def fused_ln_qkv_attention_int8(
         return ln_qkv_attention_int8_plain(
             x, ln_weight, ln_bias, w_q, s_col, bias, act_scale, num_heads, kv_len, sm_scale, eps
         )
-    b, l, d = _check_attention(who, x, num_heads, kv_len)
+    int8_attn = attn_scales is not None or quant_attn
+    b, l, d = _check_attention(who, x, num_heads, kv_len,
+                               MAX_FUSED_SEQ_INT8_ATTN if int8_attn else MAX_FUSED_SEQ)
     if d % 128:
         raise ValueError(f"{who}: needs D % 128 == 0, got D={d}")
     dev, dt = x.device, x.dtype

@@ -196,7 +196,9 @@ def _assert_close_scaled(got, want, tol):
     (16, 229, 768, 12, 200, "bfloat16"),  # masked keys
     (3, 37, 128, 2, 33, "bfloat16"),  # ragged length, narrow width
     (16, 229, 768, 12, 229, "float32"),
+    (16, 229, 768, 12, 200, "float32"),  # masked keys: exact zeros
     (3, 37, 128, 2, 33, "float32"),
+    (2, 320, 128, 2, 300, "float32"),  # the longest key instantiation
 ])
 def test_attention_bwd_kernel_matches_plain(cuda, shape):
     b, l, d, h, kv_len, dtype = shape
@@ -456,7 +458,11 @@ INT8_ATTN_SHAPES = [
     (8, 229, 768, 12, 200, "bfloat16"),  # masked keys
     (3, 37, 256, 4, 33, "bfloat16"),  # ragged length and batch, narrow width
     (8, 229, 768, 12, 229, "float32"),  # fp32 activations (no --amp)
-    (3, 300, 256, 4, 290, "float32"),  # the longest key instantiation
+    (3, 300, 256, 4, 290, "float32"),  # five key chunks
+    (2, 357, 768, 12, 357, "bfloat16"),  # --window_size 288
+    (2, 433, 768, 12, 400, "bfloat16"),  # --window_size 320, masked keys
+    (2, 433, 768, 12, 433, "float32"),
+    (3, 512, 256, 4, 500, "float32"),  # the longest key instantiation
 ]
 
 
@@ -490,9 +496,12 @@ def test_int8_attention_branches_match_plain(cuda, shape, branch):
 
 
 def test_int8_attention_wrapper_raises_instead_of_falling_back(cuda):
-    x, gam, be, w, bias, act_scale, aq = _int8_attn_inputs(2, 400, 256, 400, cuda, torch.bfloat16)
+    x, gam, be, w, bias, act_scale, aq = _int8_attn_inputs(2, 520, 256, 520, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="L <= 512"):
+        fused_ln_qkv_attention_int8(x, gam, be, w, bias, act_scale, 4, 520, 0.125, attn_scales=aq)
+    # the float attention keeps its 320 keys
     with pytest.raises(ValueError, match="L <= 320"):
-        fused_ln_qkv_attention_int8(x, gam, be, w, bias, act_scale, 4, 400, 0.125, attn_scales=aq)
+        fused_ln_qkv_attention_int8(x[:, :400], gam, be, w, bias, act_scale, 4, 400, 0.125)
     with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
         fused_ln_qkv_attention_int8(x[:, :64].half(), gam, be, w, bias, act_scale, 4, 64, 0.125,
                                     quant_attn=True)
@@ -590,8 +599,10 @@ def _flash_inputs(b, h, l, seed, dev, dtype):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("route,b,h,l,causal", [
     ("short", 4, 12, 229, False),  # flagship windows under attn_backend="flash"
+    ("short", 140, 12, 229, False),  # all 140 windows of the flagship image
     ("short", 5, 8, 77, True),  # the text tower
-    ("short", 2, 2, 512, False),  # the longest short sequence: two key tiles, two sweeps
+    ("short", 2, 2, 320, False),  # three key chunks: the two-sweep body
+    ("short", 2, 2, 512, False),  # the longest short sequence
     ("short", 2, 2, 300, True),
     ("tiled", 1, 2, 1100, False),  # ragged: 8 full key tiles and one of 76 keys
     ("tiled", 2, 3, 1100, True),
