@@ -12,6 +12,9 @@ Phases, each a hard failure (a raised exception, exit code 1):
    the card, at the flagship shapes, with inputs from a seed: max abs
    error within the stated tolerance; kernel and plain times (CUDA events,
    median of 20 after warm-up) beside the least time the card could take;
+   the fp32 LN + attention kernel's two launches also timed apart, and its
+   attention body at a window forward's batch (140) beside the fp32 SDPA
+   forward and the fp32 short flash kernel;
 3. the flagship path through the user's entry point: the predict CLI on a
    seeded 2048 x 3072 image (140 windows of 224 px at stride 224), CLIP-EBC
    ViT-B/16 with deep VPT-32 at reduction 8, random weights from a seed,
@@ -110,9 +113,10 @@ forward and the bound.
    package calls them from its tests only): their launches are 0.
 
 5. the kernels behind the PyTorch yardsticks of the redesigned rows (the
-   SDPA forward at the windows' shape, the SDPA backward at the training
-   shape), named by torch.profiler after every timing; not under
-   ``--profile``, where the earlier profiles leave it no device time.
+   SDPA forward at the windows' shape, in fp32 at a calibration batch and
+   in bf16 at the whole image; the SDPA backward at the training shape),
+   named by torch.profiler after every timing; not under ``--profile``,
+   where the earlier profiles leave it no device time.
 
 The last lines are the card line, one JSON line describing every kernel
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX. With
@@ -251,6 +255,8 @@ def phase_attention(dev, dtype: torch.dtype) -> dict:
     bnd, by = bound_ms(flops, peak, nbytes)
     print(f"attention{tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s")
+    if fp32:
+        _time_fp32_launches(x, ln_w, ln_b, w, bias, sm)
     return {
         "name": "fused_ln_qkv_attention" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention.cu",
@@ -258,6 +264,30 @@ def phase_attention(dev, dtype: torch.dtype) -> dict:
         "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
     }
+
+
+def _time_fp32_launches(x, ln_w, ln_b, w, bias, sm) -> None:
+    """Row 2 fp32's two launches apart (CUDA events around each entry): the
+    LayerNorm + projection (``ebc_ln_qkv_proj_f32``) and the attention body
+    on its qkv (``fused_qkv_attention``, the same launch)."""
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+
+    b, l, d = x.shape
+    qkv = torch.empty(b, l, 3 * d, dtype=x.dtype, device=x.device)
+    proj = fa._entry("fused_attention", "ebc_ln_qkv_proj_f32")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def run_proj():
+        fa._run("ebc_ln_qkv_proj_f32", proj(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
+                                            bias.data_ptr(), qkv.data_ptr(), b * l, d, 1e-5, stream))
+
+    run_proj()
+    proj_ms = time_ms(run_proj)
+    attn_ms = time_ms(lambda: fa.fused_qkv_attention(qkv, H, L, sm))
+    proj_flops, attn_flops = 2 * b * l * d * 3 * d, 2 * 2 * b * H * l * l * (d // H)
+    print(f"attention fp32 by launch: ln_qkv_proj_f32_kernel {proj_ms:.3f} ms "
+          f"({proj_flops / proj_ms / 1e9:.1f} TFLOP/s), attention body {attn_ms:.3f} ms "
+          f"({attn_flops / attn_ms / 1e9:.1f} TFLOP/s)")
 
 
 def phase_head(dev) -> dict:
@@ -625,12 +655,33 @@ def phase_qkv_attention(dev, dtype: torch.dtype) -> dict:
     bnd, by = bound_ms(flops, peak, nbytes)
     print(f"qkv attention{tag}: kernel {ms:.4f} ms, plain {plain:.3f} ms, SDPA forward "
           f"{library:.4f} ms, bound {bnd:.4f} ms ({by})")
+    if fp32:
+        _time_fp32_window_attention(dev, sm)
     return {
         "name": "fused_qkv_attention" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention.cu",
         "replaces": "clip_ebc_tpu/ops/fused_attention.py:386", "max_abs_err": max(errs),
         "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": library,
     }
+
+
+def _time_fp32_window_attention(dev, sm) -> None:
+    """The fp32 attention body at a window forward's batch (B = 140) through
+    ``fused_qkv_attention``, beside the fp32 SDPA forward and the fp32
+    ``flash_short`` kernel on the same q, k, v (whether row 7 fp32 should
+    take this body)."""
+    from clip_ebc_tpu_torch.ops import flash_attention as fa
+    from clip_ebc_tpu_torch.ops.fused_attention import fused_qkv_attention
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    qkv = torch.randn(B, L, 3 * D, generator=g, device=dev)
+    q, k, v = (t.reshape(B, L, H, D // H).transpose(1, 2) for t in qkv.split(D, dim=-1))
+    body = time_ms(lambda: fused_qkv_attention(qkv, H, L, sm))
+    sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=sm))
+    short = time_ms(lambda: fa.flash_short(q, k, v, sm))
+    flops = 2 * 2 * B * H * L * L * (D // H)
+    print(f"fp32 attention at ({B}, {H}, {L}, 64): fused_qkv_attention body {body:.4f} ms "
+          f"({flops / body / 1e9:.1f} TFLOP/s), SDPA forward {sdpa:.4f} ms, flash_short_fp32 {short:.4f} ms")
 
 
 def _flash_inputs(dev, dtype, b, h, l, seed):
@@ -697,8 +748,9 @@ def phase_flash(dev, route: str, dtype: torch.dtype) -> dict:
 
 def phase_library_kernels(dev) -> None:
     """The kernels behind the PyTorch yardsticks of the redesigned rows (the
-    SDPA forward of the short flash route's windows, the SDPA backward of
-    the training step), by device time under torch.profiler. Run last: the
+    SDPA forward of the short flash route's windows, of a calibration batch
+    in fp32 and of the whole image in bf16; the SDPA backward of the
+    training step), by device time under torch.profiler. Run last: the
     profiler's tracing stays attached to the process and slows the launches
     of every timing after it. Under ``--profile`` it is not run: after the
     earlier phases' profiles it recorded no device time."""
@@ -715,9 +767,12 @@ def phase_library_kernels(dev) -> None:
         check(bool(rows), "torch.profiler recorded no device time for a library call")
         return "; ".join(f"{e.key[:110]} ({e.device_time_total / 1e3:.3f} ms)" for e in rows[:3])
 
-    q, k, v = _flash_inputs(dev, torch.bfloat16, B, H, L, 7)
-    print(f"SDPA forward at ({B}, {H}, {L}, 64), bf16: "
-          f"{kernels(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125))}")
+    for dtype, (b, l) in ((torch.bfloat16, (B, L)), (torch.float32, (CALIB_B, L)),
+                          (torch.bfloat16, (1, FULL_L))):
+        q, k, v = _flash_inputs(dev, dtype, b, H, l, 7)
+        print(f"SDPA forward at ({b}, {H}, {l}, 64), {str(dtype)[6:]}: "
+              f"{kernels(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125))}")
+        del q, k, v
     for dtype in (torch.bfloat16, torch.float32):
         qkv, gout = _bwd_inputs(dev, dtype, 2)
         q, k, v = (t.reshape(TRAIN_B, L, H, D // H).transpose(1, 2).detach().requires_grad_(True)

@@ -12,23 +12,45 @@
 // (-0.7 * float max, the JAX constant), P.V accumulated in fp32.
 //
 // Bound. The full image's trunk (L = 24,609, 12 heads, B = 1) does 4 L^2 64
-// = 1.86 TFLOP of QK^T and PV a call against ~30 MB of q, k, v and out:
-// 1.88 ms of bf16 tensor-core work (989 TFLOP/s) against 0.009 ms of memory,
-// so operations bound the tiled route and the design keeps the tensor cores
-// fed from shared memory. The short route at the windows' shape (B = 140,
-// L = 229) does 22.6 GFLOP against 197 MB: bytes bound it (0.059 ms).
+// = 1.86 TFLOP of QK^T and PV a call against 4 x 24,609 x 768 x 2 B = 151
+// MB of q, k, v and out: 1.88 ms of bf16 tensor-core work (989 TFLOP/s)
+// against 0.045 ms of memory (3.35 TB/s), so operations bound the tiled
+// route and the design keeps the tensor cores fed. The short route at the
+// windows' shape (B = 140, L = 229) does 22.6 GFLOP against 197 MB: bytes
+// bound it (0.059 ms).
 //
-// Design, tiled bf16 (mma.sync m16n8k16, the layout of mha_kernel in
-// fused_attention.cu): one block of 4 warps per (64-query tile, head,
-// batch), each warp 16 query rows whose Q fragments stay in registers. K and
-// V tiles of 128 keys (the JAX block_k, so the online softmax rescales at
-// the same keys as the TPU kernel) go through a 2-stage cp.async ring in
-// shared memory (rows padded to 144 B: ldmatrix rows hit distinct banks).
-// K in its (L, 64) row layout is the column-major B operand of Q K^T as it
-// stands; V goes through ldmatrix.trans. The scores of a warp's 16 rows x
-// 128 keys are 64 fp32 accumulators a thread; the row max and sum are
-// quad shuffles; P is rounded to bf16 in registers and is the A operand of
-// P.V as it stands.
+// Design, tiled bf16 (wgmma, TMA, sm_90a; redesigned after the first port,
+// mma.sync with an ldmatrix per product in blocks of 4 warps over 64
+// queries, whose K and V tiles were restaged from L2 by each of the 385
+// query blocks of a head through a 2-stage cp.async ring that waited on its
+// loads, with the softmax in series with the products: 192 TFLOP/s, 2.1x
+// the cuDNN forward). A persistent block on each SM walks the (128-row
+// query tile, head, batch) items, query tiles fastest, so a head's K and V
+// (12.6 MB) stay in L2 while the card works on it; with causal the longest
+// tiles go first. One producer warp keeps the loads in flight by TMA with
+// mbarriers: the item's Q tile (two buffers, so the next item's lands
+// early) and a 3-stage ring of 128-key K and V tiles (the JAX block_k, so
+// the online softmax rescales at the same keys as the TPU kernel; 16 KB
+// each, 128B-swizzled by the copy; rows past the sequence land as zeros, so
+// 0 x V stays finite). The tensor maps are encoded per call on the host
+// over the (batch, head, row)-strided views by cuTensorMapEncodeTiled,
+// fetched at run time by cudaGetDriverEntryPoint (nothing links -lcuda). Two consumer
+// warpgroups own 64 query rows each (so a K/V tile feeds 128 queries, half
+// the L2 traffic of the first port's 64): S_j = Q K_j^T is wgmma m64n128k16
+// from shared memory, 64 fp32 a thread; it is issued, then P_{j-1} V_{j-1},
+// and the softmax of S_j (mask, the running max of the raw scores over the
+// lane quad, alpha = 2^((m - m_next) c2), p = 2^(s c2 - m_next c2), one FMA
+// and one ex2.approx an element, c2 = scale log2(e), l = alpha l + sum p in
+// fp32) runs while that product is in flight. Then acc *= alpha and P,
+// rounded to bf16 unnormalized, is packed from the accumulators as the
+// register A operand of wgmma m64n64k16 against V, the MN-major B operand as
+// its rows stand: the rounding points of _kernel. A stage goes back to the
+// producer once both warpgroups' products on it are done. At the end acc *
+// (1 / l), rounded to bf16, staged in the warpgroup's Q rows and written in
+// 16-byte stores. Tried and dropped, on an H100 SXM at 700 W at the full
+// image: the warpgroups taking turns to issue their products (named
+// barriers, so one's softmax runs under the other's products), 4.30 ms
+// against 4.12; a 4-stage ring, no faster than 3.
 //
 // Design, short bf16 (wgmma, sm_90a; redesigned after the first port, which
 // swept K twice in each of 4 query-tile blocks of a (batch, head) and
@@ -66,6 +88,8 @@
 
 #include <cmath>
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+
 #include "common.cuh"
 
 namespace ebc {
@@ -74,8 +98,6 @@ namespace {
 constexpr int kDh = 64;
 constexpr int kBq = 64;   // query rows of a block
 constexpr int kBk = 128;  // keys of a tile (JAX block_k)
-constexpr int kThreads = 128;  // bf16: 4 warps of 16 query rows
-constexpr int kLdh = kDh + 8;  // bf16 K/V row pitch in shared memory
 constexpr int kFThreads = 256;  // fp32: 16 x 16 threads
 constexpr int kFPitch = kDh + 4;  // fp32 Q, K and P^T row pitch
 
@@ -101,183 +123,6 @@ __device__ __forceinline__ int key_tiles(const FlashArgs& a, int q0) {
 
 __device__ __forceinline__ bool key_valid(const FlashArgs& a, int col, int row) {
   return col < a.lk && (!a.causal || col <= row);
-}
-
-// ---- bf16 (tensor cores) -----------------------------------------------------
-
-size_t bf16_smem_bytes() { return (size_t)2 * 2 * kBk * kLdh * sizeof(bf16); }
-
-// Scores of the warp's 16 rows against the 128 keys of tile kt (row pitch
-// kLdh): s[j] holds keys 8j..8j+7.
-__device__ __forceinline__ void tile_scores(float (&s)[kBk / 8][4], const uint32_t (&qa)[kDh / 16][4],
-                                            const bf16* kt, int lane) {
-#pragma unroll
-  for (int j = 0; j < kBk / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kBk / 16; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      uint32_t kb[4];  // key groups 2j and 2j+1: {b0, b1} each
-      ldmatrix_x4(kb, kt + (size_t)(j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdh + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(s[2 * j], qa[kk], kb[0], kb[1]);
-      mma_bf16(s[2 * j + 1], qa[kk], kb[2], kb[3]);
-    }
-  }
-}
-
-// x scale (unless 1), mask, and the tile's max of rows g and g + 8 over
-// the lane quad.
-__device__ __forceinline__ void scale_mask_max(float (&s)[kBk / 8][4], const FlashArgs& a, int k0,
-                                               int r0, int t, float& mx0, float& mx1) {
-  mx0 = kNegInf;
-  mx1 = kNegInf;
-#pragma unroll
-  for (int j = 0; j < kBk / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = k0 + j * 8 + 2 * t + e;
-      if (a.scale != 1.f) {
-        s[j][e] *= a.scale;
-        s[j][2 + e] *= a.scale;
-      }
-      s[j][e] = key_valid(a, col, r0) ? s[j][e] : kNegInf;
-      s[j][2 + e] = key_valid(a, col, r0 + 8) ? s[j][2 + e] : kNegInf;
-      mx0 = fmaxf(mx0, s[j][e]);
-      mx1 = fmaxf(mx1, s[j][2 + e]);
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-}
-
-// o += bf16(P) V over the 128 keys of the V tile vt.
-__device__ __forceinline__ void tile_pv(float (&o)[kDh / 8][4], const float (&s)[kBk / 8][4],
-                                        const bf16* vt, int lane) {
-#pragma unroll
-  for (int j = 0; j < kBk / 16; ++j) {
-    const uint32_t pa[4] = {
-        pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
-        pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]), pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < kDh / 16; ++dn) {
-      uint32_t vb[4];  // dh groups 2dn and 2dn+1: {b0, b1} each
-      ldmatrix_x4_trans(vb, vt + (size_t)(j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdh +
-                                dn * 16 + (lane >> 4) * 8);
-      mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
-      mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) flash_tiled_bf16_kernel(const FlashArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kBk][kLdh]
-  bf16* vs = ks + 2 * kBk * kLdh;            // [2][kBk][kLdh]
-
-  const int q0 = blockIdx.x * kBq, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1];
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + h * a.ks[1];
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + h * a.vs[1];
-  bf16* ob = static_cast<bf16*>(a.o) + b * a.os[0] + h * a.os[1];
-  const int n_tiles = key_tiles(a, q0);
-
-  // one tile of K (and V) into ring stage st; keys >= lk are zero-filled so
-  // 0 * V stays finite
-  auto load = [&](int tile, int st, bool with_v) {
-    bf16* kd = ks + st * kBk * kLdh;
-    bf16* vd = vs + st * kBk * kLdh;
-    for (int i = tid; i < kBk * (kDh / 8); i += kThreads) {
-      const int r = i >> 3, c = (i & 7) * 8, key = tile * kBk + r;
-      const bool ok = key < a.lk;
-      const long long kr = ok ? key : 0;
-      cp_async16(kd + r * kLdh + c, kb + kr * a.ks[2] + c, ok);
-      if (with_v) cp_async16(vd + r * kLdh + c, vb + kr * a.vs[2] + c, ok);
-    }
-    cp_async_commit();
-  };
-
-  // Q fragments of the warp's 16 rows, straight from device memory
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[kDh / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = r0 < a.lq ? *reinterpret_cast<const uint32_t*>(qb + r0 * a.qs[2] + c) : 0u;
-    qa[kk][1] = r1 < a.lq ? *reinterpret_cast<const uint32_t*>(qb + r1 * a.qs[2] + c) : 0u;
-    qa[kk][2] = r0 < a.lq ? *reinterpret_cast<const uint32_t*>(qb + r0 * a.qs[2] + c + 8) : 0u;
-    qa[kk][3] = r1 < a.lq ? *reinterpret_cast<const uint32_t*>(qb + r1 * a.qs[2] + c + 8) : 0u;
-  }
-
-  float s[kBk / 8][4];
-  float o[kDh / 8][4];
-#pragma unroll
-  for (int i = 0; i < kDh / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  // running row max (from -inf, as the TPU kernel's scratch) and this
-  // thread's share of the row sum, rows g and g + 8
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  // the online softmax over the key tiles
-  load(0, 0, true);
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) load(it + 1, (it + 1) & 1, true);
-    else cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = it & 1;
-    tile_scores(s, qa, ks + st * kBk * kLdh, lane);
-    float mx0, mx1;
-    scale_mask_max(s, a, it * kBk, r0, t, mx0, mx1);
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    float p0 = 0.f, p1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBk / 8; ++j) {
-      s[j][0] = expf(s[j][0] - mn0);
-      s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1);
-      s[j][3] = expf(s[j][3] - mn1);
-      p0 += s[j][0] + s[j][1];
-      p1 += s[j][2] + s[j][3];
-    }
-    l0 = al0 * l0 + p0;
-    l1 = al1 * l1 + p1;
-#pragma unroll
-    for (int i = 0; i < kDh / 8; ++i) {
-      o[i][0] *= al0;
-      o[i][1] *= al0;
-      o[i][2] *= al1;
-      o[i][3] *= al1;
-    }
-    m0 = mn0;
-    m1 = mn1;
-    tile_pv(o, s, vs + st * kBk * kLdh, lane);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int x = 1; x < 4; x <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
-  }
-  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0, inv1 = l1 == 0.f ? 1.f : 1.f / l1;
-#pragma unroll
-  for (int i = 0; i < kDh / 8; ++i) {
-    const int c = i * 8 + 2 * t;
-    if (r0 < a.lq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * a.os[2] + c) = pack_bf16(o[i][0] * inv0, o[i][1] * inv0);
-    if (r1 < a.lq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * a.os[2] + c) = pack_bf16(o[i][2] * inv1, o[i][3] * inv1);
-  }
 }
 
 // ---- bf16 short route (wgmma) ------------------------------------------------
@@ -593,6 +438,304 @@ cudaError_t launch_short_bf16_any(const FlashArgs& a, cudaStream_t st) {
   }
 }
 
+// ---- bf16 tiled route (wgmma, TMA, a producer warp) ---------------------------
+
+constexpr int kTWarpgroups = 2;                      // consumers, 64 query rows each
+constexpr int kTRows = kTWarpgroups * kBq;           // query rows of a block's item
+constexpr int kTThreads = kTWarpgroups * 128 + 32;   // + one producer warp
+constexpr int kTStages = 3;                          // K and V tiles in flight
+constexpr int kTTile = kBk * 128;                    // bytes of a 128-key tile of K or V
+constexpr int kTQBytes = kTRows * 128;               // bytes of a block's Q tile
+constexpr int kTBarriers = 4 + 3 * kTStages;         // q full / empty x 2; k full, v full, kv empty
+constexpr size_t kTSmem = 2 * kTQBytes + 2 * kTStages * kTTile + kTBarriers * 8 + 1024;
+
+// Where the rows, heads and batch of a (64, rows, heads, batch) tensor map
+// lie among its dims 1..3 (ordered by stride), for q, k and v.
+struct TmaDims {
+  int q[3], k[3], v[3];
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+// Waits until the phase of the given parity of ``bar`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// TMA: the box of ``map`` at (row, h, b) into dst (1024-byte aligned),
+// completing on ``bar``; rows outside the tensor land as zeros.
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, const int (&pos)[3],
+                                         int row, int h, int b, uint64_t* bar) {
+  const int c1 = pos[0] == 1 ? row : pos[1] == 1 ? h : b;
+  const int c2 = pos[0] == 2 ? row : pos[1] == 2 ? h : b;
+  const int c3 = pos[0] == 3 ? row : pos[1] == 3 ? h : b;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Persistent: block i takes the items i, i + gridDim.x, ... of (128-row
+// query tile, head, batch): query tiles fastest (a head's K and V stay in
+// L2 while the card works on it), or, when causal, the longest tiles first.
+__global__ void __launch_bounds__(kTThreads, 1)
+flash_tiled_bf16_kernel(const FlashArgs a, const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                        const TmaDims dims) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qbuf = sm;                            // [2][kTQBytes]
+  unsigned char* kbuf = qbuf + 2 * kTQBytes;           // [kTStages][kTTile]
+  unsigned char* vbuf = kbuf + kTStages * kTTile;      // [kTStages][kTTile]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vbuf + kTStages * kTTile);  // [2]
+  uint64_t* q_empty = q_full + 2;                      // [2]
+  uint64_t* k_full = q_empty + 2;                      // [kTStages]
+  uint64_t* v_full = k_full + kTStages;                // [kTStages]
+  uint64_t* kv_empty = v_full + kTStages;              // [kTStages]
+  constexpr int kConsumers = kTWarpgroups * 128;
+
+  const int tid = threadIdx.x;
+  const int n_qt = (a.lq + kTRows - 1) / kTRows, nk = (a.lk + kBk - 1) / kBk;
+  const int n_hb = a.h * a.b, n_items = n_qt * n_hb;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], kConsumers);
+    }
+    for (int i = 0; i < kTStages; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&v_full[i], 1);
+      mbar_init(&kv_empty[i], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // item w -> query tile, head, batch; and the key tiles the tile visits
+  auto item = [&](int w, int& qt, int& h, int& b) {
+    const int hb = a.causal ? w % n_hb : w / n_qt;
+    qt = a.causal ? n_qt - 1 - w / n_hb : w % n_qt;
+    h = hb % a.h;
+    b = hb / a.h;
+  };
+  auto tiles_of = [&](int qt) {
+    return a.causal ? min(nk, (min((qt + 1) * kTRows, a.lq) - 1) / kBk + 1) : nk;
+  };
+
+  // warp-uniform as the compiler sees it (a shuffle of lane 0's value), so
+  // the consumers' wgmma do not lie on a divergent path
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == kTWarpgroups) {
+    // the producer: one thread keeps Q (two buffers) and the K / V ring
+    // filled, a stage refilled once both warpgroups have released it
+    if (tid == kConsumers) {
+      int t = 0, i = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++i) {
+        int qt, h, b;
+        item(w, qt, h, b);
+        const int qb = i & 1;
+        if (i >= 2) mbar_wait(&q_empty[qb], ((i >> 1) - 1) & 1);
+        mbar_expect_tx(&q_full[qb], kTQBytes);
+        tma_rows(qbuf + qb * kTQBytes, &tq, dims.q, qt * kTRows, h, b, &q_full[qb]);
+        const int n = tiles_of(qt);
+        for (int j = 0; j < n; ++j, ++t) {
+          const int st = t % kTStages;
+          if (t >= kTStages) mbar_wait(&kv_empty[st], (t / kTStages - 1) & 1);
+          mbar_expect_tx(&k_full[st], kTTile);
+          tma_rows(kbuf + st * kTTile, &tk, dims.k, j * kBk, h, b, &k_full[st]);
+          mbar_expect_tx(&v_full[st], kTTile);
+          tma_rows(vbuf + st * kTTile, &tv, dims.v, j * kBk, h, b, &v_full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns rows 64 wg .. + 63 of each item
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float c2 = a.scale * kLog2e;
+  int t = 0, i = 0;
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++i) {
+    int qt, h, b;
+    item(w, qt, h, b);
+    const int qb = i & 1, n = tiles_of(qt);
+    unsigned char* q_tile = qbuf + qb * kTQBytes + wg * kBq * 128;
+    const int rl = warp * 16 + g, r0 = qt * kTRows + wg * kBq + rl;
+    // valid keys of rows r0 and r0 + 8: below lk, and up to the row when causal
+    const int lim0 = a.causal ? min(a.lk, r0 + 1) : a.lk;
+    const int lim1 = a.causal ? min(a.lk, r0 + 9) : a.lk;
+    float s[64], o[32];
+    uint32_t pa[kBk / 16][4];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) o[k] = 0.f;
+    // running max of the raw scores (from -inf, as the TPU kernel's
+    // scratch; scale > 0) and this thread's share of the row sums
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0, al1;
+    // S_j's softmax in place: mask, m_next = max(m, rowmax), alpha =
+    // exp(m - m_next), p = exp(s - m_next) in fp32 (scaled by c2 = scale
+    // log2(e)), l = alpha l + sum p
+    auto softmax = [&](int j) {
+      float mx0 = m0, mx1 = m1;
+      short_mask_max(s, j * kBk, lim0, lim1, t4, mx0, mx1);
+      quad_max(mx0, mx1);
+      al0 = fast_exp2((m0 - mx0) * c2);
+      al1 = fast_exp2((m1 - mx1) * c2);
+      float p0 = 0.f, p1 = 0.f;
+      short_exp(s, c2, -mx0 * c2, -mx1 * c2, p0, p1);
+      l0 = al0 * l0 + p0;
+      l1 = al1 * l1 + p1;
+      m0 = mx0;
+      m1 = mx1;
+    };
+    mbar_wait(&q_full[qb], (i >> 1) & 1);
+
+    // tile 0: S_0 and its softmax
+    mbar_wait(&k_full[t % kTStages], (t / kTStages) & 1);
+    wgmma_fence();
+    short_scores(s, q_tile, kbuf + (t % kTStages) * kTTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    softmax(0);
+    short_pack(pa, s);
+    // tile j: S_j = Q K_j^T is issued, then P_{j-1} V_{j-1}; the softmax of
+    // S_j runs while that product is in flight (every wait on a barrier
+    // comes before the wgmma fence, so nothing divergent lies between the
+    // products and their waits)
+    for (int j = 1; j < n; ++j) {
+      const int st = (t + 1) % kTStages, sp = t % kTStages;
+      mbar_wait(&k_full[st], ((t + 1) / kTStages) & 1);
+      mbar_wait(&v_full[sp], (t / kTStages) & 1);
+        wgmma_fence();
+      short_scores(s, q_tile, kbuf + st * kTTile);
+      wgmma_commit();
+      short_pv(o, pa, vbuf + sp * kTTile, false);
+      wgmma_commit();
+        wgmma_wait<1>();  // S_j is done
+      softmax(j);
+      wgmma_wait<0>();  // P_{j-1} V_{j-1} is done: o and pa are free, stage sp is read
+      mbar_arrive(&kv_empty[sp]);
+      ++t;
+      // acc = acc alpha + bf16(p) V: the rescale here, the product next tile
+#pragma unroll
+      for (int k = 0; k < 32; ++k) o[k] *= (k & 2) ? al1 : al0;
+      short_pack(pa, s);
+    }
+    const int sp = t % kTStages;
+    mbar_wait(&v_full[sp], (t / kTStages) & 1);
+    wgmma_fence();
+    short_pv(o, pa, vbuf + sp * kTTile, false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(&kv_empty[sp]);
+    ++t;
+
+    // acc (1 / l), 1 where l == 0, rounded to bf16 and staged swizzled in
+    // this warpgroup's Q rows (its products are done), then 16-byte stores
+    quad_sum(l0, l1);
+    const float inv0 = l0 == 0.f ? 1.f : 1.f / l0, inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+#pragma unroll
+    for (int jj = 0; jj < kDh / 8; ++jj) {
+      *reinterpret_cast<uint32_t*>(q_tile + sw128_offset(rl, jj) + 4 * t4) =
+          pack_bf16(o[4 * jj] * inv0, o[4 * jj + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(q_tile + sw128_offset(rl + 8, jj) + 4 * t4) =
+          pack_bf16(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1);
+    }
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
+    bf16* ob = static_cast<bf16*>(a.o) + b * a.os[0] + h * a.os[1];
+    for (int k = tid & 127; k < kBq * 8; k += 128) {
+      const int r = k >> 3, c = k & 7, row = qt * kTRows + wg * kBq + r;
+      if (row < a.lq)
+        *reinterpret_cast<uint4*>(ob + row * a.os[2] + c * 8) =
+            *reinterpret_cast<const uint4*>(q_tile + sw128_offset(r, c));
+    }
+    fence_proxy_async();  // these reads and writes before the next TMA write into the buffer
+    mbar_arrive(&q_empty[qb]);
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the CUDA runtime (no -lcuda).
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of (64, rows, heads, batch) at ptr with (batch, head,
+// row) strides st in elements, dims 1..3 ordered by stride; boxes of 64 x
+// box_rows, 128B-swizzled (the layout sw128_desc reads). pos gets where
+// rows, heads and batch went.
+cudaError_t encode_rows_map(CUtensorMap* map, int (&pos)[3], const void* ptr, int rows, int h, int b,
+                            const long long (&st)[3], int box_rows) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (!enc) return cudaErrorNotSupported;
+  const long long stride[3] = {st[2], st[1], st[0]};  // rows, heads, batch
+  const cuuint64_t extent[3] = {(cuuint64_t)rows, (cuuint64_t)h, (cuuint64_t)b};
+  int order[3] = {0, 1, 2};
+  for (int x = 1; x < 3; ++x)
+    for (int y = x; y > 0 && stride[order[y]] < stride[order[y - 1]]; --y) {
+      const int tmp = order[y];
+      order[y] = order[y - 1];
+      order[y - 1] = tmp;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)kDh, 0, 0, 0}, strides[3];
+  cuuint32_t box[4] = {(cuuint32_t)kDh, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
+  for (int x = 0; x < 3; ++x) {
+    const int which = order[x];
+    dims[x + 1] = extent[which];
+    strides[x] = (cuuint64_t)stride[which] * sizeof(bf16);
+    box[x + 1] = which == 0 ? (cuuint32_t)box_rows : 1u;
+    pos[which] = x + 1;
+  }
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                         box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_tiled_bf16(const FlashArgs& a, cudaStream_t st) {
+  if (a.b < 1 || a.h < 1 || a.lq < 1 || a.lk < 1) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  TmaDims dims;
+  cudaError_t e = encode_rows_map(&tq, dims.q, a.q, a.lq, a.h, a.b, a.qs, kTRows);
+  if (e == cudaSuccess) e = encode_rows_map(&tk, dims.k, a.k, a.lk, a.h, a.b, a.ks, kBk);
+  if (e == cudaSuccess) e = encode_rows_map(&tv, dims.v, a.v, a.lk, a.h, a.b, a.vs, kBk);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_tiled_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTSmem);
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)((a.lq + kTRows - 1) / kTRows) * a.h * a.b;
+  const int blocks = (int)(items < sms ? items : sms);
+  flash_tiled_bf16_kernel<<<blocks, kTThreads, kTSmem, st>>>(a, tq, tk, tv, dims);
+  return cudaGetLastError();
+}
+
 // ---- fp32 (FMA units) --------------------------------------------------------
 
 size_t f32_smem_bytes() { return (size_t)(kBq * kFPitch + kBk * kFPitch + kBk * kDh) * sizeof(float); }
@@ -822,6 +965,6 @@ FlashArgs make_args(const void* q, const void* k, const void* v, void* o, int b,
   }
 
 EBC_FLASH_ENTRY(ebc_flash_short, launch_short_bf16_any(args, cs))
-EBC_FLASH_ENTRY(ebc_flash_tiled, launch(flash_tiled_bf16_kernel, kThreads, bf16_smem_bytes(), args, cs))
+EBC_FLASH_ENTRY(ebc_flash_tiled, launch_tiled_bf16(args, cs))
 EBC_FLASH_ENTRY(ebc_flash_short_f32, launch(flash_f32_kernel<true>, kFThreads, f32_smem_bytes(), args, cs))
 EBC_FLASH_ENTRY(ebc_flash_tiled_f32, launch(flash_f32_kernel<false>, kFThreads, f32_smem_bytes(), args, cs))

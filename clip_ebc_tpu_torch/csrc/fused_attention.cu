@@ -60,12 +60,30 @@
 //    runs the 8 x 8 fp32 FMA outer products. Epilogue: + bias, float4
 //    stores. The statistics are taken again by each of the 3D / 128 column
 //    blocks of a row tile (from L2); no double buffering yet.
-//  * mha_f32_kernel: one block of 16 warps per (head, window) with K_h
-//    (pitch 65: lane j reads key j, conflict-free) and V_h in shared memory
-//    (118 KB at L = 229). A warp takes one query row at a time with q in
-//    registers: lane j scores keys j, j + 32, ...; max and sum by warp
-//    shuffle; P.V with p broadcast by shuffle, each lane owning 2 output
-//    columns; O / rowsum. fp32 throughout, as the plain version is in fp32.
+//  * mha_f32_blocked_kernel (redesigned after the first port, whose block of
+//    16 warps per (head, window) took a query row a warp and a key a lane,
+//    read one scalar of K from shared memory per FMA and broadcast each p
+//    by shuffle in P.V: 7.5 TFLOP/s of 67, in 1.45 waves of 192 blocks at a
+//    calibration batch): register-blocked SIMT, as flash_f32_kernel and
+//    the fp32 attention_bwd are. Bound at a calibration batch (B = 16, L =
+//    229): 2.58 GFLOP over 67 TFLOP/s = 0.0385 ms against 45 MB (0.0135
+//    ms), so the FMA units bound it, and the design keeps them fed from
+//    shared memory. One block of 256 threads per (64-query tile, head,
+//    window): 768 blocks at B = 16, 6,720 at the B = 140 of a window
+//    forward. The tile's Q rows and all of K_h land by 16-byte cp.async
+//    (rows padded to 68 floats). Thread (ty, tx) scores rows 4 ty .. + 3
+//    against keys tx + 16 j, each float4 of K feeding 16 FMAs, so the whole
+//    score row (the keys padded to a multiple of 16) stays in registers and
+//    the softmax is exact over it: x sm_scale, keys >= kv_len at kNegInf,
+//    max and sum over the half warp that shares a row, p = exp(s - max)
+//    unnormalized. P^T takes K's place in shared memory; O = P V is 4 x 4
+//    outputs a thread over the unmasked keys, then O / rowsum, the plain
+//    version's order; fp32 throughout. V_h comes in 64-key chunks, two in
+//    flight, one landing under the scores and the next in Q's place, so a
+//    block takes 103 KB of shared memory at 256 keys and two blocks share
+//    an SM (one's loads and barriers run under the other's FMAs; with one
+//    block an SM it took 1.25x as long on an H100 SXM at 700 W). Up to 512
+//    keys it would take 172 KB: one block an SM.
 //
 // Limits: head dim 64, D <= 768 (the resident LN rows and the W ring fill
 // shared memory; the fp32 LN statistics are held for at most 768 values a
@@ -409,6 +427,20 @@ cudaError_t launch_mha(const bf16* qkv, bf16* out, int batch, int l, int num_hea
   return cudaGetLastError();
 }
 
+// The bf16 attention launch for any l <= kMaxKeys: the padded key count
+// picks the instantiation.
+cudaError_t launch_mha_any(const bf16* q, bf16* o, int batch, int l, int num_heads, int kv_len,
+                           float sm_scale, cudaStream_t st) {
+  switch ((l + kKeyQuantum - 1) / kKeyQuantum) {
+    case 1: return launch_mha<4>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 2: return launch_mha<8>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 3: return launch_mha<12>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 4: return launch_mha<16>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 5: return launch_mha<20>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // ---- fp32 variant: LayerNorm + projection ----------------------------------
 constexpr int kFM = 128, kFN = 128;     // output tile of a block
 constexpr int kFK = 8;                  // depth of one step
@@ -521,108 +553,189 @@ ln_qkv_proj_f32_kernel(const float* __restrict__ x, const float* __restrict__ ga
   }
 }
 
-// ---- fp32 variant: masked attention -----------------------------------------
-constexpr int kFAttnWarps = 16;
-constexpr int kFKPitch = kDh + 1;              // K rows: lane j reads key j from its own bank
-constexpr int kFKeysPerLane = kMaxKeys / 32;   // score registers a lane holds
+// ---- fp32 variant: masked attention (register-blocked SIMT) ------------------
+constexpr int kFAttnTile = 64;          // query rows of a block
+constexpr int kFAttnPitch = kDh + 4;    // 68: Q, K and P^T rows; a half warp's float4s hit distinct banks
 
-size_t attn_f32_smem_bytes(int l) { return (size_t)l * (kFKPitch + kDh) * sizeof(float); }
+constexpr int kFVChunk = 64;            // keys of a V chunk in P.V
 
-__global__ void __launch_bounds__(kFAttnWarps * 32)
-mha_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int l, int num_heads,
-               int kv_len, float sm_scale) {
-  extern __shared__ __align__(16) float fsm[];
-  float* ks = fsm;
-  float* vs = fsm + (size_t)l * kFKPitch;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int d = num_heads * kDh, three_d = 3 * d;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* base = qkv + (size_t)b * l * three_d + h * kDh;
+// The Q tile (a V chunk after the scores), K_h (P^T after the scores) for
+// LP padded keys, and a second V chunk.
+size_t attn_f32_smem_bytes(int lp) {
+  return ((size_t)(kFAttnTile + lp) * kFAttnPitch + (size_t)kFVChunk * kDh) * sizeof(float);
+}
 
-  for (int i = tid; i < l * kDh; i += kFAttnWarps * 32) {
-    const int r = i / kDh, c = i % kDh;
-    ks[r * kFKPitch + c] = base[(size_t)r * three_d + d + c];
-    vs[r * kDh + c] = base[(size_t)r * three_d + 2 * d + c];
+// rows [0, n) of a (rows, 64) fp32 slice of row pitch ``pitch`` (elements)
+// into shared memory at row pitch ``spitch``, rows [n, total) zero
+// (cp.async, uncommitted)
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, int n, int total,
+                                               size_t pitch, int spitch) {
+  for (int i = threadIdx.x; i < total * (kDh / 4); i += kFThreads) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    cp_async16(dst + r * spitch + c, src + (size_t)(r < n ? r : 0) * pitch + c, r < n);
   }
+}
+
+// One block of 256 threads (16 x 16) per (64-query tile, head, window); NJ =
+// keys a thread scores, the key count padded to 16 NJ. Thread (ty, tx)
+// scores rows 4 ty + i against keys tx + 16 j, the whole row in registers,
+// then computes rows 4 ty + i x columns 4 tx + c of O. Two blocks share an
+// SM up to 256 keys.
+template <int NJ>
+__global__ void __launch_bounds__(kFThreads, NJ <= 16 ? 2 : 1)
+mha_f32_blocked_kernel(const float* __restrict__ qkv, float* __restrict__ out, int l, int num_heads,
+                       int kv_len, float sm_scale) {
+  constexpr int LP = 16 * NJ;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                           // [kFAttnTile][kFAttnPitch]: Q, then V chunks 1, 3, ...
+  float* ks = qs + kFAttnTile * kFAttnPitch; // [LP][kFAttnPitch]: K, then P^T
+  float* vx = ks + LP * kFAttnPitch;         // [kFVChunk][kDh]: V chunks 0, 2, ...
+  const int q0 = blockIdx.x * kFAttnTile, h = blockIdx.y, b = blockIdx.z;
+  const int d = num_heads * kDh, three_d = 3 * d;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const float* base = qkv + (size_t)b * l * three_d + h * kDh;
+  const int nk = min(l, kv_len);  // keys of P.V: p is exactly 0 at the others
+  const int n_chunks = (nk + kFVChunk - 1) / kFVChunk;
+  auto stage_v = [&](int c) {  // V chunk c into its buffer; always a commit group
+    if (c < n_chunks)
+      stage_rows_f32(c & 1 ? qs : vx, base + 2 * d + (size_t)c * kFVChunk * three_d,
+                     l - c * kFVChunk, kFVChunk, three_d, kDh);
+    cp_async_commit();
+  };
+
+  // Q and K land first; V chunk 0 lands while the scores are computed
+  stage_rows_f32(qs, base + (size_t)q0 * three_d, l - q0, kFAttnTile, three_d, kFAttnPitch);
+  stage_rows_f32(ks, base + d, l, LP, three_d, kFAttnPitch);
+  cp_async_commit();
+  stage_v(0);
+  cp_async_wait<1>();
   __syncthreads();
 
-  for (int r = warp; r < l; r += kFAttnWarps) {
-    float q[kDh];
-    const float4* qrow = reinterpret_cast<const float4*>(base + (size_t)r * three_d);
+  // S = Q K^T over the head dim in order: each float4 of K feeds 16 FMAs
+  float s[4][NJ];
 #pragma unroll
-    for (int c = 0; c < kDh / 4; ++c) {
-      const float4 t4 = qrow[c];
-      q[4 * c] = t4.x;
-      q[4 * c + 1] = t4.y;
-      q[4 * c + 2] = t4.z;
-      q[4 * c + 3] = t4.w;
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int dd = 0; dd < kDh; dd += 4) {
+    float4 qv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * kFAttnPitch + dd);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kFAttnPitch + dd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+        s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+        s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+        s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+      }
     }
-    // lane scores keys lane, lane + 32, ...: x sm_scale, keys >= kv_len at
-    // kNegInf, keys >= l (none) at kNegInf too and p = 0 below
-    float s[kFKeysPerLane];
+  }
+
+  // x sm_scale, keys >= kv_len (padding included) at kNegInf; the exact row
+  // max and sum over the 16 lanes of a half warp that share the row; p =
+  // exp(s - max) unnormalized
+  float sum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
     float mx = kNegInf;
 #pragma unroll
-    for (int i = 0; i < kFKeysPerLane; ++i) {
-      const int j = i * 32 + lane;
-      float acc = 0.f;
-      if (j < l) {
-        const float* kr = ks + j * kFKPitch;
-#pragma unroll
-        for (int c = 0; c < kDh; ++c) acc = fmaf(q[c], kr[c], acc);
-      }
-      s[i] = j < kv_len ? acc * sm_scale : kNegInf;
-      mx = fmaxf(mx, s[i]);
+    for (int j = 0; j < NJ; ++j) {
+      s[i][j] = tx + 16 * j < kv_len ? s[i][j] * sm_scale : kNegInf;
+      mx = fmaxf(mx, s[i][j]);
     }
-    mx = warp_max(mx);
-    float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kFKeysPerLane; ++i) {
-      s[i] = i * 32 + lane < l ? expf(s[i] - mx) : 0.f;
-      sum += s[i];
-    }
-    sum = warp_sum(sum);
-    // O = P V: lane owns columns lane and lane + 32
-    float o0 = 0.f, o1 = 0.f;
+    for (int o = 1; o < 16; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sm = 0.f;
 #pragma unroll
-    for (int i = 0; i < kFKeysPerLane; ++i) {
-      if (i * 32 >= l) break;
-      const int nj = min(32, l - i * 32);
-      for (int jj = 0; jj < nj; ++jj) {
-        const float p = __shfl_sync(0xffffffffu, s[i], jj);
-        const float* vr = vs + (i * 32 + jj) * kDh;
-        o0 = fmaf(p, vr[lane], o0);
-        o1 = fmaf(p, vr[lane + 32], o1);
-      }
+    for (int j = 0; j < NJ; ++j) {
+      s[i][j] = expf(s[i][j] - mx);
+      sm += s[i][j];
     }
-    float* orow = out + ((size_t)b * l + r) * d + h * kDh;
-    orow[lane] = o0 / sum;
-    orow[lane + 32] = o1 / sum;
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) sm += __shfl_xor_sync(0xffffffffu, sm, o);
+    sum[i] = sm;
+  }
+  __syncthreads();  // Q and K are read: P^T takes K's place, V chunk 1 Q's
+  stage_v(1);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    *reinterpret_cast<float4*>(ks + (tx + 16 * j) * kFAttnPitch + 4 * ty) =
+        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+
+  // O = P V chunk by chunk (chunk c + 1 lands while c is multiplied), then
+  // O / rowsum: the order of the plain version
+  float o[4][4] = {};
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<1>();  // chunk c has landed (c + 1 may still be in flight)
+    __syncthreads();
+    const float* vc = c & 1 ? qs : vx;
+    const int k0 = c * kFVChunk, kn = min(kFVChunk, nk - k0);
+#pragma unroll 4
+    for (int k = 0; k < kn; ++k) {
+      const float4 p = *reinterpret_cast<const float4*>(ks + (k0 + k) * kFAttnPitch + 4 * ty);
+      const float4 v = *reinterpret_cast<const float4*>(vc + k * kDh + 4 * tx);
+      const float pv[4] = {p.x, p.y, p.z, p.w}, vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) o[i][cc] = fmaf(pv[i], vv[cc], o[i][cc]);
+    }
+    __syncthreads();  // chunk c is read: its buffer takes chunk c + 2
+    stage_v(c + 2);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + 4 * ty + i;
+    if (r < l)
+      *reinterpret_cast<float4*>(out + ((size_t)b * l + r) * d + h * kDh + 4 * tx) =
+          make_float4(o[i][0] / sum[i], o[i][1] / sum[i], o[i][2] / sum[i], o[i][3] / sum[i]);
   }
 }
 
-// The bf16 attention launch for any l <= kMaxKeys: the padded key count
-// picks the instantiation.
-cudaError_t launch_mha_any(const bf16* q, bf16* o, int batch, int l, int num_heads, int kv_len,
-                           float sm_scale, cudaStream_t st) {
-  switch ((l + kKeyQuantum - 1) / kKeyQuantum) {
-    case 1: return launch_mha<4>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 2: return launch_mha<8>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 3: return launch_mha<12>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 4: return launch_mha<16>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 5: return launch_mha<20>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
+template <int NJ>
 cudaError_t launch_mha_f32(const float* qkv, float* out, int batch, int l, int num_heads,
                            int kv_len, float sm_scale, cudaStream_t st) {
-  const size_t smem = attn_f32_smem_bytes(l);
-  cudaError_t e =
-      cudaFuncSetAttribute(mha_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = attn_f32_smem_bytes(16 * NJ);
+  cudaError_t e = cudaFuncSetAttribute(mha_f32_blocked_kernel<NJ>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  mha_f32_kernel<<<dim3(num_heads, batch), kFAttnWarps * 32, smem, st>>>(qkv, out, l, num_heads,
-                                                                        kv_len, sm_scale);
+  const dim3 grid((l + kFAttnTile - 1) / kFAttnTile, num_heads, batch);
+  mha_f32_blocked_kernel<NJ><<<grid, kFThreads, smem, st>>>(qkv, out, l, num_heads, kv_len, sm_scale);
   return cudaGetLastError();
+}
+
+// The fp32 attention launch for any l <= kMaxKeys: keys padded to a
+// multiple of 16 pick the instantiation.
+cudaError_t launch_mha_f32_any(const float* q, float* o, int batch, int l, int num_heads,
+                               int kv_len, float sm_scale, cudaStream_t st) {
+  switch ((l + 15) / 16) {
+    case 1: return launch_mha_f32<1>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 2: return launch_mha_f32<2>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 3: return launch_mha_f32<3>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 4: return launch_mha_f32<4>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 5: return launch_mha_f32<5>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 6: return launch_mha_f32<6>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 7: return launch_mha_f32<7>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 8: return launch_mha_f32<8>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 9: return launch_mha_f32<9>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 10: return launch_mha_f32<10>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 11: return launch_mha_f32<11>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 12: return launch_mha_f32<12>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 13: return launch_mha_f32<13>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 14: return launch_mha_f32<14>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 15: return launch_mha_f32<15>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 16: return launch_mha_f32<16>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 17: return launch_mha_f32<17>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 18: return launch_mha_f32<18>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 19: return launch_mha_f32<19>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    case 20: return launch_mha_f32<20>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 bool attention_shape_ok(int l, int d, int num_heads, int kv_len) {
@@ -640,6 +753,17 @@ cudaError_t launch_proj(const void* x, const void* gamma, const void* beta, cons
       static_cast<const bf16*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<bf16*>(qkv), m, d, 3 * d, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_proj_f32(const void* x, const void* gamma, const void* beta, const void* w,
+                            const void* bias, void* qkv, int m, int d, float eps, cudaStream_t st) {
+  const int n = 3 * d;
+  const dim3 grid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);
+  ln_qkv_proj_f32_kernel<<<grid, kFThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(qkv), m, d, n, eps);
   return cudaGetLastError();
 }
 
@@ -682,13 +806,13 @@ extern "C" int ebc_qkv_attention(const void* qkv, void* out, int batch, int l, i
                              num_heads, kv_len, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
-// The same in fp32 (mha_f32_kernel).
+// The same in fp32 (mha_f32_blocked_kernel).
 extern "C" int ebc_qkv_attention_f32(const void* qkv, void* out, int batch, int l, int d,
                                      int num_heads, int kv_len, float sm_scale, void* stream) {
   using namespace ebc;
   if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
-  return (int)launch_mha_f32(static_cast<const float*>(qkv), static_cast<float*>(out), batch, l,
-                             num_heads, kv_len, sm_scale, static_cast<cudaStream_t>(stream));
+  return (int)launch_mha_f32_any(static_cast<const float*>(qkv), static_cast<float*>(out), batch, l,
+                                 num_heads, kv_len, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 // The first launch of ebc_ln_qkv_attention alone, qkv = LN(x) W^T + bias
@@ -703,6 +827,17 @@ extern "C" int ebc_ln_qkv_proj(const void* x, const void* gamma, const void* bet
                           static_cast<cudaStream_t>(stream));
 }
 
+// The first launch of ebc_ln_qkv_attention_f32 alone (ln_qkv_proj_f32_kernel),
+// qkv = LN(x) W^T + bias in fp32: timed apart from the attention launch.
+extern "C" int ebc_ln_qkv_proj_f32(const void* x, const void* gamma, const void* beta,
+                                   const void* w, const void* bias, void* qkv, int m, int d,
+                                   float eps, void* stream) {
+  using namespace ebc;
+  if (m < 1 || d < 64 || d % 64 || d > kMaxDim) return (int)cudaErrorInvalidValue;
+  return (int)launch_proj_f32(x, gamma, beta, w, bias, qkv, m, d, eps,
+                              static_cast<cudaStream_t>(stream));
+}
+
 // The same in fp32: x, w, qkv and out fp32, with ebc_ln_qkv_attention's
 // shapes and layouts.
 extern "C" int ebc_ln_qkv_attention_f32(const void* x, const void* gamma, const void* beta,
@@ -711,17 +846,9 @@ extern "C" int ebc_ln_qkv_attention_f32(const void* x, const void* gamma, const 
                                         float sm_scale, float eps, void* stream) {
   using namespace ebc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int m = batch * l, n = 3 * d;
   if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
-
-  const dim3 pgrid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);
-  ln_qkv_proj_f32_kernel<<<pgrid, kFThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(qkv), m, d, n, eps);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_proj_f32(x, gamma, beta, w, bias, qkv, batch * l, d, eps, st);
   if (e != cudaSuccess) return (int)e;
-
-  return (int)launch_mha_f32(static_cast<const float*>(qkv), static_cast<float*>(out), batch, l,
-                             num_heads, kv_len, sm_scale, st);
+  return (int)launch_mha_f32_any(static_cast<const float*>(qkv), static_cast<float*>(out), batch, l,
+                                 num_heads, kv_len, sm_scale, st);
 }

@@ -123,17 +123,18 @@ def _entry(name: str):
     return fn
 
 
-def _check(who: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the kernels take: CUDA tensors of one dtype (bf16 or fp32) on
-    one device, (B, H, L, 64) with k and v of one shape and q of the same
-    batch and heads, contiguous rows of 16-byte aligned start."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{who}: unsupported device {q.device}")
+def _check(who: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float) -> None:
+    """What the kernels take, checked before any launch: one dtype (bf16 or
+    fp32), (B, H, L, 64) with k and v of one shape and q of the same batch
+    and heads, contiguous rows with 16-byte aligned starts and (batch,
+    head, row) strides (the TMA copies of the tiled bf16 kernel need both),
+    a positive ``sm_scale`` (the wgmma kernels take the row max of the raw
+    scores), then CUDA tensors on one device."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype or t.dim() != 4:
+        if t.dtype != q.dtype or t.dim() != 4:
             raise ValueError(
-                f"{who}: {name} must be a (B, H, L, {HEAD_DIM}) {q.dtype} tensor on "
-                f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{who}: {name} must be a (B, H, L, {HEAD_DIM}) {q.dtype} tensor, "
+                f"got {t.dtype} {tuple(t.shape)}"
             )
         align = 16 // t.element_size()
         if (t.shape[3] != HEAD_DIM or t.stride(3) != 1 or t.data_ptr() % 16
@@ -146,11 +147,16 @@ def _check(who: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"{who}: needs torch.bfloat16 or torch.float32, got {q.dtype}")
     if k.shape != v.shape or q.shape[:2] != k.shape[:2] or min(q.shape[2], k.shape[2]) < 1:
         raise ValueError(f"{who}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not sm_scale > 0:
+        raise ValueError(f"{who}: the kernels take sm_scale > 0, got {sm_scale}")
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"{who}: unsupported device: needs CUDA tensors on one device, got "
+                         f"{q.device}, {k.device}, {v.device}")
 
 
 def _launch(route: str, q, k, v, sm_scale: float, causal: bool) -> torch.Tensor:
     who = f"flash_{route}"
-    _check(who, q, k, v)
+    _check(who, q, k, v, sm_scale)
     b, h, lq, dh = q.shape
     out = torch.empty(b, lq, h, dh, dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]

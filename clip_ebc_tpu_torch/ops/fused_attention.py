@@ -405,6 +405,7 @@ _ARGTYPES = {
     "ebc_ln_qkv_attention": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
     "ebc_ln_qkv_attention_f32": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
     "ebc_ln_qkv_proj": [_P] * 6 + [_I, _I, _F, _P],
+    "ebc_ln_qkv_proj_f32": [_P] * 6 + [_I, _I, _F, _P],
     "ebc_attention_bwd": [_P] * 4 + [_I] * 5 + [_F, _P],
     "ebc_attention_bwd_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
     "ebc_ln_bwd_dx": [_P] * 5 + [_I, _I, _F, _P],

@@ -312,6 +312,10 @@ def test_fused_head_refuses_grad(cuda):
     (3, 37, 128, 2, 33, "bfloat16"),  # ragged length, narrow width
     (16, 229, 768, 12, 229, "float32"),
     (3, 37, 128, 2, 33, "float32"),
+    (16, 229, 768, 12, 200, "float32"),  # masked keys
+    (2, 320, 768, 12, 320, "float32"),  # the longest fused length
+    (3, 64, 128, 2, 1, "float32"),  # one valid key
+    (140, 229, 768, 12, 229, "float32"),  # a window forward's batch
 ])
 def test_qkv_attention_kernel_matches_plain_and_differentiates(cuda, shape):
     b, l, d, h, kv_len, dtype = shape
@@ -607,6 +611,9 @@ def _flash_inputs(b, h, l, seed, dev, dtype):
     ("tiled", 1, 2, 1100, False),  # ragged: 8 full key tiles and one of 76 keys
     ("tiled", 2, 3, 1100, True),
     ("tiled", 1, 2, 513, False),
+    ("tiled", 1, 2, 129, False),  # one key in the last tile
+    ("tiled", 3, 12, 2048, True),  # more items than SMs, causal
+    ("tiled", 1, 12, 1024, False),
 ])
 def test_flash_kernels_match_plain(cuda, route, b, h, l, causal, dtype):
     dtype = getattr(torch, dtype)

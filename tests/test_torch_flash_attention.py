@@ -109,3 +109,36 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention(q, k, v)
     assert fa.flash_short.launches == 0 and fa.flash_tiled.launches == 0
+
+
+def _joint_heads(b, l, h, extra=0, start=0):
+    """bf16 q, k, v as the model hands them in: head views of a joint qkv
+    (B, L, 3 H 64), its rows ``extra`` elements longer than the three
+    heads' and the views ``start`` elements into them."""
+    qkv = torch.zeros(b, l, 3 * h * 64 + extra, dtype=torch.bfloat16)
+    return [qkv[..., start + i * h * 64:start + (i + 1) * h * 64].reshape(b, l, h, 64).transpose(1, 2)
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("row_stride", "16-byte aligned"),  # rows of 385 elements: no TMA copy
+    ("base", "16-byte aligned"),  # views 2 bytes into their rows
+    ("scale", "sm_scale > 0"),
+    ("dtype", "bfloat16 or torch.float32"),
+    ("good", "unsupported device"),  # every layout check passes; the CPU is refused last
+])
+@pytest.mark.parametrize("route", ["short", "tiled"])
+def test_launch_checks_refuse_before_any_launch(route, case, match):
+    """What the kernels take is checked before any launch, on any device:
+    16-byte aligned rows and (batch, head, row) strides (the tiled bf16
+    kernel's TMA copies need both), a positive scale (the wgmma kernels take
+    the row max of the raw scores), bf16 or fp32; a CPU tensor that passes
+    them all is refused only as a device."""
+    q, k, v = _joint_heads(1, 300, 2, extra={"row_stride": 1, "base": 8}.get(case, 0),
+                           start=1 if case == "base" else 0)
+    if case == "dtype":
+        q, k, v = (t.half() for t in (q, k, v))
+    scale = -0.125 if case == "scale" else 0.125
+    with pytest.raises(ValueError, match=match):
+        fa._launch(route, q, k, v, scale, False)
+    assert fa.flash_short.launches == 0 and fa.flash_tiled.launches == 0
