@@ -11,10 +11,15 @@ Phases, each a hard failure (a raised exception, exit code 1):
 2. every kernel of the flagship path against its plain PyTorch version on
    the card, at the flagship shapes, with inputs from a seed: max abs
    error within the stated tolerance; kernel and plain times (CUDA events,
-   median of 20 after warm-up) beside the least time the card could take;
-   the fp32 LN + attention kernel's two launches also timed apart, and its
-   attention body at a window forward's batch (140) beside the fp32 SDPA
-   forward and the fp32 short flash kernel;
+   median of 20 after warm-up; the attention kernels and their PyTorch
+   yardsticks by device time, ``time_spread``, with the spread over 7
+   groups of back-to-back calls) beside the least time the card could
+   take; the LN + attention kernel's two launches also timed apart in
+   both dtypes; the masked attention from a packed qkv held to its plain
+   version at a window forward, a calibration batch with masked keys, one
+   valid key, 320 and 77 tokens, and timed at a calibration batch (16) and
+   at a window forward's batch (140), each beside the SDPA forward on the
+   same views, in fp32 at 140 also beside the fp32 short flash kernel;
 3. the flagship path through the user's entry point: the predict CLI on a
    seeded 2048 x 3072 image (140 windows of 224 px at stride 224), CLIP-EBC
    ViT-B/16 with deep VPT-32 at reduction 8, random weights from a seed,
@@ -68,9 +73,9 @@ Phases, each a hard failure (a raised exception, exit code 1):
 Phase 2 also holds both flash-attention kernels against their plain
 versions, in bf16 and fp32: the tiled kernel at the flagship full image
 (1, 12, 24609, 64) and on a ragged causal sequence, the short kernel at
-the windows' shape (140, 12, 229, 64) and at the text tower's, causal;
-limits 2e-2 x max|want| in bf16 and 1e-4 in fp32; times beside the SDPA
-forward and the bound.
+the windows' shape (140, 12, 229, 64), at the text tower's, causal, and
+at 320, 321 and 512 keys; limits 2e-2 x max|want| in bf16 and 1e-4 in
+fp32; times beside the SDPA forward and the bound.
 3c. full-image inference through the same entry point: the predict CLI
    without ``--sliding_window`` on the same 2048 x 3072 image (one
    sequence of 1 + 32 + 128 x 192 = 24,609 tokens), bf16 (``--amp``) and
@@ -83,7 +88,8 @@ forward and the bound.
    1536, where the plain path's (L, L) scores fit, within 1e-2 (bf16) and
    1e-3 (fp32) of the count; and the flagship windows and the text tower
    through ``attn_backend="flash"`` (12 short launches each), whose count
-   agrees with the fused kernel path within the same limits.
+   agrees with the fused kernel path within the same limits, with ms per
+   image of both paths in both dtypes.
 3d. the NWPU entry point: ``cli/test_nwpu.py`` on a synthetic 2-image
    ``nwpu/test/images`` tree it writes (768 x 1024 and 1024 x 768 JPEGs),
    bf16, with a weights file of the seeded model: 24 tiled launches, the
@@ -117,6 +123,10 @@ forward and the bound.
    in bf16 at the whole image; the SDPA backward at the training shape),
    named by torch.profiler after every timing; not under ``--profile``,
    where the earlier profiles leave it no device time.
+
+``phase_path_ms`` is run by ``scripts/torch_kernel_ab.py`` only: ms per
+image of the flagship windows in bf16 and under ``--quant int8``, and of
+the bf16 training step's forward, for a tree beside its parent.
 
 The last lines are the card line, one JSON line describing every kernel
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX. With
@@ -204,6 +214,40 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def time_spread(fn, reps: int = 7) -> tuple:
+    """Device ms of one ``fn()`` as ``(median, lo, hi)`` over ``reps`` groups
+    of back-to-back calls (CUDA events around each group, divided by its
+    size; a group takes about 5 ms of device time, 10 to 400 calls).
+    ``torch.cuda._sleep`` holds the card before each group for twice the
+    host's time to queue it, so the host's launch overhead (tens of us a
+    call through Python, as much as a call at a calibration batch) stays
+    out of the time and only the device's remains."""
+    est = time_ms(fn, iters=5, warmup=2)
+    host = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host = max(host, time.perf_counter() - t0)
+    n = max(10, min(400, math.ceil(5.0 / max(est, 1e-3))))
+    per_call = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(n * host * 4e9))  # cycles: twice the queueing time at ~2 GHz
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(end) / n)
+    return statistics.median(per_call), min(per_call), max(per_call)
+
+
+def spread_str(t: tuple) -> str:
+    return f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
+
+
 def bound_ms(flops: float, peak_flops: float, nbytes: float) -> tuple:
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -255,8 +299,7 @@ def phase_attention(dev, dtype: torch.dtype) -> dict:
     bnd, by = bound_ms(flops, peak, nbytes)
     print(f"attention{tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s")
-    if fp32:
-        _time_fp32_launches(x, ln_w, ln_b, w, bias, sm)
+    _time_launches(x, ln_w, ln_b, w, bias, sm)
     return {
         "name": "fused_ln_qkv_attention" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention.cu",
@@ -266,28 +309,31 @@ def phase_attention(dev, dtype: torch.dtype) -> dict:
     }
 
 
-def _time_fp32_launches(x, ln_w, ln_b, w, bias, sm) -> None:
-    """Row 2 fp32's two launches apart (CUDA events around each entry): the
-    LayerNorm + projection (``ebc_ln_qkv_proj_f32``) and the attention body
-    on its qkv (``fused_qkv_attention``, the same launch)."""
+def _time_launches(x, ln_w, ln_b, w, bias, sm) -> None:
+    """Row 2's two launches apart (device time, ``time_spread``): the
+    LayerNorm + projection (``ebc_ln_qkv_proj`` in bf16,
+    ``ebc_ln_qkv_proj_f32`` in fp32) and the attention body on its qkv
+    (``fused_qkv_attention``, the same launch)."""
     from clip_ebc_tpu_torch.ops import fused_attention as fa
 
     b, l, d = x.shape
     qkv = torch.empty(b, l, 3 * d, dtype=x.dtype, device=x.device)
-    proj = fa._entry("fused_attention", "ebc_ln_qkv_proj_f32")
+    name = "ebc_ln_qkv_proj_f32" if x.dtype == torch.float32 else "ebc_ln_qkv_proj"
+    proj = fa._entry("fused_attention", name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def run_proj():
-        fa._run("ebc_ln_qkv_proj_f32", proj(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
-                                            bias.data_ptr(), qkv.data_ptr(), b * l, d, 1e-5, stream))
+        fa._run(name, proj(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
+                           bias.data_ptr(), qkv.data_ptr(), b * l, d, 1e-5, stream))
 
     run_proj()
-    proj_ms = time_ms(run_proj)
-    attn_ms = time_ms(lambda: fa.fused_qkv_attention(qkv, H, L, sm))
+    proj_ms = time_spread(run_proj)
+    attn_ms = time_spread(lambda: fa.fused_qkv_attention(qkv, H, L, sm))
     proj_flops, attn_flops = 2 * b * l * d * 3 * d, 2 * 2 * b * H * l * l * (d // H)
-    print(f"attention fp32 by launch: ln_qkv_proj_f32_kernel {proj_ms:.3f} ms "
-          f"({proj_flops / proj_ms / 1e9:.1f} TFLOP/s), attention body {attn_ms:.3f} ms "
-          f"({attn_flops / attn_ms / 1e9:.1f} TFLOP/s)")
+    tag = "fp32" if x.dtype == torch.float32 else "bf16"
+    print(f"attention {tag} by launch at B = {b}: {name} {spread_str(proj_ms)} "
+          f"({proj_flops / proj_ms[0] / 1e9:.1f} TFLOP/s), attention body {spread_str(attn_ms)} "
+          f"({attn_flops / attn_ms[0] / 1e9:.1f} TFLOP/s)")
 
 
 def phase_head(dev) -> dict:
@@ -364,19 +410,20 @@ def phase_attention_bwd(dev, dtype: torch.dtype) -> dict:
                                       got[..., cols], want[..., cols], tol))
         check(got[:, kv_len:, D:].float().abs().sum().item() == 0,
               f"attention_bwd{tag}: masked keys got a gradient")
-    ms = time_ms(lambda: attention_bwd(qkv, gout, H, L, sm))
+    ms = time_spread(lambda: attention_bwd(qkv, gout, H, L, sm))
     plain = time_ms(lambda: attention_bwd_plain(qkv, gout, H, L, sm))
     q, k, v = (t.reshape(TRAIN_B, L, H, D // H).transpose(1, 2).detach().requires_grad_(True)
                for t in qkv.split(D, dim=-1))
     out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
     go = gout.reshape(TRAIN_B, L, H, D // H).transpose(1, 2)
-    library = time_ms(lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True))
+    library = time_spread(lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True))
     es = qkv.element_size()
     flops = 5 * 2 * TRAIN_B * H * L * L * (D // H)  # S, dP, dQ, dK, dV
     nbytes = TRAIN_B * L * (3 * D + D + 3 * D) * es
     bnd, by = bound_ms(flops, peak, nbytes)
-    print(f"attention_bwd{tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA backward "
-          f"{library:.3f} ms, bound {bnd:.4f} ms ({by})")
+    print(f"attention_bwd{tag}: kernel {spread_str(ms)}, plain {plain:.3f} ms, SDPA backward "
+          f"{spread_str(library)}, bound {bnd:.4f} ms ({by})")
+    ms, library = ms[0], library[0]
     return {
         "name": "attention_bwd" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention_bwd.cu",
@@ -624,64 +671,70 @@ def phase_mlp_int8(dev, dtype: torch.dtype) -> dict:
     }
 
 
+# (B, L, kv_len) of the masked attention's checks: a window forward, a
+# calibration batch with masked keys (its query tiles in two parts a pair),
+# one valid key, the longest fused length and a length that is no multiple
+# of 16
+QKV_ATTN_SHAPES = [(B, L, L), (CALIB_B, L, 200), (3, 64, 1), (2, 320, 320), (2, 77, 77)]
+
+
 def phase_qkv_attention(dev, dtype: torch.dtype) -> dict:
-    """The attention from a precomputed qkv at a calibration batch (16
-    windows) against its plain version: bf16 max 2e-2 and median 1e-3 of
-    the largest magnitude, fp32 1e-4 and 1e-5 (fp32 throughout); library
-    yardstick: the forward of ``F.scaled_dot_product_attention`` on the
-    same q, k, v (timed here only)."""
+    """The attention from a precomputed qkv against its plain version at
+    ``QKV_ATTN_SHAPES`` (ViT-B width): bf16 max 2e-2 and median 1e-3 of the
+    largest magnitude (the bf16 kernel multiplies O by the reciprocal of
+    the fp32 row sum where the plain version divides), fp32 1e-4 and 1e-5
+    (fp32 throughout). Timed
+    (device time, ``time_spread``) at a calibration batch (16 windows, the
+    row's ms) and at a window forward's 140, each beside the forward of
+    ``F.scaled_dot_product_attention`` on the same q, k, v (the library
+    yardstick, timed here only); in fp32 at 140 also beside the fp32
+    ``flash_short`` kernel (row 7 fp32) on the same views."""
+    from clip_ebc_tpu_torch.ops import flash_attention as fl
     from clip_ebc_tpu_torch.ops.fused_attention import fused_qkv_attention, qkv_attention_plain
 
     fp32 = dtype == torch.float32
     max_tol, med_tol, peak, tag = (1e-4, 1e-5, PEAK_FP32, " fp32") if fp32 else (2e-2, 1e-3, PEAK_BF16, "")
-    g = torch.Generator(device=dev).manual_seed(5)
-    qkv = torch.randn(CALIB_B, L, 3 * D, generator=g, device=dev).to(dtype)
     sm = (D // H) ** -0.5
     errs = []
-    for kv_len in (L, 200):
+    for i, (b, l, kv_len) in enumerate(QKV_ATTN_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(5 + i)
+        qkv = torch.randn(b, l, 3 * D, generator=g, device=dev).to(dtype)
         got = fused_qkv_attention(qkv, H, kv_len, sm)
         want = qkv_attention_plain(qkv, H, kv_len, sm)
         torch.cuda.synchronize()
         check(got.dtype == dtype, f"qkv attention kernel returned {got.dtype}, expected {dtype}")
-        errs.append(_check_max_median(f"qkv attention{tag} kernel vs plain, kv_len={kv_len}",
+        errs.append(_check_max_median(f"qkv attention{tag} kernel vs plain at ({b}, {l}), kv_len={kv_len}",
                                       got[:, :kv_len], want[:, :kv_len], max_tol, med_tol))
-    ms = time_ms(lambda: fused_qkv_attention(qkv, H, L, sm))
+        del qkv, got, want
+    es = 4 if fp32 else 2
+    times = {}
+    for b in (CALIB_B, B):
+        g = torch.Generator(device=dev).manual_seed(5)
+        qkv = torch.randn(b, L, 3 * D, generator=g, device=dev).to(dtype)
+        q, k, v = (t.reshape(b, L, H, D // H).transpose(1, 2) for t in qkv.split(D, dim=-1))
+        t = {"kernel": time_spread(lambda: fused_qkv_attention(qkv, H, L, sm)),
+             "SDPA forward": time_spread(
+                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=sm))}
+        if fp32 and b == B:
+            t["flash_short_fp32"] = time_spread(lambda: fl.flash_short(q, k, v, sm))
+        flops = 2 * 2 * b * H * L * L * (D // H)
+        bnd, by = bound_ms(flops, peak, b * L * (3 * D + D) * es)
+        print(f"qkv attention{tag} at ({b}, {L}, {3 * D}): " + ", ".join(
+            f"{k} {spread_str(v)}" for k, v in t.items())
+            + f"; bound {bnd:.4f} ms ({by}); kernel {flops / t['kernel'][0] / 1e9:.1f} TFLOP/s")
+        times[b] = t
+        del qkv, q, k, v
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(CALIB_B, L, 3 * D, generator=g, device=dev).to(dtype)
     plain = time_ms(lambda: qkv_attention_plain(qkv, H, L, sm))
-    q, k, v = (t.reshape(CALIB_B, L, H, D // H).transpose(1, 2) for t in qkv.split(D, dim=-1))
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
-    es = qkv.element_size()
-    flops = 2 * 2 * CALIB_B * H * L * L * (D // H)
-    nbytes = CALIB_B * L * (3 * D + D) * es
-    bnd, by = bound_ms(flops, peak, nbytes)
-    print(f"qkv attention{tag}: kernel {ms:.4f} ms, plain {plain:.3f} ms, SDPA forward "
-          f"{library:.4f} ms, bound {bnd:.4f} ms ({by})")
-    if fp32:
-        _time_fp32_window_attention(dev, sm)
+    bnd, by = bound_ms(2 * 2 * CALIB_B * H * L * L * (D // H), peak, CALIB_B * L * (3 * D + D) * es)
     return {
         "name": "fused_qkv_attention" + ("_fp32" if fp32 else ""), "route": "cuda",
-        "source": "clip_ebc_tpu_torch/csrc/fused_attention.cu",
+        "source": "clip_ebc_tpu_torch/csrc/attention_short.cuh",
         "replaces": "clip_ebc_tpu/ops/fused_attention.py:386", "max_abs_err": max(errs),
-        "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": library,
+        "ms": times[CALIB_B]["kernel"][0], "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": times[CALIB_B]["SDPA forward"][0],
     }
-
-
-def _time_fp32_window_attention(dev, sm) -> None:
-    """The fp32 attention body at a window forward's batch (B = 140) through
-    ``fused_qkv_attention``, beside the fp32 SDPA forward and the fp32
-    ``flash_short`` kernel on the same q, k, v (whether row 7 fp32 should
-    take this body)."""
-    from clip_ebc_tpu_torch.ops import flash_attention as fa
-    from clip_ebc_tpu_torch.ops.fused_attention import fused_qkv_attention
-
-    g = torch.Generator(device=dev).manual_seed(6)
-    qkv = torch.randn(B, L, 3 * D, generator=g, device=dev)
-    q, k, v = (t.reshape(B, L, H, D // H).transpose(1, 2) for t in qkv.split(D, dim=-1))
-    body = time_ms(lambda: fused_qkv_attention(qkv, H, L, sm))
-    sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=sm))
-    short = time_ms(lambda: fa.flash_short(q, k, v, sm))
-    flops = 2 * 2 * B * H * L * L * (D // H)
-    print(f"fp32 attention at ({B}, {H}, {L}, 64): fused_qkv_attention body {body:.4f} ms "
-          f"({flops / body / 1e9:.1f} TFLOP/s), SDPA forward {sdpa:.4f} ms, flash_short_fp32 {short:.4f} ms")
 
 
 def _flash_inputs(dev, dtype, b, h, l, seed):
@@ -697,8 +750,11 @@ def phase_flash(dev, route: str, dtype: torch.dtype) -> dict:
     within 2e-2 x max|want| (bf16: P rounded at the same points, sums in
     another order) or 1e-4 (fp32): the tiled kernel at the flagship full
     image and on a ragged causal sequence, the short kernel at the
-    windows' shape and at the text tower's (causal). Timed at the first
-    shape, beside the SDPA forward on the same q, k, v (timed here only)."""
+    windows' shape, at the text tower's (causal) and at 320, 321 and 512
+    keys (the fused route's longest; past it the fp32 body holds 24-32 keys
+    a thread, one block an SM; the route's longest). Timed at the first
+    shape (device time, ``time_spread``), beside the SDPA forward on the
+    same q, k, v (timed here only)."""
     from clip_ebc_tpu_torch.config import get_bins_and_anchors
     from clip_ebc_tpu_torch.ops import flash_attention as fa
 
@@ -708,7 +764,8 @@ def phase_flash(dev, route: str, dtype: torch.dtype) -> dict:
     plain = fa.flash_tiled_plain if route == "tiled" else fa.flash_short_plain
     n_prompts = len(get_bins_and_anchors(8, 4, "qnrf")[1])
     shapes = ([(1, H, FULL_L, False), (2, H, 1100, True)] if route == "tiled"
-              else [(B, H, L, False), (n_prompts, 8, 77, True)])
+              else [(B, H, L, False), (n_prompts, 8, 77, True), (2, H, 320, False),
+                    (2, H, 321, False), (2, H, 512, False)])
     errs = []
     for i, (b, h, l, causal) in enumerate(shapes):
         q, k, v = _flash_inputs(dev, dtype, b, h, l, 7 + i)
@@ -727,18 +784,20 @@ def phase_flash(dev, route: str, dtype: torch.dtype) -> dict:
         del got, want
     b, h, l, _ = shapes[0]
     q, k, v = _flash_inputs(dev, dtype, b, h, l, 7)
-    ms = time_ms(lambda: wrapper(q, k, v, 0.125))
+    ms = time_spread(lambda: wrapper(q, k, v, 0.125))
     plain_ms = time_ms(lambda: plain(q, k, v, 0.125, False), iters=5, warmup=1)
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125))
+    library = time_spread(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125))
     flops = 4 * b * h * l * l * 64  # QK^T and PV
     nbytes = 4 * b * h * l * 64 * q.element_size()  # q, k, v read, out written
     bnd, by = bound_ms(flops, peak, nbytes)
-    print(f"flash_{route}{tag} at ({b}, {h}, {l}, 64): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"SDPA forward {library:.4f} ms, bound {bnd:.4f} ms ({by}); "
-          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    print(f"flash_{route}{tag} at ({b}, {h}, {l}, 64): kernel {spread_str(ms)}, plain {plain_ms:.3f} ms, "
+          f"SDPA forward {spread_str(library)}, bound {bnd:.4f} ms ({by}); "
+          f"{flops / ms[0] / 1e9:.1f} TFLOP/s")
+    ms, library = ms[0], library[0]
     return {
         "name": f"flash_{route}{tag}", "route": "cuda",
-        "source": "clip_ebc_tpu_torch/csrc/flash_attention.cu",
+        "source": ("clip_ebc_tpu_torch/csrc/flash_attention.cu" if route == "tiled"
+                   else "clip_ebc_tpu_torch/csrc/attention_short.cuh"),
         "replaces": ("clip_ebc_tpu/ops/flash_attention.py:197" if route == "tiled"
                      else "clip_ebc_tpu/ops/flash_attention.py:154"),
         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
@@ -985,6 +1044,46 @@ def phase_main_path(dev, kernels: dict, profile: bool) -> None:
             fast.predict_count(image)
             torch.cuda.synchronize()
         print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+
+def phase_path_ms(dev) -> None:
+    """The paths the float attention bodies sit on, kernel path only, for
+    timing a tree against its parent (``scripts/torch_kernel_ab.py``): ms
+    per image of the flagship windows (140 of 224 px; host clock, median of
+    5 after a warm-up) in bf16 (12 launches of row 2) and under ``--quant
+    int8`` in bf16 (dynamic scales: the int8 projection, then row 3 at 140
+    windows), and the ms of the bf16 training step's forward (16
+    windows in train mode, the prompts requiring grad; host clock ending in
+    a synchronize, median of 10 after 2 warm-up)."""
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.data.crowd import normalize_image
+    from clip_ebc_tpu_torch.models import get_model
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    image = normalize_image(np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,)).astype(np.float32) / 255.0)
+    for tag, kw in (("bf16", {}), ("--quant int8, bf16", {"quant_int8": True})):
+        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, dtype=torch.bfloat16, num_vpt=32,
+                          seed=0, device=dev, **kw)
+        ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                       pad_to_multiple=16)
+        print(f"path: windows {tag}, {time_image(ev, image):.2f} ms/image")
+        del ev, model
+    model = _flagship_model(dev, torch.bfloat16).train()
+    with torch.no_grad():
+        text = model.encode_text()
+    windows = torch.from_numpy(np.random.default_rng(1).normal(size=(TRAIN_B, TRAIN_SIZE, TRAIN_SIZE, 3))
+                               .astype(np.float32)).to(dev)
+    times = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(windows, text_feats=text)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    print(f"path: training step forward, bf16, {TRAIN_B} windows: {statistics.median(times):.2f} ms "
+          f"({min(times):.2f}-{max(times):.2f}; host clock, 10 after 2 warm-up)")
 
 
 def _int8_counters(reset: bool = False) -> dict:
@@ -1238,14 +1337,15 @@ def phase_full_image(dev, kernels: dict, profile: bool) -> None:
         check(text_n == 12 and n["flash_short"] == 12 and n["fused_ln_qkv_attention"] == 0,
               f"{tag}: attn_backend='flash' launched {text_n} (text) and {n} (windows)")
         kernels[name]["launches"] = text_n + n["flash_short"]
-        want = evaluator(dtype, windows=True).predict_count(image)
+        fused = evaluator(dtype, windows=True)
+        want = fused.predict_count(image)
         rel = abs(got - want) / abs(want)
-        ms = time_image(ev, image) if dtype == torch.bfloat16 else float("nan")
+        ms, fused_ms = time_image(ev, image), time_image(fused, image)
         print(f"windows, attn_backend='flash', {tag}: 12 short launches in the text tower and 12 "
               f"per forward; count {got:.4f} vs fused kernel path {want:.4f}, |diff|/count {rel:.2e} "
-              f"(tol {tol:g})" + (f"; {ms:.2f} ms/image" if dtype == torch.bfloat16 else ""))
+              f"(tol {tol:g}); {ms:.2f} ms/image (fused kernel path {fused_ms:.2f})")
         check(rel <= tol, f"{tag}: flash-backend windows and the fused kernel path disagree")
-        del ev
+        del ev, fused
 
 
 def _quant_attn_counters(reset: bool = False) -> dict:

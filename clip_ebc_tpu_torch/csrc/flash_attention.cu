@@ -52,34 +52,22 @@
 // barriers, so one's softmax runs under the other's products), 4.30 ms
 // against 4.12; a 4-stage ring, no faster than 3.
 //
-// Design, short bf16 (wgmma, sm_90a; redesigned after the first port, which
-// swept K twice in each of 4 query-tile blocks of a (batch, head) and
-// waited on its loads): a persistent block of two warpgroups on each SM
-// walks the (batch, head) pairs. A pair's Q, K and V land in shared memory
-// once, by cp.async, in 128-byte-swizzled rows of 64 values, in one of two
-// stages, so the next pair's loads run under this pair's products. Each
-// warpgroup takes every other 64-row query tile. S = Q K^T is wgmma
-// m64n128k16 per 128-key chunk, Q and K both K-major from shared memory, S
-// in registers (64 fp32 a thread a chunk). Up to 256 keys the whole score
-// row stays in registers and the softmax is one exact pass: mask, the row
-// max of the raw scores (scale > 0) over the lane quad, p = exp(s scale -
-// max scale) as 2^(s c2 - max c2), c2 = scale log2(e), one FMA and one
-// ex2.approx an element, the row sum, P normalized in fp32 and rounded to
-// bf16, the rounding point of _short_kernel. P goes from the accumulators to the
-// register A operand of wgmma m64n64k16 in their own layout, and V is the B
-// operand as its rows stand (MN-major: the descriptor's transpose bit), so
-// nothing is transposed. O is rounded to bf16, staged in the tile's Q rows
-// and written in 16-byte stores. Past 256 keys (up to the route's 512) the
-// row no longer fits and a pair takes all of shared memory: the first sweep
-// over the chunks takes the row max and sum online, the second recomputes S
-// and multiplies the normalized P by V, as the first port did.
+// Short route (both dtypes): the bodies of csrc/attention_short.cuh with
+// P normalized before P V. bf16: a persistent wgmma block stages a (batch,
+// head) pair's Q, K and V once (redesigned after the first port, which
+// swept K twice in each of 4 query-tile blocks of a pair and waited on its
+// loads). fp32: register-blocked SIMT, a block per (64-query tile, head,
+// batch) with the whole score row in registers (redesigned after the first
+// port, which swept K twice in 128-key tiles, each loaded, waited on and
+// then used, 4 rows x 8 keys a thread with an expf and a division an
+// element in the second sweep: 1.29 ms at the windows' shape).
 //
-// fp32 (no --amp): the tensor cores take no fp32 operands short of TF32,
-// which would round where the plain version does not, so the same tiling
-// runs on the FMA units: 256 threads, each 4 query rows x 8 keys of the
-// scores (keys 16 apart) and 4 rows x 4 columns of the output; Q, K and V
-// tiles in shared memory (rows padded to 272 B), P staged transposed in
-// the K tile's place for P.V. Bound at the full image: 27.8 ms a call at
+// Tiled fp32 (no --amp): the tensor cores take no fp32 operands short of
+// TF32, which would round where the plain version does not, so the tiled
+// route runs on the FMA units: 256 threads, each 4 query rows x 8 keys of
+// the scores (keys 16 apart) and 4 rows x 4 columns of the output; Q, K
+// and V tiles in shared memory (rows padded to 272 B), P staged transposed
+// in the K tile's place for P.V. Bound at the full image: 27.8 ms a call at
 // 67 TFLOP/s fp32.
 //
 // Strides: q, k, v and out are addressed by (batch, head, row) strides in
@@ -88,29 +76,14 @@
 
 #include <cmath>
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-
-#include "common.cuh"
+#include "attention_short.cuh"
 
 namespace ebc {
 namespace {
 
-constexpr int kDh = 64;
-constexpr int kBq = 64;   // query rows of a block
 constexpr int kBk = 128;  // keys of a tile (JAX block_k)
 constexpr int kFThreads = 256;  // fp32: 16 x 16 threads
 constexpr int kFPitch = kDh + 4;  // fp32 Q, K and P^T row pitch
-
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int b, h, lq, lk;
-  long long qs[3], ks[3], vs[3], os[3];  // batch, head, row strides in elements
-  float scale;
-  int causal;
-};
 
 // Key tiles a query block starting at q0 visits: all of them, or, when
 // causal, up to the one that holds its last row's own key.
@@ -125,319 +98,6 @@ __device__ __forceinline__ bool key_valid(const FlashArgs& a, int col, int row) 
   return col < a.lk && (!a.causal || col <= row);
 }
 
-// ---- bf16 short route (wgmma) ------------------------------------------------
-
-constexpr int kSThreads = 256;  // two warpgroups
-constexpr int kSChunk = 128;    // keys of one S = Q K^T wgmma (its N)
-constexpr int kSRegChunks = 2;  // up to 256 keys the whole score row stays in registers
-constexpr float kLog2e = 1.4426950408889634f;
-
-// One stage: QT Q tiles of 64 rows, then K and V of KC chunks, rows of 128 B.
-__host__ __device__ constexpr size_t short_stage_bytes(int kc, int qt) { return (size_t)(qt * kBq + 2 * kc * kSChunk) * 128; }
-__host__ __device__ constexpr int short_stages(int kc, int qt) { return kc <= kSRegChunks && qt <= 4 ? 2 : 1; }
-size_t short_smem_bytes(int kc, int qt) { return short_stages(kc, qt) * short_stage_bytes(kc, qt) + 1024; }
-
-// d (64 x 64 fp32) (+)= A (64 x 16 bf16 in registers: warp w's 16 rows in the
-// mma_bf16 A layout) . B (16 x 64 bf16, MN-major in shared memory: 16 rows of
-// 64 values, 128B-swizzled, the transpose bit set).
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
-      "1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-// Issues S (64 x 128) = Q tile . K chunk^T (4 wgmma along the head dim; no
-// commit). Thread i of the warpgroup holds rows 16 (i / 32) + g and + 8,
-// keys 8 j + 2t, + 1 of the chunk in s[4 j .. 4 j + 3], as in mma_bf16.
-__device__ __forceinline__ void short_scores(float (&s)[64], const unsigned char* qt,
-                                             const unsigned char* kc) {
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk)
-    wgmma_m64n128k16(s, sw128_desc(qt + kk * 32), sw128_desc(kc + kk * 32), kk > 0);
-}
-
-// 2^x (ex2.approx.ftz: a p below 2^-126 of its row max flushes to 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Masks the raw scores of a chunk in place (keys >= lim0 of row r0, >= lim1
-// of row r0 + 8 at kNegInf; nothing to do when the chunk lies below both)
-// and takes its max of the two rows (this thread's share; the caller
-// reduces over the lane quad). The scale is applied after the max: scale >
-// 0, so max(s scale) = max(s) scale.
-__device__ __forceinline__ void short_mask_max(float (&s)[64], int col0, int lim0, int lim1, int t,
-                                               float& mx0, float& mx1) {
-  if (col0 + kSChunk > min(lim0, lim1)) {
-#pragma unroll
-    for (int j = 0; j < kSChunk / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = col0 + j * 8 + 2 * t + e;
-        if (col >= lim0) s[4 * j + e] = kNegInf;
-        if (col >= lim1) s[4 * j + 2 + e] = kNegInf;
-      }
-  }
-#pragma unroll
-  for (int j = 0; j < kSChunk / 8; ++j) {
-    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-  }
-}
-
-// p = exp(s scale - max scale) = 2^(s c2 - max c2) in place, c2 = scale
-// log2(e); adds each row's p to l0, l1. A masked s (kNegInf) gives 0.
-__device__ __forceinline__ void short_exp(float (&s)[64], float c2, float mc0, float mc1, float& l0,
-                                          float& l1) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    s[i] = fast_exp2(fmaf(s[i], c2, (i & 2) ? mc1 : mc0));
-    ((i & 2) ? l1 : l0) += s[i];
-  }
-}
-
-// P of a chunk rounded to bf16 in the register A operand layout of its 8
-// 16-key steps: the accumulators as they lie.
-__device__ __forceinline__ void short_pack(uint32_t (&pa)[kSChunk / 16][4], const float (&p)[64]) {
-#pragma unroll
-  for (int k = 0; k < kSChunk / 16; ++k) {
-    pa[k][0] = pack_bf16(p[8 * k], p[8 * k + 1]);
-    pa[k][1] = pack_bf16(p[8 * k + 2], p[8 * k + 3]);
-    pa[k][2] = pack_bf16(p[8 * k + 4], p[8 * k + 5]);
-    pa[k][3] = pack_bf16(p[8 * k + 6], p[8 * k + 7]);
-  }
-}
-
-// Issues O += P chunk . V chunk (8 wgmma of 16 keys; no commit). The
-// caller fences after packing P: wgmma reads its A registers asynchronously.
-__device__ __forceinline__ void short_pv(float (&o)[32], const uint32_t (&pa)[kSChunk / 16][4],
-                                         const unsigned char* vc, bool first) {
-#pragma unroll
-  for (int k = 0; k < kSChunk / 16; ++k)
-    wgmma_m64n64k16_rs(o, pa[k], sw128_desc(vc + k * 16 * 128), !first || k > 0);
-}
-
-// O (64 x 64) of one query tile: the softmax of its rows against the KC key
-// chunks at ks, times V at vs. r0 = the thread's first row.
-template <int KC>
-__device__ __forceinline__ void short_tile(float (&o)[32], const FlashArgs& a, const unsigned char* qt,
-                                           const unsigned char* ks, const unsigned char* vs, int r0,
-                                           int t) {
-  const float c2 = a.scale * kLog2e;
-  // valid keys of rows r0 and r0 + 8: below lk, and up to the row when causal
-  const int lim0 = a.causal ? min(a.lk, r0 + 1) : a.lk;
-  const int lim1 = a.causal ? min(a.lk, r0 + 9) : a.lk;
-  if constexpr (KC <= kSRegChunks) {
-    // one pass: the whole score row in registers
-    float s[KC][64];
-#pragma unroll
-    for (int c = 0; c < KC; ++c)
-#pragma unroll
-      for (int i = 0; i < 64; ++i) s[c][i] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < KC; ++c) short_scores(s[c], qt, ks + c * kSChunk * 128);
-    wgmma_commit();
-    wgmma_wait<0>();
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) short_mask_max(s[c], c * kSChunk, lim0, lim1, t, mx0, mx1);
-    quad_max(mx0, mx1);
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) short_exp(s[c], c2, -mx0 * c2, -mx1 * c2, l0, l1);
-    quad_sum(l0, l1);
-    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-    uint32_t pa[KC][kSChunk / 16][4];
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) s[c][i] *= (i & 2) ? inv1 : inv0;
-      short_pack(pa[c], s[c]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < KC; ++c) short_pv(o, pa[c], vs + c * kSChunk * 128, c == 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-  } else {
-    // two sweeps: the row max and sum online, then P V chunk by chunk
-    float s[64];
-    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-#pragma unroll 1
-    for (int c = 0; c < KC; ++c) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] = 0.f;
-      wgmma_fence();
-      short_scores(s, qt, ks + c * kSChunk * 128);
-      wgmma_commit();
-      wgmma_wait<0>();
-      float mx0 = m0, mx1 = m1;
-      short_mask_max(s, c * kSChunk, lim0, lim1, t, mx0, mx1);
-      quad_max(mx0, mx1);
-      float p0 = 0.f, p1 = 0.f;
-      short_exp(s, c2, -mx0 * c2, -mx1 * c2, p0, p1);
-      l0 = fast_exp2((m0 - mx0) * c2) * l0 + p0;
-      l1 = fast_exp2((m1 - mx1) * c2) * l1 + p1;
-      m0 = mx0;
-      m1 = mx1;
-    }
-    quad_sum(l0, l1);
-    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-#pragma unroll 1
-    for (int c = 0; c < KC; ++c) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] = 0.f;
-      wgmma_fence();
-      short_scores(s, qt, ks + c * kSChunk * 128);
-      wgmma_commit();
-      wgmma_wait<0>();
-      float mx0 = kNegInf, mx1 = kNegInf;
-      short_mask_max(s, c * kSChunk, lim0, lim1, t, mx0, mx1);
-      float d0 = 0.f, d1 = 0.f;
-      short_exp(s, c2, -m0 * c2, -m1 * c2, d0, d1);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] *= (i & 2) ? inv1 : inv0;
-      uint32_t pa[kSChunk / 16][4];
-      short_pack(pa, s);
-      wgmma_fence();
-      short_pv(o, pa, vs + c * kSChunk * 128, c == 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-    }
-  }
-}
-
-// Persistent: block i takes the (batch, head) pairs i, i + gridDim.x, ...;
-// KC = ceil(lk / 128) key chunks, QT = Q tiles a stage holds (4 or 8).
-template <int KC, int QT>
-__global__ void __launch_bounds__(kSThreads, 1) flash_short_bf16_kernel(const FlashArgs a) {
-  constexpr int kStages = short_stages(KC, QT);
-  constexpr size_t kStage = short_stage_bytes(KC, QT);
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-
-  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_items = a.b * a.h, n_qt = (a.lq + kBq - 1) / kBq;
-
-  // Q tiles, K and V of pair w into stage st, swizzled; rows past lq and
-  // keys past lk zero (0 * V stays finite). Not committed.
-  auto load = [&](int w, int st) {
-    const int b = w / a.h, h = w % a.h;
-    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1];
-    const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + h * a.ks[1];
-    const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + h * a.vs[1];
-    unsigned char* qd = sm + st * kStage;
-    unsigned char* kd = qd + QT * kBq * 128;
-    unsigned char* vd = kd + KC * kSChunk * 128;
-    for (int i = tid; i < n_qt * kBq * 8; i += kSThreads) {
-      const int r = i >> 3, c = i & 7;
-      const bool ok = r < a.lq;
-      cp_async16(qd + sw128_offset(r, c), qb + (long long)(ok ? r : 0) * a.qs[2] + c * 8, ok);
-    }
-    for (int i = tid; i < KC * kSChunk * 8; i += kSThreads) {
-      const int r = i >> 3, c = i & 7;
-      const bool ok = r < a.lk;
-      const long long kr = ok ? r : 0;
-      cp_async16(kd + sw128_offset(r, c), kb + kr * a.ks[2] + c * 8, ok);
-      cp_async16(vd + sw128_offset(r, c), vb + kr * a.vs[2] + c * 8, ok);
-    }
-  };
-
-  const int first = blockIdx.x, step = gridDim.x;
-  if (first < n_items) load(first, 0);
-  cp_async_commit();
-  int i = 0;
-  for (int w = first; w < n_items; w += step, ++i) {
-    const int st = kStages == 2 ? (i & 1) : 0;
-    if (kStages == 2) {
-      if (w + step < n_items) load(w + step, st ^ 1);  // lands while this pair computes
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_proxy_async();
-    __syncthreads();  // pair w landed for all
-
-    const int b = w / a.h, h = w % a.h;
-    bf16* ob = static_cast<bf16*>(a.o) + b * a.os[0] + h * a.os[1];
-    unsigned char* qs = sm + st * kStage;
-    const unsigned char* ks = qs + QT * kBq * 128;
-    const unsigned char* vs = ks + KC * kSChunk * 128;
-    for (int qt = wg; qt < n_qt; qt += 2) {  // warpgroup wg takes every other query tile
-      unsigned char* q_tile = qs + qt * kBq * 128;
-      const int rl = warp * 16 + g, r0 = qt * kBq + rl;
-      float o[32];
-#pragma unroll
-      for (int k = 0; k < 32; ++k) o[k] = 0.f;
-      short_tile<KC>(o, a, q_tile, ks, vs, r0, t);
-      // O rounded to bf16 and staged swizzled in the tile's Q rows (read by
-      // its finished products only), then written out in 16-byte stores
-#pragma unroll
-      for (int j = 0; j < kDh / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(q_tile + sw128_offset(rl, j) + 4 * t) = pack_bf16(o[4 * j], o[4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(q_tile + sw128_offset(rl + 8, j) + 4 * t) =
-            pack_bf16(o[4 * j + 2], o[4 * j + 3]);
-      }
-      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
-      for (int k = tid & 127; k < kBq * 8; k += 128) {
-        const int r = k >> 3, c = k & 7, row = qt * kBq + r;
-        if (row < a.lq)
-          *reinterpret_cast<uint4*>(ob + row * a.os[2] + c * 8) =
-              *reinterpret_cast<const uint4*>(q_tile + sw128_offset(r, c));
-      }
-    }
-    __syncthreads();  // stage st is read: the pair after next may land in it
-    if (kStages == 1) {
-      if (w + step < n_items) load(w + step, 0);
-      cp_async_commit();
-    }
-  }
-  cp_async_wait<0>();
-}
-
-template <int KC, int QT>
-cudaError_t launch_short_bf16(const FlashArgs& a, int blocks, cudaStream_t st) {
-  const size_t smem = short_smem_bytes(KC, QT);
-  cudaError_t e = cudaFuncSetAttribute(flash_short_bf16_kernel<KC, QT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  flash_short_bf16_kernel<KC, QT><<<blocks, kSThreads, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
-// One block an SM (or one a pair); the key chunks and the Q tiles pick the
-// instantiation (the short route takes lq, lk <= 512).
-cudaError_t launch_short_bf16_any(const FlashArgs& a, cudaStream_t st) {
-  if (a.b < 1 || a.h < 1 || a.lq < 1 || a.lk < 1 || a.lq > 512 || a.lk > 512) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const long long items = (long long)a.b * a.h;
-  const int blocks = (int)(items < sms ? items : sms);
-  const bool long_q = a.lq > 4 * kBq;
-  switch ((a.lk + kSChunk - 1) / kSChunk) {
-    case 1: return long_q ? launch_short_bf16<1, 8>(a, blocks, st) : launch_short_bf16<1, 4>(a, blocks, st);
-    case 2: return long_q ? launch_short_bf16<2, 8>(a, blocks, st) : launch_short_bf16<2, 4>(a, blocks, st);
-    case 3: return long_q ? launch_short_bf16<3, 8>(a, blocks, st) : launch_short_bf16<3, 4>(a, blocks, st);
-    default: return long_q ? launch_short_bf16<4, 8>(a, blocks, st) : launch_short_bf16<4, 4>(a, blocks, st);
-  }
-}
-
 // ---- bf16 tiled route (wgmma, TMA, a producer warp) ---------------------------
 
 constexpr int kTWarpgroups = 2;                      // consumers, 64 query rows each
@@ -448,45 +108,6 @@ constexpr int kTTile = kBk * 128;                    // bytes of a 128-key tile 
 constexpr int kTQBytes = kTRows * 128;               // bytes of a block's Q tile
 constexpr int kTBarriers = 4 + 3 * kTStages;         // q full / empty x 2; k full, v full, kv empty
 constexpr size_t kTSmem = 2 * kTQBytes + 2 * kTStages * kTTile + kTBarriers * 8 + 1024;
-
-// Where the rows, heads and batch of a (64, rows, heads, batch) tensor map
-// lie among its dims 1..3 (ordered by stride), for q, k and v.
-struct TmaDims {
-  int q[3], k[3], v[3];
-};
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
-}
-// Waits until the phase of the given parity of ``bar`` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// TMA: the box of ``map`` at (row, h, b) into dst (1024-byte aligned),
-// completing on ``bar``; rows outside the tensor land as zeros.
-__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, const int (&pos)[3],
-                                         int row, int h, int b, uint64_t* bar) {
-  const int c1 = pos[0] == 1 ? row : pos[1] == 1 ? h : b;
-  const int c2 = pos[0] == 2 ? row : pos[1] == 2 ? h : b;
-  const int c3 = pos[0] == 3 ? row : pos[1] == 3 ? h : b;
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3),
-         "r"(smem_addr(bar))
-      : "memory");
-}
 
 // Persistent: block i takes the items i, i + gridDim.x, ... of (128-row
 // query tile, head, batch): query tiles fastest (a head's K and V stay in
@@ -667,56 +288,6 @@ flash_tiled_bf16_kernel(const FlashArgs a, const __grid_constant__ CUtensorMap t
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, fetched through the CUDA runtime (no -lcuda).
-EncodeTiledFn tensor_map_encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map of (64, rows, heads, batch) at ptr with (batch, head,
-// row) strides st in elements, dims 1..3 ordered by stride; boxes of 64 x
-// box_rows, 128B-swizzled (the layout sw128_desc reads). pos gets where
-// rows, heads and batch went.
-cudaError_t encode_rows_map(CUtensorMap* map, int (&pos)[3], const void* ptr, int rows, int h, int b,
-                            const long long (&st)[3], int box_rows) {
-  const EncodeTiledFn enc = tensor_map_encoder();
-  if (!enc) return cudaErrorNotSupported;
-  const long long stride[3] = {st[2], st[1], st[0]};  // rows, heads, batch
-  const cuuint64_t extent[3] = {(cuuint64_t)rows, (cuuint64_t)h, (cuuint64_t)b};
-  int order[3] = {0, 1, 2};
-  for (int x = 1; x < 3; ++x)
-    for (int y = x; y > 0 && stride[order[y]] < stride[order[y - 1]]; --y) {
-      const int tmp = order[y];
-      order[y] = order[y - 1];
-      order[y - 1] = tmp;
-    }
-  cuuint64_t dims[4] = {(cuuint64_t)kDh, 0, 0, 0}, strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)kDh, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
-  for (int x = 0; x < 3; ++x) {
-    const int which = order[x];
-    dims[x + 1] = extent[which];
-    strides[x] = (cuuint64_t)stride[which] * sizeof(bf16);
-    box[x + 1] = which == 0 ? (cuuint32_t)box_rows : 1u;
-    pos[which] = x + 1;
-  }
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                         box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 cudaError_t launch_tiled_bf16(const FlashArgs& a, cudaStream_t st) {
   if (a.b < 1 || a.h < 1 || a.lq < 1 || a.lk < 1) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
@@ -724,9 +295,8 @@ cudaError_t launch_tiled_bf16(const FlashArgs& a, cudaStream_t st) {
   cudaError_t e = encode_rows_map(&tq, dims.q, a.q, a.lq, a.h, a.b, a.qs, kTRows);
   if (e == cudaSuccess) e = encode_rows_map(&tk, dims.k, a.k, a.lk, a.h, a.b, a.ks, kBk);
   if (e == cudaSuccess) e = encode_rows_map(&tv, dims.v, a.v, a.lk, a.h, a.b, a.vs, kBk);
-  int dev = 0, sms = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = sm_count();
+  if (e == cudaSuccess && sms < 1) e = cudaErrorInvalidDevice;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(flash_tiled_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTSmem);
   if (e != cudaSuccess) return e;
@@ -766,20 +336,7 @@ __device__ __forceinline__ void f32_scores(float (&s)[4][8], const float* qs, co
   }
 }
 
-// max (or sum) of a row over the 16 lanes that share it (a half warp)
-__device__ __forceinline__ float half_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float half_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <bool kShort>
-__global__ void __launch_bounds__(kFThreads) flash_f32_kernel(const FlashArgs a) {
+__global__ void __launch_bounds__(kFThreads) flash_tiled_f32_kernel(const FlashArgs a) {
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm;                    // [kBq][kFPitch]
   float* kt = qs + kBq * kFPitch;     // [kBk][kFPitch]: K, then P^T
@@ -800,13 +357,13 @@ __global__ void __launch_bounds__(kFThreads) flash_f32_kernel(const FlashArgs a)
   }
   cp_async_commit();
 
-  auto load = [&](int tile, bool with_v) {
+  auto load = [&](int tile) {
     for (int i = tid; i < kBk * (kDh / 4); i += kFThreads) {
       const int r = i >> 4, c = (i & 15) * 4, key = tile * kBk + r;
       const bool ok = key < a.lk;
       const long long kr = ok ? key : 0;
       cp_async16(kt + r * kFPitch + c, kb + kr * a.ks[2] + c, ok);
-      if (with_v) cp_async16(vt + r * kDh + c, vb + kr * a.vs[2] + c, ok);
+      cp_async16(vt + r * kDh + c, vb + kr * a.vs[2] + c, ok);
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -833,49 +390,24 @@ __global__ void __launch_bounds__(kFThreads) flash_f32_kernel(const FlashArgs a)
   float o[4][4] = {};
   float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY}, l[4] = {0.f, 0.f, 0.f, 0.f};
 
-  if (kShort) {
-    for (int it = 0; it < n_tiles; ++it) {
-      load(it, false);
-      f32_scores(s, qs, kt, tx, ty);
-      scale_mask(s, it * kBk, mx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float mn = fmaxf(m[i], mx[i]);
-        float p = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) p += expf(s[i][j] - mn);
-        l[i] = expf(m[i] - mn) * l[i] + p;
-        m[i] = mn;
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) l[i] = half_sum(l[i]);
-  }
-
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kBk;
-    load(it, true);
+    load(it);
     f32_scores(s, qs, kt, tx, ty);
     scale_mask(s, k0, mx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if (kShort) {
+      const float mn = fmaxf(m[i], mx[i]), al = expf(m[i] - mn);
+      float p = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = expf(s[i][j] - m[i]) / l[i];
-      } else {
-        const float mn = fmaxf(m[i], mx[i]), al = expf(m[i] - mn);
-        float p = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = expf(s[i][j] - mn);
-          p += s[i][j];
-        }
-        l[i] = al * l[i] + p;
-        m[i] = mn;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) o[i][c] *= al;
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = expf(s[i][j] - mn);
+        p += s[i][j];
       }
+      l[i] = al * l[i] + p;
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[i][c] *= al;
     }
     __syncthreads();  // every thread's scores are read: P^T takes K's place
 #pragma unroll
@@ -899,11 +431,8 @@ __global__ void __launch_bounds__(kFThreads) flash_f32_kernel(const FlashArgs a)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    float inv = 1.f;
-    if (!kShort) {
-      const float lt = half_sum(l[i]);
-      inv = lt == 0.f ? 1.f : 1.f / lt;
-    }
+    const float lt = half_sum(l[i]);
+    const float inv = lt == 0.f ? 1.f : 1.f / lt;
     if (row < a.lq)
       *reinterpret_cast<float4*>(ob + row * a.os[2] + 4 * tx) =
           make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv, o[i][3] * inv);
@@ -964,7 +493,8 @@ FlashArgs make_args(const void* q, const void* k, const void* v, void* o, int b,
     return (int)(LAUNCH);                                                                           \
   }
 
-EBC_FLASH_ENTRY(ebc_flash_short, launch_short_bf16_any(args, cs))
+// The short route takes lq, lk <= 512 (4 key chunks; NJ up to 32).
+EBC_FLASH_ENTRY(ebc_flash_short, (launch_short_bf16_any<false, 4>(args, cs)))
 EBC_FLASH_ENTRY(ebc_flash_tiled, launch_tiled_bf16(args, cs))
-EBC_FLASH_ENTRY(ebc_flash_short_f32, launch(flash_f32_kernel<true>, kFThreads, f32_smem_bytes(), args, cs))
-EBC_FLASH_ENTRY(ebc_flash_tiled_f32, launch(flash_f32_kernel<false>, kFThreads, f32_smem_bytes(), args, cs))
+EBC_FLASH_ENTRY(ebc_flash_short_f32, (launch_short_f32_any<false, 32>(args, cs)))
+EBC_FLASH_ENTRY(ebc_flash_tiled_f32, launch(flash_tiled_f32_kernel, kFThreads, f32_smem_bytes(), args, cs))

@@ -28,18 +28,27 @@
 //    Where its time goes (chip runs with parts removed): the tensor work is
 //    hidden; the x prologue, the LayerNorm, the per-tile barrier and the
 //    stores do not overlap, since one block fills an SM's shared memory.
-//  * mha_kernel (mma.sync m16n8k16): one block (4 warps) per (64-query
-//    tile, head, window). K_h and V_h of the window sit in shared memory;
-//    each warp keeps its 16 query rows' scores for the whole key range in
-//    registers (the mma accumulators), so the softmax is exact over the row
-//    as on the TPU: x sm_scale, keys >= kv_len at kNegInf, fp32 row max /
-//    exp / row sum (quad shuffles), P rounded to bf16 straight from the
-//    accumulators into the A operand of P.V, O = P V in fp32, then O /
-//    rowsum rounded to bf16 into out[b, l, h*64:(h+1)*64]: the rounding
-//    points of _pair_attention_body, normalize-after-PV included.
+//  * the attention: the wgmma body of csrc/attention_short.cuh with P
+//    normalized after P V (redesigned after the first port, mha_kernel:
+//    mma.sync fed by ldmatrix, a block of 4 warps per (64-query tile, head,
+//    window), which restaged a (window, head)'s K and V from L2 once per
+//    query tile, waited on all its loads before any product and ran expf
+//    and two divisions per output pair). A persistent block of three
+//    warpgroups on each SM stages a (window, head)'s Q, K and V once by
+//    TMA, the next one's loads in flight under its products, its query
+//    tiles shared out in turn; S = Q K^T is wgmma from
+//    shared memory, the softmax exact over the row in registers: x
+//    sm_scale, keys >= kv_len at kNegInf, p = exp(s - rowmax) unnormalized
+//    (ex2.approx), the fp32 row sum; P rounded to bf16 goes from the
+//    accumulators into the register A operand of P V, O = P V in fp32,
+//    then O x (1 / rowsum) rounded to bf16 into out[b, l,
+//    h*64:(h+1)*64]: the rounding points of _pair_attention_body,
+//    normalize-after-PV included. q, k and v are read from the packed qkv
+//    by (window, head, row) strides (a row pitch of 3D); keys past kv_len
+//    are not loaded (zeros, masked: p = 0 there as at a masked key).
 //  * The TPU kernel's head-pair lane packing, 16-row sequence padding and
 //    block_b grid blocking fit data to the TPU's 128 lanes; none is carried
-//    over. Keys are padded to a multiple of 64 in shared memory only.
+//    over. Keys are padded to a multiple of 128 in shared memory only.
 //  * Cost of the split: the qkv tensor (B, L, 3D) bf16 makes one round
 //    trip through device memory between the launches (148 MB per layer at
 //    the flagship shape); fusing it away is a later speed step.
@@ -60,37 +69,28 @@
 //    runs the 8 x 8 fp32 FMA outer products. Epilogue: + bias, float4
 //    stores. The statistics are taken again by each of the 3D / 128 column
 //    blocks of a row tile (from L2); no double buffering yet.
-//  * mha_f32_blocked_kernel (redesigned after the first port, whose block of
-//    16 warps per (head, window) took a query row a warp and a key a lane,
-//    read one scalar of K from shared memory per FMA and broadcast each p
-//    by shuffle in P.V: 7.5 TFLOP/s of 67, in 1.45 waves of 192 blocks at a
-//    calibration batch): register-blocked SIMT, as flash_f32_kernel and
-//    the fp32 attention_bwd are. Bound at a calibration batch (B = 16, L =
-//    229): 2.58 GFLOP over 67 TFLOP/s = 0.0385 ms against 45 MB (0.0135
-//    ms), so the FMA units bound it, and the design keeps them fed from
-//    shared memory. One block of 256 threads per (64-query tile, head,
-//    window): 768 blocks at B = 16, 6,720 at the B = 140 of a window
-//    forward. The tile's Q rows and all of K_h land by 16-byte cp.async
-//    (rows padded to 68 floats). Thread (ty, tx) scores rows 4 ty .. + 3
-//    against keys tx + 16 j, each float4 of K feeding 16 FMAs, so the whole
-//    score row (the keys padded to a multiple of 16) stays in registers and
-//    the softmax is exact over it: x sm_scale, keys >= kv_len at kNegInf,
-//    max and sum over the half warp that shares a row, p = exp(s - max)
-//    unnormalized. P^T takes K's place in shared memory; O = P V is 4 x 4
-//    outputs a thread over the unmasked keys, then O / rowsum, the plain
-//    version's order; fp32 throughout. V_h comes in 64-key chunks, two in
-//    flight, one landing under the scores and the next in Q's place, so a
-//    block takes 103 KB of shared memory at 256 keys and two blocks share
-//    an SM (one's loads and barriers run under the other's FMAs; with one
-//    block an SM it took 1.25x as long on an H100 SXM at 700 W). Up to 512
-//    keys it would take 172 KB: one block an SM.
+//  * the attention: the register-blocked SIMT body of
+//    csrc/attention_short.cuh with P normalized after P V (redesigned after
+//    the first port, mha_f32_kernel, whose block of 16 warps per (head,
+//    window) took a query row a warp and a key a lane, read one scalar of K
+//    from shared memory per FMA and broadcast each p by shuffle in P.V: 7.5
+//    TFLOP/s of 67, in 1.45 waves of 192 blocks at a calibration batch).
+//    Bound at a calibration batch (B = 16, L = 229): 2.58 GFLOP over 67
+//    TFLOP/s = 0.0385 ms against 45 MB (0.0135 ms), so the FMA units bound
+//    it. One block of 256 threads per (64-query tile, head, window): 768
+//    blocks at B = 16, 6,720 at the B = 140 of a window forward; 4 rows x
+//    16 keys a thread with the whole row in registers, P^T in K's place, V
+//    in 64-key chunks so two blocks share an SM (with one block an SM it
+//    took 1.25x as long on an H100 SXM at 700 W). Then O / rowsum, the plain
+//    version's order; fp32 throughout.
 //
 // Limits: head dim 64, D <= 768 (the resident LN rows and the W ring fill
 // shared memory; the fp32 LN statistics are held for at most 768 values a
-// row), L <= 320 (the score rows live in registers), bf16 or fp32
-// activations.
+// row), L <= 320 (the float kernels' route; the bodies take 512 keys, ROADMAP
+// Queue 2), sm_scale > 0 (the wgmma body takes the row max of the raw
+// scores), bf16 or fp32 activations.
 
-#include "common.cuh"
+#include "attention_short.cuh"
 
 namespace ebc {
 namespace {
@@ -275,170 +275,52 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   cp_async_wait<0>();
 }
 
-// ---- launch 2: masked attention -------------------------------------------
-constexpr int kDh = 64;
-constexpr int kLdh = kDh + 8;  // K/V row pitch: 144 B, ldmatrix rows hit distinct banks
-constexpr int kAttnWarps = 4;  // 16 query rows each
-constexpr int kQTile = 16 * kAttnWarps;
-constexpr int kKeyQuantum = 64;  // keys are padded to a multiple of this
+// ---- launch 2: masked attention (csrc/attention_short.cuh) -----------------
 constexpr int kMaxKeys = 320;
 
-size_t attn_smem_bytes(int lp) { return (size_t)2 * lp * kLdh * sizeof(bf16); }
-
-// KT = padded key count / 16; the scores of a warp's 16 rows are 2*KT
-// accumulator tiles of 16 x 8 held in registers.
-template <int KT>
-__global__ void __launch_bounds__(kAttnWarps * 32, 2)
-mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int l, int num_heads,
-           int kv_len, float sm_scale) {
-  constexpr int LP = KT * 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + (size_t)LP * kLdh;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int d = num_heads * kDh, three_d = 3 * d;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* base = qkv + (size_t)b * l * three_d + h * kDh;
-
-  // K_h and V_h of this window, all copies in flight at once; rows [l, LP)
-  // are zero-filled so 0 * V stays finite
-  for (int i = tid; i < LP * (kDh / 8); i += kAttnWarps * 32) {
-    const int r = i >> 3, c = i & 7;
-    const bf16* row = base + (size_t)(r < l ? r : 0) * three_d + c * 8;
-    cp_async16(ks + (size_t)r * kLdh + c * 8, row + d, r < l);
-    cp_async16(vs + (size_t)r * kLdh + c * 8, row + 2 * d, r < l);
+// The short-attention arguments of the heads of a packed qkv (B, L, 3D) of
+// element type T (q, k, v at column offsets 0, D, 2D; head h at 64 h),
+// written to out (B, L, D): keys past kv_len land as zeros and are masked.
+template <typename T>
+FlashArgs packed_args(const void* qkv, void* out, int batch, int l, int num_heads, int kv_len,
+                      float sm_scale) {
+  const long long d = (long long)num_heads * kDh, in_row = 3 * d;
+  const T* base = static_cast<const T*>(qkv);
+  FlashArgs a;
+  a.q = base;
+  a.k = base + d;
+  a.v = base + 2 * d;
+  a.o = out;
+  a.b = batch;
+  a.h = num_heads;
+  a.lq = l;
+  a.lk = kv_len;
+  for (int i = 0; i < 3; ++i) {
+    long long* st = i == 0 ? a.qs : i == 1 ? a.ks : a.vs;
+    st[0] = l * in_row;
+    st[1] = kDh;
+    st[2] = in_row;
   }
-  cp_async_commit();
-
-  // Q fragments of the warp's 16 rows straight from device memory, while
-  // K and V land
-  const int q0 = blockIdx.x * kQTile + warp * 16;
-  const int r0 = q0 + g, r1 = q0 + g + 8;
-  uint32_t qa[kDh / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = r0 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * three_d + c) : 0u;
-    qa[kk][1] = r1 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * three_d + c) : 0u;
-    qa[kk][2] = r0 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * three_d + c + 8) : 0u;
-    qa[kk][3] = r1 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * three_d + c + 8) : 0u;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (q0 >= l) return;  // no block-wide barrier follows
-
-  // S = Q K^T in fp32: tile j holds keys 8j..8j+7
-  float s[2 * KT][4];
-#pragma unroll
-  for (int j = 0; j < 2 * KT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < KT; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      uint32_t kb[4];  // key tiles 2j and 2j+1: {b0, b1} each
-      ldmatrix_x4(kb, ks + (size_t)(j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdh + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(s[2 * j], qa[kk], kb[0], kb[1]);
-      mma_bf16(s[2 * j + 1], qa[kk], kb[2], kb[3]);
-    }
-  }
-
-  // x sm_scale, mask, row max; rows g and g+8 are spread over the lane quad
-  float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-  for (int j = 0; j < 2 * KT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool valid = j * 8 + 2 * t + e < kv_len;
-      s[j][e] = valid ? s[j][e] * sm_scale : kNegInf;
-      s[j][2 + e] = valid ? s[j][2 + e] * sm_scale : kNegInf;
-      mx0 = fmaxf(mx0, s[j][e]);
-      mx1 = fmaxf(mx1, s[j][2 + e]);
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  // unnormalized softmax: p = exp(s - rowmax) in fp32, rowsum in fp32
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 2 * KT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[j][e] = expf(s[j][e] - mx0);
-      s[j][2 + e] = expf(s[j][2 + e] - mx1);
-      sum0 += s[j][e];
-      sum1 += s[j][2 + e];
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
-
-  // O = bf16(P) V in fp32: score tiles 2j, 2j+1 are the A operand of keys 16j..16j+15
-  float o[kDh / 8][4];
-#pragma unroll
-  for (int i = 0; i < kDh / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < KT; ++j) {
-    const uint32_t pa[4] = {
-        pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
-        pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]), pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < kDh / 16; ++dn) {
-      uint32_t vb[4];  // dh tiles 2dn and 2dn+1: {b0, b1} each
-      ldmatrix_x4_trans(vb, vs + (size_t)(j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdh +
-                                dn * 16 + (lane >> 4) * 8);
-      mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
-      mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
-    }
-  }
-
-  // O / rowsum -> bf16, head-concatenated
-  bf16* orow0 = out + ((size_t)b * l + r0) * d + h * kDh;
-  bf16* orow1 = out + ((size_t)b * l + r1) * d + h * kDh;
-#pragma unroll
-  for (int i = 0; i < kDh / 8; ++i) {
-    const int c = i * 8 + 2 * t;
-    if (r0 < l) *reinterpret_cast<uint32_t*>(orow0 + c) = pack_bf16(o[i][0] / sum0, o[i][1] / sum0);
-    if (r1 < l) *reinterpret_cast<uint32_t*>(orow1 + c) = pack_bf16(o[i][2] / sum1, o[i][3] / sum1);
-  }
+  a.os[0] = l * d;
+  a.os[1] = kDh;
+  a.os[2] = d;
+  a.scale = sm_scale;
+  a.causal = 0;
+  return a;
 }
 
-template <int KT>
-cudaError_t launch_mha(const bf16* qkv, bf16* out, int batch, int l, int num_heads, int kv_len,
-                       float sm_scale, cudaStream_t st) {
-  const size_t smem = attn_smem_bytes(KT * 16);
-  cudaError_t e = cudaFuncSetAttribute(mha_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((l + kQTile - 1) / kQTile, num_heads, batch);
-  mha_kernel<KT><<<grid, kAttnWarps * 32, smem, st>>>(qkv, out, l, num_heads, kv_len, sm_scale);
-  return cudaGetLastError();
-}
-
-// The bf16 attention launch for any l <= kMaxKeys: the padded key count
-// picks the instantiation.
-cudaError_t launch_mha_any(const bf16* q, bf16* o, int batch, int l, int num_heads, int kv_len,
+// The bf16 attention launch (the wgmma body, P normalized after P V) and
+// the fp32 one (the register-blocked body), for any kv_len <= l <= kMaxKeys.
+cudaError_t launch_mha_any(const void* qkv, void* out, int batch, int l, int num_heads, int kv_len,
                            float sm_scale, cudaStream_t st) {
-  switch ((l + kKeyQuantum - 1) / kKeyQuantum) {
-    case 1: return launch_mha<4>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 2: return launch_mha<8>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 3: return launch_mha<12>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 4: return launch_mha<16>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 5: return launch_mha<20>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_short_bf16_any<true, (kMaxKeys + kSChunk - 1) / kSChunk>(
+      packed_args<bf16>(qkv, out, batch, l, num_heads, kv_len, sm_scale), st);
+}
+
+cudaError_t launch_mha_f32_any(const void* qkv, void* out, int batch, int l, int num_heads,
+                               int kv_len, float sm_scale, cudaStream_t st) {
+  return launch_short_f32_any<true, kMaxKeys / 16>(
+      packed_args<float>(qkv, out, batch, l, num_heads, kv_len, sm_scale), st);
 }
 
 // ---- fp32 variant: LayerNorm + projection ----------------------------------
@@ -553,194 +435,9 @@ ln_qkv_proj_f32_kernel(const float* __restrict__ x, const float* __restrict__ ga
   }
 }
 
-// ---- fp32 variant: masked attention (register-blocked SIMT) ------------------
-constexpr int kFAttnTile = 64;          // query rows of a block
-constexpr int kFAttnPitch = kDh + 4;    // 68: Q, K and P^T rows; a half warp's float4s hit distinct banks
-
-constexpr int kFVChunk = 64;            // keys of a V chunk in P.V
-
-// The Q tile (a V chunk after the scores), K_h (P^T after the scores) for
-// LP padded keys, and a second V chunk.
-size_t attn_f32_smem_bytes(int lp) {
-  return ((size_t)(kFAttnTile + lp) * kFAttnPitch + (size_t)kFVChunk * kDh) * sizeof(float);
-}
-
-// rows [0, n) of a (rows, 64) fp32 slice of row pitch ``pitch`` (elements)
-// into shared memory at row pitch ``spitch``, rows [n, total) zero
-// (cp.async, uncommitted)
-__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, int n, int total,
-                                               size_t pitch, int spitch) {
-  for (int i = threadIdx.x; i < total * (kDh / 4); i += kFThreads) {
-    const int r = i >> 4, c = (i & 15) * 4;
-    cp_async16(dst + r * spitch + c, src + (size_t)(r < n ? r : 0) * pitch + c, r < n);
-  }
-}
-
-// One block of 256 threads (16 x 16) per (64-query tile, head, window); NJ =
-// keys a thread scores, the key count padded to 16 NJ. Thread (ty, tx)
-// scores rows 4 ty + i against keys tx + 16 j, the whole row in registers,
-// then computes rows 4 ty + i x columns 4 tx + c of O. Two blocks share an
-// SM up to 256 keys.
-template <int NJ>
-__global__ void __launch_bounds__(kFThreads, NJ <= 16 ? 2 : 1)
-mha_f32_blocked_kernel(const float* __restrict__ qkv, float* __restrict__ out, int l, int num_heads,
-                       int kv_len, float sm_scale) {
-  constexpr int LP = 16 * NJ;
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;                           // [kFAttnTile][kFAttnPitch]: Q, then V chunks 1, 3, ...
-  float* ks = qs + kFAttnTile * kFAttnPitch; // [LP][kFAttnPitch]: K, then P^T
-  float* vx = ks + LP * kFAttnPitch;         // [kFVChunk][kDh]: V chunks 0, 2, ...
-  const int q0 = blockIdx.x * kFAttnTile, h = blockIdx.y, b = blockIdx.z;
-  const int d = num_heads * kDh, three_d = 3 * d;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* base = qkv + (size_t)b * l * three_d + h * kDh;
-  const int nk = min(l, kv_len);  // keys of P.V: p is exactly 0 at the others
-  const int n_chunks = (nk + kFVChunk - 1) / kFVChunk;
-  auto stage_v = [&](int c) {  // V chunk c into its buffer; always a commit group
-    if (c < n_chunks)
-      stage_rows_f32(c & 1 ? qs : vx, base + 2 * d + (size_t)c * kFVChunk * three_d,
-                     l - c * kFVChunk, kFVChunk, three_d, kDh);
-    cp_async_commit();
-  };
-
-  // Q and K land first; V chunk 0 lands while the scores are computed
-  stage_rows_f32(qs, base + (size_t)q0 * three_d, l - q0, kFAttnTile, three_d, kFAttnPitch);
-  stage_rows_f32(ks, base + d, l, LP, three_d, kFAttnPitch);
-  cp_async_commit();
-  stage_v(0);
-  cp_async_wait<1>();
-  __syncthreads();
-
-  // S = Q K^T over the head dim in order: each float4 of K feeds 16 FMAs
-  float s[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-  for (int dd = 0; dd < kDh; dd += 4) {
-    float4 qv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * kFAttnPitch + dd);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kFAttnPitch + dd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
-        s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
-        s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
-        s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
-      }
-    }
-  }
-
-  // x sm_scale, keys >= kv_len (padding included) at kNegInf; the exact row
-  // max and sum over the 16 lanes of a half warp that share the row; p =
-  // exp(s - max) unnormalized
-  float sum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      s[i][j] = tx + 16 * j < kv_len ? s[i][j] * sm_scale : kNegInf;
-      mx = fmaxf(mx, s[i][j]);
-    }
-#pragma unroll
-    for (int o = 1; o < 16; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sm = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      s[i][j] = expf(s[i][j] - mx);
-      sm += s[i][j];
-    }
-#pragma unroll
-    for (int o = 1; o < 16; o <<= 1) sm += __shfl_xor_sync(0xffffffffu, sm, o);
-    sum[i] = sm;
-  }
-  __syncthreads();  // Q and K are read: P^T takes K's place, V chunk 1 Q's
-  stage_v(1);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-    *reinterpret_cast<float4*>(ks + (tx + 16 * j) * kFAttnPitch + 4 * ty) =
-        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-
-  // O = P V chunk by chunk (chunk c + 1 lands while c is multiplied), then
-  // O / rowsum: the order of the plain version
-  float o[4][4] = {};
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<1>();  // chunk c has landed (c + 1 may still be in flight)
-    __syncthreads();
-    const float* vc = c & 1 ? qs : vx;
-    const int k0 = c * kFVChunk, kn = min(kFVChunk, nk - k0);
-#pragma unroll 4
-    for (int k = 0; k < kn; ++k) {
-      const float4 p = *reinterpret_cast<const float4*>(ks + (k0 + k) * kFAttnPitch + 4 * ty);
-      const float4 v = *reinterpret_cast<const float4*>(vc + k * kDh + 4 * tx);
-      const float pv[4] = {p.x, p.y, p.z, p.w}, vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) o[i][cc] = fmaf(pv[i], vv[cc], o[i][cc]);
-    }
-    __syncthreads();  // chunk c is read: its buffer takes chunk c + 2
-    stage_v(c + 2);
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    if (r < l)
-      *reinterpret_cast<float4*>(out + ((size_t)b * l + r) * d + h * kDh + 4 * tx) =
-          make_float4(o[i][0] / sum[i], o[i][1] / sum[i], o[i][2] / sum[i], o[i][3] / sum[i]);
-  }
-}
-
-template <int NJ>
-cudaError_t launch_mha_f32(const float* qkv, float* out, int batch, int l, int num_heads,
-                           int kv_len, float sm_scale, cudaStream_t st) {
-  const size_t smem = attn_f32_smem_bytes(16 * NJ);
-  cudaError_t e = cudaFuncSetAttribute(mha_f32_blocked_kernel<NJ>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((l + kFAttnTile - 1) / kFAttnTile, num_heads, batch);
-  mha_f32_blocked_kernel<NJ><<<grid, kFThreads, smem, st>>>(qkv, out, l, num_heads, kv_len, sm_scale);
-  return cudaGetLastError();
-}
-
-// The fp32 attention launch for any l <= kMaxKeys: keys padded to a
-// multiple of 16 pick the instantiation.
-cudaError_t launch_mha_f32_any(const float* q, float* o, int batch, int l, int num_heads,
-                               int kv_len, float sm_scale, cudaStream_t st) {
-  switch ((l + 15) / 16) {
-    case 1: return launch_mha_f32<1>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 2: return launch_mha_f32<2>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 3: return launch_mha_f32<3>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 4: return launch_mha_f32<4>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 5: return launch_mha_f32<5>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 6: return launch_mha_f32<6>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 7: return launch_mha_f32<7>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 8: return launch_mha_f32<8>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 9: return launch_mha_f32<9>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 10: return launch_mha_f32<10>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 11: return launch_mha_f32<11>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 12: return launch_mha_f32<12>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 13: return launch_mha_f32<13>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 14: return launch_mha_f32<14>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 15: return launch_mha_f32<15>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 16: return launch_mha_f32<16>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 17: return launch_mha_f32<17>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 18: return launch_mha_f32<18>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 19: return launch_mha_f32<19>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    case 20: return launch_mha_f32<20>(q, o, batch, l, num_heads, kv_len, sm_scale, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-bool attention_shape_ok(int l, int d, int num_heads, int kv_len) {
+bool attention_shape_ok(int l, int d, int num_heads, int kv_len, float sm_scale) {
   return d == num_heads * kDh && d <= kMaxDim && l >= 1 && l <= kMaxKeys && kv_len >= 1 &&
-         kv_len <= l;
+         kv_len <= l && sm_scale > 0.f;
 }
 
 cudaError_t launch_proj(const void* x, const void* gamma, const void* beta, const void* w,
@@ -779,40 +476,39 @@ extern "C" int ebc_ln_qkv_attention(const void* x, const void* gamma, const void
                                     float sm_scale, float eps, void* stream) {
   using namespace ebc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
+  if (!attention_shape_ok(l, d, num_heads, kv_len, sm_scale)) return (int)cudaErrorInvalidValue;
 
   cudaError_t e = launch_proj(x, gamma, beta, w, bias, qkv, batch * l, d, eps, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_mha_any(static_cast<const bf16*>(qkv), static_cast<bf16*>(out), batch, l,
-                             num_heads, kv_len, sm_scale, st);
+  return (int)launch_mha_any(qkv, out, batch, l, num_heads, kv_len, sm_scale, st);
 }
 
 // The masked attention alone, from a precomputed qkv (B, L, 3D) bf16 to out
 // (B, L, D) bf16 (ports clip_ebc_tpu/ops/fused_attention.py:
 // fused_qkv_attention -> _forward's pallas_call, body _kernel ->
-// _pair_attention_body): the mha_kernel launch above as an entry of its
+// _pair_attention_body): the attention launch above as an entry of its
 // own. It is what a block runs when the LayerNorm and the projection stay
 // outside the kernel: a calibration pass, dynamic int8, fuse_ln_mode="off";
 // the int8 projection kernel (csrc/fused_attention_int8.cu) is followed by
 // it too. Bound at a calibration batch (B=16, L=229, D=768): 2.6 GFLOP of
 // QK^T and PV against 22.5 MB (qkv in, out back): 0.007 ms of memory over
-// 0.003 ms of tensor work, so bytes bound it; K_h and V_h are read once
-// per 64-query tile (4 times at L = 229), from L2 after the first.
+// 0.003 ms of tensor work, so bytes bound it; each (window, head)'s K and V
+// is read once.
 extern "C" int ebc_qkv_attention(const void* qkv, void* out, int batch, int l, int d,
                                  int num_heads, int kv_len, float sm_scale, void* stream) {
   using namespace ebc;
-  if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
-  return (int)launch_mha_any(static_cast<const bf16*>(qkv), static_cast<bf16*>(out), batch, l,
-                             num_heads, kv_len, sm_scale, static_cast<cudaStream_t>(stream));
+  if (!attention_shape_ok(l, d, num_heads, kv_len, sm_scale)) return (int)cudaErrorInvalidValue;
+  return (int)launch_mha_any(qkv, out, batch, l, num_heads, kv_len, sm_scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
-// The same in fp32 (mha_f32_blocked_kernel).
+// The same in fp32 (the register-blocked body).
 extern "C" int ebc_qkv_attention_f32(const void* qkv, void* out, int batch, int l, int d,
                                      int num_heads, int kv_len, float sm_scale, void* stream) {
   using namespace ebc;
-  if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
-  return (int)launch_mha_f32_any(static_cast<const float*>(qkv), static_cast<float*>(out), batch, l,
-                                 num_heads, kv_len, sm_scale, static_cast<cudaStream_t>(stream));
+  if (!attention_shape_ok(l, d, num_heads, kv_len, sm_scale)) return (int)cudaErrorInvalidValue;
+  return (int)launch_mha_f32_any(qkv, out, batch, l, num_heads, kv_len, sm_scale,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // The first launch of ebc_ln_qkv_attention alone, qkv = LN(x) W^T + bias
@@ -846,9 +542,8 @@ extern "C" int ebc_ln_qkv_attention_f32(const void* x, const void* gamma, const 
                                         float sm_scale, float eps, void* stream) {
   using namespace ebc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!attention_shape_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
+  if (!attention_shape_ok(l, d, num_heads, kv_len, sm_scale)) return (int)cudaErrorInvalidValue;
   cudaError_t e = launch_proj_f32(x, gamma, beta, w, bias, qkv, batch * l, d, eps, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_mha_f32_any(static_cast<const float*>(qkv), static_cast<float*>(out), batch, l,
-                                 num_heads, kv_len, sm_scale, st);
+  return (int)launch_mha_f32_any(qkv, out, batch, l, num_heads, kv_len, sm_scale, st);
 }

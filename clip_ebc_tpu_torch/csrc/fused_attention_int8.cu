@@ -25,7 +25,8 @@
 // each way), half the bf16 qkv of the float attention.
 //
 // mha_int8_kernel, simple first (mma.sync.m16n8k32.s8, no wgmma): one block
-// (4 warps) per (64-query tile, head, window), as the bf16 mha_kernel.
+// (4 warps) per (64-query tile, head, window), as the first bf16 attention
+// body of csrc/fused_attention.cu was.
 //  * K_h of the window lands in shared memory as it is, key-major, which is
 //    the K-major B operand of QK^T.
 //  * The static body computes p = exp(s - m) with m the row's FINAL max and

@@ -43,8 +43,10 @@ from .quant import int_mm, quantize_weight
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM = 64
-# Longest sequence the kernels take: a warp keeps its 16 query rows'
-# scores over every key in registers (csrc/fused_attention.cu, kMaxKeys).
+# Longest sequence the float kernels take (csrc/fused_attention.cu
+# kMaxKeys, csrc/fused_attention_bwd.cu kMaxL): the backward keeps a score
+# row in registers; the forward attention bodies (csrc/attention_short.cuh)
+# would take 512 keys.
 MAX_FUSED_SEQ = 320
 # Longest sequence of the int8 attention (``attn_scales`` or ``quant_attn``
 # of fused_ln_qkv_attention_int8): it sweeps the keys twice in chunks
@@ -447,9 +449,13 @@ def _check(who: str, t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtyp
 
 
 def _check_attention(who: str, t: torch.Tensor, num_heads: int, kv_len: int,
-                     max_seq: int = MAX_FUSED_SEQ) -> tuple:
-    """Device, dtype and shape checks shared by the wrappers: ``t`` is the
-    ``(B, L, D)`` activation, L at most ``max_seq``; returns ``(b, l, d)``."""
+                     max_seq: int = MAX_FUSED_SEQ, sm_scale: float = None) -> tuple:
+    """Scale, device, dtype and shape checks shared by the wrappers: ``t`` is
+    the ``(B, L, D)`` activation, L at most ``max_seq``; where the float
+    attention runs, ``sm_scale`` > 0 (its wgmma body takes the row max of
+    the raw scores). Returns ``(b, l, d)``."""
+    if sm_scale is not None and not sm_scale > 0:
+        raise ValueError(f"{who}: the attention kernels take sm_scale > 0, got {sm_scale}")
     if t.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {t.device}")
     if t.dim() != 3:
@@ -473,7 +479,7 @@ def _forward(x, ln_weight, ln_bias, w, bias, num_heads, kv_len, sm_scale, eps) -
             x, ln_weight, ln_bias, w, bias, num_heads, kv_len, sm_scale, eps
         )
     who = "fused_ln_qkv_attention"
-    b, l, d = _check_attention(who, x, num_heads, kv_len)
+    b, l, d = _check_attention(who, x, num_heads, kv_len, sm_scale=sm_scale)
     dev, dt = x.device, x.dtype
     _check(who, x, "x", (b, l, d), dt, dev)
     _check(who, ln_weight, "ln_weight", (d,), torch.float32, dev)
@@ -599,7 +605,7 @@ class _FusedQkvAttention(torch.autograd.Function):
         if qkv.dim() != 3 or qkv.shape[-1] % 3:
             raise ValueError(f"{who}: expected a (B, L, 3D) qkv, got {tuple(qkv.shape)}")
         b, l, d = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
-        _check_attention(who, qkv[..., :d], num_heads, kv_len)
+        _check_attention(who, qkv[..., :d], num_heads, kv_len, sm_scale=sm_scale)
         _check(who, qkv, "qkv", (b, l, 3 * d), qkv.dtype, qkv.device)
         out = _launch_qkv_attention(who, qkv, num_heads, kv_len, sm_scale)
         fused_qkv_attention.launches += 1
@@ -697,7 +703,8 @@ def fused_ln_qkv_attention_int8(
         )
     int8_attn = attn_scales is not None or quant_attn
     b, l, d = _check_attention(who, x, num_heads, kv_len,
-                               MAX_FUSED_SEQ_INT8_ATTN if int8_attn else MAX_FUSED_SEQ)
+                               MAX_FUSED_SEQ_INT8_ATTN if int8_attn else MAX_FUSED_SEQ,
+                               None if int8_attn else sm_scale)
     if d % 128:
         raise ValueError(f"{who}: needs D % 128 == 0, got D={d}")
     dev, dt = x.device, x.dtype

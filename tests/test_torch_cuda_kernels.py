@@ -388,6 +388,51 @@ def test_int8_attention_kernel_matches_plain(cuda, shape):
                                     quantized=(w_q.int(), s_col))
 
 
+# (B, L, kv_len) of the bf16 attention body at the width of ViT-B (D = 768,
+# 12 heads): a window forward, a calibration batch with masked keys (its
+# query tiles in two parts a pair), one valid key, the longest fused length
+# (two sweeps over three key chunks) and a length that is no multiple of 16
+BF16_BODY_SHAPES = [(140, 229, 229), (16, 229, 200), (3, 64, 1), (2, 320, 320), (2, 77, 77)]
+
+
+@pytest.mark.parametrize("b,l,kv_len", BF16_BODY_SHAPES)
+@pytest.mark.parametrize("entry", ["qkv", "ln_qkv", "ln_qkv_int8"])
+def test_bf16_attention_body_through_each_entry(cuda, entry, b, l, kv_len):
+    """The wgmma attention body, through each entry that launches it (row 3:
+    ``fused_qkv_attention``; row 2: ``fused_ln_qkv_attention``; row 2b:
+    ``fused_ln_qkv_attention_int8`` without an int8 attention), against the
+    entry's plain version: max 2e-2 and median 1e-3 of the largest output
+    (P rounded to bf16 unnormalized and O divided by the fp32 row sum on
+    both sides; sums in another order)."""
+    d, h = 768, 12
+    sm = (d // h) ** -0.5
+    x, gam, be, w, bias = _attn_inputs(b, l, d, seed=b + l + kv_len, dev=cuda)
+    if entry == "qkv":
+        qkv = torch.randn(b, l, 3 * d, generator=torch.Generator(device=cuda).manual_seed(l),
+                          device=cuda).to(torch.bfloat16)
+        fn, counter = fused_qkv_attention, fused_qkv_attention
+        args, want = (qkv,), qkv_attention_plain(qkv, h, kv_len, sm)
+    elif entry == "ln_qkv":
+        fn, counter = fused_ln_qkv_attention, fused_ln_qkv_attention
+        args, want = (x, gam, be, w, bias), ln_qkv_attention_plain(x, gam, be, w, bias, h, kv_len, sm)
+    else:
+        act_scale = torch.nn.functional.layer_norm(x.float(), (d,), gam, be).abs().amax() / 127.0
+        fn, counter = fused_ln_qkv_attention_int8, fused_ln_qkv_attention_int8
+        w_q, s_col = quant.quantize_weight(w.float())
+        args = (x, gam, be, w.float(), bias, act_scale)
+        want = ln_qkv_attention_int8_plain(x, gam, be, w_q, s_col, bias, act_scale, h, kv_len, sm)
+    before = counter.launches
+    with torch.no_grad():
+        got = fn(*args, h, kv_len, sm)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, l, d)
+    err, med = _max_median(got[:, :kv_len], want[:, :kv_len])
+    assert err <= 2e-2 and med <= 1e-3, (err, med)
+    with pytest.raises(ValueError, match="sm_scale > 0"):
+        fn(*args, h, kv_len, -sm)
+
+
 def test_int8_products_are_exact_on_the_card(cuda):
     """``int_mm`` and both convolution routes give the int32 accumulators of
     the plain integer product and convolution, computed on the CPU."""
@@ -607,6 +652,8 @@ def _flash_inputs(b, h, l, seed, dev, dtype):
     ("short", 5, 8, 77, True),  # the text tower
     ("short", 2, 2, 320, False),  # three key chunks: the two-sweep body
     ("short", 2, 2, 512, False),  # the longest short sequence
+    ("short", 2, 2, 321, False),  # past 320 keys: 21 keys a thread, one block an SM
+    ("short", 3, 4, 400, True),
     ("short", 2, 2, 300, True),
     ("tiled", 1, 2, 1100, False),  # ragged: 8 full key tiles and one of 76 keys
     ("tiled", 2, 3, 1100, True),
