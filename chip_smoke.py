@@ -48,7 +48,13 @@ Phases, each a hard failure (a raised exception, exit code 1):
    within 2e-2 and median within 1e-3 of the largest magnitude in bf16;
    tighter in fp32), the int8 decoder convolution's accumulators on the
    card equal to the plain int32 convolution's, and the times of its two
-   routes and of the trunk's int8 products beside their bf16 twins.
+   routes and of the trunk's int8 products beside their bf16 twins. The
+   int8 LN + QKV projection alone (the first launch of rows 2b and 2c) is
+   held to its plain version with both epilogues (qkv in the activation
+   dtype, int8 q, k, v) in bf16 and fp32 and timed by device time beside
+   ``torch._int_mm`` on the bare int8 product (a yardstick: no PyTorch
+   call computes the fused function); its launches are counted on the
+   static int8 path (12 a forward).
 4. the flagship training path through the user's entry point: the trainer
    CLI with the README's flagship flags (CLIP-EBC ViT-B/16, deep VPT-32,
    reduction 8, DACE + DMCount, 8 images x 2 crops = 16 windows of 224 px
@@ -63,7 +69,9 @@ Phases, each a hard failure (a raised exception, exit code 1):
    Then, on one fixed batch, the step's VPT and decoder gradients against
    the plain path's (``attn_backend="sdpa"``): relative L2 <= 1e-3 in
    fp32, <= 5e-2 in bf16 (printed beside the plain path's own bf16-vs-fp32
-   error). Then ms per step, windows/s and peak memory
+   error). Phase 2 times the frozen backward's three launches apart
+   (recompute, attention backward, dy + LayerNorm backward). Then ms per
+   step, windows/s and peak memory
    (medians of 5 steps after 2 warm-up, in turns: plain, kernels,
    kernels, plain) beside the step's bound (forward
    + backward FLOP of the plain path by ``FlopCounterMode`` over the
@@ -260,7 +268,7 @@ def phase_build() -> None:
     print(f"build: {secs:.1f} s for {len(logs)} source(s) -> {_build.BUILD_ROOT}")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "spill", "Compiling entry", "arning")):
                 print(f"  ptxas {name}: {line.strip()}")
 
 
@@ -454,20 +462,51 @@ def phase_ln_qkv_bwd_frozen(dev) -> dict:
         torch.cuda.synchronize()
         errs.append(_check_scaled(f"ln_qkv_bwd_frozen kernel vs plain, kv_len={kv_len}",
                                   got, want, 2e-2))
-    ms = time_ms(lambda: ln_qkv_bwd_frozen(*args, L, sm))
+    ms = time_spread(lambda: ln_qkv_bwd_frozen(*args, L, sm))
     plain = time_ms(lambda: ln_qkv_bwd_frozen_plain(*args, L, sm))
     m = TRAIN_B * L
     flops = 2 * (2 * m * D * 3 * D) + 5 * 2 * TRAIN_B * H * L * L * (D // H)
     nbytes = 3 * m * D * 2 + 3 * D * D * 2 + (2 * D + 3 * D) * 4
     bnd, by = bound_ms(flops, PEAK_BF16, nbytes)
-    print(f"ln_qkv_bwd_frozen: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms "
-          f"({by}); {flops / ms / 1e9:.1f} TFLOP/s")
+    print(f"ln_qkv_bwd_frozen: kernel {spread_str(ms)}, plain {plain:.3f} ms, bound {bnd:.4f} ms "
+          f"({by}); {flops / ms[0] / 1e9:.1f} TFLOP/s")
+    _time_frozen_launches(x, gout, ln_w, ln_b, w, bias, sm)
+    ms = ms[0]
     return {
         "name": "ln_qkv_bwd_frozen", "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "clip_ebc_tpu/ops/fused_attention.py:627", "max_abs_err": max(errs),
         "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
     }
+
+
+def _time_frozen_launches(x, gout, ln_w, ln_b, w, bias, sm) -> None:
+    """Row 5's three launches apart (device time, ``time_spread``): the
+    LN + projection recompute, the attention backward and the dy = d_qkv W
+    + LayerNorm-backward launch."""
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+
+    dev, m = x.device, TRAIN_B * L
+    qkv = torch.empty(TRAIN_B, L, 3 * D, dtype=torch.bfloat16, device=dev)
+    dx = torch.empty_like(x)
+
+    def recompute():
+        fa._run("ebc_ln_qkv_proj", fa._entry("fused_attention", "ebc_ln_qkv_proj")(
+            x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            qkv.data_ptr(), m, D, 1e-5, fa._stream(dev)))
+
+    recompute()
+    dqkv = fa.attention_bwd(qkv, gout, H, L, sm)
+
+    def ln_bwd_dx():
+        fa._run("ebc_ln_bwd_dx", fa._entry("fused_attention_bwd", "ebc_ln_bwd_dx")(
+            x.data_ptr(), dqkv.data_ptr(), ln_w.data_ptr(), w.data_ptr(), dx.data_ptr(), m, D,
+            1e-5, fa._stream(dev)))
+
+    t = {"recompute (ebc_ln_qkv_proj)": time_spread(recompute),
+         "attention backward": time_spread(lambda: fa.attention_bwd(qkv, gout, H, L, sm)),
+         "ebc_ln_bwd_dx": time_spread(ln_bwd_dx)}
+    print("ln_qkv_bwd_frozen by launch: " + ", ".join(f"{k} {spread_str(v)}" for k, v in t.items()))
 
 
 def _check_max_median(who: str, got, want, max_tol: float, med_tol: float) -> float:
@@ -517,8 +556,8 @@ def phase_attention_int8(dev, dtype: torch.dtype) -> dict:
         check(got.dtype == dtype, f"int8 attention kernel returned {got.dtype}, expected {dtype}")
         errs.append(_check_max_median(f"int8 attention{tag} kernel vs plain, kv_len={kv_len}",
                                       got[:, :kv_len], want[:, :kv_len], max_tol, med_tol))
-    ms = time_ms(lambda: fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, L, sm,
-                                                     quantized=wq))
+    ms = time_spread(lambda: fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, L, sm,
+                                                         quantized=wq))
     plain = time_ms(lambda: ln_qkv_attention_int8_plain(x, ln_w, ln_b, *wq, bias, act_scale, H, L, sm))
     m, es = B * L, x.element_size()
     proj_ops, attn_flops = 2 * m * D * 3 * D, 2 * 2 * B * H * L * L * (D // H)
@@ -526,13 +565,88 @@ def phase_attention_int8(dev, dtype: torch.dtype) -> dict:
     t_ops = (proj_ops / PEAK_INT8 + attn_flops / attn_peak) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     bnd, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    print(f"int8 attention{tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}: "
+    print(f"int8 attention{tag}: kernel {spread_str(ms)}, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}: "
           f"{proj_ops / 1e9:.1f} GOP int8 + {attn_flops / 1e9:.1f} GFLOP attention)")
+    ms = ms[0]
     return {
         "name": "fused_ln_qkv_attention_int8" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention_int8.cu",
         "replaces": "clip_ebc_tpu/ops/fused_attention.py:541", "max_abs_err": max(errs),
         "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    }
+
+
+def phase_int8_proj(dev, dtype: torch.dtype, checked: bool = True) -> dict:
+    """The int8 LN + quantize + QKV projection alone, the first launch of
+    rows 2b and 2c, at the flagship shape (M = 140 x 229 rows, D = 768, N
+    = 2304) through its C entries: the float epilogue (row 2b: qkv in x's
+    dtype) and the int8 one (row 2c: q, k, v with calibrated scales
+    folded in), each against the plain projection with the same
+    epilogue (max 2e-2 and median 1e-3 of the largest output in bf16 and
+    for the int8 outputs, 2e-3 and 1e-4 for fp32 qkv), timed by device
+    time beside ``torch._int_mm`` on the bare int8 product (cuBLAS, no
+    LayerNorm, quantize or epilogue: a yardstick, no PyTorch call
+    computes the fused function). ``checked=False`` times without the
+    checks, for timing-only copies of the kernel with parts removed
+    (``scripts/torch_kernel_ab.py --phase int8_proj:bfloat16:false``)."""
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+    from clip_ebc_tpu_torch.ops.quant import quantize_weight
+
+    fp32 = dtype == torch.float32
+    tag = " fp32" if fp32 else ""
+    x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, dtype, 12, B, L)
+    w_q, s_col = quantize_weight(w)
+    m, n = B * L, 3 * D
+    inv_act = (1.0 / act_scale).reshape(1)
+    sw_f = s_col * act_scale
+    sw_q, bias_q = fa.fold_attn_scales(s_col, bias, act_scale, aq, D)
+    outs = {"float": torch.empty(m, n, dtype=dtype, device=dev),
+            "int8": torch.empty(m, n, dtype=torch.int8, device=dev)}
+    entries = {"float": ("ebc_ln_qkv_proj_int8", sw_f, bias),
+               "int8": ("ebc_ln_qkv_proj_int8_q", sw_q, bias_q)}
+
+    def run(epi):
+        name, sw, bi = entries[epi]
+        fa._run(name, fa._entry("fused_attention_int8", name)(
+            x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
+            bi.data_ptr(), inv_act.data_ptr(), outs[epi].data_ptr(), m, D, int(fp32), 1e-5,
+            fa._stream(dev)))
+
+    acc = fa._int8_ln_project(x, ln_w, ln_b, w_q, act_scale, 1e-5).reshape(m, n)
+    want = {"float": (acc * sw_f + bias.float()).to(dtype),
+            "int8": torch.clamp(torch.round(acc * sw_q + bias_q), -127, 127).to(torch.int8)}
+    del acc
+    errs, ms = [], {}
+    for epi in ("float", "int8"):
+        run(epi)
+        torch.cuda.synchronize()
+        max_tol, med_tol = (2e-3, 1e-4) if fp32 and epi == "float" else (2e-2, 1e-3)
+        if checked:
+            errs.append(_check_max_median(f"int8 projection{tag}, {epi} epilogue, kernel vs plain",
+                                          outs[epi], want[epi], max_tol, med_tol))
+        ms[epi] = time_spread(lambda epi=epi: run(epi))
+    del want
+    yq = torch.randint(-127, 128, (m, D), dtype=torch.int8, device=dev)
+    int_mm = time_spread(lambda: torch._int_mm(yq, w_q.t()))
+    ops = 2 * m * D * n
+    es = x.element_size()
+    bounds = {epi: bound_ms(ops, PEAK_INT8, m * D * es + m * n * (es if epi == "float" else 1)
+                            + n * D + (2 * D + 2 * n) * 4 + 4) for epi in ("float", "int8")}
+    for epi in ("float", "int8"):
+        print(f"int8 projection{tag}, {epi} epilogue: kernel {spread_str(ms[epi])}, bound "
+              f"{bounds[epi][0]:.4f} ms ({bounds[epi][1]}); {ops / ms[epi][0] / 1e9:.1f} TOP/s")
+    print(f"int8 projection{tag}: torch._int_mm on the bare int8 product ({m}, {D}) x ({D}, {n}) "
+          f"{spread_str(int_mm)}; kernel / _int_mm: float {ms['float'][0] / int_mm[0]:.2f}x, "
+          f"int8 {ms['int8'][0] / int_mm[0]:.2f}x")
+    plain = time_ms(lambda: fa._int8_ln_project(x, ln_w, ln_b, w_q, act_scale, 1e-5) * sw_f + bias,
+                    iters=5, warmup=1)
+    bnd, by = bounds["float"]
+    return {
+        "name": "ln_qkv_proj_int8" + ("_fp32" if fp32 else ""), "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/int8_proj.cuh",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:541", "max_abs_err": max(errs, default=None),
+        "ms": ms["float"][0], "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None, "ms_int8_epilogue": ms["int8"][0], "int_mm_ms": int_mm[0],
     }
 
 
@@ -591,15 +705,16 @@ def phase_int8_attention_q(dev, dtype: torch.dtype, branch: str, b: int = B, l: 
                                       f"kv_len={kv_len}", got[:, :kv_len], want[:, :kv_len],
                                       2e-2, 1e-3))
         del got, want
-    ms = time_ms(lambda: fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, l, sm,
-                                                        quantized=wq, **kw))
+    ms = time_spread(lambda: fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, l, sm,
+                                                            quantized=wq, **kw))
     plain_ms = time_ms(lambda: plain(l), iters=5, warmup=1)
     m, es = b * l, x.element_size()
     ops = 2 * m * D * 3 * D + 2 * 2 * b * H * l * l * (D // H)  # projection, QK^T and PV: all int8
     nbytes = m * D * es * 2 + 3 * D * D + 2 * D * 4 + 2 * 3 * D * 4 + 4 + 3 * 4
     bnd, by = bound_ms(ops, PEAK_INT8, nbytes)
-    print(f"int8 attention, {branch} scales{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bnd:.4f} ms ({by}: {ops / 1e9:.1f} GOP int8); {ops / ms / 1e9:.1f} TOP/s")
+    print(f"int8 attention, {branch} scales{tag}: kernel {spread_str(ms)}, plain {plain_ms:.3f} ms, bound "
+          f"{bnd:.4f} ms ({by}: {ops / 1e9:.1f} GOP int8); {ops / ms[0] / 1e9:.1f} TOP/s")
+    ms = ms[0]
     return {
         "name": f"int8_attention_{branch}" + ("_fp32" if fp32 else "") + (f"_l{l}" if l != L else ""),
         "route": "cuda",
@@ -653,15 +768,16 @@ def phase_mlp_int8(dev, dtype: torch.dtype) -> dict:
         if fp32:
             _check_max_median(who + ", MLP branch", got - x, want - x, 5e-2, 1e-3)
         del got, want
-    ms = time_ms(lambda: fa.fused_ln_mlp_int8(*args, quantized=qz))
+    ms = time_spread(lambda: fa.fused_ln_mlp_int8(*args, quantized=qz))
     plain_ms = time_ms(lambda: fa.ln_mlp_int8_plain(x, ln_w, ln_b, *qz[:2], b_fc, act1, *qz[2:], b_pj,
                                                     act2, True), iters=5, warmup=1)
     m, es = B * L, x.element_size()
     ops = 2 * 2 * m * D * hidden
     nbytes = m * D * es * 2 + 2 * D * hidden + (2 * hidden + 2 * D + 2 * D) * 4 + 8
     bnd, by = bound_ms(ops, PEAK_INT8, nbytes)
-    print(f"int8 MLP{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}: "
-          f"{ops / 1e9:.1f} GOP int8); {ops / ms / 1e9:.1f} TOP/s")
+    print(f"int8 MLP{tag}: kernel {spread_str(ms)}, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}: "
+          f"{ops / 1e9:.1f} GOP int8); {ops / ms[0] / 1e9:.1f} TOP/s")
+    ms = ms[0]
     return {
         "name": "fused_ln_mlp_int8" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_mlp_int8.cu",
@@ -1052,9 +1168,16 @@ def phase_path_ms(dev) -> None:
     per image of the flagship windows (140 of 224 px; host clock, median of
     5 after a warm-up) in bf16 (12 launches of row 2) and under ``--quant
     int8`` in bf16 (dynamic scales: the int8 projection, then row 3 at 140
-    windows), and the ms of the bf16 training step's forward (16
-    windows in train mode, the prompts requiring grad; host clock ending in
-    a synchronize, median of 10 after 2 warm-up)."""
+    windows), under ``--quant int8_static`` (rows 2b: the int8 LN + QKV
+    projection, then the bf16 attention body) and ``--quant int8_static
+    --quant_attn kernel`` (row 2c: the projection's int8 epilogue, then the
+    int8 attention), both calibrated on the image, and the ms of the bf16
+    training step's forward (16 windows in train mode, the prompts
+    requiring grad; host clock ending in a synchronize, median of 10 after
+    2 warm-up)."""
+    import argparse
+
+    from clip_ebc_tpu_torch.cli._common import calibrate_static_int8
     from clip_ebc_tpu_torch.config import get_bins_and_anchors
     from clip_ebc_tpu_torch.data.crowd import normalize_image
     from clip_ebc_tpu_torch.models import get_model
@@ -1065,6 +1188,16 @@ def phase_path_ms(dev) -> None:
     for tag, kw in (("bf16", {}), ("--quant int8, bf16", {"quant_int8": True})):
         model = get_model("clip_vit_b_16", 224, 8, bins, anchors, dtype=torch.bfloat16, num_vpt=32,
                           seed=0, device=dev, **kw)
+        ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                       pad_to_multiple=16)
+        print(f"path: windows {tag}, {time_image(ev, image):.2f} ms/image")
+        del ev, model
+    args = argparse.Namespace(model="clip_vit_b_16", input_size=224, reduction=8, window_size=224)
+    for tag, kw in (("--quant int8_static, bf16", {}),
+                    ("--quant int8_static --quant_attn kernel, bf16", {"quant_attn": True})):
+        kw = dict(dtype=torch.bfloat16, num_vpt=32, seed=0, device=dev, quant_int8=True, **kw)
+        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, quant_mode="static", **kw)
+        calibrate_static_int8(args, kw, bins, anchors, model, [image])
         ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
                        pad_to_multiple=16)
         print(f"path: windows {tag}, {time_image(ev, image):.2f} ms/image")
@@ -1090,13 +1223,15 @@ def _int8_counters(reset: bool = False) -> dict:
     from clip_ebc_tpu_torch.ops import fused_attention as fa
     from clip_ebc_tpu_torch.ops.fused_head import fused_ebc_head
 
-    fns = {"fused_ln_qkv_attention_int8": fa.fused_ln_qkv_attention_int8,
-           "fused_qkv_attention": fa.fused_qkv_attention,
-           "fused_ln_qkv_attention": fa.fused_ln_qkv_attention, "fused_ebc_head": fused_ebc_head}
+    q = fa.fused_ln_qkv_attention_int8
+    names = {"fused_ln_qkv_attention_int8": (q, "launches"), "ln_qkv_proj_int8": (q, "launches_proj"),
+             "fused_qkv_attention": (fa.fused_qkv_attention, "launches"),
+             "fused_ln_qkv_attention": (fa.fused_ln_qkv_attention, "launches"),
+             "fused_ebc_head": (fused_ebc_head, "launches")}
     if reset:
-        for f in fns.values():
-            f.launches = 0
-    return {k: f.launches for k, f in fns.items()}
+        for f, attr in names.values():
+            setattr(f, attr, 0)
+    return {k: getattr(f, attr) for k, (f, attr) in names.items()}
 
 
 def run_cli_int8(img_dir: str, out: str, quant: str, amp: bool) -> tuple:
@@ -1124,8 +1259,9 @@ def run_cli_int8(img_dir: str, out: str, quant: str, amp: bool) -> tuple:
     check(math.isfinite(count), f"{mode}: CLI count {count} is not finite")
     # one image: one calibration batch (its first 16 windows) and one forward
     static = quant == "int8_static"
-    want = {"fused_ln_qkv_attention_int8": 12 if static else 0, "fused_qkv_attention": 12,
-            "fused_ln_qkv_attention": 0, "fused_ebc_head": 2 if static else 1}
+    want = {"fused_ln_qkv_attention_int8": 12 if static else 0, "ln_qkv_proj_int8": 12 if static else 0,
+            "fused_qkv_attention": 12, "fused_ln_qkv_attention": 0,
+            "fused_ebc_head": 2 if static else 1}
     check(launches == want, f"{mode}: launches {launches}, expected {want}")
     return count, launches
 
@@ -1147,10 +1283,12 @@ def phase_int8_path(dev, kernels: dict, profile: bool) -> None:
         np.save(path, np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8))
         cli_count, n = run_cli_int8(img_dir, os.path.join(tmp, "s.csv"), "int8_static", amp=True)
         kernels["fused_ln_qkv_attention_int8"]["launches"] = n["fused_ln_qkv_attention_int8"]
+        kernels["ln_qkv_proj_int8"]["launches"] = n["ln_qkv_proj_int8"]
         kernels["fused_qkv_attention"]["launches"] = n["fused_qkv_attention"]
         dyn_count, _ = run_cli_int8(img_dir, os.path.join(tmp, "d.csv"), "int8", amp=True)
         cli32_count, n32 = run_cli_int8(img_dir, os.path.join(tmp, "s32.csv"), "int8_static", amp=False)
         kernels["fused_ln_qkv_attention_int8_fp32"]["launches"] = n32["fused_ln_qkv_attention_int8"]
+        kernels["ln_qkv_proj_int8_fp32"]["launches"] = n32["ln_qkv_proj_int8"]
         kernels["fused_qkv_attention_fp32"]["launches"] = n32["fused_qkv_attention"]
         image = normalize_image(_load_image(path))
 
@@ -1355,7 +1493,7 @@ def _quant_attn_counters(reset: bool = False) -> dict:
     q = fa.fused_ln_qkv_attention_int8
     names = {"int8_attention_static": (q, "launches_static"),
              "int8_attention_dynamic": (q, "launches_dynamic"),
-             "fused_ln_qkv_attention_int8": (q, "launches"),
+             "fused_ln_qkv_attention_int8": (q, "launches"), "ln_qkv_proj_int8": (q, "launches_proj"),
              "fused_qkv_attention": (fa.fused_qkv_attention, "launches"),
              "fused_ln_qkv_attention": (fa.fused_ln_qkv_attention, "launches"),
              "fused_ebc_head": (fused_ebc_head, "launches")}
@@ -1395,7 +1533,8 @@ def run_cli_quant_attn(img_dir: str, out: str, mode: str, amp: bool, window: int
     # int8 attention kernel in every block ("kernel", to 512 tokens), or the
     # plain integer products and no attention kernel ("xla")
     want = {"int8_attention_static": 12 if mode == "kernel" else 0, "int8_attention_dynamic": 0,
-            "fused_ln_qkv_attention_int8": 0, "fused_qkv_attention": 12 if window == 224 else 0,
+            "fused_ln_qkv_attention_int8": 0, "ln_qkv_proj_int8": 12 if mode == "kernel" else 0,
+            "fused_qkv_attention": 12 if window == 224 else 0,
             "fused_ln_qkv_attention": 0, "fused_ebc_head": 2}
     check(launches == want, f"{tag}: launches {launches}, expected {want}")
     return count, launches
@@ -1786,6 +1925,7 @@ def main(argv) -> int:
                phase_head(dev), phase_attention_bwd(dev, torch.bfloat16),
                phase_attention_bwd(dev, torch.float32), phase_ln_qkv_bwd_frozen(dev),
                phase_attention_int8(dev, torch.bfloat16), phase_attention_int8(dev, torch.float32),
+               phase_int8_proj(dev, torch.bfloat16), phase_int8_proj(dev, torch.float32),
                phase_qkv_attention(dev, torch.bfloat16), phase_qkv_attention(dev, torch.float32),
                phase_flash(dev, "tiled", torch.bfloat16), phase_flash(dev, "tiled", torch.float32),
                phase_flash(dev, "short", torch.bfloat16), phase_flash(dev, "short", torch.float32),

@@ -29,27 +29,56 @@
 // the recomputed projection and the attention the frozen backward is 32.4
 // GFLOP, 0.033 ms at 989 TFLOP/s: operations bound it.
 //
-// Design, right and simple first (making it fast is a later step):
-//  * The softmax of a query row needs every key, and dK/dV of a key row
-//    need every query, so the work splits in two launches that each own
-//    one side: attn_bwd_dq_kernel, one block (4 warps, 16 query rows
-//    each) per (64-query tile, head, window) with K_h and V_h of the
-//    window in shared memory, sweeps the keys 16 at a time three times
-//    (row max and sum, online; then D = rowsum(dP P); then dS and dQ),
-//    recomputing S = Q K^T and dP = g V^T per chunk with mma.sync instead
-//    of holding a score row in registers. It writes dQ and each row's
-//    (max, sum, D) to a small fp32 scratch. attn_bwd_dkv_kernel, one block
-//    per (64-key tile, head, window) with Q_h, g_h and the row statistics
-//    in shared memory, sweeps the queries 16 at a time: S^T = K Q^T, P^T
-//    from the statistics, dP^T = V g^T, then dK += dS^T Q and dV += P^T g
-//    with the score tiles fed back from the accumulators as A operands.
-//    What this costs: S is recomputed four times and dP twice (about 2x
-//    the FLOP of a single-pass kernel), which at these sizes the card
-//    hides; nothing of size L x L touches device memory.
+// Design, bf16 (wgmma, TMA, sm_90a; one launch, attn_bwd_bf16_kernel;
+// redesigned after the first port, two mma.sync launches over (64-row
+// tile, head, window) blocks of 4 warps that each restaged the head's K
+// and V, or Q and g, and passed each row's max, sum and D through an fp32
+// scratch; S was computed four times and dP twice: 0.143 ms at the
+// flagship training shape, 2.6x the SDPA backward):
+//  * one block of two warpgroups per (window, head): its Q, K, V and g
+//    (4 x L x 64 bf16, 117 KB at L = 229; rows padded to 64 land as zeros)
+//    come by TMA once, in 64-row boxes of the (window, head, row)-strided
+//    views of qkv and g (128B-swizzled), Q and K on one mbarrier and V and
+//    g on a second, so the first products start before V and g land. Each
+//    pair is staged once, where the first port staged each head 4 times in
+//    each of two launches, and nothing goes through device memory between
+//    the row and key passes (the fp32 scratch and the second launch are
+//    gone). The card holds one block an SM (its shared memory), 192 blocks
+//    at B = 16 on 132 SMs; a pair's query tiles split over two blocks, as
+//    the forward body does at small batch, would have each block recompute
+//    every row's statistics, about as much work again as it saves.
+//  * rows: a warpgroup takes a 64-row query tile. S = Q K^T for all key
+//    chunks holding a valid key (wgmma m64n64k16, both operands K-major in
+//    shared memory) stays in registers (up to 320 keys: 160 a thread), so
+//    the softmax is exact over the row in one pass: keys >= kv_len at
+//    kNegInf, the max of the raw scores (scale > 0), p = 2^(s c2 - max c2)
+//    (c2 = scale log2(e), ex2.approx) / sum in fp32. dP = g V^T chunk by
+//    chunk gives D = rowsum(dP P); dP is computed again with dS = P (dP -
+//    D) scale, rounded to bf16 from the accumulators into the register A
+//    operand of dQ += dS K (K the MN-major B operand as its rows stand),
+//    the next chunk's dP issued with it. Each row's (max c2, 1 / sum, D)
+//    goes to shared memory; dQ is staged and written in 16-byte stores.
+//  * keys, after one block barrier: a warpgroup takes a 64-key slice and
+//    holds its dK and dV accumulators over the query tiles. S^T = K Q^T and
+//    dP^T = V g^T (K-major from shared memory) put keys on the rows, so P^T
+//    = 2^(s c2 - max_q c2) / sum_q (the rows' statistics, the same
+//    operations as the row pass, hence the same p) and dS^T = P^T (dP^T -
+//    D_q) scale come out of the accumulators in the register A layout of
+//    dV += P^T g and dK += dS^T Q (g and Q MN-major), with no transpose
+//    through shared memory; the next tile's S^T and dP^T are issued with
+//    this tile's dV and dK products. Slices past kv_len are zeros. Every
+//    wgmma group is waited on before its registers are read and before the
+//    next loop turn (ptxas serializes every wgmma otherwise).
+//  * S is computed twice (row and key passes) and dP three times: 8
+//    products of 64 x L x L against the 5 a single pass needs; the
+//    register budget (255 a thread with two warpgroups) rules out holding
+//    dK and dV of every key beside the row pass's P.
 //  * fp32 (training without --amp; redesigned after the first port, a warp
-//    a row reading one shared-memory operand per FMA): the same split, in
-//    register-blocked SIMT fp32 (the tensor cores take no fp32 short of
-//    TF32, which would round where the plain version does not).
+//    a row reading one shared-memory operand per FMA): two launches, one
+//    for the rows and one for the keys, with the rows' statistics passed
+//    through an fp32 scratch, in register-blocked SIMT fp32 (the tensor
+//    cores take no fp32 short of TF32, which would round where the plain
+//    version does not).
 //    attn_bwd_dq_f32_kernel: one block of 8 warps per (64-query tile, head,
 //    window) with the tile's Q and g rows and all of K_h and V_h in shared
 //    memory (rows padded to 68 floats, so a quarter warp's float4 reads of 8
@@ -79,335 +108,317 @@
 // Limits: head dim 64; L <= 320; the LN backward needs D % 128 == 0 and D
 // <= 768 (the W tiles fill shared memory).
 
-#include "common.cuh"
+#include "attention_short.cuh"
 
 namespace ebc {
 namespace {
 
-constexpr int kDh = 64;
-constexpr int kLdh = kDh + 8;  // row pitch of a head's rows in shared memory (144 B)
-constexpr int kWarps = 4;      // 16 rows each
-constexpr int kTile = 16 * kWarps;
 constexpr int kMaxL = 320;
 
-size_t two_head_smem(int lp) { return (size_t)2 * lp * kLdh * sizeof(bf16); }
+// ---- bf16 (wgmma, TMA, one launch) -------------------------------------------
 
-// ---- bf16: dQ and the row statistics --------------------------------------
+constexpr int kBWarpgroups = 2;
+constexpr int kBThreads = kBWarpgroups * 128;
+constexpr int kBTile = kBq * 128;  // bytes of a 64-row tile of Q, K, V or g (rows of 64 values)
 
-__global__ void __launch_bounds__(kWarps * 32)
-attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gout,
-                   bf16* __restrict__ dqkv, float* __restrict__ stats, int l, int num_heads,
-                   int kv_len, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lp = (l + 15) & ~15;
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + (size_t)lp * kLdh;
+// Where the rows, heads and batch of the q, k, v and g tensor maps lie.
+struct BwdDims {
+  int q[3], k[3], v[3], g[3];
+};
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int d = num_heads * kDh, three_d = 3 * d;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* base = qkv + (size_t)b * l * three_d + h * kDh;
-  const bf16* gbase = gout + (size_t)b * l * d + h * kDh;
+// Q, K, V and g of a (window, head), LP rows each; a staged output tile per
+// warpgroup; each row's max x c2, 1 / sum and D; two barriers; alignment.
+inline size_t bwd_smem_bytes(int lp) {
+  return (size_t)4 * lp * 128 + (size_t)kBWarpgroups * kBTile + (size_t)lp * sizeof(float4) + 16 + 1024;
+}
 
-  // K_h and V_h of the window (rows >= l zero)
-  for (int i = tid; i < lp * (kDh / 8); i += kWarps * 32) {
-    const int r = i >> 3, c = i & 7;
-    const bf16* row = base + (size_t)(r < l ? r : 0) * three_d + c * 8;
-    cp_async16(ks + (size_t)r * kLdh + c * 8, row + d, r < l);
-    cp_async16(vs + (size_t)r * kLdh + c * 8, row + 2 * d, r < l);
-  }
-  cp_async_commit();
+// d (64 x 64 fp32) (+)= A (64 x 16 bf16) . B (16 x 64 bf16), both K-major in
+// shared memory (128B-swizzled rows of 64 values).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 
-  // Q and g fragments of the warp's 16 rows (A operands), from device memory
-  const int q0 = blockIdx.x * kTile + warp * 16;
-  const int r0 = q0 + g, r1 = q0 + g + 8;
-  uint32_t qa[kDh / 16][4], ga[kDh / 16][4];
+// Issues d = A . B^T over the head dim (no commit): the 64 rows at ``a``
+// against the 64 rows at ``b``. Thread i of the warpgroup holds rows 16 (i /
+// 32) + g and + 8 of A, rows 8 j + 2t, + 1 of B in d[4 j .. 4 j + 3].
+__device__ __forceinline__ void bwd_dot(float (&d)[32], const unsigned char* a, const unsigned char* b) {
 #pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    auto ld = [&](const bf16* p, int r, size_t pitch, int col) {
-      return r < l ? *reinterpret_cast<const uint32_t*>(p + (size_t)r * pitch + col) : 0u;
-    };
-    qa[kk][0] = ld(base, r0, three_d, c);
-    qa[kk][1] = ld(base, r1, three_d, c);
-    qa[kk][2] = ld(base, r0, three_d, c + 8);
-    qa[kk][3] = ld(base, r1, three_d, c + 8);
-    ga[kk][0] = ld(gbase, r0, d, c);
-    ga[kk][1] = ld(gbase, r1, d, c);
-    ga[kk][2] = ld(gbase, r0, d, c + 8);
-    ga[kk][3] = ld(gbase, r1, d, c + 8);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (q0 >= l) return;  // no block-wide barrier follows
+  for (int kk = 0; kk < kDh / 16; ++kk) wgmma_m64n64k16_ss(d, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32), kk > 0);
+}
 
-  const int nchunks = lp / 16;
-  // scores of keys 16j..16j+15 for rows g, g+8: s[0] keys +0..7, s[1] +8..15
-  auto scores = [&](int j, float (&s)[2][4]) {
+// Issues d (+)= A . B (no commit): A 64 x 64 bf16 in registers (4 steps of
+// 16), B the 64 rows at ``b`` as they stand (MN-major).
+__device__ __forceinline__ void bwd_mul(float (&d)[32], const uint32_t (&pa)[4][4], const unsigned char* b,
+                                        bool first) {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      uint32_t kb[4];
-      ldmatrix_x4(kb, ks + (size_t)(j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdh + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(s[0], qa[kk], kb[0], kb[1]);
-      mma_bf16(s[1], qa[kk], kb[2], kb[3]);
-    }
-  };
-  auto dprobs = [&](int j, float (&dp)[2][4]) {  // dP = g V^T, same layout
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      uint32_t vb[4];
-      ldmatrix_x4(vb, vs + (size_t)(j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdh + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(dp[0], ga[kk], vb[0], vb[1]);
-      mma_bf16(dp[1], ga[kk], vb[2], vb[3]);
-    }
-  };
+  for (int k = 0; k < 4; ++k) wgmma_m64n64k16_rs(d, pa[k], sw128_desc(b + k * 16 * 128), !first || k > 0);
+}
 
-  // sweep 1: row max and sum, online per lane, then merged over the quad
-  float mx[2] = {kNegInf, kNegInf}, sm[2] = {0.f, 0.f};
-  for (int j = 0; j < nchunks; ++j) {
-    float s[2][4];
-    scores(j, s);
+// A 64-column accumulator tile rounded to bf16 in the register A operand
+// layout of its 4 16-column steps: the accumulators as they lie.
+__device__ __forceinline__ void bwd_pack(uint32_t (&pa)[4][4], const float (&p)[32]) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {  // row g (hr 0) or g + 8 (hr 1)
-      float cm = mx[hr];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (j * 16 + nt * 8 + 2 * t + e < kv_len) cm = fmaxf(cm, s[nt][2 * hr + e] * sm_scale);
-      float acc = sm[hr] * expf(mx[hr] - cm);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (j * 16 + nt * 8 + 2 * t + e < kv_len) acc += expf(s[nt][2 * hr + e] * sm_scale - cm);
-      mx[hr] = cm;
-      sm[hr] = acc;
-    }
-  }
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, mx[hr], o);
-      const float os = __shfl_xor_sync(0xffffffffu, sm[hr], o);
-      const float nm = fmaxf(mx[hr], om);
-      sm[hr] = sm[hr] * expf(mx[hr] - nm) + os * expf(om - nm);
-      mx[hr] = nm;
-    }
-  }
-  // normalized probabilities of a chunk, masked keys exactly 0
-  auto probs = [&](int j, float (&s)[2][4]) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        s[nt][e] = j * 16 + nt * 8 + 2 * t + (e & 1) < kv_len
-                       ? expf(s[nt][e] * sm_scale - mx[hr]) / sm[hr]
-                       : 0.f;
-      }
-  };
-
-  // sweep 2: D = rowsum(dP P)
-  float dsum[2] = {0.f, 0.f};
-  for (int j = 0; j < nchunks; ++j) {
-    float p[2][4], dp[2][4];
-    scores(j, p);
-    probs(j, p);
-    dprobs(j, dp);
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dsum[e >> 1] += dp[nt][e] * p[nt][e];
-  }
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) dsum[hr] += __shfl_xor_sync(0xffffffffu, dsum[hr], o);
-
-  // sweep 3: dS = P (dP - D) sm_scale in bf16, dQ += dS K
-  float dq[kDh / 8][4];
-#pragma unroll
-  for (int i = 0; i < kDh / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
-  for (int j = 0; j < nchunks; ++j) {
-    float p[2][4], dp[2][4];
-    scores(j, p);
-    probs(j, p);
-    dprobs(j, dp);
-    float ds[2][4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[nt][e] = p[nt][e] * (dp[nt][e] - dsum[e >> 1]) * sm_scale;
-    const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                            pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-#pragma unroll
-    for (int dn = 0; dn < kDh / 16; ++dn) {
-      uint32_t kb[4];
-      ldmatrix_x4_trans(kb, ks + (size_t)(j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdh +
-                                dn * 16 + (lane >> 4) * 8);
-      mma_bf16(dq[2 * dn], da, kb[0], kb[1]);
-      mma_bf16(dq[2 * dn + 1], da, kb[2], kb[3]);
-    }
-  }
-
-  bf16* drow0 = dqkv + ((size_t)b * l + r0) * three_d + h * kDh;
-  bf16* drow1 = dqkv + ((size_t)b * l + r1) * three_d + h * kDh;
-#pragma unroll
-  for (int i = 0; i < kDh / 8; ++i) {
-    const int c = i * 8 + 2 * t;
-    if (r0 < l) *reinterpret_cast<uint32_t*>(drow0 + c) = pack_bf16(dq[i][0], dq[i][1]);
-    if (r1 < l) *reinterpret_cast<uint32_t*>(drow1 + c) = pack_bf16(dq[i][2], dq[i][3]);
-  }
-  if (t == 0) {
-    float* st = stats + (size_t)(b * num_heads + h) * 3 * l;
-    if (r0 < l) { st[r0] = mx[0]; st[l + r0] = sm[0]; st[2 * l + r0] = dsum[0]; }
-    if (r1 < l) { st[r1] = mx[1]; st[l + r1] = sm[1]; st[2 * l + r1] = dsum[1]; }
+  for (int k = 0; k < 4; ++k) {
+    pa[k][0] = pack_bf16(p[8 * k], p[8 * k + 1]);
+    pa[k][1] = pack_bf16(p[8 * k + 2], p[8 * k + 3]);
+    pa[k][2] = pack_bf16(p[8 * k + 4], p[8 * k + 5]);
+    pa[k][3] = pack_bf16(p[8 * k + 6], p[8 * k + 7]);
   }
 }
 
-// ---- bf16: dK and dV ------------------------------------------------------
+// One block (two warpgroups) per (window, head): the pair's Q, K, V and g
+// land once by TMA (rows past l as zeros), then
+//  1. the rows: warpgroup wg takes query tiles wg, wg + 2, ...: three
+//     sweeps over the 64-key chunks holding a valid key (the row max and
+//     sum online; D = rowsum(dP P); dS and dQ += dS K), then dQ out and
+//     the rows' max, 1 / sum and D into shared memory;
+//  2. the keys: warpgroup wg takes key slices wg, wg + 2, ...: over the
+//     query tiles S^T = K Q^T and dP^T = V g^T, P^T and dS^T from the row
+//     statistics, dV += P^T g and dK += dS^T Q, then dK and dV out.
+template <int NKC>
+__global__ void __launch_bounds__(kBThreads, 1)
+attn_bwd_bf16_kernel(bf16* __restrict__ dqkv, int l, int num_heads, int kv_len, float sm_scale,
+                     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+                     const BwdDims dims) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int n_t = (l + kBq - 1) / kBq, lp = n_t * kBq;
+  unsigned char* qs = sm;
+  unsigned char* ks = qs + lp * 128;
+  unsigned char* vs = ks + lp * 128;
+  unsigned char* gs = vs + lp * 128;
+  unsigned char* stage = gs + lp * 128;                             // [kBWarpgroups][kBTile]
+  // each row's (max x c2, 1 / sum (0 past l), rowsum(dP P), 0)
+  float4* st = reinterpret_cast<float4*>(stage + kBWarpgroups * kBTile);  // [lp]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(st + lp);             // [2]: Q and K; V and g
 
-__global__ void __launch_bounds__(kWarps * 32)
-attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gout,
-                    bf16* __restrict__ dqkv, const float* __restrict__ stats, int l,
-                    int num_heads, int kv_len, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lp = (l + 15) & ~15;
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* gs = qs + (size_t)lp * kLdh;
-  float* mx_s = reinterpret_cast<float*>(gs + (size_t)lp * kLdh);
-  float* sm_s = mx_s + lp;
-  float* ds_s = sm_s + lp;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int d = num_heads * kDh, three_d = 3 * d;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* base = qkv + (size_t)b * l * three_d + h * kDh;
-  const bf16* gbase = gout + (size_t)b * l * d + h * kDh;
-
-  // Q_h, g_h (rows >= l zero) and the row statistics of every query
-  for (int i = tid; i < lp * (kDh / 8); i += kWarps * 32) {
-    const int r = i >> 3, c = i & 7;
-    const int rr = r < l ? r : 0;
-    cp_async16(qs + (size_t)r * kLdh + c * 8, base + (size_t)rr * three_d + c * 8, r < l);
-    cp_async16(gs + (size_t)r * kLdh + c * 8, gbase + (size_t)rr * d + c * 8, r < l);
+  // warp-uniform as the compiler sees it (a shuffle of lane 0's value), so
+  // the wgmma do not lie on a divergent path
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int h = blockIdx.x % num_heads, b = blockIdx.x / num_heads;
+  const int d = num_heads * kDh, ld = 3 * d;
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(&bar[0], (uint32_t)(2 * lp * 128));
+    for (int i = 0; i < n_t; ++i) {
+      tma_rows(qs + i * kBTile, &tq, dims.q, i * kBq, h, b, &bar[0]);
+      tma_rows(ks + i * kBTile, &tk, dims.k, i * kBq, h, b, &bar[0]);
+    }
+    mbar_expect_tx(&bar[1], (uint32_t)(2 * lp * 128));
+    for (int i = 0; i < n_t; ++i) {
+      tma_rows(vs + i * kBTile, &tv, dims.v, i * kBq, h, b, &bar[1]);
+      tma_rows(gs + i * kBTile, &tg, dims.g, i * kBq, h, b, &bar[1]);
+    }
   }
-  cp_async_commit();
-  const float* st = stats + (size_t)(b * num_heads + h) * 3 * l;
-  for (int r = tid; r < lp; r += kWarps * 32) {
-    mx_s[r] = r < l ? st[r] : 0.f;
-    sm_s[r] = r < l ? st[l + r] : 1.f;
-    ds_s[r] = r < l ? st[2 * l + r] : 0.f;
-  }
-
-  // K and V fragments of the warp's 16 keys (A operands)
-  const int k0 = blockIdx.x * kTile + warp * 16;
-  const int r0 = k0 + g, r1 = k0 + g + 8;
-  uint32_t ka[kDh / 16][4], va[kDh / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    auto ld = [&](int r, int col) {
-      return r < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r * three_d + col) : 0u;
-    };
-    ka[kk][0] = ld(r0, d + c);
-    ka[kk][1] = ld(r1, d + c);
-    ka[kk][2] = ld(r0, d + c + 8);
-    ka[kk][3] = ld(r1, d + c + 8);
-    va[kk][0] = ld(r0, 2 * d + c);
-    va[kk][1] = ld(r1, 2 * d + c);
-    va[kk][2] = ld(r0, 2 * d + c + 8);
-    va[kk][3] = ld(r1, 2 * d + c + 8);
-  }
-  cp_async_wait<0>();
   __syncthreads();
-  if (k0 >= l) return;  // no block-wide barrier follows
 
-  float dk[kDh / 8][4], dv[kDh / 8][4];
-#pragma unroll
-  for (int i = 0; i < kDh / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+  const float c2 = sm_scale * kLog2e;
+  const int rl = warp * 16 + g;               // this thread's first row of a tile
+  bf16* out = dqkv + (size_t)b * l * ld + h * kDh;
+  unsigned char* my_stage = stage + wg * kBTile;
 
-  if (k0 < kv_len) {  // else every key of the warp is masked: dK = dV = 0
-    const bool key_ok[2] = {r0 < kv_len, r1 < kv_len};
-    for (int i = 0; i < lp / 16; ++i) {
-      // S^T and dP^T for keys (rows g, g+8) x queries 16i.. (columns)
-      float s[2][4], dp[2][4];
+  // a 64 x 64 fp32 tile rounded to bf16, staged swizzled, then written in
+  // 16-byte stores to rows row0 + r < l of ``dst`` (row pitch ld)
+  auto store_tile = [&](const float (&o)[32], bf16* dst, int row0) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+    for (int j = 0; j < kDh / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(my_stage + sw128_offset(rl, j) + 4 * t) = pack_bf16(o[4 * j], o[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(my_stage + sw128_offset(rl + 8, j) + 4 * t) =
+          pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+    }
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
+    for (int k = tid & 127; k < kBq * 8; k += 128) {
+      const int r = k >> 3, c = k & 7;
+      if (row0 + r < l)
+        *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * ld + c * 8) =
+            *reinterpret_cast<const uint4*>(my_stage + sw128_offset(r, c));
+    }
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  };
+
+  // ---- 1. the rows ----
+  mbar_wait(&bar[0], 0);  // Q and K landed
+  for (int qt = wg; qt < n_t; qt += kBWarpgroups) {
+    const unsigned char* qtile = qs + qt * kBTile;
+    const unsigned char* gtile = gs + qt * kBTile;
+    // S of the NKC chunks at once, the whole row of valid keys in registers
+    float s[NKC][32], dp[32], dq[32];
+    wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int c = 0; c < NKC; ++c) bwd_dot(s[c], qtile, ks + c * kBTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    // the exact row max of the raw scores (scale > 0), keys >= kv_len at
+    // kNegInf; p = exp(s scale - max) / sum in fp32, 0 at masked keys
+    float m0 = kNegInf, m1 = kNegInf;
 #pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) {
-        uint32_t qb[4], gb[4];
-        const size_t off = (size_t)(i * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdh + kk * 16 +
-                           ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(qb, qs + off);
-        ldmatrix_x4(gb, gs + off);
-        mma_bf16(s[0], ka[kk], qb[0], qb[1]);
-        mma_bf16(s[1], ka[kk], qb[2], qb[3]);
-        mma_bf16(dp[0], va[kk], gb[0], gb[1]);
-        mma_bf16(dp[1], va[kk], gb[2], gb[3]);
+    for (int c = 0; c < NKC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = c * kBq + (i >> 2) * 8 + 2 * t + (i & 1);
+        if (col >= kv_len) s[c][i] = kNegInf;
+        if (i & 2) m1 = fmaxf(m1, s[c][i]); else m0 = fmaxf(m0, s[c][i]);
       }
-      float p[2][4], ds[2][4];
+    quad_max(m0, m1);
+    const float mc0 = m0 * c2, mc1 = m1 * c2;
+    float l0 = 0.f, l1 = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+    for (int c = 0; c < NKC; ++c)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = i * 16 + nt * 8 + 2 * t + (e & 1);
-          const bool ok = key_ok[e >> 1] && q < l;
-          p[nt][e] = ok ? expf(s[nt][e] * sm_scale - mx_s[q]) / sm_s[q] : 0.f;
-          ds[nt][e] = p[nt][e] * (dp[nt][e] - ds_s[q]) * sm_scale;
-        }
-      const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-      const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                              pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+      for (int i = 0; i < 32; ++i) {
+        s[c][i] = fast_exp2(fmaf(s[c][i], c2, (i & 2) ? -mc1 : -mc0));
+        if (i & 2) l1 += s[c][i]; else l0 += s[c][i];
+      }
+    quad_sum(l0, l1);
+    const float il0 = 1.f / l0, il1 = 1.f / l1;
 #pragma unroll
-      for (int dn = 0; dn < kDh / 16; ++dn) {
-        uint32_t qb[4], gb[4];
-        const size_t off = (size_t)(i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdh + dn * 16 +
-                           (lane >> 4) * 8;
-        ldmatrix_x4_trans(qb, qs + off);
-        ldmatrix_x4_trans(gb, gs + off);
-        mma_bf16(dk[2 * dn], da, qb[0], qb[1]);
-        mma_bf16(dk[2 * dn + 1], da, qb[2], qb[3]);
-        mma_bf16(dv[2 * dn], pa, gb[0], gb[1]);
-        mma_bf16(dv[2 * dn + 1], pa, gb[2], gb[3]);
+    for (int c = 0; c < NKC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[c][i] *= (i & 2) ? il1 : il0;
+
+    // D = rowsum(dP P), dP = g V^T chunk by chunk
+    mbar_wait(&bar[1], 0);  // V and g landed
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) {
+      wgmma_fence();
+      bwd_dot(dp, gtile, vs + c * kBTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i & 2) d1 += s[c][i] * dp[i]; else d0 += s[c][i] * dp[i];
       }
     }
+    quad_sum(d0, d1);
+    const int r0 = qt * kBq + rl, r1 = r0 + 8;
+    if (t == 0) {
+      st[r0] = make_float4(mc0, r0 < l ? il0 : 0.f, d0, 0.f);
+      st[r1] = make_float4(mc1, r1 < l ? il1 : 0.f, d1, 0.f);
+    }
+
+    // dS = P (dP - D) sm_scale rounded to bf16, dQ += dS K; dP recomputed,
+    // the next chunk's issued with this chunk's dQ product
+    uint32_t da[4][4];
+    wgmma_fence();
+    bwd_dot(dp, gtile, vs);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = s[c][i] * (dp[i] - ((i & 2) ? d1 : d0)) * sm_scale;
+      bwd_pack(da, dp);
+      wgmma_fence();
+      bwd_mul(dq, da, ks + c * kBTile, c == 0);
+      if (c + 1 < NKC) bwd_dot(dp, gtile, vs + (c + 1) * kBTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    store_tile(dq, out, qt * kBq);
   }
+  __syncthreads();  // every row's statistics are in shared memory
+  mbar_wait(&bar[1], 0);  // V and g landed (a warpgroup with no query tile has not waited)
 
-  bf16* krow0 = dqkv + ((size_t)b * l + r0) * three_d + d + h * kDh;
-  bf16* krow1 = dqkv + ((size_t)b * l + r1) * three_d + d + h * kDh;
+  // ---- 2. the keys ----
+  for (int sl = wg; sl < n_t; sl += kBWarpgroups) {
+    const int k0 = sl * kBq;
+    float dk[32], dv[32];
+    if (k0 < kv_len) {
+      const unsigned char* kslice = ks + sl * kBTile;
+      const unsigned char* vslice = vs + sl * kBTile;
+      const bool ok0 = k0 + rl < kv_len, ok1 = k0 + rl + 8 < kv_len;
+      float s[32], dp[32];
+      uint32_t pa[4][4], da[4][4];
+      // P^T and dS^T of query tile qt from S^T (s) and dP^T (dp)
+      auto grads = [&](int qt) {
 #pragma unroll
-  for (int i = 0; i < kDh / 8; ++i) {
-    const int c = i * 8 + 2 * t;
-    if (r0 < l) {
-      *reinterpret_cast<uint32_t*>(krow0 + c) = pack_bf16(dk[i][0], dk[i][1]);
-      *reinterpret_cast<uint32_t*>(krow0 + d + c) = pack_bf16(dv[i][0], dv[i][1]);
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float4 q = st[qt * kBq + 8 * j + 2 * t + e];  // (max x c2, 1 / sum, D, 0)
+            const float p0 = ok0 ? fast_exp2(fmaf(s[4 * j + e], c2, -q.x)) * q.y : 0.f;
+            const float p1 = ok1 ? fast_exp2(fmaf(s[4 * j + 2 + e], c2, -q.x)) * q.y : 0.f;
+            dp[4 * j + e] = p0 * (dp[4 * j + e] - q.z) * sm_scale;
+            dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - q.z) * sm_scale;
+            s[4 * j + e] = p0;
+            s[4 * j + 2 + e] = p1;
+          }
+        bwd_pack(pa, s);
+        bwd_pack(da, dp);
+      };
+      wgmma_fence();
+      bwd_dot(s, kslice, qs);
+      bwd_dot(dp, vslice, gs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      for (int qt = 0; qt + 1 < n_t; ++qt) {
+        grads(qt);
+        wgmma_fence();
+        bwd_mul(dv, pa, gs + qt * kBTile, qt == 0);
+        bwd_mul(dk, da, qs + qt * kBTile, qt == 0);
+        bwd_dot(s, kslice, qs + (qt + 1) * kBTile);
+        bwd_dot(dp, vslice, gs + (qt + 1) * kBTile);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      grads(n_t - 1);
+      wgmma_fence();
+      bwd_mul(dv, pa, gs + (n_t - 1) * kBTile, n_t == 1);
+      bwd_mul(dk, da, qs + (n_t - 1) * kBTile, n_t == 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+    } else {  // every key of the slice is masked: dK = dV = 0
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
     }
-    if (r1 < l) {
-      *reinterpret_cast<uint32_t*>(krow1 + c) = pack_bf16(dk[i][2], dk[i][3]);
-      *reinterpret_cast<uint32_t*>(krow1 + d + c) = pack_bf16(dv[i][2], dv[i][3]);
-    }
+    store_tile(dk, out + d, k0);
+    store_tile(dv, out + 2 * d, k0);
+  }
+}
+
+cudaError_t launch_attn_bwd_bf16(const void* qkv, const void* g, void* dqkv, int batch, int l,
+                                 int num_heads, int kv_len, float sm_scale, cudaStream_t st) {
+  const long long d = (long long)num_heads * kDh, three = 3 * d;
+  const bf16* base = static_cast<const bf16*>(qkv);
+  const long long qkv_st[3] = {l * three, kDh, three}, g_st[3] = {l * d, kDh, d};
+  CUtensorMap tq, tk, tv, tg;
+  BwdDims dims;
+  cudaError_t e = encode_rows_map(&tq, dims.q, base, l, num_heads, batch, qkv_st, kBq);
+  if (e == cudaSuccess) e = encode_rows_map(&tk, dims.k, base + d, l, num_heads, batch, qkv_st, kBq);
+  if (e == cudaSuccess) e = encode_rows_map(&tv, dims.v, base + 2 * d, l, num_heads, batch, qkv_st, kBq);
+  if (e == cudaSuccess) e = encode_rows_map(&tg, dims.g, g, l, num_heads, batch, g_st, kBq);
+  if (e != cudaSuccess) return e;
+  const size_t smem = bwd_smem_bytes((l + kBq - 1) / kBq * kBq);
+  auto run = [&](auto kernel) {
+    cudaError_t r = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (r != cudaSuccess) return r;
+    kernel<<<batch * num_heads, kBThreads, smem, st>>>(static_cast<bf16*>(dqkv), l, num_heads, kv_len,
+                                                      sm_scale, tq, tk, tv, tg, dims);
+    return cudaGetLastError();
+  };
+  switch ((kv_len + kBq - 1) / kBq) {  // the key chunks holding a valid key
+    case 1: return run(attn_bwd_bf16_kernel<1>);
+    case 2: return run(attn_bwd_bf16_kernel<2>);
+    case 3: return run(attn_bwd_bf16_kernel<3>);
+    case 4: return run(attn_bwd_bf16_kernel<4>);
+    case 5: return run(attn_bwd_bf16_kernel<5>);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -881,35 +892,19 @@ bool attn_shapes_ok(int l, int d, int num_heads, int kv_len) {
 }  // namespace ebc
 
 // qkv (B, L, 3D) bf16; g (B, L, D) bf16; dqkv (B, L, 3D) bf16 out; stats
-// (B, H, 3, L) fp32 scratch. Returns the CUDA error code (0 = ok).
+// unused (the fp32 entry's scratch). Returns the CUDA error code (0 = ok).
 extern "C" int ebc_attention_bwd(const void* qkv, const void* g, void* dqkv, void* stats,
                                  int batch, int l, int d, int num_heads, int kv_len,
                                  float sm_scale, void* stream) {
   using namespace ebc;
-  if (!attn_shapes_ok(l, d, num_heads, kv_len)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int lp = (l + 15) & ~15;
-  const dim3 grid((l + kTile - 1) / kTile, num_heads, batch);
-  const size_t smem_q = two_head_smem(lp);
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
-  if (e != cudaSuccess) return (int)e;
-  attn_bwd_dq_kernel<<<grid, kWarps * 32, smem_q, st>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(g), static_cast<bf16*>(dqkv),
-      static_cast<float*>(stats), l, num_heads, kv_len, sm_scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem_kv = smem_q + (size_t)3 * lp * sizeof(float);
-  e = cudaFuncSetAttribute(attn_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_kv);
-  if (e != cudaSuccess) return (int)e;
-  attn_bwd_dkv_kernel<<<grid, kWarps * 32, smem_kv, st>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(g), static_cast<bf16*>(dqkv),
-      static_cast<const float*>(stats), l, num_heads, kv_len, sm_scale);
-  return (int)cudaGetLastError();
+  (void)stats;
+  if (!attn_shapes_ok(l, d, num_heads, kv_len) || batch < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_attn_bwd_bf16(qkv, g, dqkv, batch, l, num_heads, kv_len, sm_scale,
+                                   static_cast<cudaStream_t>(stream));
 }
 
-// The same in fp32: qkv, g and dqkv fp32, with ebc_attention_bwd's shapes.
+// The same in fp32: qkv, g and dqkv fp32, with ebc_attention_bwd's shapes;
+// stats (B, H, 3, L) fp32 scratch.
 extern "C" int ebc_attention_bwd_f32(const void* qkv, const void* g, void* dqkv, void* stats,
                                      int batch, int l, int d, int num_heads, int kv_len,
                                      float sm_scale, void* stream) {

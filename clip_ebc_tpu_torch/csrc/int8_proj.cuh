@@ -20,49 +20,102 @@
 //    quantized at the calibrated scale of the GELU output; QuickGELU or the
 //    tanh GELU of _ln_mlp_kernel, each operation rounded on its own).
 //
-// Design, simple first (mma.sync, no wgmma yet):
-//  * one block of 8 warps per 128 rows. Each warp LayerNorms 16 rows straight
-//    from device memory (a row in registers, two-pass mean / variance, 8
-//    columns a lane at a time, coalesced 16-byte loads) and writes them
-//    quantized into shared memory as int8: 128 rows x D bytes stay resident
-//    (pitch D + 16, so the 8 rows of an ldmatrix hit distinct banks), half
-//    the bf16 tile of the unquantized kernel, so a block takes twice its
-//    rows and W is streamed half as often.
-//  * W is read in torch's (out, in) layout, which is the K-major ("col") B
-//    operand of mma.sync.m16n8k32.s8 as it stands. A 4-stage cp.async ring
-//    of 128-column x 128-deep int8 tiles (pitch 144) streams all N columns
-//    past the resident rows, tile p + 2 landing while p computes: one
-//    __syncthreads a tile.
-//  * warps tile the 128 x 128 output chunk 4 x 2: a warp owns 32 rows x 64
-//    columns = 2 x 8 m16n8 accumulators (64 int32 registers), fed by
-//    ldmatrix.x4 (an 8 x 16-byte matrix is an 8-row x 16-deep int8 fragment).
-//  * epilogue per 128-column chunk, from the accumulators, stored as pairs.
+// Bound at the QKV projection of a window forward (M = 140 x 229 = 32,060
+// rows, D = 768, N = 2304; H100 SXM, 700 W): 113.5 GOP of int8 over 1,979
+// TOP/s = 0.057 ms, against x in, the output and W: 125 MB with an int8
+// output (0.037 ms at 3.35 TB/s), 199 MB with bf16 (0.059 ms), 396 MB with
+// fp32 x and output (0.118 ms). Operations and bytes are even, so the design
+// overlaps the product, the output stores and the LayerNorm's loads.
+//
+// Design (wgmma, TMA, sm_90a; redesigned after the first port, one block of
+// 8 warps per 128 rows with mma.sync.m16n8k32 fed by ldmatrix from a
+// 4-stage cp.async ring with a block-wide barrier per W tile and the
+// epilogue in series with the products: 0.372 ms at the shape above, 1.8x
+// cuBLAS's bare int8 product):
+//  * a persistent block on each SM walks the 128-row items; two
+//    warpgroups own 64 rows each.
+//  * the LayerNorm: each warp takes the statistics of its 16 rows as the
+//    first port did (a row in registers, 8 columns a lane at a time, two
+//    passes, the same order of operations), then normalizes and quantizes
+//    its rows straight into the register A fragments of wgmma (16 rows x
+//    32 values a k-step, 4 bytes a register): the yq of all D columns stay
+//    in registers (D / 8 a thread), so no quantized row touches shared
+//    memory and the ring takes it all.
+//  * W, read in torch's (out, in) layout, is the K-major B operand as it
+//    stands (8-bit wgmma takes both operands K-major only). It comes by
+//    TMA in chunks of 64 output columns x D (boxes of 64 rows x
+//    128 bytes, 128B-swizzled, the layout sw128_desc names) into a ring of
+//    chunk stages on per-stage mbarriers; the second warpgroup done with a
+//    stage refills it, so no producer warp takes registers (with one, ptxas
+//    held every thread to 168 and the kernel spilled).
+//  * products: wgmma m64n64k32.s32.s8.s8, A from registers, B from the
+//    ring, D / 32 of them a chunk into 32 int32 accumulators a thread. The
+//    two warpgroups take turns to issue a chunk's products (the ping-pong
+//    schedule of CUTLASS), so one's epilogue and stores run under the
+//    other's tensor work (the first port's ran in series). Double-buffered
+//    accumulators in one warpgroup (the next chunk's products issued before
+//    this one's epilogue) were tried first: ptxas (C7514) serializes every
+//    wgmma when accumulators are read while another group is in flight
+//    across loop iterations.
+//  * epilogue: dequantize (multiply and add apart; the chunk's sw and bias
+//    land by bulk copy with its W), the epilogue's rounding, then 16- and
+//    8-bit outputs staged in a swizzled tile per warpgroup and written in
+//    16-byte stores, fp32 pairs stored from the accumulators.
+//  * where the time goes (timing-only copies with parts removed, PERF.md):
+//    without any wgmma the kernel keeps two thirds of its time, so a
+//    warpgroup's epilogue outlasts the other's 24 products and the tensor
+//    time adds to it instead of hiding under it. Tried and dropped, each
+//    slower on an H100: chunks of 128 columns (two ring stages, spills), W
+//    multicast by TMA to clusters of two blocks (half the L2 reads, but
+//    each stage waits on both blocks), bf16 pairs stored from the
+//    accumulators without staging.
 //  * fp32 activations (a model run without --amp) take the same int8
 //    product; only the loads of x and the float stores differ.
 //
-// Limits: D a multiple of 128, D <= 768 (the resident rows and the ring fill
-// shared memory; a lane holds a row's 8-column chunks in registers); N a
-// multiple of 128.
+// Limits: D a multiple of 128, D <= 768 (the quantized rows held in
+// registers; a lane holds a row's 8-column chunks in the statistics pass);
+// N a multiple of 128.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace ebc {
 
-constexpr int kQM = 128;        // rows per block
-constexpr int kQN = 128;        // output columns per chunk
-constexpr int kQK = 128;        // depth (bytes) of one W tile
-constexpr int kQStages = 4;     // W tiles in the ring ...
-constexpr int kQAhead = 2;      // ... tile p + 2 lands while p computes and p - 1 may still be read
-constexpr int kQThreads = 256;  // 8 warps: 4 along rows x 2 along columns
-constexpr int kQWPitch = kQK + 16;  // W tile row pitch: ldmatrix rows hit distinct banks
-constexpr int kQLnChunks = 3;   // 8-column chunks a lane holds in the LayerNorm
+constexpr int kQM = 128;         // rows of an item: two consumer warpgroups x 64
+constexpr int kQN = 64;          // output columns of a chunk (the wgmma N)
+constexpr int kQAcc = kQN / 2;   // int32 accumulators a thread
+constexpr int kQK = 128;         // depth (bytes) of one TMA box of W: one 128-byte swizzle row
+constexpr int kQThreads = 2 * 128;  // two warpgroups (all 255 registers a thread: no producer warp)
+constexpr int kQLnChunks = 3;    // 8-column chunks a lane holds in the statistics pass
 constexpr int kQMaxDim = kQLnChunks * 256;
+constexpr int kQMaxStages = 4;
+constexpr int kQColBytes = 2 * kQN * 4;  // a stage's sw and bias of its kQN columns
+constexpr size_t kQSmemBudget = 227 * 1024 - 1024 - kQMaxStages * 12;
 
 enum { kEpiFloat = 0, kEpiInt8 = 1, kEpiGeluInt8 = 2 };
 
-inline size_t qproj_smem_bytes(int d) {
-  return (size_t)kQM * (d + 16) + (size_t)kQStages * kQN * kQWPitch;
+// Bytes of one warpgroup's staged output tile (64 rows x kQN columns): 16-
+// and 8-bit outputs are staged for 16-byte stores; fp32 pairs go straight
+// out (a quad's 8-byte stores fill a 32-byte sector of a row).
+template <typename TOut>
+__host__ __device__ constexpr int qout_tile_bytes() { return sizeof(TOut) < 4 ? 64 * kQN * (int)sizeof(TOut) : 0; }
+// Bytes of a ring stage: a W chunk of kQN columns x D (its sw and bias
+// beside it in a small ring of their own).
+template <int DK>
+__host__ __device__ constexpr int qstage_bytes() { return kQN * kQK * DK; }
+// Stages in the ring beside the staged outputs (one a warpgroup)
+template <int DK, typename TOut>
+__host__ __device__ constexpr int qproj_stages() {
+  return (int)((kQSmemBudget - 2 * qout_tile_bytes<TOut>()) / (qstage_bytes<DK>() + kQColBytes)) < kQMaxStages
+             ? (int)((kQSmemBudget - 2 * qout_tile_bytes<TOut>()) / (qstage_bytes<DK>() + kQColBytes))
+             : kQMaxStages;
+}
+template <int DK, typename TOut>
+constexpr size_t qproj_smem_bytes() {
+  return (size_t)qproj_stages<DK, TOut>() * (qstage_bytes<DK>() + kQColBytes) +
+         2 * qout_tile_bytes<TOut>() + kQMaxStages * 12 + 1024;
 }
 
 // c (16x8 int32) += a (16x32 int8, row-major) . b (32x8 int8, column-major).
@@ -77,6 +130,44 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (64 x 64 int32 over the warpgroup's 128 threads, 32 a thread, in the
+// layout of wgmma_m64n128k16's d) (+)= A (64 x 32 int8 in registers: warp w's
+// 16 rows in the mma_s8 A layout) . B (32 x 64 int8, K-major in shared
+// memory, 128B-swizzled rows of 128 bytes).
+__device__ __forceinline__ void wgmma_s8_m64n64k32_rs(int (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// TMA: the box of a 2D tensor map at (c0, c1) into dst (1024-byte aligned),
+// completing on ``bar``.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A 1D bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte aligned)
+// into shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // 8 consecutive values of a row as floats.
@@ -97,6 +188,16 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
+
+// 4 consecutive values of a row as floats.
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
 // Two consecutive values of a row as floats.
 __device__ __forceinline__ float2 load2(const bf16* p) {
@@ -128,12 +229,30 @@ __device__ __forceinline__ float gelu(float h, int quick) {
   return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.f, tanhf(__fmul_rn(c, __fadd_rn(h, cube)))));
 }
 
-// Epilogue store of the output pair (row, col), (row, col + 1).
-template <typename T, int Epi>
-__device__ __forceinline__ void epi_store(void* out, size_t idx, float a, float b, float inv_out,
-                                          int quick) {
+// The LN output y = ((v - mu) rstd) gamma + beta, each operation rounded on
+// its own, quantized; four of them packed, the first lowest.
+__device__ __forceinline__ uint32_t ln_quant4(float4 v, float mu, float rstd, float4 ga, float4 be,
+                                              float inv_act) {
+  const float vv[4] = {v.x, v.y, v.z, v.w}, gg[4] = {ga.x, ga.y, ga.z, ga.w},
+              bb[4] = {be.x, be.y, be.z, be.w};
+  uint32_t packed = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float y = __fadd_rn(__fmul_rn(__fmul_rn(vv[e] - mu, rstd), gg[e]), bb[e]);
+    packed |= (uint32_t)(quant8(y, inv_act) & 0xff) << (8 * e);
+  }
+  return packed;
+}
+
+// A staged output tile holds 64 rows of P 16-byte pieces; piece c of row r
+// lies at c ^ (r % 8) (P = 8, 16) or c ^ ((r / 2) % 4) (P = 4), so that a
+// warp's fragment writes spread over the banks.
+
+// The output pair at ``p`` in the staged tile, with the epilogue's rounding.
+template <typename TOut, int Epi>
+__device__ __forceinline__ void stage_pair(unsigned char* p, float a, float b, float inv_out, int quick) {
   if constexpr (Epi == kEpiFloat) {
-    store2(static_cast<T*>(out) + idx, a, b);
+    store2(reinterpret_cast<TOut*>(p), a, b);
   } else {
     int qa, qb;
     if constexpr (Epi == kEpiInt8) {
@@ -143,168 +262,242 @@ __device__ __forceinline__ void epi_store(void* out, size_t idx, float a, float 
       qa = quant8(gelu(a, quick), inv_out);
       qb = quant8(gelu(b, quick), inv_out);
     }
-    *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(out) + idx) =
-        (uint16_t)((qa & 0xff) | ((qb & 0xff) << 8));
+    *reinterpret_cast<uint16_t*>(p) = (uint16_t)((qa & 0xff) | ((qb & 0xff) << 8));
   }
 }
 
-template <typename T, int Epi>
+// Persistent: block i takes the 128-row items i, i + gridDim.x, ...;
+// warpgroup wg (0, 1) owns rows 64 wg .. + 63 of each. The block's W chunks,
+// item after item, stream through the ring: the second warpgroup done with
+// a stage refills it with the chunk kStages on (no producer warp, so the
+// two warpgroups keep all 255 registers a thread). DK = D / 128 (the A
+// fragments are registers, so their count is a template).
+template <typename T, int Epi, int DK>
 __global__ void __launch_bounds__(kQThreads, 1)
 ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, const int8_t* __restrict__ w,
+                    const float* __restrict__ beta, const __grid_constant__ CUtensorMap tw,
                     const float* __restrict__ sw, const float* __restrict__ bias,
-                    const float* __restrict__ inv_act_ptr, void* __restrict__ out, int m, int d,
-                    int n, float eps, const float* __restrict__ inv_out_ptr, int quick) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int apitch = d + 16;
-  unsigned char* as = smem_raw;
-  unsigned char* ws = smem_raw + (size_t)kQM * apitch;
-  constexpr int kWStage = kQN * kQWPitch;
+                    const float* __restrict__ inv_act_ptr, void* __restrict__ out, int m, int n,
+                    float eps, const float* __restrict__ inv_out_ptr, int quick) {
+  using TOut = std::conditional_t<Epi == kEpiFloat, T, int8_t>;
+  constexpr int d = DK * kQK;
+  constexpr int kStages = qproj_stages<DK, TOut>();
+  constexpr int kChunk = kQN * d;                 // bytes of a W chunk: DK boxes of kQN rows x 128 B
+  constexpr int kStage = qstage_bytes<DK>();
+  constexpr int kTile = qout_tile_bytes<TOut>();  // one staged output tile
+  constexpr int P = kQN * (int)sizeof(TOut) / 16; // 16-byte chunks of a staged row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = sm;                                           // [kStages][kStage]
+  unsigned char* tiles = ring + kStages * kStage;                     // [2 warpgroups][kTile]
+  float* cols = reinterpret_cast<float*>(tiles + 2 * kTile);          // [kStages][sw, bias][kQN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(cols + kStages * 2 * kQN);  // [kStages]
+  int* done = reinterpret_cast<int*>(full + kStages);                 // [kStages]
 
-  const int row0 = blockIdx.x * kQM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nk = d / kQK;            // W tiles per column chunk
-  const int total = (n / kQN) * nk;  // W tiles over all chunks
-
-  // W tile p: column chunk p / nk, depth tile p % nk
-  auto load_w = [&](int p) {
-    unsigned char* dst = ws + (size_t)(p % kQStages) * kWStage;
-    const int col0 = (p / nk) * kQN, k0 = (p % nk) * kQK;
-    for (int i = tid; i < kQN * (kQK / 16); i += kQThreads) {
-      const int r = i >> 3, c = i & 7;
-      cp_async16(dst + r * kQWPitch + c * 16, w + (size_t)(col0 + r) * d + k0 + c * 16, true);
-    }
+  const int tid = threadIdx.x;
+  const int nc = n / kQN, n_items = (m + kQM - 1) / kQM;
+  // chunk tt of the block (item blockIdx.x + (tt / nc) gridDim.x, columns
+  // kQN (tt % nc) ..) into its stage, W by TMA and its columns' sw and bias
+  // by bulk copy, completing on the stage's full barrier; nothing past the
+  // block's last item. One thread.
+  auto load = [&](int tt) {
+    const int it = blockIdx.x + (tt / nc) * gridDim.x, st = tt % kStages, col0 = (tt % nc) * kQN;
+    if (it >= n_items) return;
+    unsigned char* dst = ring + st * kStage;
+    mbar_expect_tx(&full[st], (uint32_t)(kChunk + kQColBytes));
+    for (int kb = 0; kb < DK; ++kb) tma_2d(dst + kb * kQN * kQK, &tw, kb * kQK, col0, &full[st]);
+    bulk_copy(cols + st * 2 * kQN, sw + col0, kQN * sizeof(float), &full[st]);
+    bulk_copy(cols + st * 2 * kQN + kQN, bias + col0, kQN * sizeof(float), &full[st]);
   };
-#pragma unroll
-  for (int s = 0; s < kQAhead; ++s) {
-    if (s < total) load_w(s);
-    cp_async_commit();
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      done[st] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < kStages; ++st) load(st);
   }
+  __syncthreads();
 
-  // 1. LayerNorm in fp32 and quantize, a warp 16 rows, a lane 8 columns at a
-  //    time (the same columns in every row: gamma and beta loaded once),
-  //    while the first W tiles land
+  // warp-uniform as the compiler sees it (a shuffle of lane 0's value), so
+  // the wgmma do not lie on a divergent path
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const float inv_act = *inv_act_ptr;
   const float inv_out = Epi == kEpiGeluInt8 ? *inv_out_ptr : 0.f;
-  const int xvec = d / 8;
-  float gam[kQLnChunks][8], bet[kQLnChunks][8];
+  unsigned char* my_tile = tiles + wg * kTile;
+  constexpr int xvec = d / 8;
+  uint32_t a[DK * 4][4];  // yq of rows r0, r1 as the A fragments of the D / 32 k-steps
+  int acc[kQAcc];
 #pragma unroll
-  for (int c = 0; c < kQLnChunks; ++c) {
-    const int cc = c * 32 + lane;
-    if (cc < xvec) {
-      load8(gamma + cc * 8, gam[c]);
-      load8(beta + cc * 8, bet[c]);
-    }
-  }
-  for (int r = warp * (kQM / 8); r < (warp + 1) * (kQM / 8); ++r) {
-    const int gr = row0 + r;
-    float v[kQLnChunks][8];
-    float sum = 0.f;
+  for (int i = 0; i < kQAcc; ++i) acc[i] = 0;
+  if (wg == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");  // warpgroup 0 issues first
+
+  // chunk number tt of the block into acc (D / 32 wgmma, committed as one
+  // group); the wait on its stage precedes the fence
+  auto issue = [&](int (&acc)[kQAcc], int tt) {
+    const int st = tt % kStages;
+    mbar_wait(&full[st], (tt / kStages) & 1);
+    const unsigned char* wb = ring + st * kStage;
+    wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kQLnChunks; ++c) {
-      const int cc = c * 32 + lane;
+    for (int kb = 0; kb < DK; ++kb)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[c][e] = 0.f;
-      if (cc < xvec && gr < m) load8(x + (size_t)gr * d + cc * 8, v[c]);
+      for (int kk = 0; kk < kQK / 32; ++kk)
+        wgmma_s8_m64n64k32_rs(acc, a[kb * 4 + kk], sw128_desc(wb + kb * kQN * kQK + kk * 32),
+                              kb + kk > 0);
+    wgmma_commit();
+  };
+
+  int t = 0;  // chunks this block has consumed
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const int rw = it * kQM + wg * 64;  // this warpgroup's first row
+
+    // 1. LayerNorm statistics in fp32, a warp its 16 rows one at a time, a
+    //    lane 8 columns at a time (two passes over the row in registers)
+    float mu0 = 0.f, rs0 = 0.f, mu1 = 0.f, rs1 = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < 16; ++i) {
+      const int gr = rw + warp * 16 + i;
+      float v[kQLnChunks][8];
+      float sum = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) sum += v[c][e];
-    }
-    const float mu = warp_sum(sum) / d;
-    float var = 0.f;
+      for (int c = 0; c < kQLnChunks; ++c) {
+        const int cc = c * 32 + lane;
 #pragma unroll
-    for (int c = 0; c < kQLnChunks; ++c) {
-      if (c * 32 + lane < xvec) {
+        for (int e = 0; e < 8; ++e) v[c][e] = 0.f;
+        if (cc < xvec && gr < m) load8(x + (size_t)gr * d + cc * 8, v[c]);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) var += (v[c][e] - mu) * (v[c][e] - mu);
+        for (int e = 0; e < 8; ++e) sum += v[c][e];
       }
-    }
-    const float rstd = rsqrtf(warp_sum(var) / d + eps);
+      const float mu = warp_sum(sum) / d;
+      float var = 0.f;
 #pragma unroll
-    for (int c = 0; c < kQLnChunks; ++c) {
-      const int cc = c * 32 + lane;
-      if (cc < xvec) {
-        uint32_t packed[2] = {0u, 0u};
+      for (int c = 0; c < kQLnChunks; ++c) {
+        if (c * 32 + lane < xvec) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float y = __fadd_rn(__fmul_rn(__fmul_rn(v[c][e] - mu, rstd), gam[c][e]), bet[c][e]);
-          packed[e >> 2] |= (uint32_t)(quant8(y, inv_act) & 0xff) << (8 * (e & 3));
+          for (int e = 0; e < 8; ++e) var += (v[c][e] - mu) * (v[c][e] - mu);
         }
-        *reinterpret_cast<uint2*>(as + (size_t)r * apitch + cc * 8) =
-            make_uint2(packed[0], packed[1]);
       }
-    }
-  }
-  // (the first __syncthreads of the main loop publishes the quantized rows)
-
-  // 2. for each 128-column chunk: C[128 x 128] = Yq[128 x d] . Wq[chunk, :]^T,
-  //    warp (wm, wn) taking rows [32 wm, +32) x columns [64 wn, +64)
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t = lane & 3;
-  // ldmatrix addresses: A matrices {rows 0-7, k 0-15}, {rows 8-15, k 0-15},
-  // {rows 0-7, k 16-31}, {rows 8-15, k 16-31}; B matrices {n 0-7, k 0-15},
-  // {n 0-7, k 16-31}, {n 8-15, k 0-15}, {n 8-15, k 16-31}
-  const int a_row = wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8, a_k = (lane >> 4) * 16;
-  const int b_row = wn * 64 + (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 16;
-  int acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int p = 0; p < total; ++p) {
-    const int kt = p % nk;
-    cp_async_wait<kQAhead - 1>();
-    __syncthreads();  // tile p landed for everyone; tile p-2's reads are done
-    if (p + kQAhead < total) load_w(p + kQAhead);  // into tile p-2's stage
-    cp_async_commit();
-
-    const unsigned char* at = as + (size_t)a_row * apitch + kt * kQK + a_k;
-    const unsigned char* bt = ws + (size_t)(p % kQStages) * kWStage + b_row * kQWPitch + b_k;
-#pragma unroll
-    for (int kk = 0; kk < kQK / 32; ++kk) {
-      uint32_t af[2][4];
-      ldmatrix_x4(af[0], at + kk * 32);
-      ldmatrix_x4(af[1], at + 16 * apitch + kk * 32);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t bf[4];  // column tiles 2jj and 2jj+1: {b0, b1} each
-        ldmatrix_x4(bf, bt + jj * 16 * kQWPitch + kk * 32);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_s8(acc[i][2 * jj], af[i], bf[0], bf[1]);
-          mma_s8(acc[i][2 * jj + 1], af[i], bf[2], bf[3]);
+      const float rstd = rsqrtf(warp_sum(var) / d + eps);
+      if ((i & 7) == g) {
+        if (i < 8) {
+          mu0 = mu;
+          rs0 = rstd;
+        } else {
+          mu1 = mu;
+          rs1 = rstd;
         }
       }
     }
 
-    if (kt == nk - 1) {
-      // epilogue of the chunk: dequantize, + bias (multiply and add apart),
-      // then the epilogue's rounding and store
-      const int col0 = (p / nk) * kQN + wn * 64;
+    // 2. normalize and quantize this thread's A fragments: rows r0 and r1
+    //    = r0 + 8, columns 32 s + 4 t4 .. + 3 and 32 s + 16 + 4 t4 .. + 3 of
+    //    k-step s (rows past m: zeros, as the first port's LayerNorm saw)
+    const int r0 = rw + warp * 16 + g, r1 = r0 + 8;
+    const T* x0 = x + (size_t)(r0 < m ? r0 : 0) * d;
+    const T* x1 = x + (size_t)(r1 < m ? r1 : 0) * d;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = col0 + j * 8 + 2 * t;
-        const float s0 = sw[col], s1 = sw[col + 1], b0 = bias[col], b1 = bias[col + 1];
+    for (int s = 0; s < DK * 4; ++s)
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r0 = row0 + wm * 32 + i * 16 + g, r1 = r0 + 8;
-          if (r0 < m)
-            epi_store<T, Epi>(out, (size_t)r0 * n + col,
-                              __fadd_rn(__fmul_rn((float)acc[i][j][0], s0), b0),
-                              __fadd_rn(__fmul_rn((float)acc[i][j][1], s1), b1), inv_out, quick);
-          if (r1 < m)
-            epi_store<T, Epi>(out, (size_t)r1 * n + col,
-                              __fadd_rn(__fmul_rn((float)acc[i][j][2], s0), b0),
-                              __fadd_rn(__fmul_rn((float)acc[i][j][3], s1), b1), inv_out, quick);
+      for (int h = 0; h < 2; ++h) {
+        const int col = 32 * s + 16 * h + 4 * t4;
+        const float4 ga = *reinterpret_cast<const float4*>(gamma + col);
+        const float4 be = *reinterpret_cast<const float4*>(beta + col);
+        a[s][2 * h] = ln_quant4(r0 < m ? load4(x0 + col) : zero, mu0, rs0, ga, be, inv_act);
+        a[s][2 * h + 1] = ln_quant4(r1 < m ? load4(x1 + col) : zero, mu1, rs1, ga, be, inv_act);
+      }
+
+    // 3. chunk by chunk (block chunk number t), the two warpgroups taking
+    //    turns to issue their products (named barriers 3 and 4), so that one
+    //    warpgroup's epilogue runs while the other's products are on the
+    //    tensor cores. A warpgroup's turn barrier also tells it that all its
+    //    warps are done with the previous chunk (its products, its sw and
+    //    bias, the reads of the staged tile): that chunk's stage is released
+    //    there, and the second warpgroup to release it refills it.
+    //    The epilogue's addresses are this thread's constants: its staged
+    //    rows rl and rl + 8 share one swizzle, and it copies 16-byte piece
+    //    cc of rows ro + (128 / P) i out.
+    const int rl = warp * 16 + g, ro = (tid & 127) / P, cc = (tid & 127) % P;
+    const int swz = P == 4 ? (g >> 1) & 3 : g & 7, swz_o = P == 4 ? (ro >> 1) & 3 : ro & 7;
+    const int sb = rl * (P * 16) + (int)sizeof(TOut) * 2 * t4;  // staged row rl, this thread's pair
+    const int rb = ro * (P * 16) + ((cc ^ swz_o) << 4);           // staged piece read back
+    unsigned char* ob = static_cast<unsigned char*>(out) + ((size_t)(rw + ro) * n) * sizeof(TOut) + cc * 16;
+    for (int c = 0; c < nc; ++c, ++t) {
+      asm volatile("bar.sync %0, 256;\n" :: "r"(3 + wg) : "memory");  // this warpgroup's turn
+      if (t > 0 && (tid & 127) == 0 && atomicAdd(&done[(t - 1) % kStages], 1) == 1) {
+        done[(t - 1) % kStages] = 0;
+        load(t - 1 + kStages);
+      }
+      issue(acc, t);
+      asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - wg) : "memory");  // the other's turn
+      wgmma_wait<0>();
+
+      // epilogue: dequantize (multiply and add apart), round, stage or store
+      const int col0 = c * kQN;
+      const float* cs = cols + (t % kStages) * 2 * kQN;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+      for (int j = 0; j < kQN / 8; ++j) {
+        const int col = j * 8 + 2 * t4;
+        const float2 sv = *reinterpret_cast<const float2*>(cs + col);
+        const float2 bv = *reinterpret_cast<const float2*>(cs + kQN + col);
+        const int cb = (int)sizeof(TOut) * 8 * j;  // byte of column 8 j in a staged row
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float v0 = __fadd_rn(__fmul_rn((float)acc[4 * j + 2 * hh], sv.x), bv.x);
+          const float v1 = __fadd_rn(__fmul_rn((float)acc[4 * j + 2 * hh + 1], sv.y), bv.y);
+          if constexpr (kTile == 0) {
+            const int gr = rw + rl + 8 * hh;
+            if (gr < m) store2(static_cast<TOut*>(out) + (size_t)gr * n + col0 + col, v0, v1);
+          } else {
+            stage_pair<TOut, Epi>(my_tile + sb + hh * 8 * P * 16 + (((cb >> 4) ^ swz) << 4) + (cb & 15), v0,
+                                  v1, inv_out, quick);
+          }
         }
+      }
+      if constexpr (kTile > 0) {
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
+#pragma unroll
+        for (int i = 0; i < P / 2; ++i)
+          if (rw + ro + (128 / P) * i < m)
+            *reinterpret_cast<uint4*>(ob + ((size_t)(128 / P) * i * n + col0) * sizeof(TOut)) =
+                *reinterpret_cast<const uint4*>(my_tile + rb + i * 2048);
       }
     }
   }
-  cp_async_wait<0>();
+  if (wg == 0) asm volatile("bar.sync 3, 256;\n" ::: "memory");  // the last turn passed to it
+}
+
+// A 2D int8 tensor map over W (N, D) in torch's (out, in) layout: boxes of
+// kQN rows x kQK bytes, 128B-swizzled (the layout sw128_desc reads).
+inline cudaError_t encode_w_map(CUtensorMap* map, const void* w, int d, int n) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n}, strides[1] = {(cuuint64_t)d};
+  const cuuint32_t box[2] = {(cuuint32_t)kQK, (cuuint32_t)kQN}, elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims, strides, box,
+                         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int Epi, int DK>
+cudaError_t launch_ln_proj_int8_dk(const void* x, const void* gamma, const void* beta,
+                                   const CUtensorMap& tw, const void* sw, const void* bias,
+                                   const void* inv_act, void* out, int m, int n, float eps,
+                                   const void* inv_out, int quick, int blocks, cudaStream_t st) {
+  using TOut = std::conditional_t<Epi == kEpiFloat, T, int8_t>;
+  const size_t smem = qproj_smem_bytes<DK, TOut>();
+  cudaError_t e = cudaFuncSetAttribute(ln_proj_int8_kernel<T, Epi, DK>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  ln_proj_int8_kernel<T, Epi, DK><<<blocks, kQThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta), tw,
+      static_cast<const float*>(sw), static_cast<const float*>(bias),
+      static_cast<const float*>(inv_act), out, m, n, eps, static_cast<const float*>(inv_out), quick);
+  return cudaGetLastError();
 }
 
 // One launch of ln_proj_int8_kernel: x (M, D) in T, gamma / beta (D,), w (N,
@@ -315,20 +508,28 @@ cudaError_t launch_ln_proj_int8(const void* x, const void* gamma, const void* be
                                 const void* sw, const void* bias, const void* inv_act, void* out,
                                 int m, int d, int n, float eps, const void* inv_out, int quick,
                                 cudaStream_t st) {
-  const size_t smem = qproj_smem_bytes(d);
-  cudaError_t e = cudaFuncSetAttribute(ln_proj_int8_kernel<T, Epi>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap tw;
+  cudaError_t e = encode_w_map(&tw, w, d, n);
   if (e != cudaSuccess) return e;
-  ln_proj_int8_kernel<T, Epi><<<(m + kQM - 1) / kQM, kQThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const int8_t*>(w), static_cast<const float*>(sw),
-      static_cast<const float*>(bias), static_cast<const float*>(inv_act), out, m, d, n, eps,
-      static_cast<const float*>(inv_out), quick);
-  return cudaGetLastError();
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  const int items = (m + kQM - 1) / kQM, blocks = items < sms ? items : sms;
+#define EBC_QPROJ(DK_) \
+  launch_ln_proj_int8_dk<T, Epi, DK_>(x, gamma, beta, tw, sw, bias, inv_act, out, m, n, eps, inv_out, quick, blocks, st)
+  switch (d / kQK) {
+    case 1: return EBC_QPROJ(1);
+    case 2: return EBC_QPROJ(2);
+    case 3: return EBC_QPROJ(3);
+    case 4: return EBC_QPROJ(4);
+    case 5: return EBC_QPROJ(5);
+    case 6: return EBC_QPROJ(6);
+    default: return cudaErrorInvalidValue;
+  }
+#undef EBC_QPROJ
 }
 
 inline bool qproj_shape_ok(int m, int d, int n) {
-  return m >= 1 && d >= kQK && d % kQK == 0 && d <= kQMaxDim && n >= kQN && n % kQN == 0;
+  return m >= 1 && d >= kQK && d % kQK == 0 && d <= kQMaxDim && n >= 128 && n % 128 == 0;
 }
 
 }  // namespace ebc

@@ -151,8 +151,8 @@ def ln_qkv_attention_int8_plain(
     act_scale)))`` (the reciprocal, as the kernel multiplies); an exact
     int8 x int8 -> int32 product; ``acc * (s_col * act_scale) + bias`` in
     fp32, qkv rounded to x's dtype; then :func:`qkv_attention_plain`."""
-    acc = _int8_ln_project(x, ln_weight, ln_bias, w_q, act_scale, eps)
-    qkv = (acc * (s_col * act_scale) + bias.float()).to(x.dtype)
+    qkv = ln_proj_int8_plain(x, ln_weight, ln_bias, w_q, s_col * act_scale, bias, act_scale,
+                             "float", eps=eps)
     return qkv_attention_plain(qkv, num_heads, kv_len, sm_scale)
 
 
@@ -164,6 +164,25 @@ def _int8_ln_project(x, ln_weight, ln_bias, w_q, act_scale, eps) -> torch.Tensor
     y = xhat * ln_weight.float() + ln_bias.float()
     yq = torch.clamp(torch.round(y * (1.0 / act_scale)), -127, 127).to(torch.int8)
     return int_mm(yq.reshape(b * l, d), w_q).reshape(b, l, -1).float()
+
+
+def ln_proj_int8_plain(x, ln_weight, ln_bias, w_q, sw, bias, act_scale, epilogue: str,
+                       act_out=None, quick_gelu: bool = True, eps: float = 1e-5) -> torch.Tensor:
+    """The plain LN + int8 projection of ``x`` (B, L, D) with one of its
+    epilogues, rounding where the int8 branches of ``_ln_qkv_kernel`` and
+    ``_ln_mlp_kernel`` round: the exact int32 accumulators of
+    :func:`_int8_ln_project`, ``v = acc * sw + bias`` in fp32 (multiply and
+    add apart), then ``"float"``: v in x's dtype; ``"int8"``:
+    ``clip(round(v))``; ``"gelu_int8"``: ``clip(round(gelu(v) * (1 /
+    act_out)))`` (:func:`_gelu`). Returns (B, L, N)."""
+    if epilogue not in ("float", "int8", "gelu_int8"):
+        raise ValueError(f"epilogue must be float, int8 or gelu_int8, got {epilogue!r}")
+    v = _int8_ln_project(x, ln_weight, ln_bias, w_q, act_scale, eps) * sw + bias.float()
+    if epilogue == "float":
+        return v.to(x.dtype)
+    if epilogue == "gelu_int8":
+        v = _gelu(v, quick_gelu) * (1.0 / act_out)
+    return torch.clamp(torch.round(v), -127, 127).to(torch.int8)
 
 
 def fold_attn_scales(s_col, bias, act_scale, attn_scales, d: int) -> tuple:
@@ -216,9 +235,8 @@ def ln_qkv_attention_int8_static_plain(
     clip(round(acc * sw + bias))`` with the folded ``sw`` and ``bias`` of
     :func:`fold_attn_scales` (multiply and add apart), then
     :func:`int8_attention_static_plain`."""
-    acc = _int8_ln_project(x, ln_weight, ln_bias, w_q, act_scale, eps)
     sw, bias_f = fold_attn_scales(s_col, bias, act_scale, attn_scales, x.shape[-1])
-    qkv_q = torch.clamp(torch.round(acc * sw + bias_f), -127, 127).to(torch.int8)
+    qkv_q = ln_proj_int8_plain(x, ln_weight, ln_bias, w_q, sw, bias_f, act_scale, "int8", eps=eps)
     return int8_attention_static_plain(qkv_q, attn_scales, num_heads, kv_len, sm_scale, x.dtype)
 
 
@@ -280,8 +298,8 @@ def ln_qkv_attention_int8_dynamic_plain(
     """The plain version of ``quant_attn=True`` without ``attn_scales``:
     the W8A8 projection as :func:`ln_qkv_attention_int8_plain` (qkv in
     x's dtype), then :func:`int8_attention_dynamic_plain`."""
-    acc = _int8_ln_project(x, ln_weight, ln_bias, w_q, act_scale, eps)
-    qkv = (acc * (s_col * act_scale) + bias.float()).to(x.dtype)
+    qkv = ln_proj_int8_plain(x, ln_weight, ln_bias, w_q, s_col * act_scale, bias, act_scale,
+                             "float", eps=eps)
     return int8_attention_dynamic_plain(qkv, num_heads, kv_len, sm_scale, block_b)
 
 
@@ -317,9 +335,8 @@ def ln_mlp_int8_plain(
     int8 in torch's (out, in) layout, ``s_fc`` and ``s_pj`` their
     per-output-column scales."""
     b, l, d = x.shape
-    acc = _int8_ln_project(x, ln_weight, ln_bias, wfc_q, act1, eps)
-    h = _gelu(acc * (s_fc * act1) + b_fc.float(), quick_gelu)
-    hq = torch.clamp(torch.round(h * (1.0 / act2)), -127, 127).to(torch.int8)
+    hq = ln_proj_int8_plain(x, ln_weight, ln_bias, wfc_q, s_fc * act1, b_fc, act1, "gelu_int8",
+                            act2, quick_gelu, eps)
     acc2 = int_mm(hq.reshape(b * l, -1), wpj_q).reshape(b, l, d).float()
     return (x.float() + (acc2 * (s_pj * act2) + b_proj.float())).to(x.dtype)
 
@@ -503,10 +520,14 @@ def _launch_attention_bwd(qkv, g, num_heads, kv_len, sm_scale) -> torch.Tensor:
     ``attention_bwd.launches``)."""
     b, l, three_d = qkv.shape
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty(b, num_heads, 3, l, dtype=torch.float32, device=qkv.device)
+    # the fp32 kernel's row statistics pass between its two launches; the
+    # bf16 kernel is one launch and takes none
+    stats = (torch.empty(b, num_heads, 3, l, dtype=torch.float32, device=qkv.device)
+             if qkv.dtype == torch.float32 else None)
     _run("attention_bwd", _entry("fused_attention_bwd", _BWD_ENTRIES[qkv.dtype])(
-        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, l,
-        three_d // 3, num_heads, kv_len, float(sm_scale), _stream(qkv.device),
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+        stats.data_ptr() if stats is not None else None, b, l, three_d // 3, num_heads, kv_len,
+        float(sm_scale), _stream(qkv.device),
     ))
     attention_bwd.launches += 1
     return dqkv
@@ -675,7 +696,8 @@ def fused_ln_qkv_attention_int8(
     float one), and launch
     the branch's kernels, one call counted in
     ``fused_ln_qkv_attention_int8.launches_static``, ``.launches_dynamic``
-    or ``.launches`` (the float attention), or raise."""
+    or ``.launches`` (the float attention) and its LN + int8 projection
+    launch in ``.launches_proj``, or raise."""
     who = "fused_ln_qkv_attention_int8"
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, ln_weight, ln_bias, w, bias)
@@ -725,6 +747,7 @@ def fused_ln_qkv_attention_int8(
             bias_f.data_ptr(), inv_act.data_ptr(), qkv_q.data_ptr(), b * l, d, is_f32,
             float(eps), _stream(dev),
         ))
+        fused_ln_qkv_attention_int8.launches_proj += 1
         _launch_int8_attention(who, qkv_q, attn_scales, out, num_heads, kv_len, sm_scale, False)
         fused_ln_qkv_attention_int8.launches_static += 1
         return out
@@ -735,6 +758,7 @@ def fused_ln_qkv_attention_int8(
         bias.data_ptr(), inv_act.data_ptr(), qkv.data_ptr(), b * l, d, is_f32,
         float(eps), _stream(dev),
     ))
+    fused_ln_qkv_attention_int8.launches_proj += 1
     if quant_attn:
         qkv_q = torch.empty(b, l, 3 * d, dtype=torch.int8, device=dev)
         amax = torch.empty(b, num_heads, 3, dtype=torch.float32, device=dev)
@@ -895,6 +919,7 @@ fused_ln_qkv_attention.launches = 0
 fused_ln_qkv_attention_int8.launches = 0
 fused_ln_qkv_attention_int8.launches_static = 0
 fused_ln_qkv_attention_int8.launches_dynamic = 0
+fused_ln_qkv_attention_int8.launches_proj = 0
 fused_ln_mlp_int8.launches = 0
 fused_qkv_attention.launches = 0
 attention_bwd.launches = 0

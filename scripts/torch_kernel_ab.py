@@ -10,8 +10,8 @@ Each TREE is a directory that holds ``chip_smoke.py`` and
 another commit unpacked under a git-ignored directory such as ``build/``.
 The trees run in the order given, so ``parent . . parent`` times in turns.
 A phase is ``NAME[:ARG...]`` for ``chip_smoke.phase_NAME(device, *args)``;
-``float32`` and ``bfloat16`` are passed as those torch dtypes, ``true``
-and ``false`` as booleans, and ``kernels`` as an
+``float32`` and ``bfloat16`` are passed as those torch dtypes, digits as
+ints, ``true`` and ``false`` as booleans, and ``kernels`` as an
 empty table of the kernels' launch counts (the path phases fill it in), so
 ``--phase main_path:kernels:false`` times a path without the profiler.
 Each tree builds its own kernels into its own ``build/``.
@@ -44,6 +44,8 @@ dev = torch.device("cuda", 0)
 def arg(a):
     if a in ("float32", "bfloat16"):  # not "short", which torch also names a dtype
         return getattr(torch, a)
+    if a.isdigit():
+        return int(a)
     return {"true": True, "false": False, "kernels": collections.defaultdict(dict)}.get(a, a)
 
 

@@ -7,7 +7,9 @@ split path, chosen by which inputs need a gradient) against the JAX
 ``custom_vjp``. The CUDA kernels themselves are held against the plain
 versions in tests/test_torch_cuda_kernels.py.
 
-Shapes: D = 128, 2 heads, L = 40, B = 2, with kv_len = L and kv_len < L.
+Shapes: D = 128, 2 heads, L = 40, B = 2, with kv_len = L and kv_len < L;
+the attention backward also at the bf16 kernel's tile and chunk
+boundaries (37 to 320 tokens, one valid key, 65 keys).
 Every row < L is compared: the JAX kernels compute the gradient of query
 rows >= kv_len too, and zero dK, dV there.
 
@@ -61,16 +63,24 @@ def _t(a, dtype="float32"):
     return torch.from_numpy(np.ascontiguousarray(a)).to(getattr(torch, dtype))
 
 
+# (B, L, kv_len): besides L = 40 with and without masked keys, the
+# boundaries of the bf16 kernel's 64-row tiles and 64-key chunks: a ragged
+# length, one valid key, one key past a chunk, every chunk full, and the
+# longest length the kernels take
+BWD_SHAPES = [(B, L, L), (B, L, 31), (B, 37, 37), (B, L, 1), (1, 96, 65), (1, 256, 256),
+              (1, 320, 300)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kv_len", [L, 31])
-def test_attention_bwd_plain_matches_jax_kernel(dtype, kv_len):
-    rng = np.random.default_rng(kv_len)
-    qkv = (0.5 * rng.normal(size=(B, L, 3 * D))).astype(np.float32)
-    g = rng.normal(size=(B, L, D)).astype(np.float32)
+@pytest.mark.parametrize("b,l,kv_len", BWD_SHAPES)
+def test_attention_bwd_plain_matches_jax_kernel(dtype, b, l, kv_len):
+    rng = np.random.default_rng(l + kv_len)
+    qkv = (0.5 * rng.normal(size=(b, l, 3 * D))).astype(np.float32)
+    g = rng.normal(size=(b, l, D)).astype(np.float32)
     jdt = getattr(jnp, dtype)
     want = _attention_bwd(jnp.asarray(qkv, jdt), jnp.asarray(g, jdt), H, kv_len, SM, 1, True)
     got = attention_bwd_plain(_t(qkv, dtype), _t(g, dtype), H, kv_len, SM)
-    assert got.dtype == getattr(torch, dtype) and got.shape == (B, L, 3 * D)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, l, 3 * D)
     _close(got.float().numpy(), np.asarray(want, np.float32), dtype)
     # masked keys get exactly no gradient
     assert not got[:, kv_len:, D:].float().abs().sum()

@@ -29,7 +29,11 @@ MLP: max 2e-2 / median 1e-3 in bf16, 2e-3 / 1e-4 in fp32 of the output,
 and in fp32 the MLP branch (output - x) alone 2e-2 / 1e-3 of its own
 largest magnitude. The ``--quant_attn`` model: the kernel and xla modes
 within 2e-2 of each other's count (the JAX package's tolerance between
-the two), each within 8e-2 of the float-attention plain path's.
+the two), each within 8e-2 of the float-attention plain path's. The LN +
+int8 projection alone: max 2e-2 and median 1e-3 of the largest output in
+bf16 and for its int8 outputs, 2e-3 and 1e-4 for fp32 outputs; its int8
+epilogue equal to the plain version's bits on inputs whose LN outputs lie
+away from rounding ties.
 """
 
 import numpy as np
@@ -46,6 +50,7 @@ from clip_ebc_tpu_torch.ops.fused_attention import (
     fused_ln_qkv_attention_int8,
     fused_qkv_attention,
     ln_mlp_int8_plain,
+    ln_proj_int8_plain,
     ln_qkv_attention_int8_dynamic_plain,
     ln_qkv_attention_int8_plain,
     ln_qkv_attention_int8_static_plain,
@@ -55,6 +60,7 @@ from clip_ebc_tpu_torch.ops.fused_attention import (
     qkv_attention_plain,
 )
 from clip_ebc_tpu_torch.ops import flash_attention as fa
+from clip_ebc_tpu_torch.ops import fused_attention as fatt
 from clip_ebc_tpu_torch.ops import quant
 from clip_ebc_tpu_torch.ops.fused_head import ebc_head_plain, fused_ebc_head
 from clip_ebc_tpu_torch.training.evaluate import Evaluator
@@ -199,6 +205,12 @@ def _assert_close_scaled(got, want, tol):
     (16, 229, 768, 12, 200, "float32"),  # masked keys: exact zeros
     (3, 37, 128, 2, 33, "float32"),
     (2, 320, 128, 2, 300, "float32"),  # the longest key instantiation
+    (1, 229, 768, 12, 229, "bfloat16"),  # fewer (window, head) blocks than SMs
+    (2, 256, 128, 2, 256, "bfloat16"),  # every key chunk full
+    (2, 320, 128, 2, 320, "bfloat16"),  # the longest length: five query tiles and key slices
+    (3, 64, 128, 2, 1, "bfloat16"),  # one valid key
+    (2, 229, 128, 2, 65, "bfloat16"),  # one key past a 64-key chunk
+    (3, 37, 128, 2, 37, "bfloat16"),  # ragged length, no masked key
 ])
 def test_attention_bwd_kernel_matches_plain(cuda, shape):
     b, l, d, h, kv_len, dtype = shape
@@ -573,6 +585,129 @@ def _mlp_inputs(b, l, d, hidden, dev, dtype, seed=11):
     act1 = y.abs().amax() / 127.0
     act2 = (hh * torch.sigmoid(1.702 * hh)).abs().amax() / 127.0
     return x, gam, be, w_fc, b_fc, act1, w_pj, b_pj, act2
+
+
+def _proj_inputs(b, l, d, n, dev, dtype, seed=21):
+    """x, the LN parameters, a quantized torch-layout weight with its
+    dequantize factor and bias, and the LN output's calibrated scale."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, l, d, generator=g, device=dev).to(dtype)
+    gam = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+    be = 0.1 * torch.randn(d, generator=g, device=dev)
+    w_q, s_col = quant.quantize_weight(torch.randn(n, d, generator=g, device=dev) * d**-0.5)
+    bias = 0.02 * torch.randn(n, generator=g, device=dev)
+    act = torch.nn.functional.layer_norm(x.float(), (d,), gam, be).abs().amax() / 127.0
+    return x, gam, be, w_q, s_col * act, bias, act
+
+
+def _proj_kernel(x, gam, be, w_q, sw, bias, act, epilogue, act_out=None):
+    """The LN + int8 projection's launch alone through the C entries that
+    run it: the QKV projection's (qkv in x's dtype, or int8 q, k, v) for N =
+    3D, the MLP's for the GELU epilogue (its int8 hidden, read from the
+    scratch the entry fills before its second product)."""
+    b, l, d = x.shape
+    n, dev, f32 = w_q.shape[0], x.device, int(x.dtype == torch.float32)
+    inv = torch.stack([1.0 / act, 1.0 / act_out if act_out is not None else act]).reshape(2)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if epilogue == "gelu_int8":
+        hq = torch.empty(b, l, n, dtype=torch.int8, device=dev)
+        w_pj = torch.zeros(d, n, dtype=torch.int8, device=dev)
+        zeros, out = torch.zeros(d, device=dev), torch.empty_like(x)
+        rc = fatt._entry("fused_mlp_int8", "ebc_ln_mlp_int8")(
+            x.data_ptr(), gam.data_ptr(), be.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
+            bias.data_ptr(), inv[0:1].data_ptr(), inv[1:2].data_ptr(), hq.data_ptr(),
+            w_pj.data_ptr(), zeros.data_ptr(), zeros.data_ptr(), out.data_ptr(), b * l, d, n, 1, f32,
+            1e-5, stream)
+        assert rc == 0
+        return hq
+    assert n == 3 * d
+    name = "ebc_ln_qkv_proj_int8" if epilogue == "float" else "ebc_ln_qkv_proj_int8_q"
+    got = torch.empty(b, l, n, dtype=x.dtype if epilogue == "float" else torch.int8, device=dev)
+    rc = fatt._entry("fused_attention_int8", name)(
+        x.data_ptr(), gam.data_ptr(), be.data_ptr(), w_q.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+        inv[0:1].data_ptr(), got.data_ptr(), b * l, d, f32, 1e-5, stream)
+    assert rc == 0
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("epilogue", ["float", "int8", "gelu_int8"])
+@pytest.mark.parametrize("d", [128, 256, 768])
+@pytest.mark.parametrize("b,l", [(3, 37), (16, 229), (140, 229)])
+def test_int8_projection_matches_plain(cuda, b, l, d, epilogue, dtype):
+    """The LN + int8 projection alone (csrc/int8_proj.cuh) with each
+    epilogue: N = 3D (the QKV projection; its int8 epilogue with q, k, v
+    scales folded in) or 4D (the MLP's fc with the GELU). The kernel and
+    the plain version sum the LayerNorm in another order, so an LN output
+    can land one int8 step apart; in fp32 that one step moves a row's
+    outputs by up to sw x 127, which at D = 128 is more than 2e-3 of the
+    largest output: the max limit allows two such steps where they exceed
+    it (the median, at 1e-4, still catches a wrong scale or fold)."""
+    dtype = getattr(torch, dtype)
+    n = 4 * d if epilogue == "gelu_int8" else 3 * d
+    x, gam, be, w_q, sw, bias, act = _proj_inputs(b, l, d, n, cuda, dtype)
+    act_out = None
+    if epilogue == "int8":  # v in the int8 domain, as the static attention folds it
+        sw, bias = sw * 40.0, bias * 40.0
+    elif epilogue == "gelu_int8":
+        h = ln_proj_int8_plain(x, gam, be, w_q, sw, bias, act, "float").float()
+        act_out = (h * torch.sigmoid(1.702 * h)).abs().amax() / 127.0
+    got = _proj_kernel(x, gam, be, w_q, sw, bias, act, epilogue, act_out)
+    torch.cuda.synchronize()
+    assert got.shape == (b, l, n) and got.dtype == (dtype if epilogue == "float" else torch.int8)
+    want = ln_proj_int8_plain(x, gam, be, w_q, sw, bias, act, epilogue, act_out)
+    err, med = _max_median(got, want)
+    max_tol, med_tol = (2e-3, 1e-4) if dtype == torch.float32 and epilogue == "float" else (2e-2, 1e-3)
+    if epilogue == "float":
+        max_tol = max(max_tol, 2 * 127 * float(sw.max()) / float(want.float().abs().max()))
+    assert err <= max_tol and med <= med_tol, (err, med)
+
+
+def _untied_ln_inputs(b, l, d, n, dev, dtype, seed=5):
+    """Inputs whose LN outputs, quantized, lie at least 0.02 of a step from
+    a rounding tie however the LayerNorm's sums are ordered: each row is mu
+    +- s (half the columns each way, so its mean and variance are exact),
+    and a column's beta is drawn again until all its (row kind, sign)
+    values clear the ties."""
+    rng = np.random.default_rng(seed)
+    kinds = [(mu, s) for mu in (-1.0, 0.0, 0.5, 1.5) for s in (0.5, 1.0, 2.0)]
+    kind = rng.integers(0, len(kinds), b * l)
+    signs = np.stack([rng.permutation(np.repeat([1.0, -1.0], d // 2)) for _ in range(b * l)])
+    x = np.array([kinds[k][0] for k in kind])[:, None] + signs * np.array([kinds[k][1] for k in kind])[:, None]
+    gam = 1.0 + 0.1 * rng.normal(size=d)
+    be = 0.1 * rng.normal(size=d)
+    rstd = np.array([1.0 / np.sqrt(s * s + 1e-5) for _, s in kinds])
+    ys = np.concatenate([np.outer(sg * np.array([s for _, s in kinds]) * rstd, gam) for sg in (1.0, -1.0)])
+    act = float(np.abs(ys + be).max()) / 120.0
+    for c in range(d):
+        while True:
+            t = (ys[:, c] + be[c]) / act
+            if np.all(np.abs(t - np.floor(t) - 0.5) > 0.02):
+                break
+            be[c] = 0.1 * rng.normal()
+    w_q = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+    xhat = (x - x.mean(1, keepdims=True)) / np.sqrt(x.var(1, keepdims=True) + 1e-5)
+    acc = np.clip(np.round((xhat * gam + be) / act), -127, 127) @ w_q.T.astype(np.float64)
+    sw = rng.uniform(0.5, 1.5, size=n) * 30.0 / acc.std(0)  # v of a few tens: most outputs unclipped
+    bias = 0.5 * rng.normal(size=n)
+    f = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dev)  # noqa: E731
+    return (f(x.reshape(b, l, d)).to(dtype), f(gam), f(be), torch.from_numpy(w_q).to(dev), f(sw),
+            f(bias), f(act))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_int8_projection_int8_epilogue_is_exact(cuda, dtype):
+    """Away from rounding ties of the LN output the int8 epilogue equals
+    its plain version bit for bit: the int32 accumulators are exact and the
+    dequantize multiply, the bias add and the rounding are the same IEEE
+    operations on both sides."""
+    dtype = getattr(torch, dtype)
+    args = _untied_ln_inputs(16, 229, 768, 2304, cuda, dtype)
+    got = _proj_kernel(*args, "int8")
+    want = ln_proj_int8_plain(*args, "int8")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and int((want == 127).sum() + (want == -127).sum()) < want.numel() // 10
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape", [

@@ -14,7 +14,11 @@ tolerance) and a median (1e-3 of it in fp32, 4e-3 in bf16: a wrong scale
 or fold moves every entry). The residual dominates the output, so the MLP
 branch alone, output minus x, is held to the same limits against its own
 largest magnitude. Rows are independent: changing some rows leaves the
-others bit-equal.
+others bit-equal. The plain LN + int8 projection alone
+(``ln_proj_int8_plain``, the first launch of the int8 kernels) is held to
+numpy on inputs whose
+LN outputs lie away from rounding ties: bit-equal with the float and int8
+epilogues, within one int8 step (median 0) with the GELU.
 """
 
 import jax.numpy as jnp
@@ -109,3 +113,70 @@ def test_ln_mlp_int8_rows_are_independent():
     w = rest[2].clone().requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         fused_ln_mlp_int8(_t(x), *rest[:2], w, *rest[3:])
+
+
+def _untied_proj_inputs(b, l, d, n, seed=5):
+    """Inputs of the LN + int8 projection whose quantized LN outputs lie at
+    least 0.02 of a step from a rounding tie: each row is mu +- s (half the
+    columns each way, so its mean and variance are exact in any order) and
+    a column's beta is drawn again until every (row kind, sign) clears the
+    ties. Returns numpy arrays and the exact yq."""
+    rng = np.random.default_rng(seed)
+    kinds = [(mu, s) for mu in (-1.0, 0.0, 0.5, 1.5) for s in (0.5, 1.0, 2.0)]
+    kind = rng.integers(0, len(kinds), b * l)
+    mu = np.array([kinds[k][0] for k in kind])[:, None]
+    s = np.array([kinds[k][1] for k in kind])[:, None]
+    x = mu + np.stack([rng.permutation(np.repeat([1.0, -1.0], d // 2)) for _ in range(b * l)]) * s
+    gam = 1.0 + 0.1 * rng.normal(size=d)
+    be = 0.1 * rng.normal(size=d)
+    xhat = (x - mu) / np.sqrt(s * s + 1e-5)
+    act = float(np.abs(xhat * gam + be).max()) / 120.0
+    for c in range(d):
+        while True:
+            t = (xhat[:, c] * gam[c] + be[c]) / act
+            if np.all(np.abs(t - np.floor(t) - 0.5) > 0.02):
+                break
+            be[c] = 0.1 * rng.normal()
+    yq = np.clip(np.round((xhat * gam + be) / act), -127, 127)
+    w_q = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+    acc = yq @ w_q.T.astype(np.float64)
+    sw = (rng.uniform(0.5, 1.5, size=n) * 30.0 / acc.std(0)).astype(np.float32)
+    bias = (0.5 * rng.normal(size=n)).astype(np.float32)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return (f32(x.reshape(b, l, d)), f32(gam), f32(be), w_q, sw, bias, np.float32(act),
+            acc.reshape(b, l, n))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue", ["float", "int8", "gelu_int8"])
+def test_ln_proj_int8_plain_matches_numpy(epilogue, dtype):
+    """The plain LN + int8 projection (``ln_proj_int8_plain``, the first
+    launch of the int8 block attention and MLP) against numpy on inputs
+    away from rounding ties: the
+    int32 accumulators are exact, and the dequantize multiply and bias add
+    are the same fp32 operations, so the float and int8 epilogues agree bit
+    for bit; the GELU epilogue (``sigmoid`` one ulp apart) to one int8 step,
+    with a median of 0."""
+    from clip_ebc_tpu_torch.ops.fused_attention import ln_proj_int8_plain
+
+    x, gam, be, w_q, sw, bias, act, acc = _untied_proj_inputs(2, 37, D, 3 * D)
+    v = acc.astype(np.float32) * sw + bias  # fp32 multiply, then fp32 add
+    args = (_t(x, dtype), _t(gam), _t(be), torch.from_numpy(w_q), _t(sw), _t(bias), _t(act))
+    act_out = None
+    if epilogue == "gelu_int8":
+        h = v.astype(np.float64)
+        act_out = np.float32(np.abs(h / (1.0 + np.exp(-1.702 * h))).max() / 127.0)
+    got = ln_proj_int8_plain(*args, epilogue, None if act_out is None else _t(act_out))
+    if epilogue == "float":
+        assert got.dtype == getattr(torch, dtype)
+        assert torch.equal(got, _t(v, dtype))
+    elif epilogue == "int8":
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(), np.clip(np.rint(v), -127, 127))
+    else:
+        want = np.clip(np.rint((h / (1.0 + np.exp(-1.702 * h))).astype(np.float32) * (1 / act_out)),
+                       -127, 127)
+        diff = np.abs(got.numpy().astype(np.int32) - want)
+        assert diff.max() <= 1 and np.median(diff) == 0
+    with pytest.raises(ValueError, match="epilogue must be"):
+        ln_proj_int8_plain(*args, "fp8")
