@@ -25,7 +25,8 @@ Phases, each a hard failure (a raised exception, exit code 1):
    ViT-B/16 with deep VPT-32 at reduction 8, random weights from a seed,
    bf16 (``--amp``); then the CLI's default fp32 path on the same image.
    For each, the launch counters are zeroed just before and read just
-   after: 12 attention launches and 1 head launch per forward. Then,
+   after: 12 attention launches and 1 head launch per forward, and in bf16
+   12 launches of the LN + QKV projection kernel. Then,
    through the Evaluator, the same weights with ``attn_backend="sdpa"``,
    ``fused_head="off"`` (no kernel) must give the count within 1e-2 in
    bf16 and 1e-3 in fp32; the time per image is measured for both paths
@@ -54,7 +55,15 @@ Phases, each a hard failure (a raised exception, exit code 1):
    dtype, int8 q, k, v) in bf16 and fp32 and timed by device time beside
    ``torch._int_mm`` on the bare int8 product (a yardstick: no PyTorch
    call computes the fused function); its launches are counted on the
-   static int8 path (12 a forward).
+   static int8 path (12 a forward). The bf16 LN + QKV projection alone
+   (``ebc_ln_qkv_proj``, row 2's first launch and row 5's recompute) is
+   held to ``ln_qkv_proj_plain`` at a window forward (140 x 229 rows) and a
+   training step (16 x 229) and timed by device time beside ``F.linear``
+   on the bare bf16 product (a yardstick); the int8 attention body alone
+   (``ebc_int8_attention``, the attention launch of rows 2c and 2d) is
+   held to its static and dynamic plain versions at 140 x 229 and 70 x 433
+   tokens with bf16 and fp32 output, and timed beside its bound; its
+   launches are counted on the ``--quant_attn kernel`` path (12 a forward).
 4. the flagship training path through the user's entry point: the trainer
    CLI with the README's flagship flags (CLIP-EBC ViT-B/16, deep VPT-32,
    reduction 8, DACE + DMCount, 8 images x 2 crops = 16 windows of 224 px
@@ -63,7 +72,8 @@ Phases, each a hard failure (a raised exception, exit code 1):
    epoch and one sliding-window evaluation, random weights from a seed;
    bf16 (``--amp``), then fp32. Counters zeroed just before, read just
    after: 12 backward launches per step (``ln_qkv_bwd_frozen`` in bf16,
-   the fp32 ``attention_bwd`` in fp32). The loss is finite, the trunk and
+   the fp32 ``attention_bwd`` in fp32), and in bf16 one LN + QKV
+   projection launch per forward and per frozen backward. The loss is finite, the trunk and
    text tower are bit-identical to the initial weights, the prompts and
    the decoder moved, and the best checkpoint loads into the predict CLI.
    Then, on one fixed batch, the step's VPT and decoder gradients against
@@ -576,7 +586,7 @@ def phase_attention_int8(dev, dtype: torch.dtype) -> dict:
     }
 
 
-def phase_int8_proj(dev, dtype: torch.dtype, checked: bool = True) -> dict:
+def phase_int8_proj(dev, dtype: torch.dtype) -> dict:
     """The int8 LN + quantize + QKV projection alone, the first launch of
     rows 2b and 2c, at the flagship shape (M = 140 x 229 rows, D = 768, N
     = 2304) through its C entries: the float epilogue (row 2b: qkv in x's
@@ -586,9 +596,7 @@ def phase_int8_proj(dev, dtype: torch.dtype, checked: bool = True) -> dict:
     for the int8 outputs, 2e-3 and 1e-4 for fp32 qkv), timed by device
     time beside ``torch._int_mm`` on the bare int8 product (cuBLAS, no
     LayerNorm, quantize or epilogue: a yardstick, no PyTorch call
-    computes the fused function). ``checked=False`` times without the
-    checks, for timing-only copies of the kernel with parts removed
-    (``scripts/torch_kernel_ab.py --phase int8_proj:bfloat16:false``)."""
+    computes the fused function)."""
     from clip_ebc_tpu_torch.ops import fused_attention as fa
     from clip_ebc_tpu_torch.ops.quant import quantize_weight
 
@@ -621,9 +629,8 @@ def phase_int8_proj(dev, dtype: torch.dtype, checked: bool = True) -> dict:
         run(epi)
         torch.cuda.synchronize()
         max_tol, med_tol = (2e-3, 1e-4) if fp32 and epi == "float" else (2e-2, 1e-3)
-        if checked:
-            errs.append(_check_max_median(f"int8 projection{tag}, {epi} epilogue, kernel vs plain",
-                                          outs[epi], want[epi], max_tol, med_tol))
+        errs.append(_check_max_median(f"int8 projection{tag}, {epi} epilogue, kernel vs plain",
+                                      outs[epi], want[epi], max_tol, med_tol))
         ms[epi] = time_spread(lambda epi=epi: run(epi))
     del want
     yq = torch.randint(-127, 128, (m, D), dtype=torch.int8, device=dev)
@@ -644,9 +651,149 @@ def phase_int8_proj(dev, dtype: torch.dtype, checked: bool = True) -> dict:
     return {
         "name": "ln_qkv_proj_int8" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/int8_proj.cuh",
-        "replaces": "clip_ebc_tpu/ops/fused_attention.py:541", "max_abs_err": max(errs, default=None),
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:541", "max_abs_err": max(errs),
         "ms": ms["float"][0], "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None, "ms_int8_epilogue": ms["int8"][0], "int_mm_ms": int_mm[0],
+    }
+
+
+def phase_ln_qkv_proj(dev) -> dict:
+    """The bf16 LN + QKV projection alone (``ebc_ln_qkv_proj``: the first
+    launch of row 2 bf16 and the recompute of row 5) at a window forward
+    (M = 140 x 229 rows) and at a training step (M = 16 x 229), D = 768, N
+    = 2304, through its C entry, against ``ln_qkv_proj_plain`` (max 2e-2
+    and median 1e-3 of the largest output: both round y and qkv to bf16 at
+    the same points and differ only in the product's order of sums), timed
+    by device time beside ``F.linear`` on the bf16 LayerNormed rows
+    (cuBLAS's bare product: a yardstick, no PyTorch call computes the fused
+    function)."""
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
+    w = (torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5).to(torch.bfloat16)
+    bias = 0.02 * torch.randn(3 * D, generator=g, device=dev)
+    entry = fa._entry("fused_attention", "ebc_ln_qkv_proj")
+    res = {}
+    for b in (B, TRAIN_B):
+        m = b * L
+        x = torch.randn(m, D, generator=g, device=dev).to(torch.bfloat16)
+        qkv = torch.empty(m, 3 * D, dtype=torch.bfloat16, device=dev)
+
+        def run():
+            fa._run("ebc_ln_qkv_proj", entry(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                                             w.data_ptr(), bias.data_ptr(), qkv.data_ptr(), m, D,
+                                             1e-5, fa._stream(dev)))
+
+        run()
+        torch.cuda.synchronize()
+        err = _check_max_median(f"ln_qkv_proj at M = {b} x {L}, kernel vs plain", qkv,
+                                fa.ln_qkv_proj_plain(x, ln_w, ln_b, w, bias), 2e-2, 1e-3)
+        ms = time_spread(run)
+        y = torch.nn.functional.layer_norm(x.float(), (D,), ln_w, ln_b).to(torch.bfloat16)
+        linear = time_spread(lambda: torch.nn.functional.linear(y, w))
+        plain = time_ms(lambda: fa.ln_qkv_proj_plain(x, ln_w, ln_b, w, bias), iters=5, warmup=1)
+        flops = 2 * m * D * 3 * D
+        bnd, by = bound_ms(flops, PEAK_BF16, m * D * 2 + 3 * D * D * 2 + m * 3 * D * 2 + 5 * D * 4)
+        print(f"ln_qkv_proj at M = {b} x {L}: kernel {spread_str(ms)} "
+              f"({flops / ms[0] / 1e9:.1f} TFLOP/s), F.linear on the bare bf16 product "
+              f"{spread_str(linear)} ({flops / linear[0] / 1e9:.1f} TFLOP/s), kernel / F.linear "
+              f"{ms[0] / linear[0]:.2f}x; plain {plain:.3f} ms; bound {bnd:.4f} ms ({by}), "
+              f"kernel at {bnd / ms[0]:.0%} of it")
+        res[b] = dict(err=err, ms=ms[0], linear=linear[0], plain=plain, bound=(bnd, by))
+        del x, qkv, y
+    r = res[B]
+    return {
+        "name": "ln_qkv_proj", "route": "cuda", "source": "clip_ebc_tpu_torch/csrc/fused_attention.cu",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:541",
+        "max_abs_err": max(v["err"] for v in res.values()),
+        "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": None, "linear_ms": r["linear"], f"ms_b{TRAIN_B}": res[TRAIN_B]["ms"],
+        f"linear_ms_b{TRAIN_B}": res[TRAIN_B]["linear"],
+    }
+
+
+def phase_int8_attention_body(dev) -> dict:
+    """The int8 attention body alone (``ebc_int8_attention``, the attention
+    launch of rows 2c and 2d) on an int8 qkv from the LN + int8 projection
+    kernel: static scales at the flagship windows (140 x 229 tokens) and at
+    ``--window_size 320`` (70 x 433), dynamic per-tile scales (from the
+    float projection and the scale pass) at 229 tokens, each with bf16 and
+    fp32 output, against ``int8_attention_static_plain`` and
+    ``int8_attention_dynamic_plain`` at kv_len = L and L - 29 (max 2e-2 and
+    median 1e-3 of the largest output, as ``phase_int8_attention_q``),
+    timed by device time beside its bound (the int8 qkv in and the output
+    back, or the QK^T and PV int8 operations)."""
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+    from clip_ebc_tpu_torch.ops.quant import quantize_weight
+
+    sm = (D // H) ** -0.5
+    who = "int8_attention_body"
+    rows = {}
+    for branch, b, l in (("static", B, L), ("static", LONG_B, LONG_L), ("dynamic", B, L)):
+        x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, torch.bfloat16, 12, b, l)
+        w_q, s_col = quantize_weight(w)
+        m = b * l
+        inv_act = (1.0 / act_scale).reshape(1)
+        if branch == "static":
+            sw, bi = fa.fold_attn_scales(s_col, bias, act_scale, aq, D)
+            name, proj_out = "ebc_ln_qkv_proj_int8_q", torch.empty(b, l, 3 * D, dtype=torch.int8, device=dev)
+        else:
+            sw, bi = s_col * act_scale, bias
+            name, proj_out = "ebc_ln_qkv_proj_int8", torch.empty(b, l, 3 * D, dtype=torch.bfloat16, device=dev)
+        fa._run(name, fa._entry("fused_attention_int8", name)(
+            x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
+            bi.data_ptr(), inv_act.data_ptr(), proj_out.data_ptr(), m, D, 0, 1e-5, fa._stream(dev)))
+        del x, w, w_q
+        for out_dtype in (torch.bfloat16, torch.float32):
+            f32 = out_dtype == torch.float32
+            if branch == "static":
+                qkv_q, scales = proj_out, aq.contiguous()
+            else:
+                # the scale pass on the float qkv (fp32 output: the same values in fp32)
+                qkv = proj_out.float() if f32 else proj_out
+                qkv_q = torch.empty(b, l, 3 * D, dtype=torch.int8, device=dev)
+                amax = torch.empty(b, H, 3, dtype=torch.float32, device=dev)
+                scales = torch.empty_like(amax)
+                fa._run("ebc_qkv_quant_dynamic", fa._entry("fused_attention_int8", "ebc_qkv_quant_dynamic")(
+                    qkv.data_ptr(), amax.data_ptr(), qkv_q.data_ptr(), scales.data_ptr(), b, l, D, H,
+                    1 if f32 else 2, int(f32), fa._stream(dev)))
+            out = torch.empty(b, l, D, dtype=out_dtype, device=dev)
+            tag = f"{branch} scales, {b} x {l} tokens, {'fp32' if f32 else 'bf16'} out"
+            errs = []
+            for kv_len in (l, l - 29):
+                fa._launch_int8_attention(who, qkv_q, scales, out, H, kv_len, sm, branch == "dynamic")
+                want = (fa.int8_attention_static_plain(qkv_q, aq, H, kv_len, sm, out_dtype)
+                        if branch == "static" else
+                        fa.int8_attention_dynamic_plain(qkv, H, kv_len, sm, 1 if f32 else 2))
+                torch.cuda.synchronize()
+                errs.append(_check_max_median(f"{who}, {tag}, kernel vs plain, kv_len={kv_len}",
+                                              out[:, :kv_len], want[:, :kv_len], 2e-2, 1e-3))
+                del want
+            ms = time_spread(lambda: fa._launch_int8_attention(who, qkv_q, scales, out, H, l, sm,
+                                                               branch == "dynamic"))
+            plain = (time_ms(lambda: fa.int8_attention_static_plain(qkv_q, aq, H, l, sm, out_dtype),
+                             iters=5, warmup=1) if branch == "static" else
+                     time_ms(lambda: fa.int8_attention_dynamic_plain(qkv, H, l, sm, 1 if f32 else 2),
+                             iters=5, warmup=1))
+            ops = 2 * 2 * b * H * l * l * (D // H)
+            bnd, by = bound_ms(ops, PEAK_INT8, m * 3 * D + m * D * out.element_size() + scales.numel() * 4)
+            print(f"{who}, {tag}: kernel {spread_str(ms)} ({ops / ms[0] / 1e9:.1f} TOP/s), plain "
+                  f"{plain:.3f} ms, bound {bnd:.4f} ms ({by}), kernel at {bnd / ms[0]:.0%} of it")
+            rows[(branch, l, f32)] = dict(err=max(errs), ms=ms[0], plain=plain,
+                                          bound=(bnd, by))
+            del out
+        del proj_out
+    r = rows[("static", L, False)]
+    return {
+        "name": "int8_attention_body", "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/fused_attention_int8.cu",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:195",
+        "max_abs_err": max(v["err"] for v in rows.values()),
+        "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": None,
+        **{f"ms_{br}_l{l}_{'fp32' if f32 else 'bf16'}": v["ms"] for (br, l, f32), v in rows.items()},
     }
 
 
@@ -1044,13 +1191,14 @@ def run_cli(img_dir: str, out: str, amp: bool) -> tuple:
     argv = [img_dir, "--model", "clip_vit_b_16", "--reduction", "8", "--truncation", "4",
             "--num_vpt", "32", "--sliding_window", "--window_size", "224", "--stride", "224",
             "--seed", "0", "--out", out] + (["--amp"] if amp else [])
-    fused_ln_qkv_attention.launches = 0
+    fused_ln_qkv_attention.launches = fused_ln_qkv_attention.launches_proj = 0
     fused_ebc_head.launches = 0
     t0 = time.perf_counter()
     predict.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = {"fused_ln_qkv_attention": fused_ln_qkv_attention.launches,
+                "ln_qkv_proj": fused_ln_qkv_attention.launches_proj,
                 "fused_ebc_head": fused_ebc_head.launches}
     mode = "bf16 (--amp)" if amp else "fp32 (default)"
     print(f"predict CLI, {mode}: {cli_s:.1f} s (model build, weights, one image); "
@@ -1062,6 +1210,8 @@ def run_cli(img_dir: str, out: str, amp: bool) -> tuple:
     check(math.isfinite(count), f"CLI count {count} is not finite")
     check(launches["fused_ln_qkv_attention"] == 12,
           f"{mode}: expected 12 attention launches per forward")
+    check(launches["ln_qkv_proj"] == (12 if amp else 0),
+          f"{mode}: expected {12 if amp else 0} bf16 LN + QKV projection launches per forward")
     check(launches["fused_ebc_head"] == 1, f"{mode}: expected 1 head launch per forward")
     return count, launches
 
@@ -1100,6 +1250,7 @@ def phase_main_path(dev, kernels: dict, profile: bool) -> None:
         # the flagship path (bf16), then the CLI's default (fp32) path
         cli_count, launches = run_cli(img_dir, os.path.join(tmp, "counts.csv"), amp=True)
         kernels["fused_ln_qkv_attention"]["launches"] = launches["fused_ln_qkv_attention"]
+        kernels["ln_qkv_proj"]["launches"] = launches["ln_qkv_proj"]
         kernels["fused_ebc_head"]["launches"] = launches["fused_ebc_head"]
         cli32_count, launches32 = run_cli(img_dir, os.path.join(tmp, "counts32.csv"), amp=False)
         kernels["fused_ln_qkv_attention_fp32"]["launches"] = launches32["fused_ln_qkv_attention"]
@@ -1172,9 +1323,10 @@ def phase_path_ms(dev) -> None:
     projection, then the bf16 attention body) and ``--quant int8_static
     --quant_attn kernel`` (row 2c: the projection's int8 epilogue, then the
     int8 attention), both calibrated on the image, and the ms of the bf16
-    training step's forward (16 windows in train mode, the prompts
-    requiring grad; host clock ending in a synchronize, median of 10 after
-    2 warm-up)."""
+    training step's forward and of its forward and backward (16 windows in
+    train mode, the prompts requiring grad: 12 launches of row 2 and 12 of
+    row 5; host clock ending in a synchronize, median of 10 after 2
+    warm-up)."""
     import argparse
 
     from clip_ebc_tpu_torch.cli._common import calibrate_static_int8
@@ -1217,6 +1369,18 @@ def phase_path_ms(dev) -> None:
             times.append((time.perf_counter() - t0) * 1e3)
     print(f"path: training step forward, bf16, {TRAIN_B} windows: {statistics.median(times):.2f} ms "
           f"({min(times):.2f}-{max(times):.2f}; host clock, 10 after 2 warm-up)")
+    times = []
+    for i in range(12):  # forward and backward (the frozen trunk's backward recomputes the projection)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, density = model(windows, text_feats=text)
+        (logits.float().mean() + density.float().mean()).backward()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    print(f"path: training step forward + backward, bf16, {TRAIN_B} windows: "
+          f"{statistics.median(times):.2f} ms ({min(times):.2f}-{max(times):.2f}; host clock, 10 after "
+          f"2 warm-up)")
 
 
 def _int8_counters(reset: bool = False) -> dict:
@@ -1225,6 +1389,7 @@ def _int8_counters(reset: bool = False) -> dict:
 
     q = fa.fused_ln_qkv_attention_int8
     names = {"fused_ln_qkv_attention_int8": (q, "launches"), "ln_qkv_proj_int8": (q, "launches_proj"),
+             "int8_attention_body": (q, "launches_attn"),
              "fused_qkv_attention": (fa.fused_qkv_attention, "launches"),
              "fused_ln_qkv_attention": (fa.fused_ln_qkv_attention, "launches"),
              "fused_ebc_head": (fused_ebc_head, "launches")}
@@ -1260,7 +1425,7 @@ def run_cli_int8(img_dir: str, out: str, quant: str, amp: bool) -> tuple:
     # one image: one calibration batch (its first 16 windows) and one forward
     static = quant == "int8_static"
     want = {"fused_ln_qkv_attention_int8": 12 if static else 0, "ln_qkv_proj_int8": 12 if static else 0,
-            "fused_qkv_attention": 12, "fused_ln_qkv_attention": 0,
+            "int8_attention_body": 0, "fused_qkv_attention": 12, "fused_ln_qkv_attention": 0,
             "fused_ebc_head": 2 if static else 1}
     check(launches == want, f"{mode}: launches {launches}, expected {want}")
     return count, launches
@@ -1494,6 +1659,7 @@ def _quant_attn_counters(reset: bool = False) -> dict:
     names = {"int8_attention_static": (q, "launches_static"),
              "int8_attention_dynamic": (q, "launches_dynamic"),
              "fused_ln_qkv_attention_int8": (q, "launches"), "ln_qkv_proj_int8": (q, "launches_proj"),
+             "int8_attention_body": (q, "launches_attn"),
              "fused_qkv_attention": (fa.fused_qkv_attention, "launches"),
              "fused_ln_qkv_attention": (fa.fused_ln_qkv_attention, "launches"),
              "fused_ebc_head": (fused_ebc_head, "launches")}
@@ -1534,6 +1700,7 @@ def run_cli_quant_attn(img_dir: str, out: str, mode: str, amp: bool, window: int
     # plain integer products and no attention kernel ("xla")
     want = {"int8_attention_static": 12 if mode == "kernel" else 0, "int8_attention_dynamic": 0,
             "fused_ln_qkv_attention_int8": 0, "ln_qkv_proj_int8": 12 if mode == "kernel" else 0,
+            "int8_attention_body": 12 if mode == "kernel" else 0,
             "fused_qkv_attention": 12 if window == 224 else 0,
             "fused_ln_qkv_attention": 0, "fused_ebc_head": 2}
     check(launches == want, f"{tag}: launches {launches}, expected {want}")
@@ -1563,6 +1730,8 @@ def phase_quant_attn(dev, kernels: dict, profile: bool) -> None:
             if mode == "kernel":
                 kernels["int8_attention_static" + ("" if amp else "_fp32")]["launches"] = \
                     n["int8_attention_static"]
+                if amp:
+                    kernels["int8_attention_body"]["launches"] = n["int8_attention_body"]
         # windows of 433 tokens: the kernel route where the parent ran float
         # attention; its count against the xla mode's at the same windows
         long_counts = {}
@@ -1683,12 +1852,15 @@ def _train_counters(reset: bool = False) -> dict:
     from clip_ebc_tpu_torch.ops import fused_attention as fa
     from clip_ebc_tpu_torch.ops.fused_head import fused_ebc_head
 
-    fns = {"fused_ln_qkv_attention": fa.fused_ln_qkv_attention, "attention_bwd": fa.attention_bwd,
-           "ln_qkv_bwd_frozen": fa.ln_qkv_bwd_frozen, "fused_ebc_head": fused_ebc_head}
+    fns = {"fused_ln_qkv_attention": (fa.fused_ln_qkv_attention, "launches"),
+           "ln_qkv_proj": (fa.fused_ln_qkv_attention, "launches_proj"),
+           "attention_bwd": (fa.attention_bwd, "launches"),
+           "ln_qkv_bwd_frozen": (fa.ln_qkv_bwd_frozen, "launches"),
+           "fused_ebc_head": (fused_ebc_head, "launches")}
     if reset:
-        for f in fns.values():
-            f.launches = 0
-    return {k: f.launches for k, f in fns.items()}
+        for f, attr in fns.values():
+            setattr(f, attr, 0)
+    return {k: getattr(f, attr) for k, (f, attr) in fns.items()}
 
 
 def _flagship_model(dev, dtype, **paths):
@@ -1814,6 +1986,13 @@ def phase_training(dev, kernels: dict, profile: bool) -> None:
                       f"bf16: expected {12 * steps} frozen-backward launches")
                 check(n["attention_bwd"] == 12 * steps,
                       "bf16: the frozen backward runs one attention backward per block")
+                # the projection runs in every bf16 forward (the steps' and the
+                # evaluation's) and in every frozen backward's recompute
+                check(n["fused_ln_qkv_attention"] >= 12 * steps and n["ln_qkv_proj"] ==
+                      n["fused_ln_qkv_attention"] + n["ln_qkv_bwd_frozen"],
+                      f"bf16: LN + QKV projection launches {n['ln_qkv_proj']}, expected one per "
+                      "forward and one per frozen backward")
+                kernels["ln_qkv_proj"]["launches_train"] = n["ln_qkv_proj"]
                 kernels["ln_qkv_bwd_frozen"]["launches"] = n["ln_qkv_bwd_frozen"]
                 kernels["attention_bwd"]["launches"] = n["attention_bwd"]
             else:
@@ -1926,6 +2105,7 @@ def main(argv) -> int:
                phase_attention_bwd(dev, torch.float32), phase_ln_qkv_bwd_frozen(dev),
                phase_attention_int8(dev, torch.bfloat16), phase_attention_int8(dev, torch.float32),
                phase_int8_proj(dev, torch.bfloat16), phase_int8_proj(dev, torch.float32),
+               phase_ln_qkv_proj(dev), phase_int8_attention_body(dev),
                phase_qkv_attention(dev, torch.bfloat16), phase_qkv_attention(dev, torch.float32),
                phase_flash(dev, "tiled", torch.bfloat16), phase_flash(dev, "tiled", torch.float32),
                phase_flash(dev, "short", torch.bfloat16), phase_flash(dev, "short", torch.float32),

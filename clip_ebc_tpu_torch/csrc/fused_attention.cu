@@ -12,22 +12,43 @@
 // is about keeping the tensor cores fed.
 //
 // Design (two launches, bf16 tensor-core products with fp32 accumulation):
-//  * ln_qkv_proj_kernel (wgmma): one block of 2 warpgroups per 64 rows. It
-//    copies its rows of x and the first W tiles with cp.async, all in
-//    flight at once, then LayerNorms the rows in fp32 (in registers, gamma
-//    and beta loaded once a lane) back into shared memory as bf16, the
-//    operand the TPU kernel feeds its MXU, while the W tiles land. The rows
-//    stay resident, 128B-swizzled, while a 4-stage cp.async ring of
-//    256-column x 64-deep W tiles streams all 3D output columns past them,
-//    so x is read and normalized once. Each warpgroup multiplies the rows by
-//    its 128 columns of the tile with wgmma m64n128k16 straight from shared
-//    memory, one batch left in flight across tiles. W is read in torch's
-//    (out, in) layout, which is wgmma's K-major B as it stands. Epilogue per
-//    256-column chunk: + fp32 bias, round to bf16, stage the tile in the
-//    finished W stage, write qkv (B, L, 3D) in 16-byte stores.
-//    Where its time goes (chip runs with parts removed): the tensor work is
-//    hidden; the x prologue, the LayerNorm, the per-tile barrier and the
-//    stores do not overlap, since one block fills an SM's shared memory.
+//  * ln_qkv_proj_kernel, launch 1 (ports _ln_qkv_kernel's float branch,
+//    site :541): LayerNorm in fp32 (two passes over a row), y rounded to
+//    bf16, y . W^T with fp32 accumulation, + fp32 bias, one rounding to
+//    bf16 into qkv (M, 3D). Bound at a window forward (M = 140 x 229 =
+//    32,060, D = 768, N = 2304): 113.5 GFLOP over 989 TFLOP/s = 0.115 ms
+//    against ~200 MB (0.06 ms), so the tensor cores bound it; at a training
+//    step (M = 3,664) 0.013 ms.
+//    Design (wgmma, TMA, sm_90a; redesigned after the first port, one block
+//    of two warpgroups per 64 rows that streamed all of W from L2 for each
+//    64 rows through a cp.async ring with a block-wide barrier per tile:
+//    0.468 ms at B = 140, 0.114 at B = 16 on an H100 SXM at 700 W; a copy
+//    of it with W loaded once and reused took 0.303, without stores 0.422,
+//    without the LayerNorm 0.450, so its L2 stream of W led). One
+//    persistent block on each SM walks items of 128 rows x a part of the
+//    columns (parts chosen per call so that ~every SM has work: 1 at B =
+//    140, 9 at B = 16); each of two warpgroups owns 64 rows. Its LN rows
+//    stay resident for the item: the first 384 columns as the register A
+//    operand of wgmma m64n128k16 (96 registers a thread; they pass through
+//    the shared tiles and ldmatrix), the rest in shared memory, 128B-
+//    swizzled. W, in torch's (out, in) layout (wgmma's K-major B as it
+//    stands), comes by TMA in steps of two 64-deep boxes of 128 columns
+//    into a 3-stage ring on per-stage mbarriers; step s is issued while
+//    step s - 1's products finish, and the last of the 8 warps done with a
+//    stage refills it (no producer warp: the consumers need 224 registers).
+//    128 rows an item halve the first port's L2 reads of W (0.89 GB). The
+//    epilogue (+ bias, bf16) stages each warpgroup's 64 x 128 tile as two
+//    swizzled boxes that one thread writes out by TMA, rows past M clipped.
+//    Where the time goes (timing-only copies, PERF.md): without the
+//    LayerNorm 0.229 of 0.253 ms; without any wgmma 0.167: the W stream's
+//    waits, the LayerNorm and the epilogue run in series with the products
+//    (both warpgroups do each at once), so the tensor time adds to them.
+//    Tried and dropped: the register tiles built from 4-byte loads of x
+//    (0.268; the load instructions, not the math, took the LayerNorm's
+//    time), 4-byte stores from the accumulators instead of the staged TMA
+//    stores, with 16-byte ring stages and 8 of them or with 4 of 32 KB
+//    (0.39-0.40 ms: the scattered stores cost more than the deeper ring
+//    saved), each step's products finished before the next wait (0.253).
 //  * the attention: the wgmma body of csrc/attention_short.cuh with P
 //    normalized after P V (redesigned after the first port, mha_kernel:
 //    mma.sync fed by ldmatrix, a block of 4 warps per (64-query tile, head,
@@ -96,183 +117,305 @@ namespace ebc {
 namespace {
 
 // ---- launch 1: LayerNorm + projection ------------------------------------
-constexpr int kPM = 64;         // rows per block: one wgmma M
-constexpr int kPN = 256;        // output columns per chunk: 2 warpgroups x 128
-constexpr int kPK = 64;         // depth of one W tile: one 128-byte swizzle row
-constexpr int kPStages = 4;     // W tiles in the ring: ...
-constexpr int kPAhead = 2;      // ... tile p + 2 lands while p computes and p - 1 may still be read
-constexpr int kPThreads = 256;  // 2 warpgroups
-constexpr int kLnChunks = 3;    // 8-column chunks a lane holds in the LayerNorm
-constexpr int kMaxDim = kLnChunks * 256;  // d <= 768: LN rows + W ring fill shared memory
+constexpr int kMaxDim = 768;     // the fp32 statistics pass and the LN rows' registers below
+constexpr int kPM = 128;         // rows of an item: two consumer warpgroups x 64
+constexpr int kPN = 128;         // output columns of a chunk (the wgmma N)
+constexpr int kPK = 64;          // depth of one TMA box of W: one 128-byte swizzle row
+constexpr int kPStages = 3;      // ring stages of two W boxes (128 deep) each
+constexpr int kPThreads = 256;   // two consumer warpgroups (all registers theirs: no producer warp)
+constexpr int kPRegTiles = 6;    // 64-deep tiles of a warpgroup's LN rows held in registers
+constexpr int kLnChunks = kMaxDim / 256;  // 8-column chunks a lane holds in the statistics pass
+constexpr int kPBox = kPN * 128;          // bytes of one W box (128 rows x 128 B)
+constexpr int kPStage = 2 * kPBox;
+constexpr int kPTile = 64 * 128;          // bytes of 64 rows x 128 B: an LN tile or a staged output box
 
-// LN rows (d / 64 swizzled k-blocks of 64 rows x 128 B) + the W ring (256
-// rows x 128 B a stage) + slack to align the start to 1024 B.
-size_t proj_smem_bytes(int d) {
-  return (size_t)kPM * d * sizeof(bf16) + (size_t)kPStages * kPN * kPK * sizeof(bf16) + 1024;
+__host__ __device__ constexpr int preg_tiles(int dk) { return dk < kPRegTiles ? dk : kPRegTiles; }
+// the W ring, two staged output boxes a warpgroup, each warpgroup's LN tiles
+// (the register half passes through them first, so there are at least as
+// many as registers tiles), its rows' mean and rstd, the full barriers and
+// done counts, 1024-byte alignment
+__host__ __device__ constexpr size_t proj_smem_bytes(int dk) {
+  return (size_t)kPStages * kPStage + 2 * 2 * kPTile + (size_t)2 * preg_tiles(dk) * kPTile +
+         2 * 64 * sizeof(float2) + 64 + 1024;
 }
 
+// y = (v - mu) rstd gamma + beta of 8 columns, rounded to bf16, in one
+// 16-byte store (the first port's expression)
+__device__ __forceinline__ void ln_store8(unsigned char* dst, const float (&v)[8], float mu, float rstd,
+                                          const float* gamma, const float* beta) {
+  const float4 g0 = reinterpret_cast<const float4*>(gamma)[0], g1 = reinterpret_cast<const float4*>(gamma)[1];
+  const float4 b0 = reinterpret_cast<const float4*>(beta)[0], b1 = reinterpret_cast<const float4*>(beta)[1];
+  const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+  const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  uint32_t packed[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    packed[e] = pack_bf16((v[2 * e] - mu) * rstd * gm[2 * e] + bt[2 * e],
+                          (v[2 * e + 1] - mu) * rstd * gm[2 * e + 1] + bt[2 * e + 1]);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+}
+
+// Persistent: block i takes the items i, i + gridDim.x, ... of (128-row
+// tile, column part), parts fastest; a part is cpp = nc / parts chunks of
+// 128 columns. Warpgroup wg (0, 1) owns rows 64 wg .. + 63 of an item and
+// multiplies them by every chunk of its part: the LN rows of its first
+// min(DK, 6) 64-deep tiles are the register A operand of wgmma, the rest
+// shared (128B-swizzled, 64 rows x 128 B a tile). The block's W steps (two
+// 64-deep boxes of a chunk, 128 rows each), item after item, stream through
+// a ring of kPStages by TMA on per-stage mbarriers; the last of the 8 warps
+// done with a stage refills it. DK = D / 64.
+template <int DK>
 __global__ void __launch_bounds__(kPThreads, 1)
 ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, const bf16* __restrict__ w,
-                   const float* __restrict__ bias, bf16* __restrict__ qkv,
-                   int m, int d, int n, float eps) {
+                   const float* __restrict__ beta, const __grid_constant__ CUtensorMap tw,
+                   const float* __restrict__ bias, const __grid_constant__ CUtensorMap tout, int m,
+                   int n, int parts, float eps) {
+  constexpr int d = DK * kPK;
+  constexpr int DR = preg_tiles(DK), DS = DK - DR;
+  constexpr int SPC = (DK + 1) / 2;  // ring steps of a chunk
+  constexpr int xvec = d / 8;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* as = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* ws = as + (size_t)kPM * d * sizeof(bf16);
-  constexpr int kABlock = kPM * 128;  // bytes of one 64-deep k-block of the LN rows
-  constexpr int kWStage = kPN * 128;  // bytes of one W tile
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = sm;                                  // [kPStages][2 boxes]
+  unsigned char* outs = ring + kPStages * kPStage;           // [2 warpgroups][2 boxes]
+  unsigned char* lns = outs + 2 * 2 * kPTile;                // [2 warpgroups][DR tiles]
+  float2* stats = reinterpret_cast<float2*>(lns + 2 * DR * kPTile);     // [2 warpgroups][64 rows]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * 64);         // [kPStages]
+  int* done = reinterpret_cast<int*>(full + kPStages);                  // [kPStages]
 
-  const int row0 = blockIdx.x * kPM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wg = tid >> 7;
-  const int nk = d / kPK;                        // W tiles per column chunk
-  const int total = ((n + kPN - 1) / kPN) * nk;  // W tiles over all chunks
+  const int tid = threadIdx.x;
+  const int nc = (n + kPN - 1) / kPN, cpp = nc / parts;
+  const int n_items = ((m + kPM - 1) / kPM) * parts, per_item = cpp * SPC;
 
-  // W tile p: column chunk p / nk, depth tile p % nk, written swizzled
-  auto load_w = [&](int p) {
-    unsigned char* dst = ws + (size_t)(p % kPStages) * kWStage;
-    const int col0 = (p / nk) * kPN, k0 = (p % nk) * kPK;
-    for (int i = tid; i < kPN * 8; i += kPThreads) {
-      const int r = i >> 3, c = i & 7;
-      const bool ok = col0 + r < n;
-      cp_async16(dst + sw128_offset(r, c), w + (size_t)(ok ? col0 + r : 0) * d + k0 + c * 8, ok);
-    }
+  // ring step tt of the block (item blockIdx.x + (tt / per_item) gridDim.x,
+  // chunk (tt / SPC) % cpp of its part, depth 128 (tt % SPC) ..) into its
+  // stage by TMA, completing on the stage's full barrier; columns past n
+  // land as zeros; nothing past the block's last item. One thread.
+  auto load = [&](int tt) {
+    const int it = blockIdx.x + (tt / per_item) * gridDim.x;
+    if (it >= n_items) return;
+    const int s = tt % SPC, st = tt % kPStages;
+    const int col0 = ((it % parts) * cpp + (tt / SPC) % cpp) * kPN;
+    const bool two = 2 * s + 1 < DK;
+    unsigned char* dst = ring + st * kPStage;
+    mbar_expect_tx(&full[st], (uint32_t)(two ? kPStage : kPBox));
+    tma_2d(dst, &tw, 2 * s * kPK, col0, &full[st]);
+    if (two) tma_2d(dst + kPBox, &tw, (2 * s + 1) * kPK, col0, &full[st]);
   };
-  // address of 8-column chunk cc of LN row r
-  auto a_chunk = [&](int r, int cc) { return as + (cc >> 3) * kABlock + sw128_offset(r, cc & 7); };
-
-  // 1. the block's rows of x (zero past m), then the first W tiles: all in
-  //    flight at once, the W tiles overlapping the LayerNorm below
-  const int xvec = d / 8;
-  for (int i = tid; i < kPM * xvec; i += kPThreads) {
-    const int r = i / xvec, cc = i - r * xvec;
-    const bool ok = row0 + r < m;
-    cp_async16(a_chunk(r, cc), x + (size_t)(ok ? row0 + r : 0) * d + cc * 8, ok);
+  if (tid == 0) {
+    for (int st = 0; st < kPStages; ++st) {
+      mbar_init(&full[st], 1);
+      done[st] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < kPStages; ++st) load(st);
   }
-  cp_async_commit();
-#pragma unroll
-  for (int s = 0; s < kPAhead; ++s) {
-    if (s < total) load_w(s);
-    cp_async_commit();
-  }
-  cp_async_wait<kPAhead>();
   __syncthreads();
 
-  // 2. LayerNorm in fp32 (two-pass mean / variance over registers), one
-  //    warp a row, each lane 8 columns at a time (the same columns in every
-  //    row, so their gamma and beta are loaded once), in place
-  float gam[kLnChunks][8], bet[kLnChunks][8];
+  // warp-uniform as the compiler sees it (a shuffle of lane 0's value), so
+  // the wgmma do not lie on a divergent path
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool issuer = (tid & 127) == 0;  // this warpgroup's TMA stores
+  unsigned char* my_out = outs + wg * 2 * kPTile;
+  unsigned char* my_ln = lns + wg * DR * kPTile;
+  float2* my_stats = stats + wg * 64;
+  uint32_t a[DR * 4][4];  // LN rows r0, r1 as the A fragments of the register k-steps
+  float acc[64];
+  int tt = 0;  // ring steps this block has consumed
+
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const int rw = (it / parts) * kPM + wg * 64;  // this warpgroup's first row
+    const int part = it % parts;
+
+    // 1. LayerNorm statistics in fp32, a warp its 16 rows one at a time, a
+    //    lane 8 columns at a time (two passes over the row in registers, the
+    //    first port's order of operations; rows past m are zeros); y of the
+    //    register tiles rounded to bf16 into the LN tiles in 16-byte stores
+    //    (128B-swizzled), then into the A fragments by ldmatrix
+#pragma unroll 4
+    for (int i = 0; i < 16; ++i) {
+      const int rl = warp * 16 + i, gr = rw + rl;
+      float v[kLnChunks][8];
+      float sum = 0.f;
 #pragma unroll
-  for (int c = 0; c < kLnChunks; ++c) {
-    const int cc = c * 32 + lane;
-    if (cc < xvec) {
+      for (int c = 0; c < kLnChunks; ++c) {
+        const int cc = c * 32 + lane;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 gv = reinterpret_cast<const float4*>(gamma + cc * 8)[h];
-        const float4 bv = reinterpret_cast<const float4*>(beta + cc * 8)[h];
-        gam[c][4 * h] = gv.x; gam[c][4 * h + 1] = gv.y; gam[c][4 * h + 2] = gv.z; gam[c][4 * h + 3] = gv.w;
-        bet[c][4 * h] = bv.x; bet[c][4 * h + 1] = bv.y; bet[c][4 * h + 2] = bv.z; bet[c][4 * h + 3] = bv.w;
+        for (int e = 0; e < 8; ++e) v[c][e] = 0.f;
+        if (cc < xvec && gr < m) load8(x + (size_t)gr * d + cc * 8, v[c]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum += v[c][2 * e] + v[c][2 * e + 1];
       }
-    }
-  }
-  for (int r = warp; r < kPM; r += kPThreads / 32) {
-    float v[kLnChunks][8];
-    float sum = 0.f;
+      const float mu = warp_sum(sum) / d;
+      float var = 0.f;
 #pragma unroll
-    for (int c = 0; c < kLnChunks; ++c) {
-      const int cc = c * 32 + lane;
-      if (cc < xvec) {
-        const uint4 u = *reinterpret_cast<const uint4*>(a_chunk(r, cc));
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+      for (int c = 0; c < kLnChunks; ++c) {
+        if (c * 32 + lane < xvec) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h2[e]);
-          v[c][2 * e] = f.x;
-          v[c][2 * e + 1] = f.y;
-          sum += f.x + f.y;
+          for (int e = 0; e < 8; ++e) var += (v[c][e] - mu) * (v[c][e] - mu);
         }
       }
-    }
-    const float mu = warp_sum(sum) / d;
-    float var = 0.f;
+      const float rstd = rsqrtf(warp_sum(var) / d + eps);
 #pragma unroll
-    for (int c = 0; c < kLnChunks; ++c) {
-      if (c * 32 + lane < xvec) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) var += (v[c][e] - mu) * (v[c][e] - mu);
+      for (int c = 0; c < kLnChunks; ++c) {
+        const int cc = c * 32 + lane;
+        if (cc < DR * 8) ln_store8(my_ln + (cc >> 3) * kPTile + sw128_offset(rl, cc & 7), v[c], mu, rstd, gamma + cc * 8, beta + cc * 8);
       }
+      if (lane == 0) my_stats[rl] = make_float2(mu, rstd);
     }
-    const float rstd = rsqrtf(warp_sum(var) / d + eps);
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
 #pragma unroll
-    for (int c = 0; c < kLnChunks; ++c) {
-      const int cc = c * 32 + lane;
-      if (cc < xvec) {
-        uint32_t packed[4];
+    for (int s = 0; s < DR * 4; ++s)
+      ldmatrix_x4(a[s], my_ln + (s >> 2) * kPTile +
+                            sw128_offset(warp * 16 + (lane & 15), (s & 3) * 2 + (lane >> 4)));
+    // 2. y of the shared tiles (depth >= 64 DR) in their place, once every
+    //    warp of the warpgroup has read the register tiles
+    if constexpr (DS > 0) {
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+#pragma unroll 4
+      for (int i = 0; i < 16; ++i) {
+        const int rl = warp * 16 + i, gr = rw + rl;
+        const float2 st = my_stats[rl];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          packed[e] = pack_bf16((v[c][2 * e] - mu) * rstd * gam[c][2 * e] + bet[c][2 * e],
-                                (v[c][2 * e + 1] - mu) * rstd * gam[c][2 * e + 1] + bet[c][2 * e + 1]);
-        *reinterpret_cast<uint4*>(a_chunk(r, cc)) =
-            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        for (int c = 0; c < kLnChunks; ++c) {
+          const int cc = c * 32 + lane;
+          if (cc >= DR * 8 && cc < xvec) {
+            float v[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = 0.f;
+            if (gr < m) load8(x + (size_t)gr * d + cc * 8, v);
+            ln_store8(my_ln + ((cc >> 3) - DR) * kPTile + sw128_offset(rl, cc & 7), v, st.x, st.y,
+                      gamma + cc * 8, beta + cc * 8);
+          }
+        }
       }
+      fence_proxy_async();  // the shared LN tiles, for the wgmma's async proxy
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
     }
-  }
-  // (the first fence + __syncthreads of the main loop publish the LN rows)
+    const int rl = warp * 16 + g;
 
-  // 3. for each 256-column chunk: C[64 x 256] = Y[64 x d] . W[chunk, :]^T,
-  //    warpgroup wg taking columns [128 wg, 128 wg + 128); the W ring runs
-  //    on across chunks
-  const int g = lane >> 2, t = lane & 3;
-  float acc[64];
+    // 3. chunk by chunk: C[64 x 128] = Y . W[chunk]^T, ring step by step:
+    //    step s is issued while step s - 1's products finish, then step s -
+    //    1's stage is released (every wait on a barrier comes before the
+    //    wgmma fence; the accumulators are read after the chunk's last wait)
+    auto release = [&](int done_tt) {  // this warp is done with the stage; the last of the 8 refills it
+      const int st = done_tt % kPStages;
+      if (lane == 0 && atomicAdd(&done[st], 1) == 2 * 4 - 1) {
+        done[st] = 0;
+        load(done_tt + kPStages);
+      }
+    };
+    for (int c = 0; c < cpp; ++c) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  for (int p = 0; p < total; ++p) {
-    const int kt = p % nk;
-    cp_async_wait<kPAhead - 1>();
-    fence_proxy_async();
-    __syncthreads();  // tile p landed for everyone; tile p-2's wgmma is done
-    if (p + kPAhead < total) load_w(p + kPAhead);  // into tile p-2's stage
-    cp_async_commit();
-
-    const unsigned char* at = as + (size_t)kt * kABlock;
-    unsigned char* bt = ws + (size_t)(p % kPStages) * kWStage + wg * 128 * 128;
-    wgmma_fence();
+      for (int s = 0; s < SPC; ++s, ++tt) {
+        const int st = tt % kPStages;
+        mbar_wait(&full[st], (tt / kPStages) & 1);
+        const unsigned char* wb = ring + st * kPStage;
+        wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kPK / 16; ++kk)
-      wgmma_m64n128k16(acc, sw128_desc(at + kk * 32), sw128_desc(bt + kk * 32), kt > 0 || kk > 0);
-    wgmma_commit();
-
-    if (kt == nk - 1) {
-      // epilogue of the chunk: + fp32 bias, round to bf16, staged as a
-      // 64 x 128 tile (rows of 16 chunks of 16 B, chunk j of row r at
-      // j ^ (r % 16)) in this warpgroup's half of tile p's W stage, which
-      // only its own finished products read; then written out in 16-byte
-      // rows-contiguous stores
+        for (int h = 0; h < 2; ++h) {
+          const int kt = 2 * s + h;
+          if (kt < DK) {
+#pragma unroll
+            for (int kk = 0; kk < kPK / 16; ++kk) {
+              const uint64_t db = sw128_desc(wb + h * kPBox + kk * 32);
+              if (kt < DR)
+                wgmma_m64n128k16_rs(acc, a[kt * 4 + kk], db, kt + kk > 0);
+              else
+                wgmma_m64n128k16(acc, sw128_desc(my_ln + (kt - DR) * kPTile + kk * 32), db, 1);
+            }
+          }
+        }
+        wgmma_commit();
+        if (s > 0) {
+          wgmma_wait<1>();
+          release(tt - 1);
+        }
+      }
       wgmma_wait<0>();
-      const int col0 = (p / nk) * kPN + wg * 128;
-      const int rl = (warp & 3) * 16 + g;
+      release(tt - 1);
+
+      // epilogue: + fp32 bias, rounded to bf16, staged as two 64 x 64 boxes
+      // (128B-swizzled) and written by TMA, rows past m and columns past n
+      // clipped; the staged boxes are free once the previous chunk's store
+      // has read them
+      const int col0 = (part * cpp + c) * kPN;
+      if (issuer) bulk_wait_read<0>();
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = col0 + j * 8 + 2 * t;
+      for (int j = 0; j < kPN / 8; ++j) {
+        const int col = col0 + j * 8 + 2 * t4;
         const float b0 = col < n ? bias[col] : 0.f, b1 = col < n ? bias[col + 1] : 0.f;
-        *reinterpret_cast<uint32_t*>(bt + rl * 256 + ((j ^ (rl & 15)) << 4) + t * 4) =
+        unsigned char* box = my_out + (j >> 3) * kPTile;
+        *reinterpret_cast<uint32_t*>(box + sw128_offset(rl, j & 7) + 4 * t4) =
             pack_bf16(acc[4 * j] + b0, acc[4 * j + 1] + b1);
-        *reinterpret_cast<uint32_t*>(bt + (rl + 8) * 256 + ((j ^ ((rl + 8) & 15)) << 4) + t * 4) =
+        *reinterpret_cast<uint32_t*>(box + sw128_offset(rl + 8, j & 7) + 4 * t4) =
             pack_bf16(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
       }
-      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
-      for (int i = tid & 127; i < 64 * 16; i += 128) {
-        const int rr = i >> 4, c = i & 15;
-        const int gr = row0 + rr, gc = col0 + c * 8;
-        if (gr < m && gc < n)  // n is a multiple of 8
-          *reinterpret_cast<uint4*>(qkv + (size_t)gr * n + gc) =
-              *reinterpret_cast<const uint4*>(bt + rr * 256 + ((c ^ (rr & 15)) << 4));
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      if (issuer && rw < m) {
+        tma_store_2d(&tout, my_out, col0, rw);
+        if (col0 + 64 < n) tma_store_2d(&tout, my_out + kPTile, col0 + 64, rw);
+        bulk_commit();
       }
-    } else {
-      wgmma_wait<1>();  // tile p-1's products are done: its stage may be refilled next
     }
   }
-  cp_async_wait<0>();
+  if (issuer) bulk_wait_all();
+}
+
+// A 2D bf16 tensor map over a row-major (rows, cols) matrix: boxes of 64
+// columns (128 B) x box_rows, 128B-swizzled (the layout sw128_desc reads).
+cudaError_t encode_bf16_map(CUtensorMap* map, const void* p, int cols, int rows, int box_rows) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kPK, (cuuint32_t)box_rows}, elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
+                         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Column parts of an item: the divisor p of the nc chunks that minimizes
+// the waves of items on the SMs times an item's chunks plus one for its
+// LayerNorm (a window forward, 251 row tiles: 1; a training step's 29: 9).
+int proj_parts(int row_items, int nc, int sms) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int p = 1; p <= nc; ++p) {
+    if (nc % p) continue;
+    const long long waves = ((long long)row_items * p + sms - 1) / sms;
+    const long long cost = waves * (nc / p + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = p;
+    }
+  }
+  return best;
+}
+
+template <int DK>
+cudaError_t launch_proj_dk(const void* x, const void* gamma, const void* beta, const CUtensorMap& tw,
+                           const void* bias, const CUtensorMap& tout, int m, float eps, cudaStream_t st) {
+  const int n = 3 * DK * kPK;
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  const int row_items = (m + kPM - 1) / kPM, nc = (n + kPN - 1) / kPN;
+  const int parts = proj_parts(row_items, nc, sms);
+  const long long items = (long long)row_items * parts;
+  const int blocks = (int)(items < sms ? items : sms);
+  const size_t smem = proj_smem_bytes(DK);
+  cudaError_t e = cudaFuncSetAttribute(ln_qkv_proj_kernel<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  ln_qkv_proj_kernel<DK><<<blocks, kPThreads, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta), tw,
+      static_cast<const float*>(bias), tout, m, n, parts, eps);
+  return cudaGetLastError();
 }
 
 // ---- launch 2: masked attention (csrc/attention_short.cuh) -----------------
@@ -442,15 +585,27 @@ bool attention_shape_ok(int l, int d, int num_heads, int kv_len, float sm_scale)
 
 cudaError_t launch_proj(const void* x, const void* gamma, const void* beta, const void* w,
                         const void* bias, void* qkv, int m, int d, float eps, cudaStream_t st) {
-  const size_t proj_smem = proj_smem_bytes(d);
-  cudaError_t e = cudaFuncSetAttribute(ln_qkv_proj_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)proj_smem);
+  CUtensorMap tw, tout;
+  cudaError_t e = encode_bf16_map(&tw, w, d, 3 * d, kPN);
+  if (e == cudaSuccess) e = encode_bf16_map(&tout, qkv, 3 * d, m, 64);
   if (e != cudaSuccess) return e;
-  ln_qkv_proj_kernel<<<(m + kPM - 1) / kPM, kPThreads, proj_smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(qkv), m, d, 3 * d, eps);
-  return cudaGetLastError();
+#define EBC_PROJ(DK_) launch_proj_dk<DK_>(x, gamma, beta, tw, bias, tout, m, eps, st)
+  switch (d / kPK) {
+    case 1: return EBC_PROJ(1);
+    case 2: return EBC_PROJ(2);
+    case 3: return EBC_PROJ(3);
+    case 4: return EBC_PROJ(4);
+    case 5: return EBC_PROJ(5);
+    case 6: return EBC_PROJ(6);
+    case 7: return EBC_PROJ(7);
+    case 8: return EBC_PROJ(8);
+    case 9: return EBC_PROJ(9);
+    case 10: return EBC_PROJ(10);
+    case 11: return EBC_PROJ(11);
+    case 12: return EBC_PROJ(12);
+    default: return cudaErrorInvalidValue;
+  }
+#undef EBC_PROJ
 }
 
 cudaError_t launch_proj_f32(const void* x, const void* gamma, const void* beta, const void* w,

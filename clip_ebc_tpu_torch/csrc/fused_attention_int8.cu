@@ -24,37 +24,56 @@
 // The split into two launches adds the int8 qkv round trip (74 MB, 0.022 ms
 // each way), half the bf16 qkv of the float attention.
 //
-// mha_int8_kernel, simple first (mma.sync.m16n8k32.s8, no wgmma): one block
-// (4 warps) per (64-query tile, head, window), as the first bf16 attention
-// body of csrc/fused_attention.cu was.
-//  * K_h of the window lands in shared memory as it is, key-major, which is
-//    the K-major B operand of QK^T.
-//  * The static body computes p = exp(s - m) with m the row's FINAL max and
-//    rounds p * 127 to int8 before PV, so a one-sweep online rescale would
-//    round other values. Each warp sweeps the keys twice in chunks of 64:
-//    sweep 1 takes the row max only of its 16 rows' scores, dequantized in
-//    fp32 (static: acc * (s_q s_k sm_scale); dynamic: (acc * (s_q s_k)) *
-//    sm_scale), keys >= kv_len at kNegInf; sweep 2 recomputes the same int32
-//    scores (so the same fp32 s), then p = exp(s - max), r = sum of the
-//    unrounded p, p8 = round(p * 127) in [0, 127] and PV in int32. QK^T is
-//    done twice, but a chunk's scores take 32 registers where a whole row
-//    held in registers took 255 a thread at L = 229 (the first port's body,
-//    slower there: PERF.md).
-//  * PV needs B = V K-major over keys, but int8 mma takes B only as
-//    row.col and ldmatrix.trans / movmatrix exist for 16-bit elements only.
-//    So V_h is transposed while it is staged into shared memory (64 rows of
-//    keys). Its keys are also permuted within each 16: lane t of a quad
-//    holds in its score accumulators keys 2t, 2t+1 of each 8-key tile,
-//    while the A operand wants 4 consecutive k slots a lane; mapping slot
-//    4t + e to key 2t + e (e < 2) or 8 + 2t + e - 2 (e >= 2) lets P go from
-//    the accumulators to the A operand without a shuffle, and V^T's rows
-//    hold the keys in that slot order (vt_slot), so ldmatrix reads B as for
-//    K. The key axis pads to a multiple of 64 with p8 = 0 and v = 0.
-//  * Output: static (PV / r) * (s_v / 127), dynamic (PV * (s_v / 127)) / r,
-//    the rounding order of each Pallas body; stored in the activation dtype
-//    as pairs, head-concatenated.
-//  * Each query tile of a (head, window) stages K and V again (4 times at L
-//    = 229, from L2 after the first).
+// mha_int8_kernel (ebc_int8_attention; ports _pair_attention_body_static,
+// :195-256, and the int8 branch of _pair_attention_body, :152-175, as the
+// first port rounded them): s = float(acc) x s_qk (static) or (float(acc) x
+// (s_q s_k)) x sm_scale (dynamic), keys >= kv_len at kNegInf, m the row's
+// final max, p = expf(s - m) (not ex2.approx, which would flip round(p x
+// 127)), r = the fp32 sum of the unrounded p, p8 = rn(p x 127), P V in
+// exact int32, out = (PV / r) x s_pv (static) or (PV x s_pv) / r
+// (dynamic) in the activation dtype. The integer products are exact, so
+// only the order of r's sum can move an output.
+//  * Bound at the flagship windows (B = 140, L = 229, 12 heads): the int8
+//    qkv in (74 MB) and the bf16 output back (49 MB) take 0.037 ms at 3.35
+//    TB/s; QK^T and PV, 22.5 GOP, 0.011 ms at 1,979 TOP/s: bytes bound it.
+//  * Design (wgmma, TMA, sm_90a; redesigned after the first port, one block
+//    of 4 warps per (64-query tile, head, window) on mma.sync that staged
+//    K and V again for every query tile, transposed V with byte stores and
+//    computed QK^T twice: 0.257 ms at the windows, 0.414 at 70 x 433 on an
+//    H100 SXM at 700 W; a copy of it without the byte-store transpose took
+//    0.160 and 0.243). The persistent block of three consumer warpgroups
+//    of csrc/attention_short.cuh's bf16 body: a (window, head)'s Q tiles, K
+//    and V land once by TMA (64-byte rows, 64B-swizzled) in one of two
+//    stages, the next pair's loads in flight; the query tiles go to the
+//    warpgroups in turn, with no block-wide barrier. The warpgroup that
+//    gets a pair's first tile builds V^T (the K-major B of P V: 8-bit
+//    wgmma takes B only K-major) with word-wide byte permutes, 16-byte
+//    loads of 4 keys and conflict-free 4-byte stores, then arrives on the
+//    stage's V^T barrier, which the others wait on before their first P V.
+//    V^T's rows hold the keys in the slot order of the P operand: the
+//    score accumulators hold keys 8 j + 2 t, + 1 of a row, the A operand 4
+//    consecutive k slots a lane, so slot 4 t + e of each 16 keys holds key
+//    2 t + e (e < 2) or 8 + 2 t + e - 2, and P goes from the accumulators
+//    into the register A fragments of wgmma m64n64k32 with no shuffle.
+//    S = Q K^T is wgmma m64n128k32 (both operands K-major from shared
+//    memory). Up to 256 keys the whole score row stays in registers, so
+//    the exact max takes one sweep and QK^T is done once; from 257 to 512
+//    keys the two sweeps over 128-key chunks stay. The scores' int32 ->
+//    fp32 (|acc| <= 64 x 128^2 < 2^22) and the rounding of p x 127 go
+//    through the 1.5 x 2^23 trick on the FMA units, not the conversion
+//    unit; P V's sums reach 512 x 127 x 128, past that trick's 2^22, and
+//    take __int2float_rn (exact below 2^24). The output's IEEE
+//    division is one correction step from the row's correctly rounded
+//    reciprocal (Markstein), exact for these quotients. A bf16 output tile
+//    is staged in the warpgroup's own 8 KB and written in 16-byte stores
+//    (a quad's 4-byte stores filled half a sector: 0.143 against 0.138 ms);
+//    fp32 pairs go straight out.
+//  * Where the time goes (timing-only copies, PERF.md): the softmax and
+//    the output's arithmetic on the FMA units. Without the division the
+//    body took 0.129 of 0.151 ms (hence the correction step); without
+//    QK^T 0.124; without P V 0.129; V^T's build is 0.004. Tried and
+//    dropped: two warpgroups (255 registers, no spill) in place of three
+//    (168 registers, a little spill at 256 keys): 0.177 against 0.158.
 //
 // Limits: D a multiple of 128, D <= 768 (the projection), head dim 64, L <=
 // 512 (--window_size 320: 433 tokens).
@@ -66,53 +85,88 @@ namespace {
 
 // ---- the int8 attention ----------------------------------------------------
 constexpr int kDh8 = 64;
-constexpr int kKPitch8 = kDh8 + 16;  // K rows: 80 B, the 8 rows of an ldmatrix hit distinct banks
-constexpr int kI8Warps = 4;          // 16 query rows each
-constexpr int kI8QTile = 16 * kI8Warps;
-constexpr int kI8KeyQuantum = 64;    // keys are padded to a multiple of this, the chunk
-constexpr int kI8Tiles = kI8KeyQuantum / 8;  // score tiles of a chunk
+constexpr int kI8Warpgroups = 3;  // consumers, a 64-row query tile at a time each
+constexpr int kI8Threads = kI8Warpgroups * 128;
+constexpr int kI8QTile = 64;      // query rows of a tile (the wgmma M)
+constexpr int kI8Chunk = 128;     // keys of one S = Q K^T wgmma (its N) and of a V^T block
+constexpr int kI8RegChunks = 2;   // up to 256 keys the whole score row stays in registers
 constexpr int kI8MaxKeys = 512;
 constexpr int kI8MaxHeads = kQMaxDim / kDh8;
 
-// K rows + V^T (64 rows of lp + 16 bytes: an odd multiple of 16, so the 8
-// rows of an ldmatrix hit distinct banks)
-size_t i8_attn_smem_bytes(int lp) { return (size_t)lp * kKPitch8 + (size_t)kDh8 * (lp + 16); }
-
-// Position of key r in V^T's row: the k slot order of the PV A operand
-// within each 16 keys (slot 4t + e holds key 2t + e for e < 2, 8 + 2t + e -
-// 2 for e >= 2).
-__device__ __forceinline__ int vt_slot(int r) {
-  const int k = r & 15;
-  return (r & ~15) + 4 * ((k & 7) >> 1) + (k & 1) + ((k >> 3) << 1);
+// One stage: QT Q tiles (64 rows x 64 B), K and V of KC chunks (128 rows x
+// 64 B, 64B-swizzled as TMA lands them), then V^T (KC blocks of 64 rows x
+// 128 B, 128B-swizzled: the K-major B of P V).
+__host__ __device__ constexpr int i8_q_bytes(int qt) { return qt * kI8QTile * kDh8; }
+__host__ __device__ constexpr int i8_kv_bytes(int kc) { return kc * kI8Chunk * kDh8; }
+__host__ __device__ constexpr size_t i8_stage_bytes(int kc, int qt) {
+  return (size_t)i8_q_bytes(qt) + 3 * (size_t)i8_kv_bytes(kc);
+}
+__host__ __device__ constexpr int i8_stages(int kc) { return kc <= kI8RegChunks ? 2 : 1; }
+// the stages, then a full barrier, a V^T barrier and a done count each; 1024-byte alignment
+// a warpgroup's staged 16-bit output tile (64 rows x 128 B; fp32 pairs go
+// straight out, a quad's 8-byte stores filling a 32-byte sector)
+constexpr int kI8OutTile = kI8QTile * kDh8 * 2;
+inline size_t i8_smem_bytes(int kc, int qt, bool staged) {
+  return i8_stages(kc) * i8_stage_bytes(kc, qt) + (staged ? kI8Warpgroups * kI8OutTile : 0) + 64 + 1024;
 }
 
-// p in [0, 1] -> round(p * 127), four of them packed, the first lowest
+// Shared-memory matrix descriptor of a K-major 8-bit tile of 64-byte rows
+// in the 64-byte swizzle layout (8-row atoms of 512 B): start address,
+// stride between 8-row groups 512 B, layout type 2 = 64B swizzle. Stepping
+// 32 values along K is +32 B on the start address.
+__device__ __forceinline__ uint64_t sw64_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+}
+
+// d (64 x 128 int32, 64 a thread in the layout of wgmma_m64n128k16's d)
+// (+)= A (64 x 32 int8) . B (32 x 128 int8), both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// 1.5 x 2^23: a float in [2^23, 2^24) holds an integer in its low mantissa
+// bits, so adding it rounds to the nearest integer (half to even, as
+// __float2int_rn) and subtracting it from such a float converts an integer
+// of magnitude below 2^22 exactly, both on the FMA units rather than the
+// slower conversion unit.
+constexpr float kMagic = 12582912.f;
+
+// int32 -> fp32, exact for |v| < 2^22: a QK^T sum over the head dim, at
+// most 64 x 128^2 in magnitude (not a P V sum, which reaches 2^23 at 512
+// keys: past 2^22 the added integer carries into the exponent)
+__device__ __forceinline__ float i2f_exact(int v) { return __fsub_rn(__int_as_float(v + 0x4B400000), kMagic); }
+static_assert(kDh8 * 128 * 128 < (1 << 22), "i2f_exact takes QK^T sums only");
+
+// a / b rounded to nearest (IEEE division) from y = 1 / b rounded to
+// nearest: q = a y, then one correction with the exact residual a - b q
+// (Markstein). Exact for the normal, finite quotients of the output (a
+// below 2^24 in magnitude, b in [1, 512]); y is taken once a row.
+__device__ __forceinline__ float div_rn(float a, float b, float y) {
+  const float q = __fmul_rn(a, y);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
+}
+
+// p in [0, 1] -> round(p * 127) (half to even), four of them packed, the
+// first lowest
 __device__ __forceinline__ uint32_t pack_p8(float a, float b, float c, float d) {
-  return (uint32_t)__float2int_rn(__fmul_rn(a, 127.f)) |
-         ((uint32_t)__float2int_rn(__fmul_rn(b, 127.f)) << 8) |
-         ((uint32_t)__float2int_rn(__fmul_rn(c, 127.f)) << 16) |
-         ((uint32_t)__float2int_rn(__fmul_rn(d, 127.f)) << 24);
-}
-
-// ---- pieces of the body ----------------------------------------
-
-// K_h rows (zero past l) by cp.async, then V_h transposed into V^T rows with
-// the keys in slot order (zero past l); LP keys, V^T rows of VP bytes.
-__device__ __forceinline__ void i8_stage_kv(unsigned char* ks, unsigned char* vt, const int8_t* base,
-                                            int l, int lp, int vp, int d, int three_d, int tid) {
-  for (int i = tid; i < lp * (kDh8 / 16); i += kI8Warps * 32) {
-    const int r = i >> 2, c = i & 3;
-    cp_async16(ks + (size_t)r * kKPitch8 + c * 16, base + (size_t)(r < l ? r : 0) * three_d + d + c * 16,
-               r < l);
-  }
-  cp_async_commit();
-  for (int i = tid; i < lp * (kDh8 / 4); i += kI8Warps * 32) {
-    const int r = i >> 4, c = i & 15;
-    const uint32_t v = r < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r * three_d + 2 * d + c * 4) : 0u;
-    const int pos = vt_slot(r);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) vt[(size_t)(4 * c + e) * vp + pos] = (unsigned char)(v >> (8 * e));
-  }
+  const uint32_t qa = __float_as_uint(__fadd_rn(__fmul_rn(a, 127.f), kMagic));
+  const uint32_t qb = __float_as_uint(__fadd_rn(__fmul_rn(b, 127.f), kMagic));
+  const uint32_t qc = __float_as_uint(__fadd_rn(__fmul_rn(c, 127.f), kMagic));
+  const uint32_t qd = __float_as_uint(__fadd_rn(__fmul_rn(d, 127.f), kMagic));
+  return __byte_perm(__byte_perm(qa, qb, 0x0040), __byte_perm(qc, qd, 0x0040), 0x5410);
 }
 
 // The dequantize factors, in each Pallas body's order.
@@ -128,200 +182,369 @@ __device__ __forceinline__ void i8_factors(const float* scales, int b, int h, in
   }
 }
 
-// Q fragments (A operands) of rows r0 and r1, straight from device memory.
-__device__ __forceinline__ void i8_load_q(uint32_t (&qa)[kDh8 / 32][4], const int8_t* base, int r0,
-                                          int r1, int l, int three_d, int t) {
+// The dequantized fp32 scores of a 128-key chunk in place (key col0 + 8 j +
+// 2 t + e % 2 of row g or g + 8), kNegInf for keys >= kv_len; their max
+// into mx0, mx1 (this thread's share).
+__device__ __forceinline__ void i8_chunk_scores(float (&s)[64], const int (&acc)[64], int col0, int kv_len,
+                                                int t, float s_qk, float sm_scale, int dynamic,
+                                                float& mx0, float& mx1) {
 #pragma unroll
-  for (int kk = 0; kk < kDh8 / 32; ++kk) {
-    const int c = kk * 32 + 4 * t;
-    qa[kk][0] = r0 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * three_d + c) : 0u;
-    qa[kk][1] = r1 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * three_d + c) : 0u;
-    qa[kk][2] = r0 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * three_d + c + 16) : 0u;
-    qa[kk][3] = r1 < l ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * three_d + c + 16) : 0u;
+  for (int i = 0; i < 64; ++i) {
+    const float f = i2f_exact(acc[i]);
+    s[i] = dynamic ? __fmul_rn(__fmul_rn(f, s_qk), sm_scale) : __fmul_rn(f, s_qk);
+  }
+  if (col0 + kI8Chunk > kv_len) {  // (warp-uniform) the chunk holds masked keys
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (col0 + (i >> 2) * 8 + 2 * t + (i & 1) >= kv_len) s[i] = kNegInf;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (i & 2)
+      mx1 = fmaxf(mx1, s[i]);
+    else
+      mx0 = fmaxf(mx0, s[i]);
   }
 }
 
-// acc[j] = int32 scores of rows g, g+8 against keys 8 (j0 + j) .. + 7, a chunk
-// of kI8Tiles tiles.
-__device__ __forceinline__ void i8_scores(int (&acc)[kI8Tiles][4], const uint32_t (&qa)[kDh8 / 32][4],
-                                          const unsigned char* ks, int j0, int lane) {
+// p = exp(s - max) of a chunk in place; each row's sum of the unrounded p
+// into r0, r1 (this thread's share)
+__device__ __forceinline__ void i8_chunk_exp(float (&s)[64], float mx0, float mx1, float& r0, float& r1) {
 #pragma unroll
-  for (int j = 0; j < kI8Tiles; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-#pragma unroll
-  for (int j = 0; j < kI8Tiles / 2; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < kDh8 / 32; ++kk) {
-      uint32_t kb[4];  // key tiles 2j and 2j+1: {b0, b1} each
-      ldmatrix_x4(kb, ks + (size_t)(j0 * 8 + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kKPitch8 +
-                          kk * 32 + ((lane >> 3) & 1) * 16);
-      mma_s8(acc[2 * j], qa[kk], kb[0], kb[1]);
-      mma_s8(acc[2 * j + 1], qa[kk], kb[2], kb[3]);
-    }
+  for (int i = 0; i < 64; ++i) {
+    s[i] = expf(s[i] - ((i & 2) ? mx1 : mx0));
+    ((i & 2) ? r1 : r0) += s[i];
   }
 }
 
-// The dequantized fp32 score of an int32 accumulator, kNegInf for key >= kv_len.
-__device__ __forceinline__ float i8_score(int acc, int key, int kv_len, float s_qk, float sm_scale,
-                                          int dynamic) {
-  const float v = dynamic ? __fmul_rn(__fmul_rn((float)acc, s_qk), sm_scale) : __fmul_rn((float)acc, s_qk);
-  return key < kv_len ? v : kNegInf;
-}
-
-// o += p8 V over the 32 keys i * 32 ..: tiles s[j0..j0+3] hold p of those
-// keys, packed into the A operand in slot order.
-__device__ __forceinline__ void i8_pv(int (&o)[kDh8 / 8][4], const float (&s)[kI8Tiles][4], int j0,
-                                      const unsigned char* vt, int vp, int i, int lane) {
-  const uint32_t pa[4] = {
-      pack_p8(s[j0][0], s[j0][1], s[j0 + 1][0], s[j0 + 1][1]),
-      pack_p8(s[j0][2], s[j0][3], s[j0 + 1][2], s[j0 + 1][3]),
-      pack_p8(s[j0 + 2][0], s[j0 + 2][1], s[j0 + 3][0], s[j0 + 3][1]),
-      pack_p8(s[j0 + 2][2], s[j0 + 2][3], s[j0 + 3][2], s[j0 + 3][3])};
+// p8 = round(p * 127) of a chunk as the register A operand of its 4 32-key
+// steps. The accumulators hold keys 8 j + 2 t, + 1 of a row; the A operand
+// wants 4 consecutive k slots a lane, so slot 4 t + e of each 16 holds key
+// 2 t + e (e < 2) or 8 + 2 t + e - 2 (e >= 2), and V^T's rows hold the keys
+// in that slot order.
+__device__ __forceinline__ void i8_pack(uint32_t (&pa)[4][4], const float (&p)[64]) {
 #pragma unroll
-  for (int dn = 0; dn < kDh8 / 16; ++dn) {
-    uint32_t vb[4];  // dh tiles 2dn and 2dn+1: {b0, b1} each
-    ldmatrix_x4(vb, vt + (size_t)(dn * 16 + (lane & 7) + ((lane >> 4) << 3)) * vp + i * 32 +
-                        ((lane >> 3) & 1) * 16);
-    mma_s8(o[2 * dn], pa, vb[0], vb[1]);
-    mma_s8(o[2 * dn + 1], pa, vb[2], vb[3]);
+  for (int i = 0; i < 4; ++i) {
+    const int j = 16 * i;  // the first of the step's 4 8-key tiles, 4 values each
+    pa[i][0] = pack_p8(p[j], p[j + 1], p[j + 4], p[j + 5]);
+    pa[i][1] = pack_p8(p[j + 2], p[j + 3], p[j + 6], p[j + 7]);
+    pa[i][2] = pack_p8(p[j + 8], p[j + 9], p[j + 12], p[j + 13]);
+    pa[i][3] = pack_p8(p[j + 10], p[j + 11], p[j + 14], p[j + 15]);
   }
 }
 
-// Dequantize and normalize, head-concatenated, in each Pallas body's order.
-template <typename T>
-__device__ __forceinline__ void i8_store(T* out, const int (&o)[kDh8 / 8][4], float sum0, float sum1,
-                                         float s_pv, int dynamic, int b, int h, int l, int d, int r0,
-                                         int r1, int t) {
-  T* orow0 = out + ((size_t)b * l + r0) * d + h * kDh8;
-  T* orow1 = out + ((size_t)b * l + r1) * d + h * kDh8;
+// Issues O += P8 . V of a 128-key chunk (4 wgmma of 32 keys; no commit).
+__device__ __forceinline__ void i8_pv(int (&o)[32], const uint32_t (&pa)[4][4], const unsigned char* vt_block,
+                                      bool first) {
 #pragma unroll
-  for (int i = 0; i < kDh8 / 8; ++i) {
-    const int c = i * 8 + 2 * t;
-    float v[4];
+  for (int i = 0; i < 4; ++i) wgmma_s8_m64n64k32_rs(o, pa[i], sw128_desc(vt_block + i * 32), !first || i > 0);
+}
+
+// V^T of a stage from its V rows (key k at 64 k, 64B-swizzled): V^T row n
+// (head dim) of block c holds keys 128 c .. + 127 in slot order, 128B-
+// swizzled. Unit (key group q of 16, t', 16-wide head-dim slice U) takes the
+// keys 16 q + 2 t' + {0, 1, 8, 9} (16-byte loads) and writes 4-byte words of
+// 4 keys for each of its 16 head-dim rows (byte permutes: a 4 x 4 transpose
+// of bytes, four times); a warp's stores hit 32 distinct banks. One
+// warpgroup.
+template <int KC>
+__device__ __forceinline__ void i8_build_vt(unsigned char* vt, const unsigned char* v, int tid) {
+#pragma unroll
+  for (int r = 0; r < KC; ++r) {
+    const int idx = tid + 128 * r;
+    const int tp = idx & 3, q = r * 8 + ((idx >> 2) & 7), U = (idx >> 5) & 3;
+    uint4 w[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float sum = e < 2 ? sum0 : sum1;
-      v[e] = dynamic ? __fdiv_rn(__fmul_rn((float)o[i][e], s_pv), sum)
-                     : __fmul_rn(__fdiv_rn((float)o[i][e], sum), s_pv);
+      const int k = 16 * q + 2 * tp + (e & 1) + 8 * (e >> 1);
+      w[e] = *reinterpret_cast<const uint4*>(v + k * kDh8 + ((U ^ ((k >> 1) & 3)) << 4));
     }
-    if (r0 < l) store2(orow0 + c, v[0], v[1]);
-    if (r1 < l) store2(orow1 + c, v[2], v[3]);
-  }
-}
-
-// ---- the attention body --------------------------------------------------------
-
-// KC = padded key count / 32; the keys are swept in chunks of 64 (8 score
-// tiles of 16 x 8 a warp), twice. scales: static (3,) = (s_q, s_k, s_v);
-// dynamic (B, H, 3).
-template <typename T, int KC>
-__global__ void __launch_bounds__(kI8Warps * 32, 2)
-mha_int8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ scales,
-                T* __restrict__ out, int l, int num_heads, int kv_len, float sm_scale,
-                int dynamic) {
-  constexpr int LP = KC * 32, VP = LP + 16, NCH = LP / kI8KeyQuantum;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ks = smem;
-  unsigned char* vt = smem + (size_t)LP * kKPitch8;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int d = num_heads * kDh8, three_d = 3 * d;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int8_t* base = qkv + (size_t)b * l * three_d + h * kDh8;
-
-  i8_stage_kv(ks, vt, base, l, LP, VP, d, three_d, tid);
-  float s_qk, s_pv;
-  i8_factors(scales, b, h, num_heads, sm_scale, dynamic, s_qk, s_pv);
-  const int q0 = blockIdx.x * kI8QTile + warp * 16;
-  const int r0 = q0 + g, r1 = q0 + g + 8;
-  uint32_t qa[kDh8 / 32][4];
-  i8_load_q(qa, base, r0, r1, l, three_d, t);
-  cp_async_wait<0>();
-  __syncthreads();
-  if (q0 >= l) return;  // no block-wide barrier follows
-
-  // sweep 1: the row max of the dequantized, masked scores
-  float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll 1
-  for (int c = 0; c < NCH; ++c) {
-    int acc[kI8Tiles][4];
-    i8_scores(acc, qa, ks, kI8Tiles * c, lane);
+    unsigned char* dst = vt + (q >> 3) * (kI8Chunk * kDh8) + (((q & 7)) << 4) + 4 * tp;
 #pragma unroll
-    for (int j = 0; j < kI8Tiles; ++j) {
-      const int k0 = c * kI8KeyQuantum + j * 8 + 2 * t;
-      mx0 = fmaxf(mx0, fmaxf(i8_score(acc[j][0], k0, kv_len, s_qk, sm_scale, dynamic),
-                             i8_score(acc[j][1], k0 + 1, kv_len, s_qk, sm_scale, dynamic)));
-      mx1 = fmaxf(mx1, fmaxf(i8_score(acc[j][2], k0, kv_len, s_qk, sm_scale, dynamic),
-                             i8_score(acc[j][3], k0 + 1, kv_len, s_qk, sm_scale, dynamic)));
-    }
-  }
-  quad_max(mx0, mx1);
-
-  // sweep 2: the same scores, p = exp(s - max), r = sum of the unrounded p,
-  // O += p8 V
-  float sum0 = 0.f, sum1 = 0.f;
-  int o[kDh8 / 8][4];
-#pragma unroll
-  for (int i = 0; i < kDh8 / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0;
-#pragma unroll 1
-  for (int c = 0; c < NCH; ++c) {
-    int acc[kI8Tiles][4];
-    i8_scores(acc, qa, ks, kI8Tiles * c, lane);
-    float s[kI8Tiles][4];
-#pragma unroll
-    for (int j = 0; j < kI8Tiles; ++j) {
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t x0 = (&w[0].x)[c], x1 = (&w[1].x)[c], x2 = (&w[2].x)[c], x3 = (&w[3].x)[c];
+      const uint32_t t0 = __byte_perm(x0, x1, 0x5140), t1 = __byte_perm(x0, x1, 0x7362);
+      const uint32_t t2 = __byte_perm(x2, x3, 0x5140), t3 = __byte_perm(x2, x3, 0x7362);
+      const uint32_t o[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float v = i8_score(acc[j][e], c * kI8KeyQuantum + j * 8 + 2 * t + (e & 1), kv_len, s_qk,
-                                 sm_scale, dynamic);
-        s[j][e] = expf(v - (e < 2 ? mx0 : mx1));
+        const int n = 16 * U + 4 * c + e;
+        *reinterpret_cast<uint32_t*>(dst + n * 128 - ((q & 7) << 4) + (((q & 7) ^ (n & 7)) << 4)) = o[e];
       }
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
     }
-    i8_pv(o, s, 0, vt, VP, 2 * c, lane);
-    i8_pv(o, s, 4, vt, VP, 2 * c + 1, lane);
   }
-  quad_sum(sum0, sum1);
-  i8_store(out, o, sum0, sum1, s_pv, dynamic, b, h, l, d, r0, r1, t);
+}
+
+// O (64 x 64 int32) of one query tile: its int8 scores against the KC key
+// chunks at ks, the exact row max, p = exp(s - max), r = the fp32 sum of
+// the unrounded p, P8 = round(p * 127) times V^T; r into r0, r1 (summed
+// over the lane quad). Waits for V^T (vt_bar) before the first P V.
+template <int KC>
+__device__ __forceinline__ void i8_tile(int (&o)[32], const unsigned char* qt, const unsigned char* ks,
+                                        const unsigned char* vt, uint64_t* vt_bar, uint32_t par, int kv_len,
+                                        int t, float s_qk, float sm_scale, int dynamic, float& r0, float& r1) {
+  float mx0 = kNegInf, mx1 = kNegInf;
+  r0 = 0.f;
+  r1 = 0.f;
+  if constexpr (KC <= kI8RegChunks) {
+    // one sweep: the whole score row in registers, QK^T once
+    int acc[KC][64];
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[c][i] = 0;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < kDh8 / 32; ++kk)
+        wgmma_s8_m64n128k32(acc[c], sw64_desc(qt + kk * 32), sw64_desc(ks + c * kI8Chunk * kDh8 + kk * 32),
+                            kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    float s[KC][64];
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+      i8_chunk_scores(s[c], acc[c], c * kI8Chunk, kv_len, t, s_qk, sm_scale, dynamic, mx0, mx1);
+    quad_max(mx0, mx1);
+    uint32_t pa[KC][4][4];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      i8_chunk_exp(s[c], mx0, mx1, r0, r1);
+      i8_pack(pa[c], s[c]);
+    }
+    mbar_wait(vt_bar, par);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < KC; ++c) i8_pv(o, pa[c], vt + c * kI8Chunk * kDh8, c == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+  } else {
+    // two sweeps: the row max, then the same scores again for p and P V
+    int acc[64];
+    float s[64];
+#pragma unroll 1
+    for (int c = 0; c < KC; ++c) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDh8 / 32; ++kk)
+        wgmma_s8_m64n128k32(acc, sw64_desc(qt + kk * 32), sw64_desc(ks + c * kI8Chunk * kDh8 + kk * 32), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      i8_chunk_scores(s, acc, c * kI8Chunk, kv_len, t, s_qk, sm_scale, dynamic, mx0, mx1);
+    }
+    quad_max(mx0, mx1);
+    mbar_wait(vt_bar, par);
+#pragma unroll 1
+    for (int c = 0; c < KC; ++c) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDh8 / 32; ++kk)
+        wgmma_s8_m64n128k32(acc, sw64_desc(qt + kk * 32), sw64_desc(ks + c * kI8Chunk * kDh8 + kk * 32), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      float unused0 = kNegInf, unused1 = kNegInf;  // the final max is mx0, mx1
+      i8_chunk_scores(s, acc, c * kI8Chunk, kv_len, t, s_qk, sm_scale, dynamic, unused0, unused1);
+      i8_chunk_exp(s, mx0, mx1, r0, r1);
+      uint32_t pa[4][4];
+      i8_pack(pa, s);
+      wgmma_fence();
+      i8_pv(o, pa, vt + c * kI8Chunk * kDh8, c == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+  }
+  quad_sum(r0, r1);
+}
+
+// Persistent: block i takes the (window, head) pairs i, i + gridDim.x, ...;
+// a pair's Q tiles, K and V land in its stage by TMA (one thread issues
+// them, completing on the stage's full barrier; rows past the window come
+// from the next window or as zeros, masked keys and unstored rows), the next
+// pair's loads in flight under this one's products. The block's query tiles,
+// pair by pair, go to its three warpgroups in turn; the warpgroup that gets
+// a pair's first tile builds its V^T and arrives on the stage's V^T barrier,
+// which the others wait on before their first P V. The last of the three
+// done with a stage refills it. KC = ceil(L / 128) key chunks, QT = Q tiles
+// a stage holds (4 or 8). scales: static (3,) = (s_q, s_k, s_v); dynamic
+// (B, H, 3).
+template <typename T, int KC, int QT>
+__global__ void __launch_bounds__(kI8Threads, 1)
+mha_int8_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tkv,
+                const float* __restrict__ scales, T* __restrict__ out, int batch, int l, int num_heads,
+                int kv_len, float sm_scale, int dynamic) {
+  constexpr int kStages = i8_stages(KC);
+  constexpr size_t kStage = i8_stage_bytes(KC, QT);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  constexpr bool kStaged = sizeof(T) == 2;
+  unsigned char* outs = sm + kStages * kStage;                          // [3 warpgroups][kI8OutTile]
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + (kStaged ? kI8Warpgroups * kI8OutTile : 0));
+  uint64_t* vt_ready = full + kStages;                                   // [kStages]
+  int* done = reinterpret_cast<int*>(vt_ready + kStages);                // [kStages]
+
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+  // warp-uniform as the compiler sees it (a shuffle of lane 0's value), so
+  // the wgmma do not lie on a divergent path
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int g = lane >> 2, t = lane & 3;
+  const int d = num_heads * kDh8;
+  const int n_items = batch * num_heads, n_qt = (l + kI8QTile - 1) / kI8QTile;
+
+  // the Q tiles, K and V of pair w into stage st by TMA, completing on
+  // full[st]. One thread.
+  auto load = [&](int w, int st) {
+    const int b = w / num_heads, h = w % num_heads, row0 = b * l;
+    unsigned char* qd = sm + st * kStage;
+    unsigned char* kd = qd + i8_q_bytes(QT);
+    unsigned char* vd = kd + i8_kv_bytes(KC);
+    mbar_expect_tx(&full[st], (uint32_t)(n_qt * kI8QTile * kDh8 + 2 * i8_kv_bytes(KC)));
+    for (int qt = 0; qt < n_qt; ++qt) tma_2d(qd + qt * kI8QTile * kDh8, &tq, h * kDh8, row0 + qt * kI8QTile, &full[st]);
+    for (int c = 0; c < KC; ++c) {
+      tma_2d(kd + c * kI8Chunk * kDh8, &tkv, d + h * kDh8, row0 + c * kI8Chunk, &full[st]);
+      tma_2d(vd + c * kI8Chunk * kDh8, &tkv, 2 * d + h * kDh8, row0 + c * kI8Chunk, &full[st]);
+    }
+  };
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&vt_ready[st], 1);
+      done[st] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < kStages; ++st)
+      if (blockIdx.x + st * gridDim.x < n_items) load(blockIdx.x + st * gridDim.x, st);
+  }
+  __syncthreads();
+
+  int gt = 0;  // the block's query tiles in order: tile gt goes to warpgroup gt % 3
+  int i = 0;
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++i) {
+    const int st = i % kStages;
+    const uint32_t par = (i / kStages) & 1;
+    mbar_wait(&full[st], par);  // pair w landed
+    const int b = w / num_heads, h = w % num_heads;
+    unsigned char* qs = sm + st * kStage;
+    const unsigned char* ks = qs + i8_q_bytes(QT);
+    const unsigned char* vs = ks + i8_kv_bytes(KC);
+    unsigned char* vts = qs + i8_q_bytes(QT) + 2 * i8_kv_bytes(KC);
+    if (gt % kI8Warpgroups == wg) {
+      i8_build_vt<KC>(vts, vs, tid & 127);
+      fence_proxy_async();  // V^T, for the wgmma's async proxy
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
+      if ((tid & 127) == 0) mbar_arrive(&vt_ready[st]);
+    }
+    float s_qk, s_pv;
+    i8_factors(scales, b, h, num_heads, sm_scale, dynamic, s_qk, s_pv);
+    for (int qt = 0; qt < n_qt; ++qt) {
+      if (gt++ % kI8Warpgroups != wg) continue;
+      int o[32];  // (the first P V product overwrites it)
+      float r0, r1;
+      i8_tile<KC>(o, qs + qt * kI8QTile * kDh8, ks, vts, &vt_ready[st], par, kv_len, t, s_qk, sm_scale,
+                  dynamic, r0, r1);
+      // dequantize and normalize in each Pallas body's order; pairs stored
+      // head-concatenated (16-bit pairs staged swizzled in this warpgroup's
+      // tile, then written in 16-byte stores)
+      const int row0 = qt * kI8QTile + warp * 16 + g, row1 = row0 + 8;
+      unsigned char* my_out = outs + wg * kI8OutTile;
+      T* ob = out + (size_t)b * l * d + h * kDh8;
+      const float y0 = __frcp_rn(r0), y1 = __frcp_rn(r1);
+#pragma unroll
+      for (int j = 0; j < kDh8 / 8; ++j) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float r = e < 2 ? r0 : r1, y = e < 2 ? y0 : y1;
+          const float pv = __int2float_rn(o[4 * j + e]);  // |PV| <= 512 x 127 x 128 < 2^24: exact
+          v[e] = dynamic ? div_rn(__fmul_rn(pv, s_pv), r, y) : __fmul_rn(div_rn(pv, r, y), s_pv);
+        }
+        if constexpr (kStaged) {
+          store2(reinterpret_cast<T*>(my_out + sw128_offset(warp * 16 + g, j) + 4 * t), v[0], v[1]);
+          store2(reinterpret_cast<T*>(my_out + sw128_offset(warp * 16 + g + 8, j) + 4 * t), v[2], v[3]);
+        } else {
+          if (row0 < l) store2(ob + (size_t)row0 * d + 8 * j + 2 * t, v[0], v[1]);
+          if (row1 < l) store2(ob + (size_t)row1 * d + 8 * j + 2 * t, v[2], v[3]);
+        }
+      }
+      if constexpr (kStaged) {
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
+        for (int k = tid & 127; k < kI8QTile * 8; k += 128) {
+          const int r = k >> 3, c = k & 7, row = qt * kI8QTile + r;
+          if (row < l)
+            *reinterpret_cast<uint4*>(ob + (size_t)row * d + c * 8) =
+                *reinterpret_cast<const uint4*>(my_out + sw128_offset(r, c));
+        }
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // the tile is free again
+      }
+    }
+    // this warpgroup is done with stage st: its reads before the next TMA
+    // write; the last of the three refills the stage
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+    if ((tid & 127) == 0 && atomicAdd(&done[st], 1) == kI8Warpgroups - 1) {
+      done[st] = 0;
+      if (w + kStages * (int)gridDim.x < n_items) load(w + kStages * gridDim.x, st);
+    }
+  }
+}
+
+// A 2D int8 tensor map over qkv (B L, 3D): boxes of 64 columns (one head)
+// x box_rows, 64B-swizzled (the layout sw64_desc reads).
+inline cudaError_t encode_qkv8_map(CUtensorMap* map, const void* qkv, int rows, int three_d, int box_rows) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)three_d, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)three_d};
+  const cuuint32_t box[2] = {(cuuint32_t)kDh8, (cuuint32_t)box_rows}, elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(qkv), dims, strides, box,
+                         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T, int KC>
-cudaError_t launch_mha_int8(const int8_t* qkv, const float* scales, T* out, int batch, int l,
-                            int num_heads, int kv_len, float sm_scale, int dynamic,
+cudaError_t launch_mha_int8(const CUtensorMap& tq, const CUtensorMap& tkv, const float* scales, T* out,
+                            int batch, int l, int num_heads, int kv_len, float sm_scale, int dynamic, int blocks,
                             cudaStream_t st) {
-  auto kernel = mha_int8_kernel<T, KC>;
-  const size_t smem = i8_attn_smem_bytes(KC * 32);
+  constexpr int QT = KC <= kI8RegChunks ? 4 : 8;
+  auto kernel = mha_int8_kernel<T, KC, QT>;
+  const size_t smem = i8_smem_bytes(KC, QT, sizeof(T) == 2);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((l + kI8QTile - 1) / kI8QTile, num_heads, batch);
-  kernel<<<grid, kI8Warps * 32, smem, st>>>(qkv, scales, out, l, num_heads, kv_len, sm_scale, dynamic);
+  kernel<<<blocks, kI8Threads, smem, st>>>(tq, tkv, scales, out, batch, l, num_heads, kv_len, sm_scale, dynamic);
   return cudaGetLastError();
 }
 
-// The padded key count picks the instantiation.
+// One block an SM (or one a pair); the key chunks pick the instantiation.
 template <typename T>
 cudaError_t launch_mha_int8_any(const void* qkv, const void* scales, void* out, int batch, int l,
                                 int num_heads, int kv_len, float sm_scale, int dynamic,
                                 cudaStream_t st) {
-  const int8_t* q = static_cast<const int8_t*>(qkv);
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  CUtensorMap tq, tkv;
+  const int three_d = 3 * num_heads * kDh8;
+  cudaError_t e = encode_qkv8_map(&tq, qkv, batch * l, three_d, kI8QTile);
+  if (e == cudaSuccess) e = encode_qkv8_map(&tkv, qkv, batch * l, three_d, kI8Chunk);
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)batch * num_heads;
+  const int blocks = (int)(items < sms ? items : sms);
   const float* sc = static_cast<const float*>(scales);
   T* o = static_cast<T*>(out);
-  switch ((l + kI8KeyQuantum - 1) / kI8KeyQuantum) {
-    case 1: return launch_mha_int8<T, 2>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
-    case 2: return launch_mha_int8<T, 4>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
-    case 3: return launch_mha_int8<T, 6>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
-    case 4: return launch_mha_int8<T, 8>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
-    case 5: return launch_mha_int8<T, 10>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
-    case 6: return launch_mha_int8<T, 12>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
-    case 7: return launch_mha_int8<T, 14>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
-    case 8: return launch_mha_int8<T, 16>(q, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, st);
+#define EBC_MHA8(KC_) \
+  launch_mha_int8<T, KC_>(tq, tkv, sc, o, batch, l, num_heads, kv_len, sm_scale, dynamic, blocks, st)
+  switch ((l + kI8Chunk - 1) / kI8Chunk) {
+    case 1: return EBC_MHA8(1);
+    case 2: return EBC_MHA8(2);
+    case 3: return EBC_MHA8(3);
+    case 4: return EBC_MHA8(4);
     default: return cudaErrorInvalidValue;
   }
+#undef EBC_MHA8
 }
 
 // ---- the dynamic scale pass ---------------------------------------------------

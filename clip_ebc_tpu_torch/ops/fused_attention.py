@@ -49,13 +49,15 @@ HEAD_DIM = 64
 # would take 512 keys.
 MAX_FUSED_SEQ = 320
 # Longest sequence of the int8 attention (``attn_scales`` or ``quant_attn``
-# of fused_ln_qkv_attention_int8): it sweeps the keys twice in chunks
-# (csrc/fused_attention_int8.cu, kI8MaxKeys); the JAX package's padded limit.
+# of fused_ln_qkv_attention_int8): past 256 keys it sweeps the keys twice in
+# 128-key chunks (csrc/fused_attention_int8.cu, kI8MaxKeys); the JAX
+# package's padded limit.
 MAX_FUSED_SEQ_INT8_ATTN = 512
-# Widest model the kernel takes: 64 LayerNormed rows of D bf16 values stay
-# in shared memory beside the weight tiles (csrc/fused_attention.cu, kPM,
-# kMaxDim, proj_smem_bytes); the fp32 variant's LayerNorm statistics pass
-# holds a row in registers sized for the same D (kFLnVecs).
+# Widest model the kernel takes: a warpgroup's 64 LayerNormed rows stay
+# resident, 384 columns in registers and the rest in shared memory beside
+# the weight ring (csrc/fused_attention.cu, kMaxDim, kPRegTiles,
+# proj_smem_bytes); the fp32 variant's LayerNorm statistics pass holds a
+# row in registers sized for the same D (kFLnVecs).
 MAX_FUSED_DIM = 768
 
 
@@ -512,6 +514,8 @@ def _forward(x, ln_weight, ln_bias, w, bias, num_heads, kv_len, sm_scale, eps) -
         kv_len, float(sm_scale), float(eps), _stream(dev),
     ))
     fused_ln_qkv_attention.launches += 1
+    if dt == torch.bfloat16:  # the bf16 entry's first launch is the LN + QKV projection kernel
+        fused_ln_qkv_attention.launches_proj += 1
     return out
 
 
@@ -568,7 +572,8 @@ def ln_qkv_bwd_frozen(
     need bf16 x, g and w, fp32 LN parameters and bias, D a multiple of 128,
     and launch the LN + projection recompute, the attention backward and
     the dy = d_qkv W + LayerNorm-backward kernel (one call counted in
-    ``ln_qkv_bwd_frozen.launches``) or raise."""
+    ``ln_qkv_bwd_frozen.launches``, the recompute also in
+    ``fused_ln_qkv_attention.launches_proj``) or raise."""
     if x.device.type == "cpu":
         return ln_qkv_bwd_frozen_plain(
             x, g, ln_weight, ln_bias, w, bias, num_heads, kv_len, sm_scale, eps
@@ -592,6 +597,7 @@ def ln_qkv_bwd_frozen(
         x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w.data_ptr(),
         bias.data_ptr(), qkv.data_ptr(), b * l, d, float(eps), _stream(dev),
     ))
+    fused_ln_qkv_attention.launches_proj += 1
     dqkv = _launch_attention_bwd(qkv, g, num_heads, kv_len, sm_scale)
     dx = torch.empty_like(x)
     _run(who, _entry("fused_attention_bwd", "ebc_ln_bwd_dx")(
@@ -696,8 +702,9 @@ def fused_ln_qkv_attention_int8(
     float one), and launch
     the branch's kernels, one call counted in
     ``fused_ln_qkv_attention_int8.launches_static``, ``.launches_dynamic``
-    or ``.launches`` (the float attention) and its LN + int8 projection
-    launch in ``.launches_proj``, or raise."""
+    or ``.launches`` (the float attention), its LN + int8 projection
+    launch in ``.launches_proj`` and an int8 attention launch in
+    ``.launches_attn``, or raise."""
     who = "fused_ln_qkv_attention_int8"
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, ln_weight, ln_bias, w, bias)
@@ -776,13 +783,16 @@ def fused_ln_qkv_attention_int8(
 
 
 def _launch_int8_attention(who, qkv_q, scales, out, num_heads, kv_len, sm_scale, dynamic) -> None:
-    """The int8 attention launch: ``scales`` is (3,) (static) or (B, H, 3)
-    (dynamic); ``out`` (B, L, D) in the activation dtype."""
+    """The int8 attention launch (counted in
+    ``fused_ln_qkv_attention_int8.launches_attn``): ``scales`` is (3,)
+    (static) or (B, H, 3) (dynamic); ``out`` (B, L, D) in the activation
+    dtype."""
     b, l, d = out.shape
     _run(who, _entry("fused_attention_int8", "ebc_int8_attention")(
         qkv_q.data_ptr(), scales.data_ptr(), out.data_ptr(), b, l, d, num_heads, kv_len,
         int(dynamic), int(out.dtype == torch.float32), float(sm_scale), _stream(out.device),
     ))
+    fused_ln_qkv_attention_int8.launches_attn += 1
 
 
 def fused_ln_mlp_int8(
@@ -908,7 +918,9 @@ def fused_ln_qkv_attention(
     CPU tensors take :func:`ln_qkv_attention_plain`. CUDA tensors need x
     and w both in bf16 or both in fp32 and LN params / bias in fp32, and
     launch the kernel of that dtype (counted in
-    ``fused_ln_qkv_attention.launches``) or raise. Differentiable: the
+    ``fused_ln_qkv_attention.launches``; the bf16 entry's LN + QKV
+    projection launch also in ``.launches_proj``, as is the recompute of
+    :func:`ln_qkv_bwd_frozen`) or raise. Differentiable: the
     backward is routed as the module docstring says."""
     return _FusedLnQkvAttention.apply(
         x, ln_weight, ln_bias, w, bias, num_heads, kv_len, sm_scale, eps
@@ -916,10 +928,12 @@ def fused_ln_qkv_attention(
 
 
 fused_ln_qkv_attention.launches = 0
+fused_ln_qkv_attention.launches_proj = 0
 fused_ln_qkv_attention_int8.launches = 0
 fused_ln_qkv_attention_int8.launches_static = 0
 fused_ln_qkv_attention_int8.launches_dynamic = 0
 fused_ln_qkv_attention_int8.launches_proj = 0
+fused_ln_qkv_attention_int8.launches_attn = 0
 fused_ln_mlp_int8.launches = 0
 fused_qkv_attention.launches = 0
 attention_bwd.launches = 0

@@ -886,3 +886,143 @@ def test_flash_backend_takes_the_short_kernel(cuda):
         assert fa.flash_short.launches == (12 if backend == "flash" else 0)
         counts[backend] = float(density.sum())
     assert abs(counts["flash"] - counts["auto"]) <= 1e-2 * abs(counts["auto"])
+
+
+@pytest.mark.parametrize("d", [128, 256, 768])
+@pytest.mark.parametrize("m", [1, 63, 65, 129, 3664])
+def test_ln_qkv_proj_matches_plain(cuda, m, d):
+    """The bf16 LN + QKV projection alone (``ebc_ln_qkv_proj``, the first
+    launch of the bf16 attention and the recompute of the frozen backward)
+    at the edges of its 128-row items (1, 63, 65, 129 rows) and at a
+    training step's 16 x 229 rows (items split into column parts), against
+    ``ln_qkv_proj_plain``: max 2e-2 and median 1e-3 of the largest output
+    (both round y and qkv to bf16 at the same points)."""
+    rng = np.random.default_rng(m + d)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    x = t(rng.normal(size=(m, d))).to(torch.bfloat16)
+    gam, be = t(1.0 + 0.1 * rng.normal(size=d)), t(0.1 * rng.normal(size=d))
+    w = t(rng.normal(size=(3 * d, d)) * d**-0.5).to(torch.bfloat16)
+    bias = t(0.02 * rng.normal(size=3 * d))
+    got = torch.full((m, 3 * d), float("nan"), dtype=torch.bfloat16, device=cuda)
+    rc = fatt._entry("fused_attention", "ebc_ln_qkv_proj")(
+        x.data_ptr(), gam.data_ptr(), be.data_ptr(), w.data_ptr(), bias.data_ptr(), got.data_ptr(),
+        m, d, 1e-5, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = fatt.ln_qkv_proj_plain(x, gam, be, w, bias)
+    assert bool(torch.isfinite(got).all())
+    err, med = _max_median(got, want)
+    assert err <= 2e-2 and med <= 1e-3, (err, med)
+
+
+# key counts of the int8 attention body: one key, a 64-row query tile and
+# one past it, the flagship windows, the one-sweep limit (256) and one past
+# it (two sweeps), --window_size 320 and the longest
+INT8_BODY_LENGTHS = [17, 64, 65, 229, 256, 257, 433, 512]
+
+
+def _int8_body_vs_plain(cuda, branch, qkv, h, kv_len):
+    """The int8 attention body (``ebc_int8_attention``) on a float qkv ``(B,
+    L, 3D)`` in the output dtype and its plain version: static scales on the
+    qkv quantized per tensor, or the dynamic scale pass. Returns ``(got,
+    want)``, both ``(B, L, D)``."""
+    b, l, three_d = qkv.shape
+    d, out_dtype = three_d // 3, qkv.dtype
+    f32 = out_dtype == torch.float32
+    sm = (d // h) ** -0.5
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    if branch == "static":
+        aq = torch.clamp(qkv.float().reshape(b, l, 3, d).abs().amax((0, 1, 3)), min=1e-8) / 127.0
+        qkv_q = torch.clamp(torch.round(qkv.float() / aq.repeat_interleave(d)), -127, 127).to(torch.int8)
+        scales = aq.contiguous()
+        want = fatt.int8_attention_static_plain(qkv_q, aq, h, kv_len, sm, out_dtype)
+    else:
+        qkv_q = torch.empty(b, l, three_d, dtype=torch.int8, device=cuda)
+        amax = torch.empty(b, h, 3, dtype=torch.float32, device=cuda)
+        scales = torch.empty_like(amax)
+        block_b = 1 if f32 else 2
+        rc = fatt._entry("fused_attention_int8", "ebc_qkv_quant_dynamic")(
+            qkv.data_ptr(), amax.data_ptr(), qkv_q.data_ptr(), scales.data_ptr(), b, l, d, h, block_b,
+            int(f32), stream)
+        assert rc == 0
+        want = fatt.int8_attention_dynamic_plain(qkv, h, kv_len, sm, block_b)
+    got = torch.full((b, l, d), float("nan"), dtype=out_dtype, device=cuda)
+    rc = fatt._entry("fused_attention_int8", "ebc_int8_attention")(
+        qkv_q.data_ptr(), scales.data_ptr(), got.data_ptr(), b, l, d, h, kv_len,
+        int(branch == "dynamic"), int(f32), sm, stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    return got, want
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("l", INT8_BODY_LENGTHS)
+@pytest.mark.parametrize("branch", ["static", "dynamic"])
+def test_int8_attention_body_matches_plain(cuda, branch, l, masked, out_dtype):
+    """The int8 attention body alone (``ebc_int8_attention``) at ViT-B width
+    (12 heads), B in {1, 3, 16} (16 x 12 pairs: more than one a block),
+    kv_len = L or below it: static scales on a qkv quantized per tensor,
+    or the dynamic scale pass on a float qkv; against
+    ``int8_attention_static_plain`` / ``int8_attention_dynamic_plain``, max
+    2e-2 and median 1e-3 of the largest output."""
+    d, h = 768, 12
+    b = (1, 3, 16)[INT8_BODY_LENGTHS.index(l) % 3]
+    kv_len = max(1, l - 29) if masked else l
+    rng = np.random.default_rng(l + 7 * masked)
+    qkv = torch.from_numpy(rng.normal(size=(b, l, 3 * d)).astype(np.float32)).to(cuda)
+    got, want = _int8_body_vs_plain(cuda, branch, qkv.to(getattr(torch, out_dtype)), h, kv_len)
+    assert bool(torch.isfinite(got).all())
+    err, med = _max_median(got[:, :kv_len], want[:, :kv_len])
+    assert err <= 2e-2 and med <= 1e-3, (err, med)
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("l", [433, 512])
+@pytest.mark.parametrize("branch", ["static", "dynamic"])
+def test_int8_attention_body_exact_on_large_pv_sums(cuda, branch, l, out_dtype):
+    """P V's int32 sums past 2^22 convert exactly: q = 0 makes the attention
+    uniform (every p8 = 127) over kv_len = L keys, and in every head V's
+    channel 0 is +max and channel 1 -max in every key (int8 +-127), so
+    those sums reach +-L x 127^2 (7.0M at 433 tokens, 8.3M at 512). Both
+    channels of the output must equal +-max; the whole output against the
+    plain version with max 2e-2 and median 1e-3 of the largest output."""
+    d, h, b = 768, 12, 2
+    rng = np.random.default_rng(l)
+    qkv = rng.normal(size=(b, l, 3, h, d // h)).astype(np.float32)
+    qkv[:, :, 0] = 0.0
+    qkv[:, :, 2, :, 0], qkv[:, :, 2, :, 1] = 8.0, -8.0  # the max-abs of V: int8 +-127
+    qkv = torch.from_numpy(qkv.reshape(b, l, 3 * d)).to(cuda).to(getattr(torch, out_dtype))
+    got, want = _int8_body_vs_plain(cuda, branch, qkv, h, l)
+    assert bool(torch.isfinite(got).all())
+    heads = got.float().reshape(b, l, h, d // h)
+    assert torch.allclose(heads[..., 0], torch.full_like(heads[..., 0], 8.0), rtol=1e-2, atol=0)
+    assert torch.allclose(heads[..., 1], torch.full_like(heads[..., 1], -8.0), rtol=1e-2, atol=0)
+    err, med = _max_median(got, want)
+    assert err <= 2e-2 and med <= 1e-3, (err, med)
+
+
+def test_projection_and_int8_body_count_their_launches(cuda):
+    """``fused_ln_qkv_attention.launches_proj`` counts each launch of the
+    bf16 LN + QKV projection kernel (the bf16 forward and the frozen
+    backward's recompute; the fp32 forward has its own kernel), and
+    ``fused_ln_qkv_attention_int8.launches_attn`` each launch of the int8
+    attention body (static and dynamic scales, not the float attention)."""
+    b, l, d, h, kv_len = 2, 37, 128, 2, 33
+    sm = (d // h) ** -0.5
+    p, q = fused_ln_qkv_attention, fused_ln_qkv_attention_int8
+    for dtype, n in ((torch.bfloat16, 1), (torch.float32, 0)):
+        args = _attn_inputs(b, l, d, seed=3, dev=cuda, dtype=dtype)
+        before = p.launches_proj
+        fused_ln_qkv_attention(*args, h, kv_len, sm)
+        assert p.launches_proj == before + n
+    x, gam, be, w, bias = _attn_inputs(b, l, d, seed=4, dev=cuda)
+    before = p.launches_proj
+    ln_qkv_bwd_frozen(x, torch.ones_like(x), gam, be, w, bias, h, kv_len, sm)
+    assert p.launches_proj == before + 1
+    x, gam, be, w, bias, act_scale, aq = _int8_attn_inputs(b, l, 256, kv_len, cuda, torch.bfloat16)
+    for kw, n in ((dict(attn_scales=aq), 1), (dict(quant_attn=True), 1), ({}, 0)):
+        before = q.launches_attn
+        fused_ln_qkv_attention_int8(x, gam, be, w, bias, act_scale, 4, kv_len, 64**-0.5, **kw)
+        assert q.launches_attn == before + n, kw
+    torch.cuda.synchronize()

@@ -69,3 +69,19 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     assert torch.equal(got, ln_qkv_attention_plain(*args, 2, 17, 0.125))
     assert fused_ln_qkv_attention.launches == before
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l", [(3, 43), (1, 65)])
+def test_plain_matches_jax_kernel_at_ragged_rows(b, l, dtype):
+    """Row counts just past the CUDA projection's 128-row and 64-row items
+    (3 x 43 = 129 rows, 65 rows): the plain version the kernel is held to
+    against the JAX kernel, the keys masked past l - 2."""
+    d, h, kv_len = 128, 2, l - 2
+    x, g, be, w, bias = _inputs(b, l, d, seed=b * l)
+    sm = (d // h) ** -0.5
+    want = np.asarray(jax_fused(jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(g), jnp.asarray(be),
+                                jnp.asarray(w), jnp.asarray(bias), h, kv_len, sm), np.float32)
+    got = ln_qkv_attention_plain(*_port(x, g, be, w, bias, dtype), h, kv_len, sm).float().numpy()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got[:, :kv_len], want[:, :kv_len], rtol=tol, atol=tol)

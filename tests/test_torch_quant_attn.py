@@ -177,6 +177,41 @@ def test_dynamic_int8_attention_matches_jax_kernel(kv_len, dtype):
     assert torch.equal(got, plain)
 
 
+@pytest.mark.parametrize("branch", ["static", "dynamic"])
+@pytest.mark.parametrize("l", [256, 257])
+def test_int8_attention_plain_matches_jax_kernel_at_the_sweep_boundary(l, branch):
+    """The plain int8 attention the CUDA body is held to, at the key counts
+    where that body changes design (up to 256 keys the score row stays in
+    registers, from 257 it sweeps the keys twice), against the JAX kernel
+    (interpreted): 2 heads, 2 windows, fp32, calibrated static scales or
+    dynamic per-tile ones."""
+    d, h, kv_len = 128, 2, l - 3
+    sm = (d // h) ** -0.5
+    rng = np.random.default_rng(l)
+    x = rng.normal(size=(2, l, d)).astype(np.float32)
+    g = (1.0 + 0.1 * rng.normal(size=d)).astype(np.float32)
+    be = (0.1 * rng.normal(size=d)).astype(np.float32)
+    w = (rng.normal(size=(d, 3 * d)) * d**-0.5).astype(np.float32)  # JAX (in, out)
+    bias = (0.02 * rng.normal(size=3 * d)).astype(np.float32)
+    xf = x - x.mean(-1, keepdims=True)
+    y = xf / np.sqrt((xf**2).mean(-1, keepdims=True) + 1e-5) * g + be
+    act_scale = np.float32(np.abs(y).max() / 127.0)
+    aq = _qkv_scales(y @ w + bias)
+    kw = dict(attn_scales=jnp.asarray(aq)) if branch == "static" else dict(quant_attn=True)
+    want = np.asarray(jax_fused_int8(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(be), jnp.asarray(w), jnp.asarray(bias),
+        jnp.asarray(act_scale), h, kv_len, sm, **kw), np.float32)
+    args = (_t(x), _t(g), _t(be), _t(w.T), _t(bias), torch.tensor(act_scale))
+    w_q, s_col = tq.quantize_weight(args[3])
+    if branch == "static":
+        got = ln_qkv_attention_int8_static_plain(*args[:3], w_q, s_col, args[4], args[5],
+                                                 torch.from_numpy(aq), h, kv_len, sm)
+    else:
+        got = ln_qkv_attention_int8_dynamic_plain(*args[:3], w_q, s_col, args[4], args[5], h, kv_len,
+                                                  sm, block_b=1)
+    assert_close_max_median(got.numpy()[:, :kv_len], want[:, :kv_len])
+
+
 def test_dynamic_scales_group_tiles_and_head_pairs():
     """One scale per tile of block_b windows and head for q and v, per head
     pair for k; a last tile of fewer windows keeps its own."""
