@@ -26,7 +26,9 @@ Phases, each a hard failure (a raised exception, exit code 1):
    bf16 (``--amp``); then the CLI's default fp32 path on the same image.
    For each, the launch counters are zeroed just before and read just
    after: 12 attention launches and 1 head launch per forward, and in bf16
-   12 launches of the LN + QKV projection kernel. Then,
+   12 launches of the LN + QKV projection kernel (phase 2 holds the head
+   to its plain version with bf16 and fp32 features and times it beside a
+   bare read of the same rows). Then,
    through the Evaluator, the same weights with ``attn_backend="sdpa"``,
    ``fused_head="off"`` (no kernel) must give the count within 1e-2 in
    bf16 and 1e-3 in fp32; the time per image is measured for both paths
@@ -80,7 +82,10 @@ Phases, each a hard failure (a raised exception, exit code 1):
    the plain path's (``attn_backend="sdpa"``): relative L2 <= 1e-3 in
    fp32, <= 5e-2 in bf16 (printed beside the plain path's own bf16-vs-fp32
    error). Phase 2 times the frozen backward's three launches apart
-   (recompute, attention backward, dy + LayerNorm backward). Then ms per
+   (recompute, attention backward, dy + LayerNorm backward), and holds the
+   last (``ebc_ln_bwd_dx``) alone to its plain version on unit rows and on
+   rows of mean 50 +- 0.1, timed beside ``torch.mm(d_qkv, W)``; its
+   launches are counted on this path (12 a step). Then ms per
    step, windows/s and peak memory
    (medians of 5 steps after 2 warm-up, in turns: plain, kernels,
    kernels, plain) beside the step's bound (forward
@@ -355,34 +360,61 @@ def _time_launches(x, ln_w, ln_b, w, bias, sm) -> None:
 
 
 def phase_head(dev) -> dict:
+    """The fused head at the flagship image (140 windows x 28 x 28 feature
+    rows, C = 512, the QNRF bins' K = 5) with bf16 (``--amp``) and fp32
+    features (the CLIs' default), each against its plain version (rtol
+    1e-4, atol 1e-6: all math in fp32 on both sides) and timed by device
+    time beside its byte bound and the rate it reaches: the wrapper's call
+    (what the path pays) and the C entry alone."""
     from clip_ebc_tpu_torch.config import get_bins_and_anchors
-    from clip_ebc_tpu_torch.ops.fused_head import ebc_head_plain, fused_ebc_head
+    from clip_ebc_tpu_torch.ops.fused_head import _lib, ebc_head_plain, fused_ebc_head
 
     _, anchors = get_bins_and_anchors(8, 4, "qnrf")
     n, c, k = B * 28 * 28, 512, len(anchors)
     g = torch.Generator(device=dev).manual_seed(1)
-    feats = torch.randn(n, c, generator=g, device=dev).to(torch.bfloat16)
     text = torch.randn(k, c, generator=g, device=dev)
     scale = torch.tensor(1 / 0.07, device=dev)
     anch = torch.tensor(anchors, device=dev)
-    got = fused_ebc_head(feats, text, scale, anch)
-    want = ebc_head_plain(feats, text, scale, anch)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    close = torch.allclose(got, want, rtol=1e-4, atol=1e-6)
-    print(f"head kernel vs plain: max abs err {err:.3e} (rtol 1e-4, atol 1e-6): {close}")
-    check(close, "head kernel disagrees with its plain version")
-    ms = time_ms(lambda: fused_ebc_head(feats, text, scale, anch))
-    plain = time_ms(lambda: ebc_head_plain(feats, text, scale, anch))
-    flops = n * (3 * c + 2 * k * c + 6 * k)
-    nbytes = n * c * 2 + k * c * 4 + k * 4 + 4 + n * 4
-    bnd, by = bound_ms(flops, PEAK_FP32, nbytes)
-    print(f"head: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound {bnd * 1e3:.1f} us "
-          f"({by}); {nbytes / ms / 1e6:.0f} GB/s")
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        feats = torch.randn(n, c, generator=g, device=dev).to(dtype)
+        got = fused_ebc_head(feats, text, scale, anch)
+        want = ebc_head_plain(feats, text, scale, anch)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        close = torch.allclose(got, want, rtol=1e-4, atol=1e-6)
+        print(f"head {tag} kernel vs plain: max abs err {err:.3e} (rtol 1e-4, atol 1e-6): {close}")
+        check(close, f"head kernel ({tag}) disagrees with its plain version")
+        ms = time_spread(lambda: fused_ebc_head(feats, text, scale, anch))
+        out = torch.empty(n, device=dev)
+        entry = _lib().ebc_fused_head
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        alone = time_spread(lambda: entry(feats.data_ptr(), int(dtype == torch.bfloat16),
+                                          text.data_ptr(), anch.data_ptr(), scale.data_ptr(),
+                                          out.data_ptr(), n, c, k, stream))
+        plain = time_ms(lambda: ebc_head_plain(feats, text, scale, anch))
+        norms = time_spread(lambda: torch.linalg.vector_norm(feats, dim=-1))
+        flops = n * (3 * c + 2 * k * c + 6 * k)
+        nbytes = n * c * feats.element_size() + k * c * 4 + k * 4 + 4 + n * 4
+        bnd, by = bound_ms(flops, PEAK_FP32, nbytes)
+        print(f"head {tag} ({n} x {c}, K = {k}): the wrapper's call {spread_str(ms)}, "
+              f"{nbytes / ms[0] / 1e6:.0f} GB/s; the C entry alone {spread_str(alone)}, "
+              f"{nbytes / alone[0] / 1e6:.0f} GB/s; the rows' norms alone "
+              f"(torch.linalg.vector_norm, a read of the same bytes) {spread_str(norms)}, "
+              f"{nbytes / norms[0] / 1e6:.0f} GB/s; plain {plain:.4f} ms; bound {bnd:.4f} ms "
+              f"({by}), the call at {bnd / ms[0]:.0%} of it")
+        res[dtype] = dict(err=err, ms=ms[0], alone=alone[0], norms=norms[0], plain=plain,
+                          bound=(bnd, by))
+        del feats
+    r, r32 = res[torch.bfloat16], res[torch.float32]
     return {
         "name": "fused_ebc_head", "route": "cuda", "source": "clip_ebc_tpu_torch/csrc/fused_head.cu",
-        "replaces": "clip_ebc_tpu/ops/fused_head.py:70", "max_abs_err": err, "ms": ms,
-        "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "replaces": "clip_ebc_tpu/ops/fused_head.py:70", "max_abs_err": max(r["err"], r32["err"]),
+        "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": None, "entry_ms": r["alone"], "norms_ms": r["norms"], "ms_fp32": r32["ms"],
+        "entry_ms_fp32": r32["alone"], "plain_ms_fp32": r32["plain"],
+        "bound_ms_fp32": r32["bound"][0],
     }
 
 
@@ -498,7 +530,6 @@ def _time_frozen_launches(x, gout, ln_w, ln_b, w, bias, sm) -> None:
 
     dev, m = x.device, TRAIN_B * L
     qkv = torch.empty(TRAIN_B, L, 3 * D, dtype=torch.bfloat16, device=dev)
-    dx = torch.empty_like(x)
 
     def recompute():
         fa._run("ebc_ln_qkv_proj", fa._entry("fused_attention", "ebc_ln_qkv_proj")(
@@ -507,16 +538,54 @@ def _time_frozen_launches(x, gout, ln_w, ln_b, w, bias, sm) -> None:
 
     recompute()
     dqkv = fa.attention_bwd(qkv, gout, H, L, sm)
-
-    def ln_bwd_dx():
-        fa._run("ebc_ln_bwd_dx", fa._entry("fused_attention_bwd", "ebc_ln_bwd_dx")(
-            x.data_ptr(), dqkv.data_ptr(), ln_w.data_ptr(), w.data_ptr(), dx.data_ptr(), m, D,
-            1e-5, fa._stream(dev)))
-
     t = {"recompute (ebc_ln_qkv_proj)": time_spread(recompute),
          "attention backward": time_spread(lambda: fa.attention_bwd(qkv, gout, H, L, sm)),
-         "ebc_ln_bwd_dx": time_spread(ln_bwd_dx)}
+         "ebc_ln_bwd_dx": time_spread(lambda: fa.ln_bwd_dx(x, dqkv, ln_w, w))}
     print("ln_qkv_bwd_frozen by launch: " + ", ".join(f"{k} {spread_str(v)}" for k, v in t.items()))
+
+
+def phase_ln_bwd_dx(dev) -> dict:
+    """The frozen backward's last launch alone (``ebc_ln_bwd_dx``: dy =
+    d_qkv W, then the LayerNorm backward for dx) at the flagship training
+    step (M = 16 x 229 rows, D = 768), on the d_qkv of the attention
+    backward at the trunk's scale, against ``ln_bwd_dx_plain`` (the tail of
+    ``ln_qkv_bwd_frozen_plain``) within 2e-2 of the largest magnitude of
+    dx, as the whole frozen backward is held; also on x with a large row
+    mean (50 +- 0.1: a one-pass variance would cancel there). Timed by
+    device time beside ``torch.mm(d_qkv, W)``, the bare product (a
+    yardstick: no PyTorch call computes the fused function)."""
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    m = TRAIN_B * L
+    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+    w = (torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5).to(torch.bfloat16)
+    qkv, gout = _bwd_inputs(dev, torch.bfloat16, 16)
+    dqkv = fa.attention_bwd_plain(qkv, gout, H, L, (D // H) ** -0.5).reshape(m, 3 * D)
+    errs = []
+    for tag, x in (("unit rows", torch.randn(m, D, generator=g, device=dev)),
+                   ("rows of mean 50 +- 0.1", 50 + 0.1 * torch.randn(m, D, generator=g, device=dev))):
+        x = x.to(torch.bfloat16)
+        got = fa.ln_bwd_dx(x, dqkv, ln_w, w)
+        torch.cuda.synchronize()
+        errs.append(_check_scaled(f"ln_bwd_dx kernel vs plain, {tag}", got,
+                                  fa.ln_bwd_dx_plain(x, dqkv, ln_w, w), 2e-2))
+    ms = time_spread(lambda: fa.ln_bwd_dx(x, dqkv, ln_w, w))
+    library = time_spread(lambda: torch.mm(dqkv, w))
+    plain = time_ms(lambda: fa.ln_bwd_dx_plain(x, dqkv, ln_w, w), iters=5, warmup=1)
+    flops = 2 * m * 3 * D * D
+    nbytes = m * 3 * D * 2 + 3 * D * D * 2 + 2 * m * D * 2 + D * 4
+    bnd, by = bound_ms(flops, PEAK_BF16, nbytes)
+    print(f"ln_bwd_dx at M = {TRAIN_B} x {L}: kernel {spread_str(ms)} "
+          f"({flops / ms[0] / 1e9:.1f} TFLOP/s), torch.mm(d_qkv, W) {spread_str(library)} "
+          f"({flops / library[0] / 1e9:.1f} TFLOP/s), kernel / torch.mm {ms[0] / library[0]:.2f}x; "
+          f"plain {plain:.3f} ms; bound {bnd:.4f} ms ({by}), kernel at {bnd / ms[0]:.0%} of it")
+    return {
+        "name": "ln_bwd_dx", "route": "cuda", "source": "clip_ebc_tpu_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:627", "max_abs_err": max(errs),
+        "ms": ms[0], "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "mm_ms": library[0],
+    }
 
 
 def _check_max_median(who: str, got, want, max_tol: float, med_tol: float) -> float:
@@ -1317,7 +1386,8 @@ def phase_path_ms(dev) -> None:
     """The paths the float attention bodies sit on, kernel path only, for
     timing a tree against its parent (``scripts/torch_kernel_ab.py``): ms
     per image of the flagship windows (140 of 224 px; host clock, median of
-    5 after a warm-up) in bf16 (12 launches of row 2) and under ``--quant
+    5 after a warm-up) in bf16 (12 launches of row 2), in fp32 (the CLIs'
+    default) and under ``--quant
     int8`` in bf16 (dynamic scales: the int8 projection, then row 3 at 140
     windows), under ``--quant int8_static`` (rows 2b: the int8 LN + QKV
     projection, then the bf16 attention body) and ``--quant int8_static
@@ -1337,8 +1407,9 @@ def phase_path_ms(dev) -> None:
 
     bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
     image = normalize_image(np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,)).astype(np.float32) / 255.0)
-    for tag, kw in (("bf16", {}), ("--quant int8, bf16", {"quant_int8": True})):
-        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, dtype=torch.bfloat16, num_vpt=32,
+    for tag, dtype, kw in (("bf16", torch.bfloat16, {}), ("fp32", torch.float32, {}),
+                           ("--quant int8, bf16", torch.bfloat16, {"quant_int8": True})):
+        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, dtype=dtype, num_vpt=32,
                           seed=0, device=dev, **kw)
         ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
                        pad_to_multiple=16)
@@ -1856,6 +1927,7 @@ def _train_counters(reset: bool = False) -> dict:
            "ln_qkv_proj": (fa.fused_ln_qkv_attention, "launches_proj"),
            "attention_bwd": (fa.attention_bwd, "launches"),
            "ln_qkv_bwd_frozen": (fa.ln_qkv_bwd_frozen, "launches"),
+           "ln_bwd_dx": (fa.ln_bwd_dx, "launches"),
            "fused_ebc_head": (fused_ebc_head, "launches")}
     if reset:
         for f, attr in fns.values():
@@ -1956,7 +2028,7 @@ def profile_step(trainer, batch, text, tag: str) -> None:
     host = sum(e.self_cpu_time_total for e in events if e.device_type == DeviceType.CPU) / 1e3
     print(f"profiled training step {tag}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"(idle share {1 - busy / wall:.2f}), host CPU {host:.2f} ms")
-    print(p.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+    print(p.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
 
 
 def phase_training(dev, kernels: dict, profile: bool) -> None:
@@ -1984,8 +2056,9 @@ def phase_training(dev, kernels: dict, profile: bool) -> None:
             if amp:
                 check(n["ln_qkv_bwd_frozen"] == 12 * steps,
                       f"bf16: expected {12 * steps} frozen-backward launches")
-                check(n["attention_bwd"] == 12 * steps,
-                      "bf16: the frozen backward runs one attention backward per block")
+                check(n["attention_bwd"] == 12 * steps and n["ln_bwd_dx"] == 12 * steps,
+                      "bf16: the frozen backward runs one attention backward and one dx launch "
+                      "per block")
                 # the projection runs in every bf16 forward (the steps' and the
                 # evaluation's) and in every frozen backward's recompute
                 check(n["fused_ln_qkv_attention"] >= 12 * steps and n["ln_qkv_proj"] ==
@@ -1994,6 +2067,7 @@ def phase_training(dev, kernels: dict, profile: bool) -> None:
                       "forward and one per frozen backward")
                 kernels["ln_qkv_proj"]["launches_train"] = n["ln_qkv_proj"]
                 kernels["ln_qkv_bwd_frozen"]["launches"] = n["ln_qkv_bwd_frozen"]
+                kernels["ln_bwd_dx"]["launches"] = n["ln_bwd_dx"]
                 kernels["attention_bwd"]["launches"] = n["attention_bwd"]
             else:
                 check(n["attention_bwd"] == 12 * steps and n["ln_qkv_bwd_frozen"] == 0,
@@ -2103,6 +2177,7 @@ def main(argv) -> int:
     kernels = [phase_attention(dev, torch.bfloat16), phase_attention(dev, torch.float32),
                phase_head(dev), phase_attention_bwd(dev, torch.bfloat16),
                phase_attention_bwd(dev, torch.float32), phase_ln_qkv_bwd_frozen(dev),
+               phase_ln_bwd_dx(dev),
                phase_attention_int8(dev, torch.bfloat16), phase_attention_int8(dev, torch.float32),
                phase_int8_proj(dev, torch.bfloat16), phase_int8_proj(dev, torch.float32),
                phase_ln_qkv_proj(dev), phase_int8_attention_body(dev),

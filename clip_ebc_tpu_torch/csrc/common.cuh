@@ -232,6 +232,15 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0
       : "memory");
 }
 
+// A 1D bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte aligned)
+// into shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // TMA: src (1024-byte aligned, in the map's swizzle) to the box of a 2D
 // tensor map at (c0, c1), in this thread's bulk group; the part of the box
 // outside the tensor is not written.
@@ -265,6 +274,20 @@ inline EncodeTiledFn tensor_map_encoder() {
       fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// A 2D bf16 tensor map over a row-major (rows, cols) matrix: boxes of 64
+// columns (128 B) x box_rows, 128B-swizzled (the layout sw128_desc reads).
+inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* p, int cols, int rows, int box_rows) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows}, elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
+                         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace ebc

@@ -366,20 +366,6 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   if (issuer) bulk_wait_all();
 }
 
-// A 2D bf16 tensor map over a row-major (rows, cols) matrix: boxes of 64
-// columns (128 B) x box_rows, 128B-swizzled (the layout sw128_desc reads).
-cudaError_t encode_bf16_map(CUtensorMap* map, const void* p, int cols, int rows, int box_rows) {
-  const EncodeTiledFn enc = tensor_map_encoder();
-  if (!enc) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)kPK, (cuuint32_t)box_rows}, elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
-                         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // Column parts of an item: the divisor p of the nc chunks that minimizes
 // the waves of items on the SMs times an item's chunks plus one for its
 // LayerNorm (a window forward, 251 row tiles: 1; a training step's 29: 9).

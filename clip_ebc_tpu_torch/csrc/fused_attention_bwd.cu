@@ -25,9 +25,10 @@
 // and g 5.6 MB and write d_qkv 16.9 MB (0.012 ms at 3.35 TB/s) for 6.4
 // GFLOP of products (0.0065 ms at 989 TFLOP/s bf16): bytes bound it in
 // bf16; in fp32 the same FLOP over 67 TFLOP/s is 0.096 ms, so operations
-// do. dy = d_qkv . W is M = 3664 x K = 2304 x N = 768 (13.0 GFLOP); with
-// the recomputed projection and the attention the frozen backward is 32.4
-// GFLOP, 0.033 ms at 989 TFLOP/s: operations bound it.
+// do. dy = d_qkv . W is M = 3664 x K = 2304 x N = 768 (13.0 GFLOP, 0.0131
+// ms, against 31.7 MB of d_qkv, W, x and dx, 0.0095 ms: operations bound
+// ebc_ln_bwd_dx); with the recomputed projection and the attention the
+// frozen backward is 32.4 GFLOP, 0.033 ms at 989 TFLOP/s.
 //
 // Design, bf16 (wgmma, TMA, sm_90a; one launch, attn_bwd_bf16_kernel;
 // redesigned after the first port, two mma.sync launches over (64-row
@@ -95,18 +96,29 @@
 //    g and dK += dS^T Q, 4 x 4 outputs of each a thread. S and dP are
 //    computed twice (once a launch), 1.7x the FLOP of one pass; a single
 //    launch has not been tried against this split.
-//  * ln_bwd_dx_kernel: a block owns 32 rows x all D columns of dy (8
-//    warps, each 32 rows x D/8 columns, mma.sync from shared memory), so
-//    the LayerNorm's row means of dy gamma and dy gamma xhat close inside
-//    the block; d_qkv tiles (32 x 32) and W tiles (32 x D) stream through a
-//    3-stage cp.async ring. The LN statistics are taken from x in the
-//    prologue while the first tiles land. Only dx is written.
+//  * ln_bwd_dx_kernel (wgmma, TMA, clusters, sm_90a; redesigned after the
+//    first port, a block of 8 mma.sync warps per 32 rows x all D columns
+//    with W streamed whole through a cp.async ring by each of its 115
+//    blocks: 0.117 ms at the flagship step on an H100 SXM at 700 W, where
+//    a copy that loaded W's tiles once took 0.059 and one without any mma
+//    0.114, so W's 407 MB of L2 reads led). A cluster of D / 192 blocks
+//    (4 at D = 768) owns a 128-row tile, each block 192 of its columns, so
+//    W's L2 reads fall to 103 MB and 116 blocks fill 132 SMs: two consumer
+//    warpgroups of 64 rows x 192 columns on wgmma m64n192k16 (W MN-major
+//    as torch's (out, in) layout stands), d_qkv and W by TMA through a
+//    4-stage ring; a third warpgroup takes the LN statistics (once a row
+//    in the cluster, written to every block through distributed shared
+//    memory) under the products (in the prologue they cost 0.0029 ms);
+//    the LayerNorm backward's two row sums over the block's columns go to
+//    every block the same way, and dx is staged in the x tile's place and
+//    stored by TMA. Only dx is written.
 //  * Costs to remove later: qkv and d_qkv each make a round trip through
 //    device memory (16.9 MB each per layer at the flagship shape), which
 //    the Pallas kernel kept in VMEM.
 //
 // Limits: head dim 64; L <= 320; the LN backward needs D % 128 == 0 and D
-// <= 768 (the W tiles fill shared memory).
+// <= 768 (the statistics hold a row in registers; the ring and the x tile
+// fill shared memory).
 
 #include "attention_short.cuh"
 
@@ -687,201 +699,337 @@ cudaError_t launch_dq_f32(const float* qkv, const float* g, float* dqkv, float* 
 
 // ---- bf16: dy = d_qkv . W and the frozen LayerNorm's backward ---------------
 
-constexpr int kYM = 32;        // rows of a block
-constexpr int kYK = 32;        // depth of one stage
-constexpr int kYStages = 3;
-constexpr int kYWarps = 8;     // warp w owns columns [w D/8, (w+1) D/8)
-constexpr int kYMaxNT = 12;    // n-tiles of 8 a warp holds at D = 768
-constexpr int kYMaxDim = kYWarps * kYMaxNT * 8;
-constexpr int kYAPitch = kYK + 8;  // 80 B: ldmatrix rows on distinct banks
-constexpr int kLnVecs = kYMaxDim / 256;  // 8-wide chunks a lane holds for the statistics
+constexpr int kXM = 128;           // rows of a block: two consumer warpgroups x 64
+constexpr int kXK = 64;            // depth of a ring step: one 128-byte swizzle row of d_qkv
+constexpr int kXStages = 4;        // ring steps in flight
+constexpr int kXWarps = 8;         // two consumer warpgroups; the last warp done with a step refills it
+constexpr int kXThreads = kXWarps * 32 + 128;  // and a warpgroup for the LN statistics
+constexpr int kXMaxDim = 768;      // the statistics pass holds a row in registers (3 x 8 values a lane)
+constexpr int kXMaxCluster = 5;    // blocks of a row tile: D / 64 / NC (D = 640: 5 of 128 columns)
+constexpr int kXATile = kXM * 128;  // bytes of a 128-row tile 64 values deep (d_qkv step, x or dx box)
+constexpr int kXWBox = kXK * 128;   // bytes of a W box: 64 rows (the depth) x 64 columns
 
-size_t ydx_smem(int d) {
-  return (size_t)kYStages * (kYM * kYAPitch + kYK * (d + 8)) * sizeof(bf16);
+__host__ __device__ constexpr int dx_stage_bytes(int nc) { return kXATile + nc * kXWBox; }
+// the ring, the x tile (dx staged in its place), each row's (mu, rstd), the
+// cluster's partial row sums, the barriers and done counts, 1024-byte alignment
+__host__ __device__ constexpr size_t dx_smem_bytes(int nc) {
+  return (size_t)kXStages * dx_stage_bytes(nc) + (size_t)nc * kXATile + kXM * sizeof(float2) +
+         (size_t)kXMaxCluster * kXM * sizeof(float2) + (kXStages + 1) * 8 + kXStages * 4 + 1024;
 }
 
-__global__ void __launch_bounds__(kYWarps * 32, 1)
-ln_bwd_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dqkv,
-                 const float* __restrict__ gamma, const bf16* __restrict__ w,
-                 bf16* __restrict__ dx, int m, int d, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float mu_s[kYM], rstd_s[kYM], red1[kYWarps][kYM], red2[kYWarps][kYM];
-  const int bpitch = d + 8;
-  bf16* as = reinterpret_cast<bf16*>(smem);
-  bf16* bs = as + (size_t)kYStages * kYM * kYAPitch;
-  const int n3 = 3 * d;
-  const int row0 = blockIdx.x * kYM;
+// Shared-memory descriptor of an MN-major bf16 B operand in the 128-byte
+// swizzle layout (16 rows of the depth a k-step, each row 64 columns = 128 B,
+// 8-row atoms 1024 B apart), its 64-column atoms ``lbo`` bytes apart.
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 128 fp32, 64 a thread) (+)= A (64 x 16 bf16, K-major) . B (16 x 128
+// bf16, MN-major: 2 atoms of 64 columns, lbo bytes apart), both in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 192 fp32, 96 a thread) (+)= A (64 x 16 bf16, K-major) . B (16 x 192
+// bf16, MN-major: 3 atoms of 64 columns, lbo bytes apart), both in shared memory.
+__device__ __forceinline__ void wgmma_m64n192k16_ss_tb(float (&d)[96], uint64_t desc_a, uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64 NC) (+)= A (64 x 16, K-major) . B (16 x 64 NC, NC MN-major atoms
+// kXWBox apart), both in shared memory.
+template <int NC>
+__device__ __forceinline__ void dx_mma(float (&d)[32 * NC], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  if constexpr (NC == 3)
+    wgmma_m64n192k16_ss_tb(d, desc_a, desc_b, accumulate);
+  else
+    wgmma_m64n128k16_ss_tb(d, desc_a, desc_b, accumulate);
+}
+
+// The partial row sums and the statistics go to every block of the cluster
+// through distributed shared memory.
+__device__ __forceinline__ void st_cluster(float2* p, float2 v, int cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(cta));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" :: "r"(remote), "f"(v.x), "f"(v.y) : "memory");
+}
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+
+// A cluster of CN = D / 64 NC blocks owns a 128-row tile (blockIdx.x /
+// CN); its block of rank r the columns [64 NC r, 64 NC (r + 1)). Consumer
+// warpgroup wg takes rows 64 wg .. + 63 of the tile: dy (64 x 64 NC fp32)
+// = d_qkv[rows, :] . W[:, columns] on wgmma, d_qkv's 128 rows and W's NC
+// 64-column boxes 64 deep a ring step by TMA (128B-swizzled; W MN-major, as
+// torch's (out, in) layout stands), the steps on per-stage mbarriers, the
+// last of the 8 consumer warps done with a stage refilling it. Meanwhile
+// the x tile of the block's columns lands by TMA, and a third warpgroup
+// takes the LN statistics once a row in the cluster (block r rows r, r +
+// CN, ..) and writes them to every block. Then dyh = dy gamma, the row sums of dyh
+// and dyh xhat over the block's columns go to every block, and dx = rstd
+// (dyh - m1 - xhat m2) is staged in the x tile's place and stored by TMA
+// (rows past m clipped).
+template <int NC>
+__global__ void __launch_bounds__(kXThreads, 1)
+ln_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                 const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+                 const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdx, int m,
+                 int d, float eps) {
+  constexpr int kStage = dx_stage_bytes(NC);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = sm;                                            // [kXStages][d_qkv tile, NC W boxes]
+  unsigned char* xs = ring + kXStages * kStage;                        // [NC][128 rows x 128 B]
+  float2* stats = reinterpret_cast<float2*>(xs + NC * kXATile);        // [128]: mu, rstd
+  float2* red = stats + kXM;                                           // [cluster rank][128]: the row sums
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + kXMaxCluster * kXM);  // [kXStages]
+  uint64_t* xbar = full + kXStages;
+  int* done = reinterpret_cast<int*>(xbar + 1);                        // [kXStages]
+
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nsteps = n3 / kYK;
+  const int cn = d / (64 * NC), rank = blockIdx.x % cn;  // the cluster: the blocks of one row tile
+  const int row0 = blockIdx.x / cn * kXM, col0 = rank * NC * 64;
+  const int nsteps = 3 * d / kXK;
 
-  auto load = [&](int kt) {
-    const int st = kt % kYStages, k0 = kt * kYK;
-    bf16* a = as + (size_t)st * kYM * kYAPitch;
-    bf16* bt = bs + (size_t)st * kYK * bpitch;
-    for (int i = tid; i < kYM * (kYK / 8); i += kYWarps * 32) {
-      const int r = i / (kYK / 8), c = i % (kYK / 8);
-      const bool ok = row0 + r < m;
-      cp_async16(a + r * kYAPitch + c * 8, dqkv + (size_t)(ok ? row0 + r : 0) * n3 + k0 + c * 8, ok);
-    }
-    const int cpr = d / 8;
-    for (int i = tid; i < kYK * cpr; i += kYWarps * 32) {
-      const int r = i / cpr, c = i - r * cpr;
-      cp_async16(bt + (size_t)r * bpitch + c * 8, w + (size_t)(k0 + r) * d + c * 8, true);
-    }
+  // ring step s (depth 64 s ..) into its stage: the tile's d_qkv rows and
+  // the block's W boxes, rows past m as zeros; one thread
+  auto load = [&](int s) {
+    if (s >= nsteps) return;
+    const int st = s % kXStages;
+    unsigned char* dst = ring + st * kStage;
+    mbar_expect_tx(&full[st], (uint32_t)kStage);
+    tma_2d(dst, &ta, s * kXK, row0, &full[st]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) tma_2d(dst + kXATile + c * kXWBox, &tw, col0 + c * 64, s * kXK, &full[st]);
   };
+  if (tid == 0) {
+    for (int st = 0; st < kXStages; ++st) {
+      mbar_init(&full[st], 1);
+      done[st] = 0;
+    }
+    mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(xbar, (uint32_t)(NC * kXATile));
 #pragma unroll
-  for (int s = 0; s < kYStages - 1; ++s) {
-    if (s < nsteps) load(s);
-    cp_async_commit();
+    for (int c = 0; c < NC; ++c) tma_2d(xs + c * kXATile, &tx, col0 + c * 64, row0, xbar);
+    for (int s = 0; s < kXStages; ++s) load(s);
   }
-
-  // LayerNorm statistics of the block's rows (fp32, two passes over
-  // registers, a warp a row) while the first tiles land
-  const int xvec = d / 8;
-  for (int r = warp; r < kYM; r += kYWarps) {
-    const int gr = row0 + r;
-    float v[kLnVecs][8];
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kLnVecs; ++c) {
-      const int cc = c * 32 + lane;
-      if (gr < m && cc < xvec) {
-        const uint4 u = *reinterpret_cast<const uint4*>(x + (size_t)gr * d + cc * 8);
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h2[e]);
-          v[c][2 * e] = f.x;
-          v[c][2 * e + 1] = f.y;
-          sum += f.x + f.y;
-        }
-      }
-    }
-    const float mu = warp_sum(sum) / d;
-    float var = 0.f;
-#pragma unroll
-    for (int c = 0; c < kLnVecs; ++c)
-      if (gr < m && c * 32 + lane < xvec)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) var += (v[c][e] - mu) * (v[c][e] - mu);
-    const float rstd = rsqrtf(warp_sum(var) / d + eps);
-    if (lane == 0) {
-      mu_s[r] = mu;
-      rstd_s[r] = rstd;
-    }
-  }
-
-  // dy[32 x D] = d_qkv[rows, :] . W: warp w takes columns c0 .. c0 + 8 nt
-  const int nt_count = d / (kYWarps * 8);
-  const int c0 = warp * nt_count * 8;
-  float acc[2][kYMaxNT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kYMaxNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  for (int kt = 0; kt < nsteps; ++kt) {
-    cp_async_wait<kYStages - 2>();
-    __syncthreads();  // stage kt landed; stage kt - 1 is read by everyone
-    if (kt + kYStages - 1 < nsteps) load(kt + kYStages - 1);
-    cp_async_commit();
-    const bf16* a = as + (size_t)(kt % kYStages) * kYM * kYAPitch;
-    const bf16* bt = bs + (size_t)(kt % kYStages) * kYK * bpitch;
-#pragma unroll
-    for (int kk = 0; kk < kYK / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(af[mt], a + (mt * 16 + (lane & 15)) * kYAPitch + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < kYMaxNT / 2; ++np) {
-        if (2 * np < nt_count) {
-          uint32_t bfr[4];
-          ldmatrix_x4_trans(bfr, bt + (size_t)(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * bpitch +
-                                     c0 + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            mma_bf16(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-            mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // LayerNorm backward with frozen parameters: dyh = dy gamma,
-  // dx = rstd (dyh - mean(dyh) - xhat mean(dyh xhat))
-  float s1[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, s2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int rl = mt * 16 + g + 8 * hr, gr = row0 + rl;
-      if (gr >= m) continue;
-      const float mu = mu_s[rl], rstd = rstd_s[rl];
-#pragma unroll
-      for (int nt = 0; nt < kYMaxNT; ++nt) {
-        if (nt < nt_count) {
-          const int col = c0 + nt * 8 + 2 * t;
-          const float2 xv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)gr * d + col));
-          const float xh0 = (xv.x - mu) * rstd, xh1 = (xv.y - mu) * rstd;
-          const float d0 = acc[mt][nt][2 * hr] * gamma[col];
-          const float d1 = acc[mt][nt][2 * hr + 1] * gamma[col + 1];
-          acc[mt][nt][2 * hr] = d0;
-          acc[mt][nt][2 * hr + 1] = d1;
-          s1[mt][hr] += d0 + d1;
-          s2[mt][hr] += d0 * xh0 + d1 * xh1;
-        }
-      }
-    }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        s1[mt][hr] += __shfl_xor_sync(0xffffffffu, s1[mt][hr], o);
-        s2[mt][hr] += __shfl_xor_sync(0xffffffffu, s2[mt][hr], o);
-      }
-      if (t == 0) {
-        red1[warp][mt * 16 + g + 8 * hr] = s1[mt][hr];
-        red2[warp][mt * 16 + g + 8 * hr] = s2[mt][hr];
-      }
-    }
   __syncthreads();
+  cluster_arrive();  // every block of the cluster runs before any writes to another's shared memory
+  cluster_wait();
+  // warp-uniform as the compiler sees it (a shuffle of lane 0's value), so
+  // the wgmma do not lie on a divergent path: 0, 1 the consumer
+  // warpgroups, 2 the statistics warpgroup
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  float acc[32 * NC];
+  if (role == 2) {
+    // 1. LN statistics (fp32, two passes over the row in registers, a warp
+    //    a row, the first port's order of operations; rows past m are
+    //    zeros) of rows rank, rank + cn, .. of the tile, a warp's rows 4 at
+    //    a time with their loads issued together, to every block of the
+    //    cluster, under the products
+    constexpr int kStatRows = 4, kXC = kXMaxDim / 256;
+    const int xvec = d / 8, sw = warp & 3;
+    for (int i0 = sw * kStatRows; i0 * cn + rank < kXM; i0 += 4 * kStatRows) {
+      float v[kStatRows][kXC][8];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+      for (int b = 0; b < kStatRows; ++b) {
+        const int r = (i0 + b) * cn + rank, gr = row0 + r;
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int rl = mt * 16 + g + 8 * hr, gr = row0 + rl;
-      if (gr >= m) continue;
-      float m1 = 0.f, m2 = 0.f;
+        for (int c = 0; c < kXC; ++c) {
+          const int cc = c * 32 + lane;
 #pragma unroll
-      for (int ww = 0; ww < kYWarps; ++ww) {
-        m1 += red1[ww][rl];
-        m2 += red2[ww][rl];
-      }
-      m1 /= d;
-      m2 /= d;
-      const float mu = mu_s[rl], rstd = rstd_s[rl];
-#pragma unroll
-      for (int nt = 0; nt < kYMaxNT; ++nt) {
-        if (nt < nt_count) {
-          const int col = c0 + nt * 8 + 2 * t;
-          const float2 xv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)gr * d + col));
-          const float xh0 = (xv.x - mu) * rstd, xh1 = (xv.y - mu) * rstd;
-          *reinterpret_cast<uint32_t*>(dx + (size_t)gr * d + col) =
-              pack_bf16(rstd * (acc[mt][nt][2 * hr] - m1 - xh0 * m2),
-                        rstd * (acc[mt][nt][2 * hr + 1] - m1 - xh1 * m2));
+          for (int e = 0; e < 8; ++e) v[b][c][e] = 0.f;
+          if (r < kXM && gr < m && cc < xvec) load8(x + (size_t)gr * d + cc * 8, v[b][c]);
         }
       }
+#pragma unroll
+      for (int b = 0; b < kStatRows; ++b) {
+        const int r = (i0 + b) * cn + rank;
+        if (r >= kXM) break;
+        float sum = 0.f;
+#pragma unroll
+        for (int c = 0; c < kXC; ++c)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sum += v[b][c][e];
+        const float mu = warp_sum(sum) / d;
+        float var = 0.f;
+#pragma unroll
+        for (int c = 0; c < kXC; ++c)
+          if (c * 32 + lane < xvec)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) var += (v[b][c][e] - mu) * (v[b][c][e] - mu);
+        const float rstd = rsqrtf(warp_sum(var) / d + eps);
+        if (lane < cn) st_cluster(&stats[r], make_float2(mu, rstd), lane);
+      }
     }
+    cluster_arrive();  // the statistics are out; waited on before the epilogue
+  } else {
+    cluster_arrive();
+    // 2. dy = d_qkv . W: step s issued while step s - 1's products finish,
+    //    then step s - 1's stage released (every barrier wait precedes the
+    //    wgmma fence; the accumulators are read after the last wait)
+    const unsigned char* rows = ring + role * 64 * 128;  // this warpgroup's 64 rows of a stage
+    auto release = [&](int s) {  // this warp is done with step s; the last of the 8 refills the stage
+      const int st = s % kXStages;
+      if (lane == 0 && atomicAdd(&done[st], 1) == kXWarps - 1) {
+        done[st] = 0;
+        load(s + kXStages);
+      }
+    };
+    for (int s = 0; s < nsteps; ++s) {
+      const int st = s % kXStages;
+      mbar_wait(&full[st], (s / kXStages) & 1);
+      const unsigned char* a = rows + st * kStage;
+      const unsigned char* wb = ring + st * kStage + kXATile;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kXK / 16; ++kk)
+        dx_mma<NC>(acc, sw128_desc(a + kk * 32), sw128_mn_desc(wb + kk * 16 * 128, kXWBox), s + kk > 0);
+      wgmma_commit();
+      if (s > 0) {
+        wgmma_wait<1>();
+        release(s - 1);
+      }
+    }
+    wgmma_wait<0>();
+    release(nsteps - 1);
+  }
+
+  // 3. the LayerNorm backward with frozen parameters: dyh = dy gamma; the
+  //    block's share of each row's sums of dyh and dyh xhat to every block
+  cluster_wait();  // the statistics
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rl[2] = {role * 64 + (warp & 3) * 16 + g, role * 64 + (warp & 3) * 16 + g + 8};
+  float2 st2[2] = {};
+  if (role < 2) {
+    mbar_wait(xbar, 0);
+    st2[0] = stats[rl[0]];
+    st2[1] = stats[rl[1]];
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8 * NC; ++j) {
+      const float2 gm = *reinterpret_cast<const float2*>(gamma + col0 + j * 8 + 2 * t4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            xs + (j >> 3) * kXATile + sw128_offset(rl[h], j & 7) + 4 * t4));
+        const float xh0 = (xv.x - st2[h].x) * st2[h].y, xh1 = (xv.y - st2[h].x) * st2[h].y;
+        const float d0 = acc[4 * j + 2 * h] * gm.x, d1 = acc[4 * j + 2 * h + 1] * gm.y;
+        acc[4 * j + 2 * h] = d0;
+        acc[4 * j + 2 * h + 1] = d1;
+        s1[h] += d0 + d1;
+        s2[h] += d0 * xh0 + d1 * xh1;
+      }
+    }
+    quad_sum(s1[0], s1[1]);
+    quad_sum(s2[0], s2[1]);
+    for (int c = t4; c < cn; c += 4) {
+      st_cluster(&red[rank * kXM + rl[0]], make_float2(s1[0], s2[0]), c);
+      st_cluster(&red[rank * kXM + rl[1]], make_float2(s1[1], s2[1]), c);
+    }
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  // 4. m1, m2 over the whole row (the blocks' sums in rank order, so every
+  //    block has the same), dx rounded once to bf16 in the x tile's place
+  if (role < 2) {
+    float m1[2], m2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float a1 = 0.f, a2 = 0.f;
+      for (int c = 0; c < cn; ++c) {
+        const float2 v = red[c * kXM + rl[h]];
+        a1 += v.x;
+        a2 += v.y;
+      }
+      m1[h] = a1 / d;
+      m2[h] = a2 / d;
+    }
+#pragma unroll
+    for (int j = 0; j < 8 * NC; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned char* p = xs + (j >> 3) * kXATile + sw128_offset(rl[h], j & 7) + 4 * t4;
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+        const float xh0 = (xv.x - st2[h].x) * st2[h].y, xh1 = (xv.y - st2[h].x) * st2[h].y;
+        *reinterpret_cast<uint32_t*>(p) =
+            pack_bf16(st2[h].y * (acc[4 * j + 2 * h] - m1[h] - xh0 * m2[h]),
+                      st2[h].y * (acc[4 * j + 2 * h + 1] - m1[h] - xh1 * m2[h]));
+      }
+    }
+  }
+  fence_proxy_async();  // the staged dx, for the TMA store's async proxy
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) tma_store_2d(&tdx, xs + c * kXATile, col0 + c * 64, row0);
+    bulk_commit();
+    bulk_wait_all();
+  }
+}
+
+template <int NC>
+cudaError_t launch_ln_bwd_dx(const void* x, const void* dqkv, const void* gamma, const void* w, void* dx,
+                             int m, int d, float eps, cudaStream_t st) {
+  CUtensorMap ta, tw, tx, tdx;
+  cudaError_t e = encode_bf16_map(&ta, dqkv, 3 * d, m, kXM);
+  if (e == cudaSuccess) e = encode_bf16_map(&tw, w, d, 3 * d, kXK);
+  if (e == cudaSuccess) e = encode_bf16_map(&tx, x, d, m, kXM);
+  if (e == cudaSuccess) e = encode_bf16_map(&tdx, dx, d, m, kXM);
+  if (e != cudaSuccess) return e;
+  const size_t smem = dx_smem_bytes(NC);
+  e = cudaFuncSetAttribute(ln_bwd_dx_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int cn = d / (64 * NC);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cn * ((m + kXM - 1) / kXM), 1, 1);
+  cfg.blockDim = dim3(kXThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cn;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ln_bwd_dx_kernel<NC>, static_cast<const bf16*>(x),
+                         static_cast<const float*>(gamma), ta, tw, tx, tdx, m, d, eps);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 bool attn_shapes_ok(int l, int d, int num_heads, int kv_len) {
@@ -937,15 +1085,9 @@ extern "C" int ebc_attention_bwd_f32(const void* qkv, const void* g, void* dqkv,
 extern "C" int ebc_ln_bwd_dx(const void* x, const void* dqkv, const void* gamma, const void* w,
                              void* dx, int m, int d, float eps, void* stream) {
   using namespace ebc;
-  if (m < 1 || d < 128 || d % 128 || d > kYMaxDim) return (int)cudaErrorInvalidValue;
+  if (m < 1 || d < 128 || d % 128 || d > kXMaxDim) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = ydx_smem(d);
-  cudaError_t e = cudaFuncSetAttribute(ln_bwd_dx_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  ln_bwd_dx_kernel<<<(m + kYM - 1) / kYM, kYWarps * 32, smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dqkv),
-      static_cast<const float*>(gamma), static_cast<const bf16*>(w), static_cast<bf16*>(dx), m,
-      d, eps);
-  return (int)cudaGetLastError();
+  // 64-column boxes a block: 3 where they split D evenly, else 2
+  return (int)((d / 64) % 3 == 0 ? launch_ln_bwd_dx<3>(x, dqkv, gamma, w, dx, m, d, eps, st)
+                                 : launch_ln_bwd_dx<2>(x, dqkv, gamma, w, dx, m, d, eps, st));
 }

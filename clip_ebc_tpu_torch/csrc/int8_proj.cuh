@@ -150,15 +150,6 @@ __device__ __forceinline__ void wgmma_s8_m64n64k32_rs(int (&d)[32], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
-// A 1D bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte aligned)
-// into shared memory, completing on ``bar``.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // 4 consecutive values of a row as floats.
 __device__ __forceinline__ float4 load4(const bf16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);

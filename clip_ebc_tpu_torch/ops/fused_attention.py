@@ -394,7 +394,23 @@ def ln_qkv_bwd_frozen_plain(
     wd = w.to(dt).float()
     qkv = (y.to(dt).float() @ wd.T + bias.float()).to(dt)
     d_qkv = attention_bwd_plain(qkv, g, num_heads, kv_len, sm_scale)
-    dyh = (d_qkv.float() @ wd) * gamma
+    return ln_bwd_dx_plain(x, d_qkv, ln_weight, w, eps)
+
+
+def ln_bwd_dx_plain(
+    x: torch.Tensor,
+    d_qkv: torch.Tensor,
+    ln_weight: torch.Tensor,
+    w: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """The tail of ``_ln_qkv_bwd_frozen_kernel``: dy = d_qkv W in fp32,
+    then the LayerNorm backward for dx alone (LN parameters frozen) in
+    fp32, dx in x's dtype. ``x (..., D)``, ``d_qkv (..., 3D)``, ``w (3D,
+    D)`` in nn.Linear (out, in) layout."""
+    dt = x.dtype
+    xhat, rstd = _layer_norm_parts(x, eps)
+    dyh = (d_qkv.float() @ w.to(dt).float()) * ln_weight.float()
     m1 = dyh.mean(-1, keepdim=True)
     m2 = (dyh * xhat).mean(-1, keepdim=True)
     return (rstd * (dyh - m1 - xhat * m2)).to(dt)
@@ -573,7 +589,8 @@ def ln_qkv_bwd_frozen(
     and launch the LN + projection recompute, the attention backward and
     the dy = d_qkv W + LayerNorm-backward kernel (one call counted in
     ``ln_qkv_bwd_frozen.launches``, the recompute also in
-    ``fused_ln_qkv_attention.launches_proj``) or raise."""
+    ``fused_ln_qkv_attention.launches_proj``, the last launch in
+    ``ln_bwd_dx.launches``) or raise."""
     if x.device.type == "cpu":
         return ln_qkv_bwd_frozen_plain(
             x, g, ln_weight, ln_bias, w, bias, num_heads, kv_len, sm_scale, eps
@@ -599,12 +616,43 @@ def ln_qkv_bwd_frozen(
     ))
     fused_ln_qkv_attention.launches_proj += 1
     dqkv = _launch_attention_bwd(qkv, g, num_heads, kv_len, sm_scale)
+    dx = ln_bwd_dx(x, dqkv, ln_weight, w, eps)
+    ln_qkv_bwd_frozen.launches += 1
+    return dx
+
+
+def ln_bwd_dx(
+    x: torch.Tensor,
+    d_qkv: torch.Tensor,
+    ln_weight: torch.Tensor,
+    w: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """dx ``(..., D)`` of the frozen LayerNorm + QKV projection from d_qkv
+    ``(..., 3D)``: the third launch of :func:`ln_qkv_bwd_frozen`. CPU
+    tensors take :func:`ln_bwd_dx_plain`. CUDA tensors need bf16 x, d_qkv
+    and w ``(3D, D)``, fp32 ln_weight, ``128 <= D <= 768`` a multiple of
+    128, and launch ``ebc_ln_bwd_dx`` (counted in ``ln_bwd_dx.launches``)
+    or raise."""
+    if x.device.type == "cpu":
+        return ln_bwd_dx_plain(x, d_qkv, ln_weight, w, eps)
+    who = "ln_bwd_dx"
+    d = x.shape[-1]
+    m = x.numel() // d if d else 0
+    if d % 128 or not 128 <= d <= MAX_FUSED_DIM or m < 1:
+        raise ValueError(f"{who}: needs 128 <= D <= {MAX_FUSED_DIM}, D % 128 == 0 and at least "
+                         f"one row; got x {tuple(x.shape)}")
+    dev, dt = x.device, torch.bfloat16
+    _check(who, x, "x", tuple(x.shape), dt, dev)
+    _check(who, d_qkv, "d_qkv", tuple(x.shape[:-1]) + (3 * d,), dt, dev)
+    _check(who, ln_weight, "ln_weight", (d,), torch.float32, dev)
+    _check(who, w, "w", (3 * d, d), dt, dev)
     dx = torch.empty_like(x)
     _run(who, _entry("fused_attention_bwd", "ebc_ln_bwd_dx")(
-        x.data_ptr(), dqkv.data_ptr(), ln_weight.data_ptr(), w.data_ptr(), dx.data_ptr(),
-        b * l, d, float(eps), _stream(dev),
+        x.data_ptr(), d_qkv.data_ptr(), ln_weight.data_ptr(), w.data_ptr(), dx.data_ptr(),
+        m, d, float(eps), _stream(dev),
     ))
-    ln_qkv_bwd_frozen.launches += 1
+    ln_bwd_dx.launches += 1
     return dx
 
 
@@ -938,3 +986,4 @@ fused_ln_mlp_int8.launches = 0
 fused_qkv_attention.launches = 0
 attention_bwd.launches = 0
 ln_qkv_bwd_frozen.launches = 0
+ln_bwd_dx.launches = 0

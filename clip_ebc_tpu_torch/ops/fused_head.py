@@ -15,7 +15,9 @@ import torch
 
 from . import _build
 
-# Largest feature width the kernel takes (32 fp32 values per lane).
+# Feature widths the kernel takes: a multiple of CHANNEL_STEP (one 16-byte
+# read across the lanes of a row), at most MAX_CHANNELS (16 such reads a lane).
+CHANNEL_STEP = 64
 MAX_CHANNELS = 1024
 
 
@@ -82,10 +84,9 @@ def fused_ebc_head(
         raise ValueError(f"fused_ebc_head: features must be bf16 or fp32, got {features.dtype}")
     n, c = features.shape
     k = text_features.shape[0]
-    vec = 16 // features.element_size()
-    if c % (32 * vec) or c > MAX_CHANNELS:
+    if c % CHANNEL_STEP or not CHANNEL_STEP <= c <= MAX_CHANNELS:
         raise ValueError(
-            f"fused_ebc_head: C={c} must be a multiple of {32 * vec} and <= {MAX_CHANNELS}"
+            f"fused_ebc_head: C={c} must be a multiple of {CHANNEL_STEP} and <= {MAX_CHANNELS}"
         )
     if text_features.shape != (k, c) or anchor_points.shape != (k,):
         raise ValueError("fused_ebc_head: text (K, C) and anchors (K,) must match features")
@@ -95,9 +96,8 @@ def fused_ebc_head(
     if not 1 <= k <= lib.ebc_fused_head_max_bins():
         raise ValueError(f"fused_ebc_head: K={k} bins outside 1..{lib.ebc_fused_head_max_bins()}")
     dev = features.device
-    # text rows normalized here, in fp32, as the TPU wrapper does outside its kernel
-    t = text_features.to(dev, torch.float32)
-    t = (t / torch.linalg.vector_norm(t, dim=-1, keepdim=True).clamp_min(1e-12)).contiguous()
+    # the kernel normalizes the text rows (fp32) itself
+    t = text_features.to(dev, torch.float32).contiguous()
     anchors = anchor_points.to(dev, torch.float32).contiguous()
     scale = torch.as_tensor(logit_scale, dtype=torch.float32, device=dev).reshape(1).contiguous()
     out = torch.empty(n, dtype=torch.float32, device=dev)

@@ -16,7 +16,9 @@ rows >= kv_len too, and zero dK, dV there.
 Tolerances: fp32 1e-4 (the same math, fp32 sums in another order); bf16
 2e-2 of the largest magnitude (the JAX package's bf16 kernel tolerance:
 both round P, dS and the outputs to bf16 at the same points, but a sum
-taken in another order can land a rounding on the other side).
+taken in another order can land a rounding on the other side). On rows
+of mean 50 +- 0.1 fp32 is held within 1e-4 of the largest magnitude
+instead: x - mu loses ~9 bits of fp32 on either side.
 """
 
 import jax
@@ -31,6 +33,8 @@ from clip_ebc_tpu_torch.ops.fused_attention import (
     attention_bwd,
     attention_bwd_plain,
     fused_ln_qkv_attention,
+    ln_bwd_dx,
+    ln_bwd_dx_plain,
     ln_qkv_bwd_frozen,
     ln_qkv_bwd_frozen_plain,
 )
@@ -57,6 +61,15 @@ def _close(got, want, dtype):
     tol = TOL[dtype]
     scale = 1.0 if dtype == "float32" else max(float(np.abs(want).max()), 1.0)
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale)
+
+
+def _close_scaled(got, want, dtype):
+    """``_close`` with the absolute tolerance a fraction of the largest
+    magnitude in fp32 too: rows of mean 50 +- 0.1 lose ~9 bits of fp32 in
+    x - mu on either side, and their dx is ~10x a unit row's."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * float(np.abs(want).max()))
 
 
 def _t(a, dtype="float32"):
@@ -106,6 +119,49 @@ def test_ln_qkv_bwd_frozen_plain_matches_jax_kernel(dtype, kv_len):
     before = ln_qkv_bwd_frozen.launches
     assert torch.equal(ln_qkv_bwd_frozen(*args, H, kv_len, SM), got)
     assert ln_qkv_bwd_frozen.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_qkv_bwd_frozen_plain_matches_jax_kernel_on_large_mean_rows(dtype):
+    """x of row mean 50 +- 0.1, where a one-pass variance (E[x^2] - mu^2)
+    would cancel: the plain version (two passes, as the JAX body and the CUDA
+    kernel take them) against the JAX frozen kernel, interpreting."""
+    x, g, ln_w, ln_b, w, bias = _inputs(seed=7)
+    x = (50.0 + 0.1 * x).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    want = _ln_qkv_bwd_frozen(
+        jnp.asarray(x, jdt), jnp.asarray(g, jdt), jnp.asarray(ln_w), jnp.asarray(ln_b),
+        jnp.asarray(w, jdt), jnp.asarray(bias), H, L, SM, 1e-5, 1, True,
+    )
+    args = (_t(x, dtype), _t(g, dtype), _t(ln_w), _t(ln_b), _t(w.T, dtype), _t(bias))
+    got = ln_qkv_bwd_frozen_plain(*args, H, L, SM)
+    _close_scaled(got.float().numpy(), np.asarray(want, np.float32), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_bwd_dx_plain_is_the_frozen_backward_tail(dtype):
+    """``ln_bwd_dx_plain`` (the plain version of the CUDA ``ebc_ln_bwd_dx``)
+    against float64 numpy: dy = d_qkv W, then the LayerNorm backward with
+    frozen parameters; the wrapper takes it for CPU tensors, uncounted."""
+    rng = np.random.default_rng(3)
+    x = (50.0 + 0.1 * rng.normal(size=(B, L, D))).astype(np.float32)
+    dqkv = rng.normal(size=(B, L, 3 * D)).astype(np.float32)
+    gam = (1.0 + 0.1 * rng.normal(size=D)).astype(np.float32)
+    w = (rng.normal(size=(3 * D, D)) * D**-0.5).astype(np.float32)  # nn.Linear (out, in)
+    xt, dt_ = _t(x, dtype), _t(dqkv, dtype)
+    wt = _t(w, dtype)
+    got = ln_bwd_dx_plain(xt, dt_, _t(gam), wt)
+    x64 = xt.double().numpy()
+    mu = x64.mean(-1, keepdims=True)
+    rstd = 1.0 / np.sqrt(((x64 - mu) ** 2).mean(-1, keepdims=True) + 1e-5)
+    xhat = (x64 - mu) * rstd
+    dyh = (dt_.double().numpy() @ wt.double().numpy()) * gam
+    want = rstd * (dyh - dyh.mean(-1, keepdims=True) - xhat * (dyh * xhat).mean(-1, keepdims=True))
+    assert got.dtype == getattr(torch, dtype)
+    _close_scaled(got.float().numpy(), want, dtype)
+    before = ln_bwd_dx.launches
+    assert torch.equal(ln_bwd_dx(xt, dt_, _t(gam), wt), got)
+    assert ln_bwd_dx.launches == before
 
 
 def _port_grads(x, g, ln_w, ln_b, w, bias, dtype, kv_len, train_params):

@@ -11,7 +11,8 @@ round qkv and P to bf16 at the same points, but sum in another order, so
 a rounding can land on the other side), 1e-4 in fp32 (no rounding but the
 order of fp32 sums); the backward kernels the same, as a fraction of the
 largest magnitude of each of dQ, dK, dV and dx on its own, at inputs of
-the trunk's scale (unit-variance qkv, a peaked softmax); head rtol 1e-4
+the trunk's scale (unit-variance qkv, a peaked softmax), the frozen
+backward's dx launch alone likewise; head rtol 1e-4
 (both sides do all the math in fp32 on the same inputs). Model gradients
 against the plain path (``attn_backend="sdpa"``) in the same dtype:
 relative L2 error 5e-2 in bf16, 1e-3 in fp32. The W8A8 kernel: max 2e-2
@@ -49,6 +50,8 @@ from clip_ebc_tpu_torch.ops.fused_attention import (
     fused_ln_qkv_attention,
     fused_ln_qkv_attention_int8,
     fused_qkv_attention,
+    ln_bwd_dx,
+    ln_bwd_dx_plain,
     ln_mlp_int8_plain,
     ln_proj_int8_plain,
     ln_qkv_attention_int8_dynamic_plain,
@@ -140,6 +143,57 @@ def test_head_kernel_matches_plain(cuda, dtype, reduction, truncation):
     assert fused_ebc_head.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), ebc_head_plain(*args).cpu().numpy(),
                                rtol=1e-4, atol=1e-6)
+
+
+def _head_args(cuda, n, c, k, dtype, seed, rows=None):
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(n, c)).astype(np.float32)
+    if rows is not None:
+        feats = rows(feats)
+    return (torch.from_numpy(feats).to(cuda, getattr(torch, dtype)),
+            torch.from_numpy(rng.normal(size=(k, c)).astype(np.float32)).to(cuda),
+            torch.tensor(1 / 0.07, device=cuda),
+            torch.from_numpy(np.sort(rng.uniform(0, 4, size=k)).astype(np.float32)).to(cuda))
+
+
+def _zero_and_large_rows(feats):
+    feats[0] = 0.0  # the norm's 1e-12 clamp: a uniform softmax
+    feats[1::3] *= 1e15  # squares near 1e33: no overflow in fp32, divided out by the norm
+    return feats
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,c,k", [
+    (1, 512, 5),  # one row: one group, one warp
+    (7, 512, 5),  # fewer rows than a warp's group
+    (4097, 256, 1),  # one bin; rows not a multiple of a group (8 bf16, 4 fp32)
+    (4097, 512, 32),  # the most bins
+    (1031, 1024, 5),  # the widest features (16 reads a lane)
+    (1031, 1024, 20),  # wide and more than 8 bins
+    (1030, 384, 12),  # a width between the instantiations (6 reads a lane)
+    (33, 64, 5),  # the narrowest width (one read a lane)
+    (109760, 512, 5),  # the flagship image
+])
+@pytest.mark.parametrize("rows", ["normal", "zero and large"])
+def test_head_kernel_matches_plain_at_edges(cuda, dtype, n, c, k, rows):
+    """The head kernel against its plain version at the edges of its row
+    groups, widths and bins, with a zero feature row and rows of very large
+    magnitude: rtol 1e-4, atol 1e-6 (all math in fp32 on both sides)."""
+    edit = _zero_and_large_rows if rows != "normal" else None
+    args = _head_args(cuda, n, c, k, dtype, seed=n + c + k, rows=edit)
+    before = fused_ebc_head.launches
+    got = fused_ebc_head(*args)
+    torch.cuda.synchronize()
+    assert fused_ebc_head.launches == before + 1
+    assert got.shape == (n,) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), ebc_head_plain(*args).cpu().numpy(),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_head_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    for c, k in ((96, 5), (1088, 5), (512, 33)):
+        with pytest.raises(ValueError):
+            fused_ebc_head(*_head_args(cuda, 8, c, k, "bfloat16", seed=0))
 
 
 def test_model_takes_both_kernels_and_matches_plain_path(cuda):
@@ -246,6 +300,59 @@ def test_ln_qkv_bwd_frozen_kernel_matches_plain(cuda, shape):
     assert ln_qkv_bwd_frozen.launches == before + 1
     want = ln_qkv_bwd_frozen_plain(x, g, gam, be, w, bias, h, kv_len, (d // h) ** -0.5)
     _assert_close_scaled(got, want, 2e-2)
+
+
+def _ln_bwd_dx_inputs(cuda, m, d, seed, x_mean=0.0, x_std=1.0, dqkv_scale=1.0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    x = t(x_mean + x_std * rng.normal(size=(m, d))).to(torch.bfloat16)
+    dqkv = t(dqkv_scale * rng.normal(size=(m, 3 * d))).to(torch.bfloat16)
+    gam = t(1.0 + 0.1 * rng.normal(size=d))
+    w = t(rng.normal(size=(3 * d, d)) * d**-0.5).to(torch.bfloat16)  # nn.Linear (out, in)
+    return x, dqkv, gam, w
+
+
+@pytest.mark.parametrize("d", [128, 384, 512, 640, 768])
+@pytest.mark.parametrize("m", [1, 37, 229, 300, 3664])
+def test_ln_bwd_dx_matches_plain(cuda, m, d):
+    """The frozen backward's last launch alone (``ebc_ln_bwd_dx``: dy =
+    d_qkv W, then the LayerNorm backward) at one row, ragged row counts
+    (37, 229, 300: not multiples of its 128-row tiles) and a training step's
+    16 x 229 rows, at widths that split into clusters of 1 to 5 blocks,
+    against ``ln_bwd_dx_plain``: 2e-2 of the largest magnitude of dx, as
+    the whole frozen backward is held."""
+    args = _ln_bwd_dx_inputs(cuda, m, d, seed=m + d)
+    before = ln_bwd_dx.launches
+    got = ln_bwd_dx(*args)
+    torch.cuda.synchronize()
+    assert ln_bwd_dx.launches == before + 1
+    assert got.shape == (m, d) and got.dtype == torch.bfloat16
+    _assert_close_scaled(got, ln_bwd_dx_plain(*args), 2e-2)
+
+
+@pytest.mark.parametrize("m,d", [(229, 384), (3664, 768)])
+@pytest.mark.parametrize("case", ["large mean", "large d_qkv"])
+def test_ln_bwd_dx_on_hard_inputs(cuda, m, d, case):
+    """Rows of mean 50 +- 0.1 (a one-pass variance, E[x^2] - mu^2, would
+    cancel there) and a d_qkv of large magnitude (1e4: dy near 2e4),
+    against ``ln_bwd_dx_plain`` within 2e-2 of dx's largest magnitude."""
+    kw = {"x_mean": 50.0, "x_std": 0.1} if case == "large mean" else {"dqkv_scale": 1e4}
+    args = _ln_bwd_dx_inputs(cuda, m, d, seed=m, **kw)
+    got = ln_bwd_dx(*args)
+    torch.cuda.synchronize()
+    _assert_close_scaled(got, ln_bwd_dx_plain(*args), 2e-2)
+
+
+def test_ln_bwd_dx_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, dqkv, gam, w = _ln_bwd_dx_inputs(cuda, 8, 768, seed=0)
+    with pytest.raises(ValueError):
+        ln_bwd_dx(x.float(), dqkv, gam, w)
+    wide = _ln_bwd_dx_inputs(cuda, 8, 1024, seed=0)  # D > 768
+    with pytest.raises(ValueError):
+        ln_bwd_dx(*wide)
+    narrow = _ln_bwd_dx_inputs(cuda, 8, 192, seed=0)  # D % 128 != 0
+    with pytest.raises(ValueError):
+        ln_bwd_dx(*narrow)
 
 
 def _vpt_step_grads(dev, dtype, **paths):

@@ -49,6 +49,33 @@ def test_plain_head_matches_jax(truncation, dtype):
     np.testing.assert_allclose(got, want_ref, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,zero_row", [(1, False), (5, True), (1, True)])
+def test_plain_head_matches_jax_one_bin_and_zero_row(k, zero_row, dtype):
+    """One bin (every row's density is that bin's anchor) and an all-zero
+    feature row (the norm's 1e-12 clamp: every cosine 0, a uniform
+    softmax), the edges the CUDA kernel's redesign is also held at."""
+    rng = np.random.default_rng(k + 10 * zero_row)
+    feats = rng.normal(size=(300, 256)).astype(np.float32)
+    if zero_row:
+        feats[::7] = 0.0
+    text = rng.normal(size=(k, 256)).astype(np.float32)
+    anchors = np.sort(rng.uniform(0, 4, size=k)).astype(np.float32)
+    scale = np.float32(1 / 0.07)
+    jf = jnp.asarray(feats, getattr(jnp, dtype))
+    want = np.asarray(jax_fused_ebc_head(
+        jf, jnp.asarray(text), jnp.asarray(scale), jnp.asarray(anchors), block_n=128,
+        interpret=True,
+    ))
+    got = ebc_head_plain(torch.from_numpy(feats).to(getattr(torch, dtype)), torch.from_numpy(text),
+                         torch.tensor(scale), torch.from_numpy(anchors)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    if k == 1:
+        np.testing.assert_allclose(got, anchors[0], rtol=1e-6)
+    if zero_row:
+        np.testing.assert_allclose(got[::7], anchors.mean(), rtol=1e-5)
+
+
 def test_wrapper_takes_plain_version_for_cpu_tensors():
     feats, text, scale, anchors = _inputs(64, 512, 4, seed=0)
     args = (torch.from_numpy(feats), torch.from_numpy(text), torch.tensor(scale),
