@@ -276,18 +276,72 @@ inline EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
-// A 2D bf16 tensor map over a row-major (rows, cols) matrix: boxes of 64
-// columns (128 B) x box_rows, 128B-swizzled (the layout sw128_desc reads).
-inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* p, int cols, int rows, int box_rows) {
+// A 2D tensor map over a row-major (rows, cols) matrix of 1-, 2- or 4-byte
+// elements: boxes of 128 bytes x box_rows, 128B-swizzled (the layout
+// sw128_desc and sw128_offset read).
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* p, int cols,
+                              int rows, int box_rows) {
   const EncodeTiledFn enc = tensor_map_encoder();
   if (!enc) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows}, elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
-                         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows}, estr[2] = {1, 1};
+  const CUresult r = enc(map, type, 2, const_cast<void*>(p), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---- thread-block clusters (sm_90) ----------------------------------------------
+// Every thread of every block of the cluster arrives (release: this
+// thread's earlier writes, also those to other blocks' shared memory, are
+// visible to whoever waits), then waits for all of them (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// Arrival with no ordering: only says that this block has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// *p in the shared memory of block ``cta`` of the cluster (p is this
+// block's address of the same variable) = v.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(cta));
+  return remote;
+}
+__device__ __forceinline__ void st_cluster(float* p, float v, int cta) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" :: "r"(cluster_addr(p, cta)), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_cluster(float2* p, float2 v, int cta) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" :: "r"(cluster_addr(p, cta)), "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+// Launches ``kernel`` on ``blocks`` blocks in clusters of ``cluster``
+// along x (the grid a multiple of it).
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), int blocks, int threads, size_t smem, int cluster,
+                             cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace ebc

@@ -572,8 +572,8 @@ bool attention_shape_ok(int l, int d, int num_heads, int kv_len, float sm_scale)
 cudaError_t launch_proj(const void* x, const void* gamma, const void* beta, const void* w,
                         const void* bias, void* qkv, int m, int d, float eps, cudaStream_t st) {
   CUtensorMap tw, tout;
-  cudaError_t e = encode_bf16_map(&tw, w, d, 3 * d, kPN);
-  if (e == cudaSuccess) e = encode_bf16_map(&tout, qkv, 3 * d, m, 64);
+  cudaError_t e = encode_map(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, d, 3 * d, kPN);
+  if (e == cudaSuccess) e = encode_map(&tout, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qkv, 3 * d, m, 64);
   if (e != cudaSuccess) return e;
 #define EBC_PROJ(DK_) launch_proj_dk<DK_>(x, gamma, beta, tw, bias, tout, m, eps, st)
   switch (d / kPK) {

@@ -777,16 +777,6 @@ __device__ __forceinline__ void dx_mma(float (&d)[32 * NC], uint64_t desc_a, uin
     wgmma_m64n128k16_ss_tb(d, desc_a, desc_b, accumulate);
 }
 
-// The partial row sums and the statistics go to every block of the cluster
-// through distributed shared memory.
-__device__ __forceinline__ void st_cluster(float2* p, float2 v, int cta) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(cta));
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" :: "r"(remote), "f"(v.x), "f"(v.y) : "memory");
-}
-__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
-
 // A cluster of CN = D / 64 NC blocks owns a 128-row tile (blockIdx.x /
 // CN); its block of rank r the columns [64 NC r, 64 NC (r + 1)). Consumer
 // warpgroup wg takes rows 64 wg .. + 63 of the tile: dy (64 x 64 NC fp32)
@@ -1005,31 +995,18 @@ template <int NC>
 cudaError_t launch_ln_bwd_dx(const void* x, const void* dqkv, const void* gamma, const void* w, void* dx,
                              int m, int d, float eps, cudaStream_t st) {
   CUtensorMap ta, tw, tx, tdx;
-  cudaError_t e = encode_bf16_map(&ta, dqkv, 3 * d, m, kXM);
-  if (e == cudaSuccess) e = encode_bf16_map(&tw, w, d, 3 * d, kXK);
-  if (e == cudaSuccess) e = encode_bf16_map(&tx, x, d, m, kXM);
-  if (e == cudaSuccess) e = encode_bf16_map(&tdx, dx, d, m, kXM);
+  cudaError_t e = encode_map(&ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dqkv, 3 * d, m, kXM);
+  if (e == cudaSuccess) e = encode_map(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, d, 3 * d, kXK);
+  if (e == cudaSuccess) e = encode_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, d, m, kXM);
+  if (e == cudaSuccess) e = encode_map(&tdx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dx, d, m, kXM);
   if (e != cudaSuccess) return e;
   const size_t smem = dx_smem_bytes(NC);
   e = cudaFuncSetAttribute(ln_bwd_dx_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int cn = d / (64 * NC);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cn * ((m + kXM - 1) / kXM), 1, 1);
-  cfg.blockDim = dim3(kXThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cn;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, ln_bwd_dx_kernel<NC>, static_cast<const bf16*>(x),
-                         static_cast<const float*>(gamma), ta, tw, tx, tdx, m, d, eps);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_clustered(ln_bwd_dx_kernel<NC>, cn * ((m + kXM - 1) / kXM), kXThreads, smem, cn, st,
+                          static_cast<const bf16*>(x), static_cast<const float*>(gamma), ta, tw, tx, tdx, m, d,
+                          eps);
 }
 
 bool attn_shapes_ok(int l, int d, int num_heads, int kv_len) {

@@ -12,9 +12,14 @@
 //    then mha_int8_kernel on static scales (ebc_int8_attention, dynamic=0);
 //  * quant_attn=True without attn_scales (_pair_attention_body's int8
 //    branch): the float projection, then the scale pass below
-//    (ebc_qkv_quant_dynamic: max-abs per tile of block_b windows and head,
-//    per head pair for k; quantized q, k, v), then mha_int8_kernel on those
-//    scales (dynamic=1).
+//    (ebc_qkv_quant_dynamic, qkv_scale_quant_kernel: max-abs per tile of block_b
+//    windows and head, per head pair for k; quantized q, k, v), then
+//    mha_int8_kernel on those scales (dynamic=1).
+//
+// qkv_scale_quant_kernel (the JAX q8 of _pair_attention_body, :140-144): bound at
+// the flagship windows by reading qkv once and writing it once as int8,
+// 221.6 MB in bf16 (0.0661 ms at 3.35 TB/s), 369.3 MB in fp32 (0.1102 ms);
+// its design is described where it is defined.
 //
 // Bound of the fully int8 block attention at the flagship shape (B = 140
 // windows, L = 229, D = 768, 12 heads): 113.5 GOP for the projection and
@@ -91,7 +96,6 @@ constexpr int kI8QTile = 64;      // query rows of a tile (the wgmma M)
 constexpr int kI8Chunk = 128;     // keys of one S = Q K^T wgmma (its N) and of a V^T block
 constexpr int kI8RegChunks = 2;   // up to 256 keys the whole score row stays in registers
 constexpr int kI8MaxKeys = 512;
-constexpr int kI8MaxHeads = kQMaxDim / kDh8;
 
 // One stage: QT Q tiles (64 rows x 64 B), K and V of KC chunks (128 rows x
 // 64 B, 64B-swizzled as TMA lands them), then V^T (KC blocks of 64 rows x
@@ -116,25 +120,6 @@ inline size_t i8_smem_bytes(int kc, int qt, bool staged) {
 // 32 values along K is +32 B on the start address.
 __device__ __forceinline__ uint64_t sw64_desc(const void* p) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
-}
-
-// d (64 x 128 int32, 64 a thread in the layout of wgmma_m64n128k16's d)
-// (+)= A (64 x 32 int8) . B (32 x 128 int8), both K-major in shared memory.
-__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // 1.5 x 2^23: a float in [2^23, 2^24) holds an integer in its low mantissa
@@ -548,84 +533,159 @@ cudaError_t launch_mha_int8_any(const void* qkv, const void* scales, void* out, 
 }
 
 // ---- the dynamic scale pass ---------------------------------------------------
-constexpr int kAmaxThreads = 256;
-constexpr int kQuantRows = 16;  // rows per block of the quantize launch
+// One launch that reads qkv once. A block owns one (window, q|k|v, head)
+// slab, L rows x 64 values: it loads it once into registers (16 values a
+// unit, 4 units a row, all loads in flight), reduces it to its max-abs,
+// and writes that to every block of its cluster through distributed
+// shared memory. A cluster is min(block_b, 4) windows of a tile x the two
+// heads of a head pair, so after one cluster barrier each block holds the
+// maxima its scale needs: q and v over the tile's windows of its head, k
+// over the pair's too. s = max(amax, 1e-8) / 127 (IEEE division), then
+// qkv_q = clip(round(v / s)) from the registers (quant_div: the same
+// integers as the IEEE division, from a multiply by 1 / s but near a
+// rounding half-way point), 16 int8 a 16-byte store.
+// With block_b > 4 a block takes every 4th window of its tile: it keeps the
+// last in registers and reads the others again (from L2) to quantize them.
+// Slabs of 29 KB (bf16) or 59 KB (fp32) at L = 229: a block's registers
+// hold up to 512 rows (bf16: 256 threads, 8 units a thread; fp32: 512
+// threads, 4), so no shape spills to a second read. Where the time goes
+// (timing-only copies, PERF.md): the wait at the cluster barrier and the
+// read.
+constexpr int kSMaxWindows = 4;  // windows of a cluster (x 2 heads: at most 8 blocks)
 
-// amax[b][h][p] = max |qkv[b, :, p D + 64 h .. + 64]| (p = 0, 1, 2: q, k, v)
+// clip(round-half-even(v / s)) with v / s the IEEE quotient, as the plain
+// version rounds it, from r = 1 / s rounded (|v| <= 127 s): q = v r lies
+// within 2^-23 |v / s| < 2^-16 of v / s, and the IEEE quotient within half
+// an ulp (< 2^-17), so where q's fraction is more than 2^-10 from a half
+// both round to the same integer; nearer a half the division decides.
+__device__ __forceinline__ int quant_div(float v, float s, float r) {
+  const float q = __fmul_rn(v, r);
+  if (fabsf(fabsf(q - truncf(q)) - 0.5f) < 0x1p-10f) return clip8(__fdiv_rn(v, s));
+  return clip8(q);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kAmaxThreads)
-qkv_amax_kernel(const T* __restrict__ qkv, float* __restrict__ amax, int l, int num_heads) {
-  __shared__ float part[kAmaxThreads / 32];
-  const int p = blockIdx.x / num_heads, h = blockIdx.x % num_heads, b = blockIdx.y;
-  const int d = num_heads * kDh8, three_d = 3 * d;
-  const T* base = qkv + (size_t)b * l * three_d + p * d + h * kDh8;
-  float mx = 0.f;
-  for (int i = threadIdx.x; i < l * (kDh8 / 8); i += kAmaxThreads) {
-    float v[8];
-    load8(base + (size_t)(i >> 3) * three_d + (i & 7) * 8, v);
+struct QUnit;  // 16 consecutive values of a row as loaded
+template <>
+struct QUnit<bf16> {
+  static constexpr int kThreads = 256;
+  uint4 v[2];
+  __device__ __forceinline__ void load(const bf16* p) {
+    v[0] = reinterpret_cast<const uint4*>(p)[0];
+    v[1] = reinterpret_cast<const uint4*>(p)[1];
+  }
+  __device__ __forceinline__ float get(int e) const {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(v)[e >> 1];
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+template <>
+struct QUnit<float> {
+  static constexpr int kThreads = 512;
+  float4 v[4];
+  __device__ __forceinline__ void load(const float* p) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) mx = fmaxf(mx, fabsf(v[e]));
+    for (int i = 0; i < 4; ++i) v[i] = reinterpret_cast<const float4*>(p)[i];
+  }
+  __device__ __forceinline__ float get(int e) const { return reinterpret_cast<const float*>(v)[e]; }
+};
+
+// Block i of the grid: cluster i / cs (cs = 2 cw blocks: its tile, part
+// and head pair), rank i % cs (window offset rank / 2, head rank % 2 of
+// the pair). KU units of 16 values a thread (4 L <= KU x threads).
+template <typename T, int KU>
+__global__ void __launch_bounds__(QUnit<T>::kThreads)
+qkv_scale_quant_kernel(const T* __restrict__ qkv, int8_t* __restrict__ qkv_q, float* __restrict__ scales,
+                 int batch, int l, int num_heads, int block_b, int cw) {
+  constexpr int kThreads = QUnit<T>::kThreads;
+  __shared__ float part[kThreads / 32];
+  __shared__ float red[2 * kSMaxWindows];  // the maxima of the cluster's blocks, by rank
+  cluster_arrive_relaxed();                // this block runs (waited on before writing to the others)
+  const int cs = 2 * cw, rank = blockIdx.x % cs, pairs = num_heads / 2;
+  int c = blockIdx.x / cs;
+  const int hp = c % pairs;
+  c /= pairs;
+  const int p = c % 3, tile = c / 3;
+  const int hi = rank & 1, h = 2 * hp + hi, wo = rank >> 1;
+  const int d = num_heads * kDh8, three_d = 3 * d, col = p * d + h * kDh8;
+  const int tid = threadIdx.x, units = 4 * l;
+  // this block's windows: wo, wo + cw, ... of the tile, those that exist
+  const int b0 = tile * block_b + wo, tile_end = min(tile * block_b + block_b, batch);
+  const int nw = b0 < tile_end ? (tile_end - b0 + cw - 1) / cw : 0;
+
+  QUnit<T> u[KU];
+  auto load = [&](int i) {  // window b0 + cw i into the registers
+    const T* base = qkv + (size_t)(b0 + cw * i) * l * three_d + col;
+#pragma unroll
+    for (int j = 0; j < KU; ++j) {
+      const int un = tid + j * kThreads;
+      if (un < units) u[j].load(base + (size_t)(un >> 2) * three_d + (un & 3) * 16);
+    }
+  };
+  float mx = 0.f;
+  for (int i = 0; i < nw; ++i) {
+    load(i);
+#pragma unroll
+    for (int j = 0; j < KU; ++j)
+      if (tid + j * kThreads < units)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) mx = fmaxf(mx, fabsf(u[j].get(e)));
   }
   mx = warp_max(mx);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = mx;
+  if ((tid & 31) == 0) part[tid >> 5] = mx;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kAmaxThreads / 32; ++w) mx = fmaxf(mx, part[w]);
-    amax[((size_t)b * num_heads + h) * 3 + p] = mx;
+  cluster_wait();
+  if (tid < 32) {
+    mx = tid < kThreads / 32 ? part[tid] : 0.f;
+    mx = warp_max(mx);
+    if (tid < cs) st_cluster(&red[rank], mx, tid);
   }
-}
-
-// The scales of window b (its tile's max over block_b windows; k's over the
-// head pair too): s = max(amax, 1e-8) / 127, written to scales[b][h][p] by
-// the row block 0; then q8 = clip(round(v / s)) of the block's rows.
-template <typename T>
-__global__ void __launch_bounds__(kAmaxThreads)
-qkv_quant_kernel(const T* __restrict__ qkv, const float* __restrict__ amax,
-                 int8_t* __restrict__ qkv_q, float* __restrict__ scales, int batch, int l,
-                 int num_heads, int block_b) {
-  __shared__ float sc[3 * kI8MaxHeads];
-  const int b = blockIdx.y;
-  const int d = num_heads * kDh8, three_d = 3 * d;
-  if (threadIdx.x < 3 * num_heads) {
-    const int p = threadIdx.x / num_heads, h = threadIdx.x % num_heads;
-    const int t0 = b / block_b * block_b, t1 = min(t0 + block_b, batch);
-    float mx = 0.f;
-    for (int bb = t0; bb < t1; ++bb) {
-      mx = fmaxf(mx, amax[((size_t)bb * num_heads + h) * 3 + p]);
-      if (p == 1) mx = fmaxf(mx, amax[((size_t)bb * num_heads + (h ^ 1)) * 3 + p]);
-    }
-    const float s = __fdiv_rn(fmaxf(mx, 1e-8f), 127.f);
-    sc[p * num_heads + h] = s;
-    if (blockIdx.x == 0) scales[((size_t)b * num_heads + h) * 3 + p] = s;
-  }
-  __syncthreads();
-  const int r0 = blockIdx.x * kQuantRows, rows = min(kQuantRows, l - r0);
-  const int vecs = three_d / 8;
-  for (int i = threadIdx.x; i < rows * vecs; i += kAmaxThreads) {
-    const int r = r0 + i / vecs, c = (i % vecs) * 8;
-    const float s = sc[(c / d) * num_heads + (c % d) / kDh8];
-    const size_t off = ((size_t)b * l + r) * three_d + c;
-    float v[8];
-    load8(qkv + off, v);
-    uint32_t packed[2] = {0u, 0u};
+  cluster_arrive();
+  cluster_wait();  // every block's maximum is in red
+  // q and v: the tile's windows of this head; k: of the head pair too
+  mx = 0.f;
+  for (int r = 0; r < cs; ++r)
+    if (p == 1 || (r & 1) == hi) mx = fmaxf(mx, red[r]);
+  const float s = __fdiv_rn(fmaxf(mx, 1e-8f), 127.f), r = __frcp_rn(s);
+  for (int i = nw - 1; i >= 0; --i) {
+    if (i < nw - 1) load(i);
+    const int b = b0 + cw * i;
+    if (tid == 0) scales[((size_t)b * num_heads + h) * 3 + p] = s;
+    int8_t* dst = qkv_q + (size_t)b * l * three_d + col;
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      packed[e >> 2] |= (uint32_t)(clip8(__fdiv_rn(v[e], s)) & 0xff) << (8 * (e & 3));
-    *reinterpret_cast<uint2*>(qkv_q + off) = make_uint2(packed[0], packed[1]);
+    for (int j = 0; j < KU; ++j) {
+      const int un = tid + j * kThreads;
+      if (un < units) {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 16; ++e) w[e >> 2] |= (uint32_t)(quant_div(u[j].get(e), s, r) & 0xff) << (8 * (e & 3));
+        *reinterpret_cast<uint4*>(dst + (size_t)(un >> 2) * three_d + (un & 3) * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
   }
 }
 
+template <typename T, int KU>
+cudaError_t launch_quant_ku(const void* qkv, void* qkv_q, void* scales, int batch, int l, int num_heads,
+                            int block_b, cudaStream_t st) {
+  const int cw = block_b < kSMaxWindows ? block_b : kSMaxWindows;
+  const long long blocks = (long long)((batch + block_b - 1) / block_b) * 3 * (num_heads / 2) * 2 * cw;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  return launch_clustered(qkv_scale_quant_kernel<T, KU>, (int)blocks, QUnit<T>::kThreads, 0, 2 * cw, st,
+                          static_cast<const T*>(qkv), static_cast<int8_t*>(qkv_q), static_cast<float*>(scales),
+                          batch, l, num_heads, block_b, cw);
+}
+
 template <typename T>
-cudaError_t launch_quant_dynamic(const void* qkv, void* amax, void* qkv_q, void* scales, int batch,
-                                 int l, int num_heads, int block_b, cudaStream_t st) {
-  qkv_amax_kernel<T><<<dim3(3 * num_heads, batch), kAmaxThreads, 0, st>>>(
-      static_cast<const T*>(qkv), static_cast<float*>(amax), l, num_heads);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  qkv_quant_kernel<T><<<dim3((l + kQuantRows - 1) / kQuantRows, batch), kAmaxThreads, 0, st>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(amax), static_cast<int8_t*>(qkv_q),
-      static_cast<float*>(scales), batch, l, num_heads, block_b);
-  return cudaGetLastError();
+cudaError_t launch_quant_dynamic(const void* qkv, void* qkv_q, void* scales, int batch, int l, int num_heads,
+                                 int block_b, cudaStream_t st) {
+  const int ku = (4 * l + QUnit<T>::kThreads - 1) / QUnit<T>::kThreads;  // 1 .. 4 kI8MaxKeys / threads
+  if (ku <= 1) return launch_quant_ku<T, 1>(qkv, qkv_q, scales, batch, l, num_heads, block_b, st);
+  if (ku <= 2) return launch_quant_ku<T, 2>(qkv, qkv_q, scales, batch, l, num_heads, block_b, st);
+  if (ku <= 4) return launch_quant_ku<T, 4>(qkv, qkv_q, scales, batch, l, num_heads, block_b, st);
+  if constexpr (4 * kI8MaxKeys > 4 * QUnit<T>::kThreads)
+    if (ku <= 8) return launch_quant_ku<T, 8>(qkv, qkv_q, scales, batch, l, num_heads, block_b, st);
+  return cudaErrorInvalidValue;
 }
 
 bool attention_shape_ok(int l, int d, int num_heads, int kv_len) {
@@ -668,18 +728,17 @@ extern "C" int ebc_ln_qkv_proj_int8_q(const void* x, const void* gamma, const vo
                                                             qkv_q, m, d, 3 * d, eps, nullptr, 0, st));
 }
 
-// The dynamic scale pass: qkv (B, L, 3D) bf16, or fp32 when is_f32; amax
-// (B, H, 3) fp32 scratch; qkv_q (B, L, 3D) int8 and scales (B, H, 3) fp32
-// out (s_q, s_k, s_v of each window and head, tiles of block_b windows).
-extern "C" int ebc_qkv_quant_dynamic(const void* qkv, void* amax, void* qkv_q, void* scales,
-                                     int batch, int l, int d, int num_heads, int block_b,
-                                     int is_f32, void* stream) {
+// The dynamic scale pass: qkv (B, L, 3D) bf16, or fp32 when is_f32; qkv_q
+// (B, L, 3D) int8 and scales (B, H, 3) fp32 out (s_q, s_k, s_v of each
+// window and head, tiles of block_b windows).
+extern "C" int ebc_qkv_quant_dynamic(const void* qkv, void* qkv_q, void* scales, int batch, int l, int d,
+                                     int num_heads, int block_b, int is_f32, void* stream) {
   using namespace ebc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!attention_shape_ok(l, d, num_heads, l) || num_heads % 2 || batch < 1 || block_b < 1)
     return (int)cudaErrorInvalidValue;
-  return (int)(is_f32 ? launch_quant_dynamic<float>(qkv, amax, qkv_q, scales, batch, l, num_heads, block_b, st)
-                      : launch_quant_dynamic<bf16>(qkv, amax, qkv_q, scales, batch, l, num_heads, block_b, st));
+  return (int)(is_f32 ? launch_quant_dynamic<float>(qkv, qkv_q, scales, batch, l, num_heads, block_b, st)
+                      : launch_quant_dynamic<bf16>(qkv, qkv_q, scales, batch, l, num_heads, block_b, st));
 }
 
 // The int8 masked attention: qkv_q (B, L, 3D) int8; scales (3,) fp32 when

@@ -256,31 +256,55 @@ def dynamic_attn_scales(qkv: torch.Tensor, num_heads: int, block_b: int) -> torc
     amax = torch.nn.functional.pad(amax, (0, 0, 0, 0, 0, tiles * block_b - b))
     amax = amax.reshape(tiles, block_b, 3, num_heads).amax(1).repeat_interleave(block_b, 0)[:b]
     amax[:, 1] = amax[:, 1].reshape(b, num_heads // 2, 2).amax(-1).repeat_interleave(2, -1)
-    return (amax.clamp_min(1e-8) / 127.0).transpose(1, 2).contiguous()
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, one ulp off the IEEE quotient the JAX q8 takes
+    return (amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)).transpose(1, 2).contiguous()
+
+
+def qkv_quant_dynamic_plain(qkv: torch.Tensor, num_heads: int, block_b: int) -> tuple:
+    """The dynamic scale pass of ``quant_attn=True`` (the JAX ``q8`` of
+    ``_pair_attention_body``): the scales of :func:`dynamic_attn_scales`
+    ``(B, H, 3)``, and ``qkv_q = clip(round(t / s), -127, 127)`` (a
+    division) of each head's q, k and v columns with its own scale, int8
+    ``(B, L, 3D)``. Returns ``(qkv_q, scales)``."""
+    b, l, d3 = qkv.shape
+    sc = dynamic_attn_scales(qkv, num_heads, block_b)
+    t = qkv.float().reshape(b, l, 3, num_heads, d3 // 3 // num_heads)
+    q = torch.clamp(torch.round(t / sc.transpose(1, 2)[:, None, :, :, None]), -127, 127)
+    return q.to(torch.int8).reshape(b, l, d3), sc
+
+
+def int8_attention_dynamic_q_plain(
+    qkv_q: torch.Tensor, scales: torch.Tensor, num_heads: int, kv_len: int, sm_scale: float,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The masked attention of an int8 qkv ``(B, L, 3D)`` on dynamic
+    per-window scales ``(B, H, 3)`` (:func:`qkv_quant_dynamic_plain`),
+    rounding where ``_pair_attention_body`` with ``quant_attn=True``
+    rounds: scores ``(int32 * (s_q s_k)) * sm_scale``, keys >= kv_len at
+    NEG_INF; unnormalized ``p``, ``r = sum(p)`` in fp32, ``p8 = round(p *
+    127)``; the output ``(PV_int32 * (s_v / 127)) / r`` in ``out_dtype``."""
+    l, d = qkv_q.shape[1], qkv_q.shape[2] // 3
+    sc = scales[..., None, None]  # (B, H, 3, 1, 1)
+    sq, sk, sv = sc[:, :, 0], sc[:, :, 1], sc[:, :, 2]
+    q, k, v = (_heads(t, num_heads) for t in qkv_q.split(d, dim=-1))
+    s = int_bmm(q, k.transpose(-1, -2)).float() * (sq * sk)
+    s = torch.where(torch.arange(l, device=qkv_q.device) < kv_len, s * sm_scale, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    r = p.sum(-1, keepdim=True)
+    p8 = torch.round(p * 127.0).to(torch.int8)
+    o = int_bmm(p8, v).float() * (sv / 127.0) / r
+    return _merge_heads(o.to(out_dtype))
 
 
 def int8_attention_dynamic_plain(
     qkv: torch.Tensor, num_heads: int, kv_len: int, sm_scale: float, block_b: int
 ) -> torch.Tensor:
     """The masked attention of ``qkv`` ``(B, L, 3D)`` with int8 QK^T and PV
-    on dynamic per-tile scales (:func:`dynamic_attn_scales`), rounding where
-    ``_pair_attention_body`` with ``quant_attn=True`` rounds: ``q8 =
-    clip(round(t / s))`` (a division); scores ``(int32 * (s_q s_k)) *
-    sm_scale``, keys >= kv_len at NEG_INF; unnormalized ``p``, ``r =
-    sum(p)`` in fp32, ``p8 = round(p * 127)``; the output ``(PV_int32 *
-    (s_v / 127)) / r`` in qkv's dtype."""
-    l, d = qkv.shape[1], qkv.shape[2] // 3
-    sc = dynamic_attn_scales(qkv, num_heads, block_b)[..., None, None]  # (B, H, 3, 1, 1)
-    sq, sk, sv = sc[:, :, 0], sc[:, :, 1], sc[:, :, 2]
-    q, k, v = (torch.clamp(torch.round(_heads(t, num_heads) / s), -127, 127).to(torch.int8)
-               for t, s in zip(qkv.float().split(d, dim=-1), (sq, sk, sv)))
-    s = int_bmm(q, k.transpose(-1, -2)).float() * (sq * sk)
-    s = torch.where(torch.arange(l, device=qkv.device) < kv_len, s * sm_scale, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    r = p.sum(-1, keepdim=True)
-    p8 = torch.round(p * 127.0).to(torch.int8)
-    o = int_bmm(p8, v).float() * (sv / 127.0) / r
-    return _merge_heads(o.to(qkv.dtype))
+    on dynamic per-tile scales: :func:`qkv_quant_dynamic_plain`, then
+    :func:`int8_attention_dynamic_q_plain`, output in qkv's dtype."""
+    qkv_q, scales = qkv_quant_dynamic_plain(qkv, num_heads, block_b)
+    return int8_attention_dynamic_q_plain(qkv_q, scales, num_heads, kv_len, sm_scale, qkv.dtype)
 
 
 def ln_qkv_attention_int8_dynamic_plain(
@@ -336,11 +360,22 @@ def ln_mlp_int8_plain(
     ``(x_f32 + out)`` in x's dtype. ``wfc_q`` (4D, D) and ``wpj_q`` (D, 4D)
     int8 in torch's (out, in) layout, ``s_fc`` and ``s_pj`` their
     per-output-column scales."""
-    b, l, d = x.shape
     hq = ln_proj_int8_plain(x, ln_weight, ln_bias, wfc_q, s_fc * act1, b_fc, act1, "gelu_int8",
                             act2, quick_gelu, eps)
-    acc2 = int_mm(hq.reshape(b * l, -1), wpj_q).reshape(b, l, d).float()
-    return (x.float() + (acc2 * (s_pj * act2) + b_proj.float())).to(x.dtype)
+    return int8_gemm_residual_plain(hq, wpj_q, s_pj * act2, b_proj, x)
+
+
+def int8_gemm_residual_plain(
+    hq: torch.Tensor, wpj_q: torch.Tensor, sw2: torch.Tensor, b_proj: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """The second product of the W8A8 MLP and its residual, rounding where
+    ``_ln_mlp_kernel`` rounds: ``acc2 = hq . wpj_q^T`` in exact int32, ``out
+    = acc2 * sw2 + b_proj`` in fp32 (multiply and add apart), ``(x_f32 +
+    out)`` in x's dtype. ``hq (..., 4D)`` and ``wpj_q (D, 4D)`` int8, ``sw2
+    = s_pj * act2`` and ``b_proj (D,)`` fp32, ``x (..., D)``."""
+    d = x.shape[-1]
+    acc2 = int_mm(hq.reshape(-1, hq.shape[-1]), wpj_q).reshape(x.shape[:-1] + (d,)).float()
+    return (x.float() + (acc2 * sw2 + b_proj.float())).to(x.dtype)
 
 
 def attention_bwd_plain(
@@ -450,9 +485,11 @@ _ARGTYPES = {
     "ebc_qkv_attention_f32": [_P, _P] + [_I] * 5 + [_F, _P],
     "ebc_ln_qkv_proj_int8": [_P] * 8 + [_I] * 3 + [_F, _P],
     "ebc_ln_qkv_proj_int8_q": [_P] * 8 + [_I] * 3 + [_F, _P],
-    "ebc_qkv_quant_dynamic": [_P] * 4 + [_I] * 6 + [_P],
+    "ebc_qkv_quant_dynamic": [_P] * 3 + [_I] * 6 + [_P],
     "ebc_int8_attention": [_P] * 3 + [_I] * 7 + [_F, _P],
     "ebc_ln_mlp_int8": [_P] * 13 + [_I] * 5 + [_F, _P],
+    "ebc_ln_proj_gelu_int8": [_P] * 9 + [_I] * 5 + [_F, _P],
+    "ebc_int8_gemm_residual": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 
@@ -751,8 +788,9 @@ def fused_ln_qkv_attention_int8(
     the branch's kernels, one call counted in
     ``fused_ln_qkv_attention_int8.launches_static``, ``.launches_dynamic``
     or ``.launches`` (the float attention), its LN + int8 projection
-    launch in ``.launches_proj`` and an int8 attention launch in
-    ``.launches_attn``, or raise."""
+    launch in ``.launches_proj``, an int8 attention launch in
+    ``.launches_attn`` and the dynamic scale pass in
+    ``qkv_quant_dynamic.launches``, or raise."""
     who = "fused_ln_qkv_attention_int8"
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, ln_weight, ln_bias, w, bias)
@@ -815,13 +853,7 @@ def fused_ln_qkv_attention_int8(
     ))
     fused_ln_qkv_attention_int8.launches_proj += 1
     if quant_attn:
-        qkv_q = torch.empty(b, l, 3 * d, dtype=torch.int8, device=dev)
-        amax = torch.empty(b, num_heads, 3, dtype=torch.float32, device=dev)
-        scales = torch.empty_like(amax)
-        _run(who, _entry("fused_attention_int8", "ebc_qkv_quant_dynamic")(
-            qkv.data_ptr(), amax.data_ptr(), qkv_q.data_ptr(), scales.data_ptr(), b, l, d,
-            num_heads, block_b, is_f32, _stream(dev),
-        ))
+        qkv_q, scales = _launch_qkv_quant_dynamic(who, qkv, num_heads, block_b)
         _launch_int8_attention(who, qkv_q, scales, out, num_heads, kv_len, sm_scale, True)
         fused_ln_qkv_attention_int8.launches_dynamic += 1
         return out
@@ -841,6 +873,84 @@ def _launch_int8_attention(who, qkv_q, scales, out, num_heads, kv_len, sm_scale,
         int(dynamic), int(out.dtype == torch.float32), float(sm_scale), _stream(out.device),
     ))
     fused_ln_qkv_attention_int8.launches_attn += 1
+
+
+def _launch_qkv_quant_dynamic(who, qkv, num_heads, block_b) -> tuple:
+    """The scale pass on a checked CUDA qkv ``(B, L, 3D)`` (counted in
+    ``qkv_quant_dynamic.launches``): ``(qkv_q, scales)``."""
+    b, l, three_d = qkv.shape
+    qkv_q = torch.empty(b, l, three_d, dtype=torch.int8, device=qkv.device)
+    scales = torch.empty(b, num_heads, 3, dtype=torch.float32, device=qkv.device)
+    _run(who, _entry("fused_attention_int8", "ebc_qkv_quant_dynamic")(
+        qkv.data_ptr(), qkv_q.data_ptr(), scales.data_ptr(), b, l, three_d // 3, num_heads, block_b,
+        int(qkv.dtype == torch.float32), _stream(qkv.device),
+    ))
+    qkv_quant_dynamic.launches += 1
+    return qkv_q, scales
+
+
+def qkv_quant_dynamic(qkv: torch.Tensor, num_heads: int, block_b: int) -> tuple:
+    """The dynamic scale pass of ``fused_ln_qkv_attention_int8(quant_attn=True)``
+    alone: ``(qkv_q, scales)`` of a qkv ``(B, L, 3D)``, as
+    :func:`qkv_quant_dynamic_plain`. CPU tensors take that plain version.
+    CUDA tensors need a contiguous bf16 or fp32 qkv, 64-wide heads in an
+    even number, D a multiple of 128 and at most MAX_FUSED_DIM, L at most
+    MAX_FUSED_SEQ_INT8_ATTN, and launch ``ebc_qkv_quant_dynamic`` (counted
+    in ``qkv_quant_dynamic.launches``, as is the launch inside
+    ``fused_ln_qkv_attention_int8``) or raise."""
+    if qkv.device.type == "cpu":
+        return qkv_quant_dynamic_plain(qkv, num_heads, block_b)
+    who = "qkv_quant_dynamic"
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"{who}: expected a (B, L, 3D) qkv, got {tuple(qkv.shape)}")
+    if block_b < 1:
+        raise ValueError(f"{who}: block_b must be >= 1, got {block_b}")
+    b, l, d = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+    _check_attention(who, qkv[..., :d], num_heads, l, MAX_FUSED_SEQ_INT8_ATTN)
+    if d % 128:
+        raise ValueError(f"{who}: needs D % 128 == 0 (head pairs), got D={d}")
+    _check(who, qkv, "qkv", (b, l, 3 * d), qkv.dtype, qkv.device)
+    return _launch_qkv_quant_dynamic(who, qkv, num_heads, block_b)
+
+
+def _check_mlp_widths(who: str, d: int, hidden: int) -> None:
+    if d % 128 or d > MAX_FUSED_DIM or hidden % 128 or hidden < 128:
+        raise ValueError(f"{who}: needs D % 128 == 0, D <= {MAX_FUSED_DIM} and a hidden width "
+                         f"that is a multiple of 128; got D={d}, hidden={hidden}")
+
+
+def int8_gemm_residual(
+    hq: torch.Tensor, wpj_q: torch.Tensor, sw2: torch.Tensor, b_proj: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """The second launch of :func:`fused_ln_mlp_int8` alone: ``x + (hq .
+    wpj_q^T * sw2 + b_proj)`` as :func:`int8_gemm_residual_plain`. CPU
+    tensors take that plain version. CUDA tensors need contiguous int8
+    ``hq (..., 4D)`` and ``wpj_q (D, 4D)``, fp32 ``sw2`` and ``b_proj``
+    ``(D,)``, a bf16 or fp32 ``x (..., D)``, D a multiple of 128 and at most
+    MAX_FUSED_DIM, 4D a multiple of 128, and launch ``ebc_int8_gemm_residual``
+    (counted in ``int8_gemm_residual.launches``, as is the second launch
+    of ``fused_ln_mlp_int8``) or raise."""
+    if x.device.type == "cpu":
+        return int8_gemm_residual_plain(hq, wpj_q, sw2, b_proj, x)
+    who = "int8_gemm_residual"
+    d, hidden = x.shape[-1], hq.shape[-1]
+    m = x.numel() // d if d else 0
+    _check_mlp_widths(who, d, hidden)
+    if m < 1 or x.dtype not in _FWD_ENTRIES:
+        raise ValueError(f"{who}: needs at least one bf16 or fp32 row, got x {tuple(x.shape)} {x.dtype}")
+    dev = x.device
+    _check(who, x, "x", tuple(x.shape), x.dtype, dev)
+    _check(who, hq, "hq", tuple(x.shape[:-1]) + (hidden,), torch.int8, dev)
+    _check(who, wpj_q, "wpj_q", (d, hidden), torch.int8, dev)
+    _check(who, sw2, "sw2", (d,), torch.float32, dev)
+    _check(who, b_proj, "b_proj", (d,), torch.float32, dev)
+    out = torch.empty_like(x)
+    _run(who, _entry("fused_mlp_int8", "ebc_int8_gemm_residual")(
+        hq.data_ptr(), wpj_q.data_ptr(), sw2.data_ptr(), b_proj.data_ptr(), x.data_ptr(),
+        out.data_ptr(), m, d, hidden, int(x.dtype == torch.float32), _stream(dev),
+    ))
+    int8_gemm_residual.launches += 1
+    return out
 
 
 def fused_ln_mlp_int8(
@@ -870,7 +980,8 @@ def fused_ln_mlp_int8(
     fp32 x, fp32 LN parameters, biases and scales, D a multiple of 128 and
     at most 768, the hidden width a multiple of 128, and launch
     ``csrc/fused_mlp_int8.cu`` (one call counted in
-    ``fused_ln_mlp_int8.launches``) or raise."""
+    ``fused_ln_mlp_int8.launches``, its second launch also in
+    ``int8_gemm_residual.launches``) or raise."""
     who = "fused_ln_mlp_int8"
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, ln_weight, ln_bias, w_fc, b_fc, w_proj, b_proj)
@@ -888,9 +999,7 @@ def fused_ln_mlp_int8(
                          f"{tuple(x.shape)} on {x.device}")
     b, l, d = x.shape
     hidden = wfc_q.shape[0]
-    if d % 128 or d > MAX_FUSED_DIM or hidden % 128 or hidden < 128:
-        raise ValueError(f"{who}: needs D % 128 == 0, D <= {MAX_FUSED_DIM} and a hidden width "
-                         f"that is a multiple of 128; got D={d}, hidden={hidden}")
+    _check_mlp_widths(who, d, hidden)
     if x.dtype not in _FWD_ENTRIES:
         raise ValueError(f"{who}: activations must be torch.bfloat16 or torch.float32, got {x.dtype}")
     dev, dt = x.device, x.dtype
@@ -914,6 +1023,7 @@ def fused_ln_mlp_int8(
         int(dt == torch.float32), float(eps), _stream(dev),
     ))
     fused_ln_mlp_int8.launches += 1
+    int8_gemm_residual.launches += 1  # the entry's second launch
     return out
 
 
@@ -983,6 +1093,8 @@ fused_ln_qkv_attention_int8.launches_dynamic = 0
 fused_ln_qkv_attention_int8.launches_proj = 0
 fused_ln_qkv_attention_int8.launches_attn = 0
 fused_ln_mlp_int8.launches = 0
+int8_gemm_residual.launches = 0
+qkv_quant_dynamic.launches = 0
 fused_qkv_attention.launches = 0
 attention_bwd.launches = 0
 ln_qkv_bwd_frozen.launches = 0

@@ -34,7 +34,10 @@ the two), each within 8e-2 of the float-attention plain path's. The LN +
 int8 projection alone: max 2e-2 and median 1e-3 of the largest output in
 bf16 and for its int8 outputs, 2e-3 and 1e-4 for fp32 outputs; its int8
 epilogue equal to the plain version's bits on inputs whose LN outputs lie
-away from rounding ties.
+away from rounding ties. The MLP's second launch alone (``int8_gemm_residual``)
+and the dynamic scale pass alone (``qkv_quant_dynamic``): bit-equal to
+their plain versions (exact int32 products, then the same IEEE operations
+in the same order on both sides).
 """
 
 import numpy as np
@@ -710,20 +713,16 @@ def _proj_inputs(b, l, d, n, dev, dtype, seed=21):
 def _proj_kernel(x, gam, be, w_q, sw, bias, act, epilogue, act_out=None):
     """The LN + int8 projection's launch alone through the C entries that
     run it: the QKV projection's (qkv in x's dtype, or int8 q, k, v) for N =
-    3D, the MLP's for the GELU epilogue (its int8 hidden, read from the
-    scratch the entry fills before its second product)."""
+    3D, the MLP's first launch for the GELU epilogue (its int8 hidden)."""
     b, l, d = x.shape
     n, dev, f32 = w_q.shape[0], x.device, int(x.dtype == torch.float32)
     inv = torch.stack([1.0 / act, 1.0 / act_out if act_out is not None else act]).reshape(2)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if epilogue == "gelu_int8":
         hq = torch.empty(b, l, n, dtype=torch.int8, device=dev)
-        w_pj = torch.zeros(d, n, dtype=torch.int8, device=dev)
-        zeros, out = torch.zeros(d, device=dev), torch.empty_like(x)
-        rc = fatt._entry("fused_mlp_int8", "ebc_ln_mlp_int8")(
+        rc = fatt._entry("fused_mlp_int8", "ebc_ln_proj_gelu_int8")(
             x.data_ptr(), gam.data_ptr(), be.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
-            bias.data_ptr(), inv[0:1].data_ptr(), inv[1:2].data_ptr(), hq.data_ptr(),
-            w_pj.data_ptr(), zeros.data_ptr(), zeros.data_ptr(), out.data_ptr(), b * l, d, n, 1, f32,
+            bias.data_ptr(), inv[0:1].data_ptr(), inv[1:2].data_ptr(), hq.data_ptr(), b * l, d, n, 1, f32,
             1e-5, stream)
         assert rc == 0
         return hq
@@ -843,6 +842,70 @@ def test_mlp_int8_kernel_matches_plain(cuda, shape):
     with pytest.raises(ValueError, match="multiple of 128"):
         fused_ln_mlp_int8(x[..., :96].contiguous(), gam[:96], be[:96], w_fc[:, :96], b_fc, act1,
                           w_pj[:96], b_pj[:96], act2)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m,d,hidden", [(140 * 229, 768, 3072), (3 * 37, 256, 1024), (300, 640, 2560)])
+def test_int8_gemm_residual_matches_plain_bitwise(cuda, m, d, hidden, dtype):
+    """The MLP's second launch alone: x + (hq . W_pj^T * sw2 + b_proj) at the
+    flagship block (D = 768: persistent blocks on 128-row tiles of 192
+    columns in bf16, 128 in fp32), ragged rows at D = 256 (tiles of 128
+    columns) and D = 640 (5 tiles of 128), equal to
+    ``int8_gemm_residual_plain`` bit for bit; one launch counted."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(m + d)
+    hq = torch.randint(-127, 128, (m, hidden), generator=g, device=cuda, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (d, hidden), generator=g, device=cuda, dtype=torch.int8)
+    sw2 = torch.rand(d, generator=g, device=cuda) * 2e-5
+    b_pj = 0.02 * torch.randn(d, generator=g, device=cuda)
+    x = torch.randn(m, d, generator=g, device=cuda).to(dtype)
+    before = fatt.int8_gemm_residual.launches
+    got = fatt.int8_gemm_residual(hq, w_q, sw2, b_pj, x)
+    torch.cuda.synchronize()
+    assert fatt.int8_gemm_residual.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(got, fatt.int8_gemm_residual_plain(hq, w_q, sw2, b_pj, x))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fatt.int8_gemm_residual(hq[:, :96].contiguous(), w_q[:, :96].contiguous(), sw2, b_pj, x)
+
+
+def _scale_pass_qkv(b, l, dtype, dev, seed):
+    """A float qkv (B, L, 3D) at ViT-B width whose heads differ in magnitude."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mag = (0.5 + torch.rand(36, generator=g, device=dev)).repeat_interleave(64)
+    return (torch.randn(b, l, 3 * 768, generator=g, device=dev) * mag).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,block_b", [("bfloat16", 2), ("float32", 1)])
+@pytest.mark.parametrize("b,l", [(140, 229), (70, 433), (3, 512), (5, 64)])
+def test_qkv_quant_dynamic_matches_plain_bitwise(cuda, b, l, dtype, block_b):
+    """The dynamic scale pass alone at the flagship windows, --window_size
+    320, the longest window and an odd batch (a short last tile in bf16):
+    qkv_q and the scales equal ``qkv_quant_dynamic_plain``'s bit for bit;
+    one launch counted."""
+    qkv = _scale_pass_qkv(b, l, getattr(torch, dtype), cuda, b * l)
+    before = fatt.qkv_quant_dynamic.launches
+    got_q, got_s = fatt.qkv_quant_dynamic(qkv, 12, block_b)
+    torch.cuda.synchronize()
+    assert fatt.qkv_quant_dynamic.launches == before + 1
+    want_q, want_s = fatt.qkv_quant_dynamic_plain(qkv, 12, block_b)
+    assert torch.equal(got_s, want_s) and torch.equal(got_q, want_q)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,block_b", [(11, 5), (9, 8)])
+def test_qkv_quant_dynamic_tiles_wider_than_a_cluster(cuda, b, block_b, dtype):
+    """Tiles of more than 4 windows: a block takes every 4th window of its
+    tile and reads all but the last again to quantize them; bit-equal to
+    the plain version. The wrapper refuses what the kernel does not take."""
+    qkv = _scale_pass_qkv(b, 77, getattr(torch, dtype), cuda, b)
+    got_q, got_s = fatt.qkv_quant_dynamic(qkv, 12, block_b)
+    torch.cuda.synchronize()
+    want_q, want_s = fatt.qkv_quant_dynamic_plain(qkv, 12, block_b)
+    assert torch.equal(got_s, want_s) and torch.equal(got_q, want_q)
+    with pytest.raises(ValueError, match="L <= 512"):
+        fatt.qkv_quant_dynamic(torch.zeros(1, 513, 3 * 768, dtype=qkv.dtype, device=cuda), 12, 2)
+    with pytest.raises(ValueError, match="block_b"):
+        fatt.qkv_quant_dynamic(qkv, 12, 0)
 
 
 def test_quant_attn_model_takes_the_int8_attention(cuda):
@@ -1044,14 +1107,8 @@ def _int8_body_vs_plain(cuda, branch, qkv, h, kv_len):
         scales = aq.contiguous()
         want = fatt.int8_attention_static_plain(qkv_q, aq, h, kv_len, sm, out_dtype)
     else:
-        qkv_q = torch.empty(b, l, three_d, dtype=torch.int8, device=cuda)
-        amax = torch.empty(b, h, 3, dtype=torch.float32, device=cuda)
-        scales = torch.empty_like(amax)
         block_b = 1 if f32 else 2
-        rc = fatt._entry("fused_attention_int8", "ebc_qkv_quant_dynamic")(
-            qkv.data_ptr(), amax.data_ptr(), qkv_q.data_ptr(), scales.data_ptr(), b, l, d, h, block_b,
-            int(f32), stream)
-        assert rc == 0
+        qkv_q, scales = fatt.qkv_quant_dynamic(qkv, h, block_b)
         want = fatt.int8_attention_dynamic_plain(qkv, h, kv_len, sm, block_b)
     got = torch.full((b, l, d), float("nan"), dtype=out_dtype, device=cuda)
     rc = fatt._entry("fused_attention_int8", "ebc_int8_attention")(
