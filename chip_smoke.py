@@ -92,6 +92,30 @@ Phases, each a hard failure (a raised exception, exit code 1):
    + backward FLOP of the plain path by ``FlopCounterMode`` over the
    card's peak), the kernel path and the plain path of each dtype timed in
    the same call.
+4b. the non-CLIP models through the same entry points: first row 2 at
+   the plain ViT's LayerNorm eps 1e-6 (197 tokens, 140 and 8 windows; it
+   must miss its eps-1e-5 plain version) and its split backward with a
+   trainable LayerNorm, projection and bias against plain autograd (dx,
+   dgamma, dbeta, dW, db within 2e-2 bf16 / 1e-4 fp32 of their largest
+   magnitudes); then the trainer CLI for one epoch on a synthetic ``shb``
+   dataset (32 images of 512 x 768): ``vgg19_ae`` with the README's
+   first train command (448 px crops, batch 8) in bf16 and fp32,
+   ``--regression`` in bf16, a plain ``vit_b_16`` Classifier at 224 px in
+   bf16 and fp32 (12 launches of row 2 a forward, 12 of row 4 a step
+   through the split backward, none of row 5); every parameter moves and
+   each best checkpoint serves through the predict CLI. The predict CLI
+   serves ``vgg19_ae`` whole on the 2048 x 3072 image and ``vit_b_16`` by
+   140 windows of 197 tokens (12 launches of row 2), in bf16 and fp32,
+   and the NWPU CLI two images with ``vgg19_ae``. Then ``vgg19_ae``'s ms
+   per image and per training step (CUDA events around
+   ``Trainer.train_step`` and the host clock beside, median of 5) with
+   peak memory, beside the ``FlopCounterMode`` bound (and, with
+   ``--profile``, the step's device idle share); and ``vit_b_16``'s count
+   by windows and step gradients against its plain twin
+   (``attn_backend="sdpa"``): 1e-2 / 1e-3 of the count, relative L2
+   5e-2 / 1e-3 over every parameter's gradient (bf16 / fp32). The launches
+   of rows 2 and 4 on these paths go into their rows of the kernels line
+   as ``launches_vit_serve`` and ``launches_vit_train``.
 
 Phase 2 also holds both flash-attention kernels against their plain
 versions, in bf16 and fp32: the tiled kernel at the flagship full image
@@ -2284,6 +2308,433 @@ def phase_training(dev, kernels: dict, profile: bool) -> None:
         del model, trainer
 
 
+# the non-CLIP slice: vgg19_ae at the JAX package's defaults (448 px crops,
+# batch 8, reduction 8, truncation 4, shb bins) on a synthetic shb dataset of
+# 32 train images (4 steps an epoch) and 2 val images of 512 x 768; the
+# plain vit_b_16 at 224 px windows (197 tokens)
+MODEL_SIZE, MODEL_B, VIT_SIZE, VIT_L = 448, 8, 224, 197
+
+
+def model_flags(model: str, size: int) -> list:
+    """The README's first trainer command (``vgg19_ae``), or the same flags
+    for another model at ``size``."""
+    return ["--model", model, "--dataset", "shb", "--input_size", str(size), "--reduction", "8",
+            "--truncation", "4", "--count_loss", "dmcount", "--batch_size", str(MODEL_B)]
+
+
+def run_model_trainer(dev, data_root: str, ckpt_dir: str, flags: list, amp: bool) -> dict:
+    """The trainer CLI for one epoch and one evaluation with ``flags``,
+    the kernels' counters zeroed just before and read just after."""
+    from clip_ebc_tpu_torch.cli import trainer
+
+    argv = flags + ["--total_epochs", "1", "--eval_start", "1", "--data_root", data_root,
+                    "--ckpt_dir", ckpt_dir, "--eval_disable_size_check", "--device", str(dev)]
+    argv += ["--amp"] if amp else []
+    _train_counters(reset=True)
+    t0 = time.perf_counter()
+    trainer.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _train_counters()
+    with open(os.path.join(ckpt_dir, "meta.json")) as f:
+        meta = json.load(f)
+    tag = f"{flags[1]}{' --regression' if '--regression' in flags else ''}, " \
+          f"{'bf16 (--amp)' if amp else 'fp32'}"
+    _tally_off_path(f"trainer CLI, {tag}")
+    loss = meta["loss_history"][-1]["loss"]
+    check(math.isfinite(loss), f"trainer CLI, {tag}: loss {loss} is not finite")
+    print(f"trainer CLI, {tag}: {secs:.1f} s (model build, {TRAIN_IMAGES // MODEL_B} steps, eval, "
+          f"checkpoints); launches {launches}; epoch {meta['loss_history'][-1]}; "
+          f"val {meta['best_scores']}")
+    return launches
+
+
+def _moved(init: dict, path: str, tag: str) -> None:
+    trained = torch.load(path, map_location="cpu", weights_only=True)
+    params = [k for k in init if "running_" not in k and "num_batches" not in k]
+    check(sorted(trained) == sorted(init), f"{tag}: checkpoint keys differ from the model's")
+    still = [k for k in params if torch.equal(trained[k], init[k])]
+    check(not still, f"{tag}: parameters that did not train: {still[:4]}")
+
+
+def host_probe_ms() -> float:
+    """Median ms of a fixed pure-Python loop (1e5 additions) over 5 runs:
+    the speed of the host core the step's Python runs on, to read beside
+    a host-bound step's time."""
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        acc = 0
+        for i in range(100_000):
+            acc += i
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def card_clocks() -> str:
+    """The card's SM clock, its maximum, and its power draw, by nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_step_events(trainer, batch, reps: int = 20, warmup: int = 2) -> tuple:
+    """One optimizer step on ``batch``, ``reps`` times: CUDA events around
+    ``Trainer.train_step`` (the events' span ends at the step's last
+    kernel; a synchronize follows each), and the host clock beside it.
+    Returns (median, min, max) ms of each."""
+    dev_ms, host_ms = [], []
+    for i in range(warmup + reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        trainer.train_step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+    return tuple((statistics.median(t), min(t), max(t)) for t in (dev_ms, host_ms))
+
+
+# the plain ViT's path against its plain twin: kernel outputs and gradients
+# within a share of the plain version's largest magnitude, counts relative,
+# a step's gradients relative L2 over every parameter
+VIT_KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+VIT_COUNT_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+VIT_GRAD_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
+
+
+def _scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error over the largest magnitude of ``want``."""
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), "a kernel output is not finite")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _ln_qkv_inputs(dev, dtype, b: int, l: int, d: int, seed: int) -> list:
+    """x, LN gamma and beta, the joint QKV weight (out, in) and its bias."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    return [t(rng.normal(size=(b, l, d))).to(dtype), t(1.0 + 0.1 * rng.normal(size=d)),
+            t(0.1 * rng.normal(size=d)), t(rng.normal(size=(3 * d, d)) * d**-0.5).to(dtype),
+            t(0.02 * rng.normal(size=3 * d))]
+
+
+def vit_eps_errors(dev, dtype, b: int) -> tuple:
+    """Row 2 at the plain ViT's 197 tokens with LayerNorm eps 1e-6, on rows
+    of variance 1e-6, where eps 1e-5 would move every output: the kernel's
+    scaled error against its plain version at eps 1e-6 and at eps 1e-5,
+    and its launches in the call."""
+    from clip_ebc_tpu_torch.ops.fused_attention import (fused_ln_qkv_attention,
+                                                        ln_qkv_attention_plain)
+
+    x, gam, be, w, bias = _ln_qkv_inputs(dev, dtype, b, VIT_L, D, seed=b)
+    x = (x.float() * 1e-3).to(dtype)
+    n0 = fused_ln_qkv_attention.launches
+    got = fused_ln_qkv_attention(x, gam, be, w, bias, H, VIT_L, (D // H) ** -0.5, 1e-6)
+    torch.cuda.synchronize()
+    launches = fused_ln_qkv_attention.launches - n0
+    errs = [_scaled_err(got, ln_qkv_attention_plain(x, gam, be, w, bias, H, VIT_L,
+                                                     (D // H) ** -0.5, eps))
+            for eps in (1e-6, 1e-5)]
+    return errs[0], errs[1], launches
+
+
+def split_backward_errors(dev, dtype, b: int, l: int, kv_len: int, d: int) -> tuple:
+    """The backward of row 2 when the LayerNorm, the projection and its
+    bias train (a plain ViT; CLIP's trunk is frozen): the split path, the
+    plain LN + projection's autograd around the row 4 kernel. Returns the
+    scaled errors of dx, dgamma, dbeta, dW and db against plain autograd
+    through the plain version, and the launches of ``attention_bwd`` and
+    ``ln_qkv_bwd_frozen`` in the backward."""
+    from clip_ebc_tpu_torch.ops.fused_attention import (
+        attention_bwd, fused_ln_qkv_attention, ln_qkv_attention_plain, ln_qkv_bwd_frozen)
+
+    h, sm = d // 64, 0.125
+    args = _ln_qkv_inputs(dev, dtype, b, l, d, seed=l)
+    gout = torch.from_numpy(np.random.default_rng(7).normal(size=(b, l, d)).astype(np.float32))
+    gout = gout.to(dev, dtype)
+    gout[:, kv_len:] = 0  # rows past kv_len are not specified
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    n0 = (attention_bwd.launches, ln_qkv_bwd_frozen.launches)
+    out = fused_ln_qkv_attention(*leaves, h, kv_len, sm, 1e-6)
+    got = torch.autograd.grad(out, leaves, gout)
+    torch.cuda.synchronize()
+    launches = (attention_bwd.launches - n0[0], ln_qkv_bwd_frozen.launches - n0[1])
+    plain = [a.clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(ln_qkv_attention_plain(*plain, h, kv_len, sm, 1e-6), plain, gout)
+    errs = {}
+    for name, a, e in zip(("dx", "dgamma", "dbeta", "dW", "db"), got, want):
+        check(a.shape == e.shape and a.dtype == e.dtype, f"split backward: {name} shape or type")
+        errs[name] = _scaled_err(a, e)
+    return errs, launches
+
+
+def vit_pair(dev, dtype, seed: int, size: int = VIT_SIZE) -> tuple:
+    """A seeded ``vit_b_16`` Classifier on the kernel path, and its plain
+    twin (``attn_backend="sdpa"``) with the same weights."""
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.models import get_model
+
+    bins, anchors = get_bins_and_anchors(8, 4, "shb")
+    model = get_model("vit_b_16", size, 8, bins, anchors, dtype=dtype, seed=seed, device=dev)
+    plain = get_model("vit_b_16", size, 8, bins, anchors, dtype=dtype, device=dev,
+                      attn_backend="sdpa")
+    plain.load_state_dict(model.state_dict())
+    return model, plain
+
+
+def _grads(model, loss_of) -> dict:
+    model.train().zero_grad(set_to_none=True)
+    loss_of(model).backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    check(all(g is not None for g in grads.values()), "a parameter got no gradient")
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def vit_against_plain(model, plain, count_of, loss_of) -> dict:
+    """The ViT's kernel path against its plain twin: ``count_of(m)`` (no
+    grad) and the gradients of ``loss_of(m)``. Returns both counts, the
+    launches of rows 2, 4 and 5 in the kernel path's count and in its
+    step, the step's gradients on the plain path and their relative L2
+    error over every parameter."""
+    with torch.no_grad():
+        _train_counters(reset=True)
+        count = float(count_of(model.eval()))
+        serve = _train_counters()
+        plain_count = float(count_of(plain.eval()))
+    _train_counters(reset=True)
+    got = _grads(model, loss_of)
+    torch.cuda.synchronize()
+    train = _train_counters()
+    want = _grads(plain, loss_of)
+    return {"count": count, "plain_count": plain_count, "serve": serve, "train": train,
+            "plain_grads": want, "grad_err": _group_err(got, want, tuple(want))}
+
+
+def phase_vit_kernels(dev) -> None:
+    """Rows 2 and 4 where the plain ViT's path differs from CLIP's
+    (``vit_eps_errors``, ``split_backward_errors``), at the shapes of that
+    path: 140 windows and a training batch of 197 tokens, width 768."""
+    for dtype in (torch.bfloat16, torch.float32):
+        tag, tol = ("bf16" if dtype == torch.bfloat16 else "fp32"), VIT_KERNEL_TOL[dtype]
+        for b in (B, MODEL_B):
+            err, err5, n = vit_eps_errors(dev, dtype, b)
+            print(f"row 2 at eps 1e-6, {tag}, ({b}, {VIT_L}, {D}): max err {err:.2e} of the largest "
+                  f"output (tol {tol:g}); against eps 1e-5 {err5:.2e}")
+            check(n == 1 and err <= tol < err5, f"row 2 {tag} does not take eps 1e-6")
+        errs, n = split_backward_errors(dev, dtype, MODEL_B, VIT_L, VIT_L, D)
+        print(f"split backward, trainable LN + projection, {tag}, ({MODEL_B}, {VIT_L}, {D}): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {tol:g})")
+        check(n == (1, 0), f"{tag}: the split backward took {n} launches, not one attention_bwd")
+        check(all(v <= tol for v in errs.values()), f"split backward {tag} disagrees with plain")
+
+
+def phase_models(dev, kernels: dict, profile: bool) -> None:
+    """The non-CLIP slice through the entry points: ``vgg19_ae`` trains
+    (bf16, fp32) and ``--regression`` trains (bf16), each checkpoint
+    serves through the predict CLI; ``vgg19_ae`` serves a whole 2048 x
+    3072 image (bf16, fp32) and the NWPU CLI two images; the step's ms
+    (CUDA events, host clock beside) against its bound; the plain
+    ``vit_b_16`` Classifier serves by windows through row 2 and trains
+    through rows 2 and 4, held to its plain twin."""
+    from PIL import Image
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from clip_ebc_tpu_torch.cli import predict, test_nwpu
+    from clip_ebc_tpu_torch.config import ExperimentConfig, get_bins_and_anchors
+    from clip_ebc_tpu_torch.data.crowd import CrowdDataset, _load_image, normalize_image
+    from clip_ebc_tpu_torch.data.loader import TrainLoader, make_train_transforms
+    from clip_ebc_tpu_torch.data.synthetic import make_synthetic_crowd_dataset
+    from clip_ebc_tpu_torch.losses import make_loss_fn
+    from clip_ebc_tpu_torch.models import get_model
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+    from clip_ebc_tpu_torch.training.trainer import Trainer
+
+    vit_serve, vit_train = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_synthetic_crowd_dataset(os.path.join(tmp, "data"), "shb",
+                                            n_train=TRAIN_IMAGES, n_val=2, size=DATA_HW, seed=0)
+        val = os.path.join(data, "shb", "val", "images")
+        windows = ["--sliding_window", "--window_size", str(VIT_SIZE), "--stride", str(VIT_SIZE)]
+        # (model, input size, bf16, flags of the trainer and the predict CLI)
+        runs = [("vgg19_ae", MODEL_SIZE, True, []), ("vgg19_ae", MODEL_SIZE, False, []),
+                ("vgg19_ae", MODEL_SIZE, True, ["--regression"]),
+                ("vit_b_16", VIT_SIZE, True, windows), ("vit_b_16", VIT_SIZE, False, windows)]
+        for i, (name, size, amp, extra) in enumerate(runs):
+            cfg = ExperimentConfig(model=name, dataset="shb", input_size=size, reduction=8,
+                                   truncation=4, regression="--regression" in extra).normalize()
+            init = {k: v.cpu() for k, v in get_model(
+                name, size, 8, cfg.bins, cfg.bin_anchors, seed=42, device=dev).state_dict().items()}
+            ckpt = os.path.join(tmp, f"ckpt{i}")
+            n = run_model_trainer(dev, data, ckpt, model_flags(name, size) + extra, amp)
+            best = os.path.join(ckpt, "best", "1.pt")
+            _moved(init, best, f"{name} {extra}")
+            if name == "vit_b_16":
+                steps = TRAIN_IMAGES // MODEL_B
+                check(n["attention_bwd"] == 12 * steps and n["ln_qkv_bwd_frozen"] == 0,
+                      f"vit_b_16 training launches {n}: expected {12 * steps} of attention_bwd")
+                check(n["fused_ln_qkv_attention"] >= 12 * steps, f"vit_b_16 forward launches {n}")
+                vit_train["bf16" if amp else "fp32"] = n
+            else:
+                check(not any(n.values()), f"{name} launched a kernel of the port: {n}")
+            out = os.path.join(tmp, f"val{i}.csv")
+            predict.main([val, "--model", name, "--input_size", str(size), "--bins_dataset", "shb",
+                          "--weight_path", best, "--out", out, "--device", str(dev)]
+                         + extra + (["--amp"] if amp else []))
+            with open(out) as f:
+                rows = list(csv.DictReader(f))
+            check(len(rows) == 2 and all(math.isfinite(float(r["count"])) for r in rows),
+                  f"predict CLI on the {name} {extra} checkpoint gave no finite counts")
+            print(f"predict CLI on the {name} {' '.join(extra[:1])} checkpoint "
+                  f"({'bf16' if amp else 'fp32'}): counts {[r['count'] for r in rows]}")
+
+        # serving: vgg19_ae whole (the predict CLI's default mode), vit_b_16 by windows
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        path = os.path.join(img_dir, "flagship.npy")
+        np.save(path, np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8))
+        image = normalize_image(_load_image(path))
+        for amp in (True, False):
+            out = os.path.join(tmp, f"vgg_{amp}.csv")
+            _train_counters(reset=True)
+            predict.main([img_dir, "--model", "vgg19_ae", "--seed", "0", "--out", out,
+                          "--device", str(dev)] + (["--amp"] if amp else []))
+            check(not any(_train_counters().values()), "vgg19_ae serving launched a kernel")
+            with open(out) as f:
+                count = float(next(csv.DictReader(f))["count"])
+            check(math.isfinite(count), f"vgg19_ae whole-image count {count}")
+            out = os.path.join(tmp, f"vit_{amp}.csv")
+            _train_counters(reset=True)
+            predict.main([img_dir, "--model", "vit_b_16", "--input_size", str(VIT_SIZE), "--seed",
+                          "0", "--out", out, "--device", str(dev)] + windows
+                         + (["--amp"] if amp else []))
+            n = _train_counters()
+            _tally_off_path("predict CLI, vit_b_16")
+            check(n["fused_ln_qkv_attention"] == 12, f"vit_b_16 serving launches {n}: expected 12")
+            vit_serve["bf16" if amp else "fp32"] = n["fused_ln_qkv_attention"]
+            with open(out) as f:
+                vit_cli = float(next(csv.DictReader(f))["count"])
+            print(f"predict CLI, {'bf16' if amp else 'fp32'}: vgg19_ae whole image {count:.2f}; "
+                  f"vit_b_16 by windows {vit_cli:.2f}, launches of row 2 {n['fused_ln_qkv_attention']}")
+
+        # the NWPU CLI on two synthetic images
+        nwpu = os.path.join(tmp, "nwpu_data", "nwpu", "test", "images")
+        os.makedirs(nwpu)
+        rng = np.random.default_rng(2)
+        for iid, hw in {3098: (768, 1024), 3099: (1024, 768)}.items():
+            Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8), "RGB").save(
+                os.path.join(nwpu, f"{iid}.jpg"))
+        bins, anchors = get_bins_and_anchors(8, 4, "nwpu")
+        weights = os.path.join(tmp, "nwpu_ckpt", "best", "1.pt")
+        os.makedirs(os.path.dirname(weights))
+        torch.save(get_model("vgg19_ae", MODEL_SIZE, 8, bins, anchors, seed=5,
+                             device=dev).state_dict(), weights)
+        test_nwpu.main(["--model", "vgg19_ae", "--data_root", os.path.join(tmp, "nwpu_data"),
+                        "--weight_path", weights, "--result_dir", os.path.join(tmp, "res"),
+                        "--amp", "--disable_size_check", "--device", str(dev)])
+        with open(os.path.join(tmp, "res", "best_1.txt")) as f:
+            lines = [line.split(" ") for line in f.read().split("\n")]
+        check([r[0] for r in lines] == ["3098", "3099"]
+              and all(math.isfinite(float(r[1])) for r in lines), f"test_nwpu vgg19_ae: {lines}")
+        print(f"test_nwpu CLI, vgg19_ae, 2 whole images, bf16: counts {[r[1] for r in lines]}")
+
+        cfg = ExperimentConfig(model="vgg19_ae", dataset="shb", input_size=MODEL_SIZE,
+                               reduction=8, truncation=4, count_loss="dmcount",
+                               batch_size=MODEL_B).normalize()
+        ds = CrowdDataset("shb", "train", data, transforms=make_train_transforms(cfg),
+                          check_sizes=False)
+        batch = next(iter(TrainLoader(ds, MODEL_B, 8, seed=0))).to(dev)
+        vcfg = ExperimentConfig(model="vit_b_16", dataset="shb", input_size=VIT_SIZE,
+                                reduction=8, truncation=4, count_loss="dmcount",
+                                batch_size=MODEL_B).normalize()
+        vds = CrowdDataset("shb", "train", data, transforms=make_train_transforms(vcfg),
+                           check_sizes=False)
+        vbatch = next(iter(TrainLoader(vds, MODEL_B, 8, seed=0))).to(dev)
+
+    kernels["fused_ln_qkv_attention"]["launches_vit_serve"] = vit_serve["bf16"]
+    kernels["fused_ln_qkv_attention_fp32"]["launches_vit_serve"] = vit_serve["fp32"]
+    kernels["fused_ln_qkv_attention"]["launches_vit_train"] = vit_train["bf16"]["fused_ln_qkv_attention"]
+    kernels["fused_ln_qkv_attention_fp32"]["launches_vit_train"] = vit_train["fp32"]["fused_ln_qkv_attention"]
+    kernels["attention_bwd"]["launches_vit_train"] = vit_train["bf16"]["attention_bwd"]
+    kernels["attention_bwd_fp32"]["launches_vit_train"] = vit_train["fp32"]["attention_bwd"]
+
+    # vgg19_ae: whole-image ms and memory, and the training step against its bound
+    bins, anchors = get_bins_and_anchors(8, 4, "shb")
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FP32)):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        model = get_model("vgg19_ae", MODEL_SIZE, 8, bins, anchors, dtype=dtype, seed=0, device=dev)
+        ev = Evaluator(model, reduction=8, pad_to_multiple=8)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = time_image(ev, image, reps=5)
+        mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        flops, _ = image_flops(ev, image)
+        model.requires_grad_(True)
+        print(f"vgg19_ae whole image {IMAGE_HW[0]}x{IMAGE_HW[1]}, {tag}: {ms:.2f} ms/image (host "
+              f"clock, upload to count), peak memory {mem:.2f} GiB; bound {flops / 1e12:.3f} TFLOP "
+              f"(FlopCounterMode) / {peak / 1e12:.0f} TFLOP/s = {flops / peak * 1e3:.2f} ms "
+              f"({ms / (flops / peak * 1e3):.1f}x)")
+        trainer = Trainer(cfg, model.train(), make_loss_fn(cfg))
+        trainer.set_epoch_lr(1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer.train_step(batch)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            trainer.train_step(batch)
+        step_flops = float(counter.get_total_flops())
+        probe = host_probe_ms()
+        (dev_ms, dev_lo, dev_hi), host = time_step_events(trainer, batch)
+        mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        bnd = step_flops / peak * 1e3
+        print(f"vgg19_ae training step {tag} ({MODEL_B} crops of {MODEL_SIZE} px), median of 20 "
+              f"(min-max): {dev_ms:.2f} ms/step by CUDA events ({dev_lo:.2f}-{dev_hi:.2f}), "
+              f"{host[0]:.2f} by the host clock ({host[1]:.2f}-{host[2]:.2f}); "
+              f"{MODEL_B / dev_ms * 1e3:.1f} crops/s; host probe {probe:.2f} ms before, "
+              f"{host_probe_ms():.2f} after; peak memory {mem:.2f} GiB; bound "
+              f"{step_flops / 1e12:.3f} TFLOP (FlopCounterMode, forward + backward) / "
+              f"{peak / 1e12:.0f} TFLOP/s = {bnd:.2f} ms ({dev_ms / bnd:.1f}x); card "
+              f"{card_clocks()}")
+        if profile:
+            profile_step(trainer, batch, None, f"vgg19_ae {tag}")
+        del model, trainer, ev
+
+    # vit_b_16: the window count and the step's gradients against the plain path
+    vloss = make_loss_fn(vcfg)
+    ref32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        model, plain = vit_pair(dev, dtype, seed=1)
+        evs = {m: Evaluator(m, reduction=8, sliding_window=True, window_size=VIT_SIZE,
+                            stride=VIT_SIZE, pad_to_multiple=16) for m in (model, plain)}
+        ms, plain_ms = (time_image(ev, image, reps=3) for ev in evs.values())
+        out = vit_against_plain(model, plain, lambda m: evs[m].predict_count(image),
+                                lambda m: vloss(*m(vbatch.images), vbatch)[0])
+        count, plain_count = out["count"], out["plain_count"]
+        rel = abs(count - plain_count) / abs(plain_count)
+        print(f"vit_b_16 by windows ({B} x {VIT_L} tokens), {tag}: count {count:.4f}, plain path "
+              f"{plain_count:.4f}, |diff|/count {rel:.2e} (tol {VIT_COUNT_TOL[dtype]:g}); "
+              f"{ms:.2f} ms/image, plain path {plain_ms:.2f}")
+        check(rel <= VIT_COUNT_TOL[dtype], f"vit_b_16 {tag}: the paths disagree on the count")
+        check(out["serve"]["fused_ln_qkv_attention"] == 12, f"vit_b_16 {tag} count: {out['serve']}")
+        n = out["train"]
+        rows = (n["fused_ln_qkv_attention"], n["attention_bwd"], n["ln_qkv_bwd_frozen"])
+        check(rows == (12, 12, 0),
+              f"vit_b_16 {tag} step launches {n}: expected 12 of rows 2 and 4, none of row 5")
+        ref32 = out["plain_grads"] if ref32 is None else ref32
+        names = tuple(ref32)
+        print(f"vit_b_16 step gradient {tag}: kernel vs plain path rel L2 {out['grad_err']:.3e} "
+              f"(bound {VIT_GRAD_TOL[dtype]:g}); plain path vs plain fp32 "
+              f"{_group_err(out['plain_grads'], ref32, names):.3e}")
+        check(out["grad_err"] <= VIT_GRAD_TOL[dtype],
+              f"vit_b_16 {tag} gradient disagrees with the plain path")
+        del evs, model, plain, out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2335,6 +2786,10 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_training(dev, by_name, "--profile" in argv)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_vit_kernels(dev)
+    phase_models(dev, by_name, "--profile" in argv)
+    print(f"phase 4b: {time.perf_counter() - t0:.1f} s")
     if "--profile" not in argv:
         phase_library_kernels(dev)
     for k in kernels:

@@ -24,6 +24,14 @@ int8 too, on the calibrated q, k and v scales: bare or ``kernel`` inside
 the int8 attention kernel of each window block, ``xla`` as plain integer
 products (``ops/int8_attention.py``) after the unfused int8 projection.
 
+Every model the trainer CLI builds serves here too, e.g. the trainer's
+default ``vgg19_ae`` whole, and ``--regression`` for a Regressor:
+
+    python -m clip_ebc_tpu_torch.cli.predict IMAGES --model vgg19_ae --amp \
+        --weight_path CKPT/best/1.pt
+
+``--quant`` is for ``clip_*`` models only, as in the JAX CLI.
+
 Not ported yet: ``--packed_eval`` and ``--pretrained``; each raises. The
 options of those features (``--allow_byte_tokenizer``, ``--batch_windows``)
 are not accepted until the features are.
@@ -101,7 +109,6 @@ def _check_ported(args) -> None:
     todo = {
         "--packed_eval (ROADMAP Queue 1, remaining tooling)": args.packed_eval,
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
-        "--regression (ROADMAP Queue 1, non-CLIP models)": args.regression,
     }
     missing = [k for k, asked in todo.items() if asked]
     if missing:
@@ -134,9 +141,12 @@ def main(argv=None) -> None:
     check_quant_support(args.quant, args.model)
     device = resolve_device(args.device)
     paths = _list_images(args.images)
-    bins, anchors = get_bins_and_anchors(
-        args.reduction, args.truncation, args.bins_dataset, args.granularity, args.anchor_points,
-    )
+    bins = anchors = None
+    if not args.regression:
+        bins, anchors = get_bins_and_anchors(
+            args.reduction, args.truncation, args.bins_dataset, args.granularity,
+            args.anchor_points,
+        )
     model_kw = dict(
         dtype=torch.bfloat16 if args.amp else torch.float32,
         prompt_type=args.prompt_type, num_vpt=args.num_vpt, deep_vpt=not args.shallow_vpt,

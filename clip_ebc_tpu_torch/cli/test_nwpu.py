@@ -22,8 +22,12 @@ test images) run the trunk and the decoder W8A8; ``--quant_attn
 (see ``cli/predict.py``). Runs on ``cuda`` unless ``--device cpu`` is
 given.
 
-Not ported yet: ``--packed_eval``, ``--pretrained`` and ``--regression``;
-each raises ``NotImplementedError``. The options of
+Every model the trainer CLI builds is accepted (``--model vgg19_ae``,
+``--regression`` for a Regressor); ``--quant`` is for ``clip_*`` models
+only, as in the JAX CLI.
+
+Not ported yet: ``--packed_eval`` and ``--pretrained``; each raises
+``NotImplementedError``. The options of
 those features (``--allow_byte_tokenizer``, ``--batch_windows``) are not
 accepted until the features are.
 """
@@ -81,7 +85,6 @@ def _check_ported(args) -> None:
     todo = {
         "--packed_eval (ROADMAP Queue 1, remaining tooling)": args.packed_eval,
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
-        "--regression (ROADMAP Queue 1, non-CLIP models)": args.regression,
     }
     missing = [k for k, asked in todo.items() if asked]
     if missing:
@@ -142,9 +145,11 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     if args.weight_path is None:
         raise SystemExit("one of --weight_path / --pretrained is required")
-    bins, anchors = get_bins_and_anchors(
-        args.reduction, args.truncation, "nwpu", args.granularity, args.anchor_points
-    )
+    bins = anchors = None
+    if not args.regression:
+        bins, anchors = get_bins_and_anchors(
+            args.reduction, args.truncation, "nwpu", args.granularity, args.anchor_points
+        )
     model_kw = dict(
         dtype=torch.bfloat16 if args.amp else torch.float32,
         prompt_type=args.prompt_type, num_vpt=args.num_vpt, deep_vpt=not args.shallow_vpt,

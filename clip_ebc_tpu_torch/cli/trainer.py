@@ -6,17 +6,25 @@ the same flags and defaults, plus ``--device`` (default ``cuda``).
         --count_loss dmcount --batch_size 16 --num_crops 2 --sliding_window \\
         --window_size 224 --stride 224 --warmup_lr 1e-3 --amp
 
-One process trains on one device from random weights (``--seed``): VPT
-prompt tuning of CLIP-EBC with the trunk and the text tower frozen. Each
-epoch trains, evaluates on the val split from ``--eval_start`` on (MAE,
-RMSE), keeps the best ``--save_best_k`` weights under
+One process trains on one device from random weights (``--seed``). A
+``clip_*`` model trains by VPT prompt tuning with the trunk and the text
+tower frozen; every other model the JAX factory builds (the default
+``vgg19_ae``, the VGG, ResNet, CSRNet/CANNet, MobileNetV2, DenseNet,
+plain-ViT and registered backbones) trains every parameter, as a
+Classifier over the bins or, with ``--regression``, as a density
+Regressor under plain DMCount:
+
+    python -m clip_ebc_tpu_torch.cli.trainer --model vgg19_ae --dataset shb \\
+        --input_size 448 --reduction 8 --truncation 4 --count_loss dmcount --amp
+
+Each epoch trains, evaluates on the val split from ``--eval_start`` on
+(MAE, RMSE), keeps the best ``--save_best_k`` weights under
 ``{ckpt_dir}/best/{epoch}.pt`` (which ``cli.predict --weight_path``
-loads) and the full state in ``{ckpt_dir}/latest.pt``, from which a rerun
-resumes. Not ported yet, and refused: ``--pretrained``, multi-host
-(``--coordinator``, ``--num_hosts`` > 1, ``--host_id`` > 0),
-``--profile_dir``, ``--regression``, ``--loader_procs`` > 0 and every
-model whose backbone the port does not build yet (all but
-``clip_vit_b_16``).
+loads) and the full state (BatchNorm statistics included) in
+``{ckpt_dir}/latest.pt``, from which a rerun resumes. Not ported yet, and
+refused: ``--pretrained``, multi-host (``--coordinator``, ``--num_hosts``
+> 1, ``--host_id`` > 0), ``--profile_dir``, ``--loader_procs`` > 0 and
+the CLIP backbones other than ``clip_vit_b_16``.
 """
 
 from __future__ import annotations
@@ -114,15 +122,15 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_ported(args) -> None:
     from ..models import PORTED_CLIP_BACKBONES
 
+    model = args.model.lower()
     todo = {
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
         "multi-host --coordinator/--num_hosts/--host_id (ROADMAP Queue 1, multi-GPU)": (
             args.coordinator is not None or args.num_hosts != 1 or args.host_id != 0),
         "--profile_dir (ROADMAP Queue 1, remaining tooling)": args.profile_dir is not None,
-        "--regression (ROADMAP Queue 1, non-CLIP models)": args.regression,
         "--loader_procs (ROADMAP Queue 1, VPT training: loader process pool)": args.loader_procs > 0,
-        f"--model {args.model} (ROADMAP Queue 1, other backbones and models)": (
-            args.model.lower() not in {"clip_" + b for b in PORTED_CLIP_BACKBONES}),
+        f"--model {args.model} (ROADMAP Queue 1, other CLIP backbones)": (
+            model.startswith("clip_") and model[len("clip_"):] not in PORTED_CLIP_BACKBONES),
     }
     missing = [k for k, asked in todo.items() if asked]
     if missing:

@@ -7,11 +7,15 @@ from .sinkhorn import SinkhornResult, sinkhorn, sinkhorn_separable
 
 def make_loss_fn(cfg):
     """``loss_fn(pred_logits, pred_density, batch) -> (loss, info)`` from an
-    ExperimentConfig (DACE over the bins; regression models are not
-    ported)."""
-    if cfg.bins is None:
-        raise NotImplementedError("regression models are not ported yet (ROADMAP Queue 1, non-CLIP models)")
+    ExperimentConfig: DACE over the bins, or plain DMCount on the density
+    for a regression model (``cfg.bins`` None)."""
     dm_cfg = DMCountConfig(input_size=cfg.input_size, reduction=cfg.reduction)
+    if cfg.bins is None:
+        def loss_fn(pred_logits, pred_density, batch):
+            return dmcount_loss(pred_density, batch.density, batch.points, batch.point_mask, dm_cfg)
+
+        return loss_fn
+
     bins = tuple(tuple(b) for b in cfg.bins)
 
     def loss_fn(pred_logits, pred_density, batch):

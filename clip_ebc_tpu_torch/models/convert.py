@@ -15,6 +15,11 @@ Layout rules:
 - BatchNorm ``scale/bias`` + ``batch_stats`` ``mean/var`` -> ``weight/bias/running_mean/running_var``;
 - decoder ``BasicBlock_{j}`` -> the j-th block's index in the decoder Sequential.
 
+:func:`head_state_from_jax` does the same for a JAX ``Classifier`` or
+``Regressor`` (the non-CLIP models) into the port's model of that
+backbone; its VGG and head names are the reference's torch names, so
+``convert_reference_classifier`` of the JAX package reads them back.
+
 :func:`quant_state_from_jax` and :func:`quant_state_to_jax` carry the W8A8
 ``quant`` collection (the calibrated ``act_amax`` / ``qkv_amax`` leaves)
 between a JAX variable tree and the port's ``ops.quant.quant_state``
@@ -27,6 +32,7 @@ from typing import Any, Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -222,12 +228,164 @@ def load_prepared_tree(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], Dict[
     return _unflatten_tree(params), _unflatten_tree(stats), meta
 
 
+def _subtree(tree: Mapping[str, Any], path: str) -> Mapping[str, Any]:
+    for k in path.split("/"):
+        tree = tree.get(k, {})
+    return tree
+
+
+def _leaf_state(sd: StateDict, dst: str, m: nn.Module, p: Mapping[str, Any],
+                s: Mapping[str, Any]) -> None:
+    """One port module's tensors from its JAX subtree (``p`` params, ``s``
+    batch_stats): a conv (HWIO kernel, the ViT patchify's (p, p, c, F)
+    too), a JAX ``BatchNorm`` wrapper, a LayerNorm (flax's own or the
+    ``LayerNormF32`` wrapper around one), a Dense, or a module's direct
+    parameters under their own names."""
+    from .blocks import BatchNorm
+    from .transformer import Linear, PatchifyMatmul
+
+    if isinstance(m, BatchNorm):
+        _bn(sd, dst, p, s)
+    elif isinstance(m, (nn.Conv2d, PatchifyMatmul)):
+        sd[f"{dst}.weight"] = _conv(p["kernel"])
+        if m.bias is not None:
+            sd[f"{dst}.bias"] = _t(p["bias"])
+    elif isinstance(m, nn.LayerNorm):
+        _ln(sd, dst, p if "LayerNorm_0" in p else {"LayerNorm_0": p})
+    elif isinstance(m, Linear):
+        _dense(sd, dst, p)
+    else:
+        for name, _ in m.named_parameters(recurse=False):
+            sd[f"{dst}.{name}"] = _t(p[name])
+
+
+def _vgg_names(stage: nn.Sequential, src: str, dst: str) -> Dict[str, str]:
+    """``VGGStage`` Sequential indices -> ``ConvBNAct_{j}`` scopes."""
+    from .blocks import BatchNorm
+
+    names, j = {}, 0
+    for i, m in enumerate(stage):
+        if isinstance(m, nn.Conv2d):
+            names[f"{dst}.{i}"] = f"{src}/ConvBNAct_{j}/Conv_0"
+            if i + 1 < len(stage) and isinstance(stage[i + 1], BatchNorm):
+                names[f"{dst}.{i + 1}"] = f"{src}/ConvBNAct_{j}/BatchNorm_0"
+            j += 1
+    return names
+
+
+def _block_names(block: nn.Module, src: str, dst: str, unit: str) -> Dict[str, str]:
+    """A residual block's ``conv{n}``/``bn{n}``/``downsample.{0,1}``: the
+    encoder's ``Conv_{n-1}``/``BatchNorm_{n-1}`` (``unit`` "") or the
+    decoder's ``ConvBNAct_{n-1}/{Conv_0,BatchNorm_0}`` (``unit``
+    "ConvBNAct")."""
+    n_convs = 3 if hasattr(block, "conv3") else 2
+    names = {}
+    for n in range(1, n_convs + 2):
+        conv, bn = (f"conv{n}", f"bn{n}") if n <= n_convs else ("downsample.0", "downsample.1")
+        if n > n_convs and block.downsample is None:
+            continue
+        if unit:
+            names[f"{dst}.{conv}"] = f"{src}/{unit}_{n - 1}/Conv_0"
+            names[f"{dst}.{bn}"] = f"{src}/{unit}_{n - 1}/BatchNorm_0"
+        else:
+            names[f"{dst}.{conv}"] = f"{src}/Conv_{n - 1}"
+            names[f"{dst}.{bn}"] = f"{src}/BatchNorm_{n - 1}"
+    return names
+
+
+def _backbone_names(bb: nn.Module) -> Dict[str, str]:
+    """``{port module name: JAX scope}`` of every module of a backbone that
+    holds tensors, relative to ``backbone``."""
+    from .csrnet import CSRNet
+    from .resnet import PlainResNetBackbone
+    from .vgg import VGGAutoEncoder, VGGEncoder
+    from .vit import ViTEncoder
+
+    if isinstance(bb, VGGEncoder):
+        names = _vgg_names(bb.features, "features", "features")
+        if isinstance(bb, VGGAutoEncoder):
+            names.update({"reg_layer.0": "reg0/Conv_0", "reg_layer.2": "reg1/Conv_0"})
+        return names
+    if isinstance(bb, PlainResNetBackbone):
+        enc = bb.encoder
+        names = {"encoder.conv1": "encoder/Conv_0", "encoder.bn1": "encoder/BatchNorm_0"}
+        k = 0
+        for li in range(1, 5):
+            for j, block in enumerate(getattr(enc, f"layer{li}")):
+                kind = "_TVBottleneck" if hasattr(block, "conv3") else "_TVBasicBlock"
+                names.update(_block_names(block, f"encoder/{kind}_{k}",
+                                          f"encoder.layer{li}.{j}", ""))
+                k += 1
+        if hasattr(bb, "decoder"):
+            j = 0
+            for i, block in enumerate(bb.decoder):
+                if hasattr(block, "conv1"):
+                    kind = "BottleneckBlock" if hasattr(block, "conv3") else "BasicBlock"
+                    names.update(_block_names(block, f"decoder/{kind}_{j}", f"decoder.{i}",
+                                              "ConvBNAct"))
+                    j += 1
+        return names
+    if isinstance(bb, CSRNet):
+        names = _vgg_names(bb.features, "features", "features")
+        names.update(_vgg_names(bb.backend, "backend", "backend"))
+        if bb.context is not None:
+            names.update({f"context.{n}": f"context/{n}" for n, _ in bb.context.named_children()})
+        return names
+    if isinstance(bb, ViTEncoder):
+        names = {"": "", "patchify": "patchify", "ln_final": "ln_final"}
+        for i in range(len(bb.blocks)):
+            src, dst = f"block_{i}", f"blocks.{i}"
+            names.update({f"{dst}.ln_1": f"{src}/ln_1", f"{dst}.ln_2": f"{src}/ln_2",
+                          f"{dst}.attn": f"{src}/attn",
+                          f"{dst}.attn.out_proj": f"{src}/attn/out_proj",
+                          f"{dst}.mlp.c_fc": f"{src}/mlp_fc",
+                          f"{dst}.mlp.c_proj": f"{src}/mlp_proj"})
+        return names
+    # the JAX module's own names (MobileNetV2, DenseNet, ConvNeXt)
+    return {n: n.replace(".", "/") for n, m in bb.named_modules()
+            if n and (list(m.parameters(recurse=False)) or list(m.buffers(recurse=False)))}
+
+
+def head_state_from_jax(model: nn.Module, params: Mapping[str, Any],
+                        batch_stats: Mapping[str, Any]) -> StateDict:
+    """JAX ``Classifier``/``Regressor`` variables (nested dicts of numpy
+    arrays: ``params`` and ``batch_stats``) -> the state dict of the
+    port's ``model`` of the same backbone and head."""
+    from .heads import Classifier
+
+    names = {f"backbone.{k}".rstrip("."): f"backbone/{v}".rstrip("/")
+             for k, v in _backbone_names(model.backbone).items()}
+    if isinstance(model, Classifier):
+        if isinstance(model.classifier, nn.Sequential):
+            names.update({"classifier.0": "cls_hidden", "classifier.2": "cls_out"})
+        else:
+            names["classifier"] = "cls_out"
+    else:
+        names["regressor.0"] = "Conv_0"
+    modules = dict(model.named_modules())
+    sd: StateDict = {}
+    for dst, src in names.items():
+        if dst.endswith(".attn"):  # the joint in-projection lives on the attention module
+            proj = _subtree(params, f"{src}/in_proj")
+            sd[f"{dst}.in_proj_weight"] = _t(np.asarray(proj["kernel"]).T)
+            sd[f"{dst}.in_proj_bias"] = _t(proj["bias"])
+            continue
+        _leaf_state(sd, dst, modules[dst], _subtree(params, src), _subtree(batch_stats, src))
+    return sd
+
+
 def load_weights(model: torch.nn.Module, path: str) -> None:
-    """Load a port ``.pt`` state dict or a JAX prepared-tree ``.npz`` into
-    ``model`` (strict: every key must match)."""
+    """Load a port ``.pt`` state dict or a JAX prepared-tree ``.npz`` (a
+    ``ClipEBC``, or a ``Classifier``/``Regressor``) into ``model`` (strict:
+    every key must match)."""
+    from .heads import Classifier, Regressor
+
     if path.endswith(".npz"):
         params, stats, _ = load_prepared_tree(path)
-        sd = from_jax_params(params, stats, getattr(model, "decoder_cfg", (768,)))
+        if isinstance(model, (Classifier, Regressor)):
+            sd = head_state_from_jax(model, params, stats)
+        else:
+            sd = from_jax_params(params, stats, getattr(model, "decoder_cfg", (768,)))
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(sd, strict=True)

@@ -307,13 +307,15 @@ class ResidualAttentionBlock(nn.Module):
     same checks as transformer.py:356-377 of the JAX package, made here, up
     front, so a kernel wrapper never has to fall back. bf16 and fp32
     activations both take the kernels; any other dtype makes the wrapper
-    raise."""
+    raise. ``act`` is the MLP's activation module (CLIP's QuickGELU by
+    default; a plain ViT takes flax's default GELU,
+    ``nn.GELU(approximate="tanh")``)."""
 
     def __init__(
         self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
         ln_epsilon: float = 1e-5, attn_backend: str = "auto",
         quant_int8: bool = False, quant_mode: str = "dynamic", quant_attn=False,
-        fuse_ln_mode: str = "auto",
+        fuse_ln_mode: str = "auto", act: Optional[nn.Module] = None,
     ) -> None:
         super().__init__()
         if attn_backend not in ATTN_BACKENDS:
@@ -330,7 +332,8 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNormF32(dim, ln_epsilon)
         hidden = int(dim * mlp_ratio)
         self.mlp = nn.Sequential(OrderedDict(
-            c_fc=linear(dim, hidden), gelu=QuickGELU(), c_proj=linear(hidden, dim)
+            c_fc=linear(dim, hidden), gelu=act if act is not None else QuickGELU(),
+            c_proj=linear(hidden, dim),
         ))
 
     def route(self, x: torch.Tensor, mask: Optional[torch.Tensor], kv_len: Optional[int],
@@ -394,14 +397,16 @@ class PatchifyMatmul(nn.Module):
     ``Conv2d`` weight ``(F, C, p, p)`` (state-dict key ``conv1.weight``);
     the patch is flattened in ``(py, px, c)`` order, as the JAX module
     flattens its ``(p, p, c, F)`` kernel. ``(B, H, W, C)`` pixels ->
-    ``(B, gh*gw, F)`` in ``dtype``."""
+    ``(B, gh*gw, F)`` in ``dtype``. ``bias`` adds a ``(F,)`` bias, as the
+    JAX module's ``use_bias`` (CLIP's conv has none)."""
 
     def __init__(self, features: int, patch: int, in_channels: int = 3,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: torch.dtype = torch.float32, bias: bool = False) -> None:
         super().__init__()
         self.patch = patch
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_channels, patch, patch))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.patch
@@ -415,7 +420,8 @@ class PatchifyMatmul(nn.Module):
             .reshape(b, gh * gw, p * p * c)
         )
         kernel = self.weight.permute(2, 3, 1, 0).reshape(p * p * c, feats)
-        return x @ kernel.to(self.dtype)
+        out = x @ kernel.to(self.dtype)
+        return out if self.bias is None else out + self.bias.to(self.dtype)
 
 
 def interpolate_pos_embed(

@@ -3,10 +3,11 @@
 ``predict_count``, ``_pad_image``) and ``evaluate``.
 
 The model holds its own weights, so the methods take no variables
-argument. The prompt features are constant per weight set: they are
-encoded once and reused until a text-tower parameter changes (a new
-tensor or an in-place load). Packed eval, the decode pool and the mesh
-are later slices.
+argument. A CLIP-EBC model's prompt features are constant per weight
+set: they are encoded once and reused until a text-tower parameter
+changes (a new tensor or an in-place load). A model without a text tower
+(the Classifier and Regressor heads) is called as ``model(windows)``.
+Packed eval, the decode pool and the mesh are later slices.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..ops.sliding_window import sliding_window_predict
 
 
 class Evaluator:
-    """Wraps a CLIP-EBC model into per-image count prediction."""
+    """Wraps a model into per-image count prediction."""
 
     def __init__(
         self,
@@ -47,9 +48,12 @@ class Evaluator:
         self._text_key = None
         self._text_feats = None
 
-    def text_features(self) -> torch.Tensor:
+    def text_features(self) -> Optional[torch.Tensor]:
         """The prompt features, re-encoded only when the text tower's
-        parameters changed since the last call."""
+        parameters changed since the last call (None for a model without
+        a text tower)."""
+        if not hasattr(self.model, "encode_text"):
+            return None
         key = tuple((p.data_ptr(), p._version) for p in self.model.text_encoder.parameters())
         if key != self._text_key:
             with torch.inference_mode():
@@ -67,7 +71,8 @@ class Evaluator:
         text = self.text_features()
 
         def forward(windows: torch.Tensor) -> torch.Tensor:
-            return self.model(windows, text_feats=text).float()
+            out = self.model(windows) if text is None else self.model(windows, text_feats=text)
+            return out.float()
 
         if self.sliding_window:
             density = sliding_window_predict(

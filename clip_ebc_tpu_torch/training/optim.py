@@ -4,7 +4,9 @@
 before the moment update: coupled L2, not AdamW, as the JAX package's
 ``add_decayed_weights`` -> ``scale_by_adam`` chain. It takes only the
 parameters that require a gradient, which replaces the JAX package's
-``multi_transform`` mask over the frozen subtrees. The learning rate is
+``multi_transform`` mask over the frozen subtrees; a model with nothing
+frozen (the Classifier and Regressor heads) trains every parameter, as
+the JAX ``make_optimizer`` with no frozen predicate. The learning rate is
 set once per epoch from :func:`make_schedule`.
 """
 

@@ -2,16 +2,19 @@
 (``make_train_step``, ``Trainer``) and ``state.py``.
 
 One process on one device, no mesh. The train state is the model (its
-parameters and BatchNorm statistics), the optimizer and a step count;
-:meth:`Trainer.state_dict` gathers them for checkpoints. The frozen text
-features are encoded once per epoch and passed into every step. Step
-metrics stay on the device until the epoch ends, then are averaged with
-one host read.
+parameters and BatchNorm statistics, which move in train mode as the JAX
+``batch_stats`` do), the optimizer and a step count;
+:meth:`Trainer.state_dict` gathers them for checkpoints. A CLIP-EBC
+model's frozen text features are encoded once per epoch and passed into
+every step; a model without a text tower (the Classifier and Regressor
+heads) is called as ``model(images)`` and returns ``(logits, density)``
+(``(None, density)`` for a Regressor). Step metrics stay on the device
+until the epoch ends, then are averaged with one host read.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -33,8 +36,11 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.step = 0
 
-    def text_features(self) -> torch.Tensor:
-        """The frozen prompt features of the current weights."""
+    def text_features(self) -> Optional[torch.Tensor]:
+        """The frozen prompt features of the current weights (None for a
+        model without a text tower)."""
+        if not hasattr(self.model, "encode_text"):
+            return None
         with torch.no_grad():
             return self.model.encode_text()
 
@@ -45,10 +51,15 @@ class Trainer:
             group["lr"] = lr
         return lr
 
-    def train_step(self, batch: Batch, text_feats: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def train_step(self, batch: Batch, text_feats: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
         """One optimizer step on a batch already on the device; returns the
         loss terms as device scalars."""
-        logits, density = self.model(batch.images, text_feats=text_feats, generator=self.generator)
+        if text_feats is None:
+            logits, density = self.model(batch.images)
+        else:
+            logits, density = self.model(batch.images, text_feats=text_feats,
+                                         generator=self.generator)
         loss, info = self.loss_fn(logits, density, batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()

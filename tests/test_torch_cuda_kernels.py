@@ -44,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as smoke
 from clip_ebc_tpu_torch.config import get_bins_and_anchors
 from clip_ebc_tpu_torch.models import get_model
 from clip_ebc_tpu_torch.ops.fused_attention import (
@@ -1190,3 +1191,61 @@ def test_projection_and_int8_body_count_their_launches(cuda):
         fused_ln_qkv_attention_int8(x, gam, be, w, bias, act_scale, 4, kv_len, 64**-0.5, **kw)
         assert q.launches_attn == before + n, kw
     torch.cuda.synchronize()
+
+
+# ---- the plain ViT's path: LayerNorm eps 1e-6, trainable LN and projection ----
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b", [8, 140])  # a training batch; the windows of a 2048 x 3072 image
+def test_attention_kernel_takes_the_vit_eps(cuda, b, dtype):
+    """Row 2 at the plain ViT's 197 tokens with LayerNorm eps 1e-6, on rows
+    of variance 1e-6, where eps 1e-5 would move every output: the kernel
+    matches its plain version at 1e-6 and not at 1e-5 (``chip_smoke``
+    runs the same check)."""
+    dtype = getattr(torch, dtype)
+    err, err_at_1e5, launches = smoke.vit_eps_errors(cuda, dtype, b)
+    assert launches == 1
+    assert err <= smoke.VIT_KERNEL_TOL[dtype] < err_at_1e5, (err, err_at_1e5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,l,kv_len", [(8, 197, 197), (3, 37, 33)])
+def test_split_backward_trains_ln_and_projection(cuda, b, l, kv_len, dtype):
+    """The backward of row 2 when the LayerNorm, the projection and its
+    bias train, in bf16 too: dx, dgamma, dbeta, dW and db each within 2e-2
+    (bf16) or 1e-4 (fp32) of its own largest magnitude of plain autograd
+    through the plain version; one attention-backward launch, no
+    frozen-backward launch (``chip_smoke`` runs the same check)."""
+    dtype = getattr(torch, dtype)
+    d = 768 if l == 197 else 128
+    errs, launches = smoke.split_backward_errors(cuda, dtype, b, l, kv_len, d)
+    assert launches == (1, 0)
+    assert all(v <= smoke.VIT_KERNEL_TOL[dtype] for v in errs.values()), errs
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_plain_vit_takes_rows_2_and_4(cuda, dtype):
+    """A ``vit_b_16`` Classifier (every parameter trains) on eight 224 px
+    windows: 12 launches of row 2 a forward, 12 of row 4 a backward, none
+    of the frozen backward; its count and every gradient against the same
+    weights on the plain path (``attn_backend="sdpa"``): count 1e-2 (bf16)
+    and 1e-3 (fp32) relative; gradients relative L2 over all parameters
+    5e-2 (bf16) and 1e-3 (fp32)."""
+    dtype = getattr(torch, dtype)
+    model, plain = smoke.vit_pair(cuda, dtype, seed=0)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(8, 224, 224, 3)).astype(np.float32))
+    x = x.to(cuda)
+
+    def loss_of(m):
+        logits, density = m(x)
+        return logits.float().square().mean() + density.sum()
+
+    out = smoke.vit_against_plain(model, plain, lambda m: m(x).sum(), loss_of)
+    assert out["serve"]["fused_ln_qkv_attention"] == 12
+    n = out["train"]
+    assert (n["fused_ln_qkv_attention"], n["attention_bwd"], n["ln_qkv_bwd_frozen"]) == (12, 12, 0)
+    count, want = out["count"], out["plain_count"]
+    assert abs(count - want) <= smoke.VIT_COUNT_TOL[dtype] * abs(want)
+    print(f"plain ViT gradients: kernel vs plain path rel L2 {out['grad_err']:.3e}")
+    assert out["grad_err"] <= smoke.VIT_GRAD_TOL[dtype]
