@@ -116,6 +116,27 @@ Phases, each a hard failure (a raised exception, exit code 1):
    5e-2 / 1e-3 over every parameter's gradient (bf16 / fp32). The launches
    of rows 2 and 4 on these paths go into their rows of the kernels line
    as ``launches_vit_serve`` and ``launches_vit_train``.
+4c. the other CLIP backbones through the same entry points: row 1 at C =
+   640, 768 and 1024 against its plain version; CLIP-EBC ``clip_resnet50``
+   by the predict CLI on the 2048 x 3072 image whole and by 224 px windows
+   (bf16, fp32; one head launch, no trunk kernel), the NWPU CLI on two
+   images, the trainer CLI at the reference's run.sh flags (448 px crops,
+   batch 8, reduction 8, ``word`` prompts, SHA bins) on a synthetic ``sha``
+   dataset in bf16 and fp32 (every parameter but the text tower's moves,
+   the BatchNorm statistics too) with each best checkpoint served, and its
+   ms per whole image and per step (CUDA events, the host clock beside;
+   ``--profile``: the step's idle share) with peak memory beside the
+   ``FlopCounterMode`` bound; RN101, RN50x4, RN50x16, RN50x64 and
+   ViT-B/32 on one batch of 16 windows against their plain twins (ViT-B/32:
+   12 launches of row 2), and a 4-step ViT-B/32 VPT epoch (12 launches of
+   row 5 a step); ``clip_vit_l_14`` by the predict CLI by windows (140 x 289
+   tokens at D = 1024: 24 launches of row 2 a forward, the rows
+   ``fused_ln_qkv_attention_d1024`` of the kernels line, which phase 2
+   holds to their plain versions at that shape) in bf16 and fp32 and whole
+   in bf16 (24 tiled launches at 16 heads; row 8 alone at that shape), its
+   count by windows against its plain twin (1e-2 bf16, 1e-3 fp32); and
+   ``clip_vit_l_14_336px`` by 336 px windows (609 tokens: the plain route,
+   as in the JAX package).
 
 Phase 2 also holds both flash-attention kernels against their plain
 versions, in bf16 and fp32: the tiled kernel at the flagship full image
@@ -195,6 +216,7 @@ import csv
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -210,6 +232,8 @@ PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PEAK_INT8 = 1979e12  # int8 tensor-core OP/s, dense
 
 B, L, D, H = 140, 229, 768, 12  # flagship trunk launch: 140 windows x (1 + 32 + 196) tokens
+# a ViT-L/14 window forward: 140 windows x (1 + 32 + 256) tokens, D = 1024, 16 heads
+VIT_L_B, VIT_L_L, VIT_L_D, VIT_L_H = 140, 289, 1024, 16
 IMAGE_HW = (2048, 3072)
 # flagship training step: 8 images x 2 crops of 224 px; a synthetic dataset
 # of 32 train images (4 steps an epoch) and 2 val images of 512 x 768
@@ -390,7 +414,7 @@ def phase_attention(dev, dtype: torch.dtype) -> dict:
     }
 
 
-def _time_launches(x, ln_w, ln_b, w, bias, sm) -> None:
+def _time_launches(x, ln_w, ln_b, w, bias, sm, h: int = H) -> tuple:
     """Row 2's two launches apart (device time, ``time_spread``): the
     LayerNorm + projection (``ebc_ln_qkv_proj`` in bf16,
     ``ebc_ln_qkv_proj_f32`` in fp32) and the attention body on its qkv
@@ -409,12 +433,93 @@ def _time_launches(x, ln_w, ln_b, w, bias, sm) -> None:
 
     run_proj()
     proj_ms = time_spread(run_proj)
-    attn_ms = time_spread(lambda: fa.fused_qkv_attention(qkv, H, L, sm))
-    proj_flops, attn_flops = 2 * b * l * d * 3 * d, 2 * 2 * b * H * l * l * (d // H)
+    attn_ms = time_spread(lambda: fa.fused_qkv_attention(qkv, h, l, sm))
+    proj_flops, attn_flops = 2 * b * l * d * 3 * d, 2 * 2 * b * h * l * l * (d // h)
     tag = "fp32" if x.dtype == torch.float32 else "bf16"
-    print(f"attention {tag} by launch at B = {b}: {name} {spread_str(proj_ms)} "
+    print(f"attention {tag} by launch at B = {b}, L = {l}, D = {d}: {name} {spread_str(proj_ms)} "
           f"({proj_flops / proj_ms[0] / 1e9:.1f} TFLOP/s), attention body {spread_str(attn_ms)} "
           f"({attn_flops / attn_ms[0] / 1e9:.1f} TFLOP/s)")
+    return proj_ms[0], attn_ms[0]
+
+
+def phase_attention_vit_l(dev, dtype: torch.dtype) -> dict:
+    """Row 2 at ViT-L's width and heads (K1 / K2: the bf16 / fp32 LN + QKV
+    projection at D = 1024; K3: the attention body at 16 heads and a row
+    pitch of 3 x 1024) at a ViT-L window forward (140 x 289 tokens),
+    against its plain version at kv_len 289 and 250: max abs error 2e-2
+    (bf16) or 1e-4 (fp32), as ``phase_attention``. Then each launch alone:
+    the projection through its C entry against ``ln_qkv_proj_plain`` (max
+    2e-2 and median 1e-3 of the largest output in bf16, as
+    ``phase_ln_qkv_proj``; 1e-4 and 1e-5 in fp32), the body through
+    ``fused_qkv_attention`` against ``qkv_attention_plain`` (2e-2 / 1e-4);
+    device times beside the bounds of this shape and, for the body, the
+    SDPA forward on the same head views (a yardstick, timed here only)."""
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+
+    fp32 = dtype == torch.float32
+    b, l, d, h = VIT_L_B, VIT_L_L, VIT_L_D, VIT_L_H
+    tol, peak, tag = (1e-4, PEAK_FP32, " fp32") if fp32 else (2e-2, PEAK_BF16, "")
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(b, l, d, generator=g, device=dev).to(dtype)
+    ln_w = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(d, generator=g, device=dev)
+    w = (torch.randn(3 * d, d, generator=g, device=dev) * d**-0.5).to(dtype)
+    bias = 0.02 * torch.randn(3 * d, generator=g, device=dev)
+    sm = 64**-0.5
+    errs = []
+    for kv_len in (l, 250):
+        got = fa.fused_ln_qkv_attention(x, ln_w, ln_b, w, bias, h, kv_len, sm)
+        want = fa.ln_qkv_attention_plain(x, ln_w, ln_b, w, bias, h, kv_len, sm)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype, f"D = 1024 attention returned {got.dtype}, expected {dtype}")
+        err = (got[:, :kv_len].float() - want[:, :kv_len].float()).abs().max().item()
+        print(f"attention{tag} at D = {d}, {h} heads, {b} x {l} tokens, kv_len={kv_len}: kernel vs "
+              f"plain max abs err {err:.3e} (tol {tol:g})")
+        check(math.isfinite(err) and err <= tol, f"attention{tag} at D = {d} disagrees (kv_len={kv_len})")
+        errs.append(err)
+        del got, want
+    qkv = torch.empty(b, l, 3 * d, dtype=dtype, device=dev)
+    name = "ebc_ln_qkv_proj_f32" if fp32 else "ebc_ln_qkv_proj"
+    entry = fa._entry("fused_attention", name)
+    fa._run(name, entry(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
+                        bias.data_ptr(), qkv.data_ptr(), b * l, d, 1e-5, fa._stream(dev)))
+    torch.cuda.synchronize()
+    errs.append(_check_max_median(f"{name} at D = {d}, M = {b} x {l}, kernel vs plain", qkv,
+                                  fa.ln_qkv_proj_plain(x, ln_w, ln_b, w, bias),
+                                  1e-4 if fp32 else 2e-2, 1e-5 if fp32 else 1e-3))
+    body = fa.fused_qkv_attention(qkv, h, l, sm)
+    want = fa.qkv_attention_plain(qkv, h, l, sm)
+    torch.cuda.synchronize()
+    err = (body.float() - want.float()).abs().max().item()
+    print(f"attention body{tag} alone at {h} heads, pitch {3 * d}: max abs err {err:.3e} (tol {tol:g})")
+    check(math.isfinite(err) and err <= tol, f"attention body{tag} at {h} heads disagrees")
+    errs.append(err)
+    del body, want
+    ms = time_ms(lambda: fa.fused_ln_qkv_attention(x, ln_w, ln_b, w, bias, h, l, sm))
+    plain = time_ms(lambda: fa.ln_qkv_attention_plain(x, ln_w, ln_b, w, bias, h, l, sm),
+                    iters=5, warmup=1)
+    proj_ms, attn_ms = _time_launches(x, ln_w, ln_b, w, bias, sm, h)
+    q, k, v = (t.reshape(b, l, h, 64).transpose(1, 2) for t in qkv.split(d, dim=-1))
+    sdpa = time_spread(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=sm))
+    m, es = b * l, x.element_size()
+    proj_flops, attn_flops = 2 * m * d * 3 * d, 2 * 2 * b * h * l * l * 64
+    nbytes = m * d * es * 2 + 3 * d * d * es + 2 * d * 4 + 3 * d * 4
+    bnd, by = bound_ms(proj_flops + attn_flops, peak, nbytes)
+    proj_bnd = bound_ms(proj_flops, peak, m * d * es + 3 * d * d * es + m * 3 * d * es)
+    attn_bnd = bound_ms(attn_flops, peak, m * 3 * d * es + m * d * es)
+    print(f"attention{tag} at D = {d}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms "
+          f"({by}); {(proj_flops + attn_flops) / ms / 1e9:.1f} TFLOP/s; the projection alone "
+          f"{proj_ms:.4f} ms against {proj_bnd[0]:.4f} ({proj_bnd[1]}), the body alone "
+          f"{attn_ms:.4f} ms against {attn_bnd[0]:.4f} ({attn_bnd[1]}), the SDPA forward on its "
+          f"views {spread_str(sdpa)}")
+    return {
+        "name": "fused_ln_qkv_attention_d1024" + ("_fp32" if fp32 else ""), "route": "cuda",
+        "source": "clip_ebc_tpu_torch/csrc/fused_attention.cu",
+        "replaces": "clip_ebc_tpu/ops/fused_attention.py:541",
+        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None, "proj_ms": proj_ms, "proj_bound_ms": proj_bnd[0], "attn_ms": attn_ms,
+        "attn_bound_ms": attn_bnd[0], "sdpa_ms": sdpa[0],
+    }
 
 
 def phase_head(dev) -> dict:
@@ -2178,6 +2283,25 @@ def profile_step(trainer, batch, text, tag: str) -> None:
     print(p.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
 
 
+def profile_image(evaluator, image, tag: str) -> None:
+    """Device time of one image through ``evaluator`` by CUDA kernel
+    (torch.profiler), its wall time under the profiler and the device's
+    idle share, as :func:`profile_step` reads a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        evaluator.predict_count(image)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in p.events() if e.name != "Activity Buffer Request"]
+    busy = sum(e.device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"profiled image {tag}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"(idle share {1 - busy / wall:.2f})")
+    print(p.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+
+
 def phase_training(dev, kernels: dict, profile: bool) -> None:
     from clip_ebc_tpu_torch.cli import predict
     from clip_ebc_tpu_torch.config import ExperimentConfig
@@ -2380,8 +2504,9 @@ def card_clocks() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_step_events(trainer, batch, reps: int = 20, warmup: int = 2) -> tuple:
-    """One optimizer step on ``batch``, ``reps`` times: CUDA events around
+def time_step_events(trainer, batch, reps: int = 20, warmup: int = 2, text=None) -> tuple:
+    """One optimizer step on ``batch`` (with the frozen prompt features
+    ``text`` of a CLIP-EBC model), ``reps`` times: CUDA events around
     ``Trainer.train_step`` (the events' span ends at the step's last
     kernel; a synchronize follows each), and the host clock beside it.
     Returns (median, min, max) ms of each."""
@@ -2391,7 +2516,7 @@ def time_step_events(trainer, batch, reps: int = 20, warmup: int = 2) -> tuple:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        trainer.train_step(batch)
+        trainer.train_step(batch, text)
         end.record()
         torch.cuda.synchronize()
         if i >= warmup:
@@ -2734,6 +2859,334 @@ def phase_models(dev, kernels: dict, profile: bool) -> None:
               f"vit_b_16 {tag} gradient disagrees with the plain path")
         del evs, model, plain, out
 
+# phase 4c: the CLIP ResNets at the reference's run.sh flags (448 px crops,
+# batch 8, reduction 8, word prompts, SHA bins), the other CLIP backbones
+RN_SIZE, RN_B = 448, 8
+OTHER_CLIP = ("resnet101", "resnet50x4", "resnet50x16", "resnet50x64", "vit_b_32")
+CLIP_WINDOWS = 16  # windows of 224 px in the one batch each other backbone serves
+L336_HW = (672, 1008)  # 2 x 3 windows of 336 px for ViT-L/14@336px
+
+
+def _clip_cli(args: list, out: str) -> tuple:
+    """The predict CLI with ``args``, counters zeroed just before and read
+    just after: ``(count, launches, seconds)``."""
+    from clip_ebc_tpu_torch.cli import predict
+
+    _full_counters(reset=True)
+    t0 = time.perf_counter()
+    predict.main(args + ["--out", out])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = _full_counters()
+    _tally_off_path(f"predict CLI {' '.join(args[1:4])}")
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) >= 1 and all(math.isfinite(float(r["count"])) for r in rows),
+          f"predict CLI {args[1:]}: no finite counts")
+    return float(rows[0]["count"]), n, secs
+
+
+def _set_plain(model, plain: bool) -> None:
+    """Switch a CLIP-EBC model between its kernel paths and its plain twin
+    (``attn_backend="sdpa"``, ``fused_head="off"``) in place: the same
+    weights, no second build."""
+    model.fused_head = "off" if plain else "auto"
+    for m in model.modules():
+        if hasattr(m, "attn_backend"):
+            m.attn_backend = "sdpa" if plain else "auto"
+
+
+def phase_clip_backbones(dev, kernels: dict, profile: bool) -> None:
+    """The CLIP backbones beyond ViT-B/16 through the entry points: CLIP-EBC
+    ``clip_resnet50`` serves the seeded 2048 x 3072 image whole and by
+    224 px windows (bf16, fp32), the NWPU CLI two images, trains at the
+    reference's run.sh flags on a synthetic ``sha`` (bf16, fp32; every
+    parameter but the text tower's moves, the BatchNorm statistics with
+    them) and its best checkpoint serves; each other CLIP ResNet and
+    ``clip_vit_b_32`` serve one batch of 16 windows against their plain
+    twins, ``clip_vit_b_32`` trains a 4-step VPT epoch; ``clip_vit_l_14``
+    serves the image by windows (140 x 289 tokens: 24 launches of row 2 at
+    D = 1024 a forward) in bf16 and fp32 against its plain twin, and whole
+    in bf16 (24 tiled flash launches at 16 heads); ``clip_vit_l_14_336px``
+    serves 336 px windows (609 tokens: the plain route in both packages).
+    Row 1 is held to its plain version at C = 640, 768 and 1024."""
+    from PIL import Image
+
+    from clip_ebc_tpu_torch.cli import test_nwpu
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.data.crowd import _load_image, normalize_image
+    from clip_ebc_tpu_torch.data.synthetic import make_synthetic_crowd_dataset
+    from clip_ebc_tpu_torch.models import get_model
+    from clip_ebc_tpu_torch.ops.fused_head import ebc_head_plain, fused_ebc_head
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+
+    # row 1 at the new widths (RN50x4 640, ViT-L and RN50x16 768, RN50 and
+    # RN50x64 1024), 140 windows x 56 x 56 rows (reduction 8 at 448 px)
+    _, anchors = get_bins_and_anchors(8, 4, "sha")
+    g = torch.Generator(device=dev).manual_seed(40)
+    anch = torch.tensor(anchors, device=dev)
+    scale = torch.tensor(1 / 0.07, device=dev)
+    for c in (640, 768, 1024):
+        for dtype in (torch.bfloat16, torch.float32):
+            feats = torch.randn(B * 28 * 28, c, generator=g, device=dev).to(dtype)
+            text = torch.randn(len(anchors), c, generator=g, device=dev)
+            got, want = fused_ebc_head(feats, text, scale, anch), ebc_head_plain(feats, text, scale, anch)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(torch.allclose(got, want, rtol=1e-4, atol=1e-6), f"head at C = {c} disagrees")
+            ms = time_spread(lambda: fused_ebc_head(feats, text, scale, anch))
+            tag = str(dtype)[6:]
+            print(f"head {tag} at C = {c} ({feats.shape[0]} rows): max abs err {err:.3e} (rtol 1e-4, "
+                  f"atol 1e-6); {spread_str(ms)}")
+            kernels["fused_ebc_head"][f"ms_c{c}" + ("_fp32" if dtype == torch.float32 else "")] = ms[0]
+            del feats, got, want
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        path = os.path.join(img_dir, "flagship.npy")
+        np.save(path, np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8))
+        image = normalize_image(_load_image(path))
+        windows = ["--sliding_window", "--window_size", "224", "--stride", "224"]
+        base = ["--reduction", "8", "--truncation", "4", "--seed", "0", "--device", str(dev)]
+
+        # clip_resnet50: whole and by windows, bf16 and fp32
+        for amp in (True, False):
+            for extra in ([], windows):
+                tag = f"{'bf16' if amp else 'fp32'}, {'windows' if extra else 'whole'}"
+                count, n, secs = _clip_cli([img_dir, "--model", "clip_resnet50", *base, *extra]
+                                           + (["--amp"] if amp else []),
+                                           os.path.join(tmp, "rn.csv"))
+                check(n["fused_ebc_head"] == 1 and n["fused_ln_qkv_attention"] == 0
+                      and n["flash_tiled"] == 0, f"clip_resnet50 {tag}: launches {n}")
+                kernels["fused_ebc_head"]["launches_resnet50"] = n["fused_ebc_head"]
+                print(f"predict CLI, clip_resnet50, {tag}: count {count:.2f}, {secs:.1f} s (build, "
+                      f"weights, one image); launches {n}")
+
+        # the NWPU CLI, two images
+        nwpu = os.path.join(tmp, "nwpu_data", "nwpu", "test", "images")
+        os.makedirs(nwpu)
+        rng = np.random.default_rng(3)
+        for iid, hw in {3098: (768, 1024), 3099: (1024, 768)}.items():
+            Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8), "RGB").save(
+                os.path.join(nwpu, f"{iid}.jpg"))
+        bins, anchors = get_bins_and_anchors(8, 4, "nwpu")
+        weights = os.path.join(tmp, "nwpu_ckpt", "best", "1.pt")
+        os.makedirs(os.path.dirname(weights))
+        torch.save(get_model("clip_resnet50", 224, 8, bins, anchors, seed=6, device=dev).state_dict(),
+                   weights)
+        _full_counters(reset=True)
+        test_nwpu.main(["--model", "clip_resnet50", "--data_root", os.path.join(tmp, "nwpu_data"),
+                        "--weight_path", weights, "--result_dir", os.path.join(tmp, "res"), "--amp",
+                        "--disable_size_check", "--device", str(dev)])
+        n = _full_counters()
+        with open(os.path.join(tmp, "res", "best_1.txt")) as f:
+            lines = [line.split(" ") for line in f.read().split("\n")]
+        check([r[0] for r in lines] == ["3098", "3099"] and n["fused_ebc_head"] == 2
+              and all(math.isfinite(float(r[1])) for r in lines), f"test_nwpu clip_resnet50: {lines} {n}")
+        print(f"test_nwpu CLI, clip_resnet50, 2 whole images, bf16: counts {[r[1] for r in lines]}; "
+              f"launches {n}")
+
+        # training at run.sh's flags, then the best checkpoint serves
+        data = make_synthetic_crowd_dataset(os.path.join(tmp, "data"), "sha", n_train=TRAIN_IMAGES,
+                                            n_val=2, size=DATA_HW, seed=0)
+        val = os.path.join(data, "sha", "val", "images")
+        bins, anchors = get_bins_and_anchors(8, 4, "sha")
+        init = {k: v.cpu() for k, v in get_model("clip_resnet50", RN_SIZE, 8, bins, anchors, seed=42,
+                                                 device=dev).state_dict().items()}
+        flags = ["--model", "clip_resnet50", "--dataset", "sha", "--input_size", str(RN_SIZE),
+                 "--reduction", "8", "--truncation", "4", "--prompt_type", "word",
+                 "--count_loss", "dmcount", "--batch_size", str(RN_B)]
+        for amp in (True, False):
+            ckpt = os.path.join(tmp, f"rn_ckpt_{amp}")
+            n = run_model_trainer(dev, data, ckpt, flags, amp)
+            check(n["fused_ln_qkv_attention"] == 0 and n["attention_bwd"] == 0,
+                  f"clip_resnet50 training launched a trunk kernel: {n}")
+            best = os.path.join(ckpt, "best", "1.pt")
+            trained = torch.load(best, map_location="cpu", weights_only=True)
+            text_same = all(torch.equal(trained[k], init[k]) for k in init if k.startswith("text_encoder."))
+            still = [k for k in init if not k.startswith("text_encoder.") and "num_batches" not in k
+                     and torch.equal(trained[k], init[k])]
+            check(text_same and not still, f"clip_resnet50 training: text tower moved {not text_same}, "
+                  f"still {still[:4]}")
+            count, n, _ = _clip_cli([val, "--model", "clip_resnet50", "--input_size", str(RN_SIZE),
+                                     "--bins_dataset", "sha", "--weight_path", best, *base]
+                                    + (["--amp"] if amp else []), os.path.join(tmp, "rnval.csv"))
+            print(f"predict CLI on the clip_resnet50 {'bf16' if amp else 'fp32'} checkpoint: "
+                  f"count {count:.2f}; launches {n}")
+            shutil.rmtree(ckpt)  # ~2 GB of weights and Adam moments
+
+        # clip_resnet50: ms per whole image and per step against their bounds, peak memory
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from clip_ebc_tpu_torch.config import ExperimentConfig
+        from clip_ebc_tpu_torch.data.crowd import CrowdDataset
+        from clip_ebc_tpu_torch.data.loader import TrainLoader, make_train_transforms
+        from clip_ebc_tpu_torch.losses import make_loss_fn
+        from clip_ebc_tpu_torch.training.trainer import Trainer
+
+        cfg = ExperimentConfig(model="clip_resnet50", dataset="sha", input_size=RN_SIZE, reduction=8,
+                               truncation=4, count_loss="dmcount", batch_size=RN_B).normalize()
+        ds = CrowdDataset("sha", "train", data, transforms=make_train_transforms(cfg), check_sizes=False)
+        batch = next(iter(TrainLoader(ds, RN_B, 8, seed=0))).to(dev)
+        for dtype, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FP32)):
+            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+            model = get_model("clip_resnet50", RN_SIZE, 8, cfg.bins, cfg.bin_anchors, dtype=dtype,
+                              seed=0, device=dev)
+            ev = Evaluator(model, reduction=8, pad_to_multiple=8)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = time_image(ev, image, reps=3)
+            mem = torch.cuda.max_memory_allocated(dev) / 2**30
+            if profile:
+                profile_image(ev, image, f"clip_resnet50 whole {tag}")
+            flops, _ = image_flops(ev, image)
+            for name, p in model.named_parameters():  # image_flops froze them all
+                p.requires_grad_(not name.startswith("text_encoder."))
+            print(f"clip_resnet50 whole image {IMAGE_HW[0]}x{IMAGE_HW[1]}, {tag}: {ms:.2f} ms/image "
+                  f"(host clock, upload to count), peak memory {mem:.2f} GiB; bound "
+                  f"{flops / 1e12:.3f} TFLOP (FlopCounterMode) / {peak / 1e12:.0f} TFLOP/s = "
+                  f"{flops / peak * 1e3:.2f} ms ({ms / (flops / peak * 1e3):.1f}x)")
+            trainer = Trainer(cfg, model.train(), make_loss_fn(cfg))
+            trainer.set_epoch_lr(1)
+            text = trainer.text_features()
+            torch.cuda.reset_peak_memory_stats(dev)
+            trainer.train_step(batch, text)
+            counter = FlopCounterMode(display=False)
+            with counter:
+                trainer.train_step(batch, text)
+            step_flops = float(counter.get_total_flops())
+            (dev_ms, dev_lo, dev_hi), host = time_step_events(trainer, batch, reps=10, text=text)
+            mem = torch.cuda.max_memory_allocated(dev) / 2**30
+            bnd = step_flops / peak * 1e3
+            print(f"clip_resnet50 training step {tag} ({RN_B} crops of {RN_SIZE} px), median of 10 "
+                  f"(min-max): {dev_ms:.2f} ms/step by CUDA events ({dev_lo:.2f}-{dev_hi:.2f}), "
+                  f"{host[0]:.2f} by the host clock ({host[1]:.2f}-{host[2]:.2f}); peak memory "
+                  f"{mem:.2f} GiB; bound {step_flops / 1e12:.3f} TFLOP (FlopCounterMode, forward + "
+                  f"backward) / {peak / 1e12:.0f} TFLOP/s = {bnd:.2f} ms ({dev_ms / bnd:.1f}x)")
+            if profile:
+                profile_step(trainer, batch, text, f"clip_resnet50 {tag}")
+            del model, trainer, ev
+
+        # one batch of 16 windows through each other CLIP ResNet and ViT-B/32, against
+        # the plain twin (same weights); a 4-step VPT epoch of ViT-B/32
+        bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+        x = torch.from_numpy(np.ascontiguousarray(
+            np.stack([image[224 * (i // 8): 224 * (i // 8 + 1), 224 * (i % 8): 224 * (i % 8 + 1)]
+                      for i in range(CLIP_WINDOWS)]), np.float32)
+        ).to(dev)
+        for name in OTHER_CLIP:
+            model = get_model(f"clip_{name}", 224, 8, bins, anchors, dtype=torch.bfloat16, seed=0,
+                              device=dev)
+            with torch.no_grad():
+                text = model.encode_text()
+                _full_counters(reset=True)
+                got = model(x, text_feats=text)
+                torch.cuda.synchronize()
+                n = _full_counters()
+                _set_plain(model, True)
+                want = model(x, text_feats=text)
+            rel = abs(float(got.sum()) - float(want.sum())) / abs(float(want.sum()))
+            rows = 12 if name == "vit_b_32" else 0
+            check(bool(torch.isfinite(got).all()) and got.shape == (CLIP_WINDOWS, 28, 28)
+                  and n["fused_ebc_head"] == 1 and n["fused_ln_qkv_attention"] == rows
+                  and rel <= 1e-2, f"clip_{name}: launches {n}, count vs plain {rel:.2e}")
+            print(f"clip_{name}, {CLIP_WINDOWS} windows of 224 px, bf16: count {float(got.sum()):.3f}, "
+                  f"plain twin {float(want.sum()):.3f} (|diff|/count {rel:.2e}, tol 1e-2); launches {n}")
+            del model, got, want
+        vdata = make_synthetic_crowd_dataset(os.path.join(tmp, "vdata"), "qnrf", n_train=TRAIN_IMAGES,
+                                             n_val=2, size=DATA_HW, seed=0)
+        vflags = ["--model", "clip_vit_b_32", "--dataset", "qnrf", "--input_size", "224",
+                  "--reduction", "8", "--truncation", "4", "--num_vpt", "32", "--count_loss",
+                  "dmcount", "--batch_size", str(TRAIN_B), "--num_crops", "2", "--sliding_window",
+                  "--window_size", "224", "--stride", "224", "--warmup_lr", "1e-3"]
+        n = run_model_trainer(dev, vdata, os.path.join(tmp, "vb32"), vflags, True)
+        shutil.rmtree(os.path.join(tmp, "vb32"))
+        steps = _steps()
+        check(n["ln_qkv_bwd_frozen"] == 12 * steps and n["ln_bwd_dx"] == 12 * steps,
+              f"clip_vit_b_32 VPT epoch: launches {n}, expected {12 * steps} of row 5")
+
+        # ViT-L/14: windows (bf16, fp32) through the CLI, then against the plain twin; whole
+        for amp in (True, False):
+            count, n, secs = _clip_cli([img_dir, "--model", "clip_vit_l_14", *base, *windows]
+                                       + (["--amp"] if amp else []), os.path.join(tmp, "vl.csv"))
+            check(n["fused_ln_qkv_attention"] == 24 and n["fused_ebc_head"] == 1,
+                  f"clip_vit_l_14 windows: launches {n}, expected 24 of row 2")
+            row = kernels["fused_ln_qkv_attention_d1024" + ("" if amp else "_fp32")]
+            row["launches"] = row["launches_vit_l"] = n["fused_ln_qkv_attention"]
+            print(f"predict CLI, clip_vit_l_14, {'bf16' if amp else 'fp32'}, {VIT_L_B} windows x "
+                  f"{VIT_L_L} tokens: count {count:.2f}, {secs:.1f} s; launches {n}")
+        for dtype in (torch.bfloat16, torch.float32):
+            model = get_model("clip_vit_l_14", 224, 8, bins, anchors, dtype=dtype, seed=0, device=dev)
+            ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                           pad_to_multiple=14)
+            _full_counters(reset=True)
+            count = ev.predict_count(image)
+            n = _full_counters()
+            ms = time_image(ev, image, reps=3)
+            _set_plain(model, True)
+            ev._text_key = None
+            plain = ev.predict_count(image)
+            plain_ms = time_image(ev, image, reps=2)
+            rel = abs(count - plain) / abs(plain)
+            tol = VIT_COUNT_TOL[dtype]
+            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+            check(rel <= tol and n["fused_ln_qkv_attention"] == 24,
+                  f"clip_vit_l_14 {tag} windows: {rel:.2e} from the plain twin, launches {n}")
+            print(f"clip_vit_l_14 by windows, {tag}: count {count:.4f}, plain twin {plain:.4f} "
+                  f"(|diff|/count {rel:.2e}, tol {tol:g}); {ms:.1f} ms/image, plain {plain_ms:.1f}")
+            if profile and dtype == torch.bfloat16:
+                _set_plain(model, False)
+                profile_image(ev, image, f"clip_vit_l_14 by windows {tag}")
+            del model, ev
+        count, n, secs = _clip_cli([img_dir, "--model", "clip_vit_l_14", *base, "--amp"],
+                                   os.path.join(tmp, "vlw.csv"))
+        check(n["flash_tiled"] == 24 and n["fused_ln_qkv_attention"] == 0,
+              f"clip_vit_l_14 whole image: launches {n}, expected 24 tiled")
+        kernels["flash_tiled"]["launches_vit_l"] = n["flash_tiled"]
+        model = get_model("clip_vit_l_14", 224, 8, bins, anchors, dtype=torch.bfloat16, seed=0,
+                          device=dev)
+        ev = Evaluator(model, reduction=8, pad_to_multiple=14)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = time_image(ev, image, reps=2)
+        mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"clip_vit_l_14 whole image, bf16: {ms:.1f} ms/image (host clock), peak memory "
+              f"{mem:.2f} GiB")
+        del model, ev
+        # row 8 alone at ViT-L's whole image: 16 heads of 1 + 32 + 147 x 220 tokens
+        from clip_ebc_tpu_torch.ops import flash_attention as fl
+
+        vl = 1 + 32 + -(-IMAGE_HW[0] // 14) * -(-IMAGE_HW[1] // 14)
+        q, k, v = _flash_inputs(dev, torch.bfloat16, 1, VIT_L_H, vl, 44)
+        got = fl.flash_tiled(q, k, v, 0.125)
+        want = fl.flash_tiled_plain(q[:, :, :1024], k, v, 0.125, False)
+        torch.cuda.synchronize()
+        err = _check_scaled(f"flash_tiled at (1, {VIT_L_H}, {vl}, 64), first 1024 queries",
+                            got[:, :, :1024], want, 2e-2)
+        tiled = time_spread(lambda: fl.flash_tiled(q, k, v, 0.125))
+        sdpa = time_spread(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125))
+        bnd = bound_ms(4 * VIT_L_H * vl * vl * 64, PEAK_BF16, 4 * VIT_L_H * vl * 64 * 2)
+        kernels["flash_tiled"].update(ms_vit_l=tiled[0], sdpa_ms_vit_l=sdpa[0], bound_ms_vit_l=bnd[0])
+        print(f"flash_tiled at ViT-L's whole image (1, {VIT_L_H}, {vl}, 64): max abs err {err:.3e}; "
+              f"kernel {spread_str(tiled)}, SDPA forward {spread_str(sdpa)}, bound {bnd[0]:.3f} ms "
+              f"({bnd[1]})")
+        del q, k, v, got, want
+        print(f"predict CLI, clip_vit_l_14, bf16, whole ({IMAGE_HW[0]}x{IMAGE_HW[1]}: "
+              f"{1 + 32 + -(-IMAGE_HW[0] // 14) * -(-IMAGE_HW[1] // 14)} tokens): count {count:.2f}, "
+              f"{secs:.1f} s; launches {n}")
+
+        # ViT-L/14@336px: 336 px windows, 609 tokens, the plain route
+        d336 = os.path.join(tmp, "img336")
+        os.makedirs(d336)
+        np.save(os.path.join(d336, "a.npy"),
+                np.random.default_rng(1).integers(0, 256, L336_HW + (3,), dtype=np.uint8))
+        count, n, secs = _clip_cli([d336, "--model", "clip_vit_l_14_336px", "--input_size", "336",
+                                    "--sliding_window", "--window_size", "336", "--stride", "336",
+                                    *base, "--amp"], os.path.join(tmp, "v336.csv"))
+        check(n["fused_ln_qkv_attention"] == 0 and n["flash_tiled"] == 0 and n["fused_ebc_head"] == 1,
+              f"clip_vit_l_14_336px: launches {n}, expected the plain route")
+        print(f"predict CLI, clip_vit_l_14_336px, bf16, 6 windows of 336 px (609 tokens, plain "
+              f"route): count {count:.2f}, {secs:.1f} s; launches {n}")
+
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
@@ -2755,6 +3208,7 @@ def main(argv) -> int:
                phase_attention_int8(dev, torch.bfloat16), phase_attention_int8(dev, torch.float32),
                phase_int8_proj(dev, torch.bfloat16), phase_int8_proj(dev, torch.float32),
                phase_ln_qkv_proj(dev), phase_int8_attention_body(dev),
+               phase_attention_vit_l(dev, torch.bfloat16), phase_attention_vit_l(dev, torch.float32),
                phase_qkv_attention(dev, torch.bfloat16), phase_qkv_attention(dev, torch.float32),
                phase_flash(dev, "tiled", torch.bfloat16), phase_flash(dev, "tiled", torch.float32),
                phase_flash(dev, "short", torch.bfloat16), phase_flash(dev, "short", torch.float32),
@@ -2790,6 +3244,9 @@ def main(argv) -> int:
     phase_vit_kernels(dev)
     phase_models(dev, by_name, "--profile" in argv)
     print(f"phase 4b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_clip_backbones(dev, by_name, "--profile" in argv)
+    print(f"phase 4c: {time.perf_counter() - t0:.1f} s")
     if "--profile" not in argv:
         phase_library_kernels(dev)
     for k in kernels:

@@ -49,6 +49,15 @@
 //    stores, with 16-byte ring stages and 8 of them or with 4 of 32 KB
 //    (0.39-0.40 ms: the scattered stores cost more than the deeper ring
 //    saved), each step's products finished before the next wait (0.253).
+//    Past D = 768 (ViT-L's D = 1024, 16 heads) 128 LN rows of 1024 values
+//    (256 KB) do not fit in shared memory (227 KB a block). The wide layout
+//    (ProjCfg) keeps the same items, warpgroups and 6 register tiles; the
+//    other 10 tiles of a warpgroup's rows (160 KB for both) stay shared, the
+//    ring's 3 stages hold one 64-deep W box each (48 KB), and a warpgroup
+//    stages one 64 x 64 output box at a time (231,488 bytes in all). Bound
+//    at a ViT-L window forward (M = 140 x 289 = 40,460, D = 1024, N =
+//    3072): 254.6 GFLOP over 989 TFLOP/s = 0.257 ms against 338 MB (0.10
+//    ms): the tensor cores bound it.
 //  * the attention: the wgmma body of csrc/attention_short.cuh with P
 //    normalized after P V (redesigned after the first port, mha_kernel:
 //    mma.sync fed by ldmatrix, a block of 4 warps per (64-query tile, head,
@@ -105,9 +114,9 @@
 //    took 1.25x as long on an H100 SXM at 700 W). Then O / rowsum, the plain
 //    version's order; fp32 throughout.
 //
-// Limits: head dim 64, D <= 768 (the resident LN rows and the W ring fill
-// shared memory; the fp32 LN statistics are held for at most 768 values a
-// row), L <= 320 (the float kernels' route; the bodies take 512 keys, ROADMAP
+// Limits: head dim 64, D <= 1024 (the resident LN rows and the W ring fill
+// shared memory; the fp32 LN statistics hold a row of at most 1024 values
+// in registers), L <= 320 (the float kernels' route; the bodies take 512 keys, ROADMAP
 // Queue 2), sm_scale > 0 (the wgmma body takes the row max of the raw
 // scores), bf16 or fp32 activations.
 
@@ -117,27 +126,44 @@ namespace ebc {
 namespace {
 
 // ---- launch 1: LayerNorm + projection ------------------------------------
-constexpr int kMaxDim = 768;     // the fp32 statistics pass and the LN rows' registers below
+constexpr int kMaxDim = 1024;    // the widest model (ViT-L); past D = 768 the wide layout below
 constexpr int kPM = 128;         // rows of an item: two consumer warpgroups x 64
 constexpr int kPN = 128;         // output columns of a chunk (the wgmma N)
 constexpr int kPK = 64;          // depth of one TMA box of W: one 128-byte swizzle row
-constexpr int kPStages = 3;      // ring stages of two W boxes (128 deep) each
+constexpr int kPStages = 3;      // ring stages
 constexpr int kPThreads = 256;   // two consumer warpgroups (all registers theirs: no producer warp)
 constexpr int kPRegTiles = 6;    // 64-deep tiles of a warpgroup's LN rows held in registers
-constexpr int kLnChunks = kMaxDim / 256;  // 8-column chunks a lane holds in the statistics pass
 constexpr int kPBox = kPN * 128;          // bytes of one W box (128 rows x 128 B)
-constexpr int kPStage = 2 * kPBox;
 constexpr int kPTile = 64 * 128;          // bytes of 64 rows x 128 B: an LN tile or a staged output box
+constexpr size_t kSmemMax = 232448;       // shared memory a block may take on sm_90 (227 KB)
 
-__host__ __device__ constexpr int preg_tiles(int dk) { return dk < kPRegTiles ? dk : kPRegTiles; }
-// the W ring, two staged output boxes a warpgroup, each warpgroup's LN tiles
-// (the register half passes through them first, so there are at least as
-// many as registers tiles), its rows' mean and rstd, the full barriers and
-// done counts, 1024-byte alignment
-__host__ __device__ constexpr size_t proj_smem_bytes(int dk) {
-  return (size_t)kPStages * kPStage + 2 * 2 * kPTile + (size_t)2 * preg_tiles(dk) * kPTile +
-         2 * 64 * sizeof(float2) + 64 + 1024;
-}
+// The layout of the kernel at D = 64 DK. Up to D = 768 (DK <= 12): ring
+// stages of two W boxes (128 deep), two staged output boxes a warpgroup, as
+// many LN tiles a warpgroup as register tiles (the shared half, at most as
+// many, takes their place once they are in registers). Past it (the wide
+// layout, ViT-L's D = 1024): 128 rows x 1024 x 2 B of LN rows (256 KB) do
+// not fit beside a ring, and the 6 register tiles leave DK - 6 = 10 shared
+// tiles a warpgroup (160 KB), so the stages hold one W box (64 deep) and
+// each warpgroup stages one output box at a time (231,488 bytes in all).
+template <int DK>
+struct ProjCfg {
+  static constexpr bool kWide = DK > 12;
+  static constexpr int kRegTiles = DK < kPRegTiles ? DK : kPRegTiles;
+  static constexpr int kShTiles = DK - kRegTiles;
+  static constexpr int kLnTiles = kRegTiles > kShTiles ? kRegTiles : kShTiles;
+  static constexpr int kBoxes = kWide ? 1 : 2;     // W boxes a ring step
+  static constexpr int kOutBoxes = kWide ? 1 : 2;  // staged output boxes a warpgroup
+  // 8-column chunks a lane holds in the statistics pass (3 up to D = 768)
+  static constexpr int kLnChunks = kWide ? (DK * 8 + 31) / 32 : 3;
+  static constexpr int kStage = kBoxes * kPBox;
+  // the W ring, the staged output boxes, each warpgroup's LN tiles, its
+  // rows' mean and rstd, the full barriers and done counts, 1024-byte
+  // alignment
+  static constexpr size_t kSmem = (size_t)kPStages * kStage + 2 * kOutBoxes * kPTile +
+                                  (size_t)2 * kLnTiles * kPTile + 2 * 64 * sizeof(float2) + 64 + 1024;
+  static_assert(kSmem <= kSmemMax, "the projection's shared memory");
+  static_assert(DK * 8 <= kLnChunks * 32, "the statistics pass holds a row");
+};
 
 // y = (v - mu) rstd gamma + beta of 8 columns, rounded to bf16, in one
 // 16-byte store (the first port's expression)
@@ -161,25 +187,28 @@ __device__ __forceinline__ void ln_store8(unsigned char* dst, const float (&v)[8
 // multiplies them by every chunk of its part: the LN rows of its first
 // min(DK, 6) 64-deep tiles are the register A operand of wgmma, the rest
 // shared (128B-swizzled, 64 rows x 128 B a tile). The block's W steps (two
-// 64-deep boxes of a chunk, 128 rows each), item after item, stream through
-// a ring of kPStages by TMA on per-stage mbarriers; the last of the 8 warps
-// done with a stage refills it. DK = D / 64.
+// 64-deep boxes of a chunk, 128 rows each; one box in the wide layout),
+// item after item, stream through a ring of kPStages by TMA on per-stage
+// mbarriers; the last of the 8 warps done with a stage refills it. DK = D /
+// 64; ProjCfg<DK> is the layout.
 template <int DK>
 __global__ void __launch_bounds__(kPThreads, 1)
 ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                    const float* __restrict__ beta, const __grid_constant__ CUtensorMap tw,
                    const float* __restrict__ bias, const __grid_constant__ CUtensorMap tout, int m,
                    int n, int parts, float eps) {
+  using Cfg = ProjCfg<DK>;
   constexpr int d = DK * kPK;
-  constexpr int DR = preg_tiles(DK), DS = DK - DR;
-  constexpr int SPC = (DK + 1) / 2;  // ring steps of a chunk
+  constexpr int DR = Cfg::kRegTiles, DS = Cfg::kShTiles, LT = Cfg::kLnTiles;
+  constexpr int NB = Cfg::kBoxes, OB = Cfg::kOutBoxes, LNC = Cfg::kLnChunks;
+  constexpr int SPC = (DK + NB - 1) / NB;  // ring steps of a chunk
   constexpr int xvec = d / 8;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* ring = sm;                                  // [kPStages][2 boxes]
-  unsigned char* outs = ring + kPStages * kPStage;           // [2 warpgroups][2 boxes]
-  unsigned char* lns = outs + 2 * 2 * kPTile;                // [2 warpgroups][DR tiles]
-  float2* stats = reinterpret_cast<float2*>(lns + 2 * DR * kPTile);     // [2 warpgroups][64 rows]
+  unsigned char* ring = sm;                                  // [kPStages][NB boxes]
+  unsigned char* outs = ring + kPStages * Cfg::kStage;       // [2 warpgroups][OB boxes]
+  unsigned char* lns = outs + 2 * OB * kPTile;               // [2 warpgroups][LT tiles]
+  float2* stats = reinterpret_cast<float2*>(lns + 2 * LT * kPTile);     // [2 warpgroups][64 rows]
   uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * 64);         // [kPStages]
   int* done = reinterpret_cast<int*>(full + kPStages);                  // [kPStages]
 
@@ -188,7 +217,7 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   const int n_items = ((m + kPM - 1) / kPM) * parts, per_item = cpp * SPC;
 
   // ring step tt of the block (item blockIdx.x + (tt / per_item) gridDim.x,
-  // chunk (tt / SPC) % cpp of its part, depth 128 (tt % SPC) ..) into its
+  // chunk (tt / SPC) % cpp of its part, depth 64 NB (tt % SPC) ..) into its
   // stage by TMA, completing on the stage's full barrier; columns past n
   // land as zeros; nothing past the block's last item. One thread.
   auto load = [&](int tt) {
@@ -196,11 +225,10 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
     if (it >= n_items) return;
     const int s = tt % SPC, st = tt % kPStages;
     const int col0 = ((it % parts) * cpp + (tt / SPC) % cpp) * kPN;
-    const bool two = 2 * s + 1 < DK;
-    unsigned char* dst = ring + st * kPStage;
-    mbar_expect_tx(&full[st], (uint32_t)(two ? kPStage : kPBox));
-    tma_2d(dst, &tw, 2 * s * kPK, col0, &full[st]);
-    if (two) tma_2d(dst + kPBox, &tw, (2 * s + 1) * kPK, col0, &full[st]);
+    const int kt0 = NB * s, boxes = kt0 + NB <= DK ? NB : DK - kt0;
+    unsigned char* dst = ring + st * Cfg::kStage;
+    mbar_expect_tx(&full[st], (uint32_t)(boxes * kPBox));
+    for (int h = 0; h < boxes; ++h) tma_2d(dst + h * kPBox, &tw, (kt0 + h) * kPK, col0, &full[st]);
   };
   if (tid == 0) {
     for (int st = 0; st < kPStages; ++st) {
@@ -218,8 +246,8 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const bool issuer = (tid & 127) == 0;  // this warpgroup's TMA stores
-  unsigned char* my_out = outs + wg * 2 * kPTile;
-  unsigned char* my_ln = lns + wg * DR * kPTile;
+  unsigned char* my_out = outs + wg * OB * kPTile;
+  unsigned char* my_ln = lns + wg * LT * kPTile;
   float2* my_stats = stats + wg * 64;
   uint32_t a[DR * 4][4];  // LN rows r0, r1 as the A fragments of the register k-steps
   float acc[64];
@@ -237,10 +265,10 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll 4
     for (int i = 0; i < 16; ++i) {
       const int rl = warp * 16 + i, gr = rw + rl;
-      float v[kLnChunks][8];
+      float v[LNC][8];
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < kLnChunks; ++c) {
+      for (int c = 0; c < LNC; ++c) {
         const int cc = c * 32 + lane;
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[c][e] = 0.f;
@@ -251,7 +279,7 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
       const float mu = warp_sum(sum) / d;
       float var = 0.f;
 #pragma unroll
-      for (int c = 0; c < kLnChunks; ++c) {
+      for (int c = 0; c < LNC; ++c) {
         if (c * 32 + lane < xvec) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) var += (v[c][e] - mu) * (v[c][e] - mu);
@@ -259,7 +287,7 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
       }
       const float rstd = rsqrtf(warp_sum(var) / d + eps);
 #pragma unroll
-      for (int c = 0; c < kLnChunks; ++c) {
+      for (int c = 0; c < LNC; ++c) {
         const int cc = c * 32 + lane;
         if (cc < DR * 8) ln_store8(my_ln + (cc >> 3) * kPTile + sw128_offset(rl, cc & 7), v[c], mu, rstd, gamma + cc * 8, beta + cc * 8);
       }
@@ -279,7 +307,7 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
         const int rl = warp * 16 + i, gr = rw + rl;
         const float2 st = my_stats[rl];
 #pragma unroll
-        for (int c = 0; c < kLnChunks; ++c) {
+        for (int c = 0; c < LNC; ++c) {
           const int cc = c * 32 + lane;
           if (cc >= DR * 8 && cc < xvec) {
             float v[8];
@@ -312,11 +340,11 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
       for (int s = 0; s < SPC; ++s, ++tt) {
         const int st = tt % kPStages;
         mbar_wait(&full[st], (tt / kPStages) & 1);
-        const unsigned char* wb = ring + st * kPStage;
+        const unsigned char* wb = ring + st * Cfg::kStage;
         wgmma_fence();
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int kt = 2 * s + h;
+        for (int h = 0; h < NB; ++h) {
+          const int kt = NB * s + h;
           if (kt < DK) {
 #pragma unroll
             for (int kk = 0; kk < kPK / 16; ++kk) {
@@ -337,29 +365,35 @@ ln_qkv_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
       wgmma_wait<0>();
       release(tt - 1);
 
-      // epilogue: + fp32 bias, rounded to bf16, staged as two 64 x 64 boxes
-      // (128B-swizzled) and written by TMA, rows past m and columns past n
-      // clipped; the staged boxes are free once the previous chunk's store
-      // has read them
+      // epilogue: + fp32 bias, rounded to bf16, staged as 64 x 64 boxes
+      // (128B-swizzled; both at once, or one after the other in the wide
+      // layout) and written by TMA, rows past m and columns past n clipped;
+      // the staged boxes are free once the previous store has read them
       const int col0 = (part * cpp + c) * kPN;
-      if (issuer) bulk_wait_read<0>();
-      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 #pragma unroll
-      for (int j = 0; j < kPN / 8; ++j) {
-        const int col = col0 + j * 8 + 2 * t4;
-        const float b0 = col < n ? bias[col] : 0.f, b1 = col < n ? bias[col + 1] : 0.f;
-        unsigned char* box = my_out + (j >> 3) * kPTile;
-        *reinterpret_cast<uint32_t*>(box + sw128_offset(rl, j & 7) + 4 * t4) =
-            pack_bf16(acc[4 * j] + b0, acc[4 * j + 1] + b1);
-        *reinterpret_cast<uint32_t*>(box + sw128_offset(rl + 8, j & 7) + 4 * t4) =
-            pack_bf16(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
-      }
-      fence_proxy_async();
-      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
-      if (issuer && rw < m) {
-        tma_store_2d(&tout, my_out, col0, rw);
-        if (col0 + 64 < n) tma_store_2d(&tout, my_out + kPTile, col0 + 64, rw);
-        bulk_commit();
+      for (int hb = 0; hb < 2; hb += OB) {
+        if (issuer) bulk_wait_read<0>();
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+#pragma unroll
+        for (int jb = 0; jb < 8 * OB; ++jb) {
+          const int j = hb * 8 + jb;
+          const int col = col0 + j * 8 + 2 * t4;
+          const float b0 = col < n ? bias[col] : 0.f, b1 = col < n ? bias[col + 1] : 0.f;
+          unsigned char* box = my_out + (jb >> 3) * kPTile;
+          *reinterpret_cast<uint32_t*>(box + sw128_offset(rl, j & 7) + 4 * t4) =
+              pack_bf16(acc[4 * j] + b0, acc[4 * j + 1] + b1);
+          *reinterpret_cast<uint32_t*>(box + sw128_offset(rl + 8, j & 7) + 4 * t4) =
+              pack_bf16(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
+        }
+        fence_proxy_async();
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+        if (issuer && rw < m) {
+#pragma unroll
+          for (int q = 0; q < OB; ++q)
+            if (col0 + 64 * (hb + q) < n)
+              tma_store_2d(&tout, my_out + q * kPTile, col0 + 64 * (hb + q), rw);
+          bulk_commit();
+        }
       }
     }
   }
@@ -394,7 +428,7 @@ cudaError_t launch_proj_dk(const void* x, const void* gamma, const void* beta, c
   const int parts = proj_parts(row_items, nc, sms);
   const long long items = (long long)row_items * parts;
   const int blocks = (int)(items < sms ? items : sms);
-  const size_t smem = proj_smem_bytes(DK);
+  const size_t smem = ProjCfg<DK>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(ln_qkv_proj_kernel<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -457,8 +491,10 @@ constexpr int kFM = 128, kFN = 128;     // output tile of a block
 constexpr int kFK = 8;                  // depth of one step
 constexpr int kFThreads = 256;          // 16 x 16 threads, 8 x 8 outputs each
 constexpr int kFPitch = kFM + 4;        // transposed tiles: the stores hit distinct banks
-constexpr int kFLnVecs = kMaxDim / 128; // float4 a lane holds for the LN statistics
 
+// LNV: the float4 a lane holds for the LN statistics (6 up to D = 768, 8 up
+// to kMaxDim)
+template <int LNV>
 __global__ void __launch_bounds__(kFThreads)
 ln_qkv_proj_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                        const float* __restrict__ beta, const float* __restrict__ w,
@@ -476,10 +512,10 @@ ln_qkv_proj_f32_kernel(const float* __restrict__ x, const float* __restrict__ ga
   const int xvec = d / 4;
   for (int r = warp; r < kFM; r += kFThreads / 32) {
     const int gr = row0 + r;
-    float4 v[kFLnVecs];
+    float4 v[LNV];
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < kFLnVecs; ++c) {
+    for (int c = 0; c < LNV; ++c) {
       const int cc = c * 32 + lane;
       v[c] = gr < m && cc < xvec ? reinterpret_cast<const float4*>(x + (size_t)gr * d)[cc] : zero;
       sum += (v[c].x + v[c].y) + (v[c].z + v[c].w);
@@ -487,7 +523,7 @@ ln_qkv_proj_f32_kernel(const float* __restrict__ x, const float* __restrict__ ga
     const float mu = warp_sum(sum) / d;
     float var = 0.f;
 #pragma unroll
-    for (int c = 0; c < kFLnVecs; ++c) {
+    for (int c = 0; c < LNV; ++c) {
       if (c * 32 + lane < xvec) {
         var += (v[c].x - mu) * (v[c].x - mu) + (v[c].y - mu) * (v[c].y - mu) +
                (v[c].z - mu) * (v[c].z - mu) + (v[c].w - mu) * (v[c].w - mu);
@@ -589,6 +625,10 @@ cudaError_t launch_proj(const void* x, const void* gamma, const void* beta, cons
     case 10: return EBC_PROJ(10);
     case 11: return EBC_PROJ(11);
     case 12: return EBC_PROJ(12);
+    case 13: return EBC_PROJ(13);
+    case 14: return EBC_PROJ(14);
+    case 15: return EBC_PROJ(15);
+    case 16: return EBC_PROJ(16);
     default: return cudaErrorInvalidValue;
   }
 #undef EBC_PROJ
@@ -598,7 +638,8 @@ cudaError_t launch_proj_f32(const void* x, const void* gamma, const void* beta, 
                             const void* bias, void* qkv, int m, int d, float eps, cudaStream_t st) {
   const int n = 3 * d;
   const dim3 grid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);
-  ln_qkv_proj_f32_kernel<<<grid, kFThreads, 0, st>>>(
+  auto* kernel = d <= 768 ? ln_qkv_proj_f32_kernel<6> : ln_qkv_proj_f32_kernel<kMaxDim / 128>;
+  kernel<<<grid, kFThreads, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(qkv), m, d, n, eps);

@@ -1,9 +1,9 @@
 """Model factory: counterpart of ``clip_ebc_tpu/models/__init__.py``.
 
 ``get_model(name, ...)`` routes:
-  - ``clip_*``          -> CLIP-EBC (``vit_b_16`` only so far; the other
-                           CLIP backbones raise ``NotImplementedError``
-                           naming their ROADMAP queue)
+  - ``clip_*``          -> CLIP-EBC over any of the nine CLIP backbones
+                           (``CLIP_BACKBONES``: the five ModifiedResNets
+                           and the four ViTs)
   - bins/anchors given  -> ``Classifier(backbone)``
   - otherwise           -> ``Regressor(backbone)``
 
@@ -46,7 +46,6 @@ CLIP_BACKBONES = (
     "vit_l_14",
     "vit_l_14_336px",
 )
-PORTED_CLIP_BACKBONES = ("vit_b_16",)
 
 _VGG_NAMES = tuple(
     f"vgg{n}{bn}{ae}" for n in (11, 13, 16, 19) for bn in ("", "_bn") for ae in ("", "_ae")
@@ -146,10 +145,6 @@ def get_model(
         name = backbone[len("clip_"):]
         if name not in CLIP_BACKBONES:
             raise ValueError(f"CLIP backbone must be one of {CLIP_BACKBONES}, got {name}")
-        if name not in PORTED_CLIP_BACKBONES:
-            raise NotImplementedError(
-                f"CLIP backbone {name!r} is not ported yet (ROADMAP Queue 1, other CLIP backbones)"
-            )
         from .clip.model import build_clip_ebc
 
         return build_clip_ebc(
@@ -191,7 +186,6 @@ __all__ = [
     "CSRNet",
     "ViTEncoder",
     "CLIP_BACKBONES",
-    "PORTED_CLIP_BACKBONES",
 ]
 
 # The shipped registry example: a ConvNeXt-style backbone registered

@@ -1,20 +1,23 @@
 """CLIP-EBC: counterpart of ``clip_ebc_tpu/models/clip/model.py``.
 
-image encoder (frozen ViT + deep VPT) -> bilinear up-scale from the
-patch grid to the output reduction -> residual decoder -> 1x1 projection
-to the CLIP embedding -> cosine similarity against the text-prompt
-features x exp(logit_scale) -> softmax over the count bins . anchors
-= per-block density. The two orders of decoder and upsample
-(``decoder_before_upsample``) are both kept.
+image encoder (a frozen ViT with deep VPT, or a ModifiedResNet trained
+end to end) -> bilinear up-scale from the encoder's grid to the output
+reduction -> residual decoder -> 1x1 projection to the CLIP embedding ->
+cosine similarity against the text-prompt features x exp(logit_scale)
+-> softmax over the count bins . anchors = per-block density. The two
+orders of decoder and upsample (``decoder_before_upsample``) are both
+kept.
 
 In training mode (``model.train()``) ``forward`` returns ``(logits,
 density)`` and always takes the plain head (the logits are needed).
-ViT backbones train by VPT: :func:`build_clip_ebc` freezes the trunk
-and the text tower with ``requires_grad_(False)`` (the JAX
-package's ``_vpt_frozen_predicate``), which is also what routes the
-trunk's attention backward to its frozen kernel. Parameter names are the
-reference's torch names (``image_encoder.*``, ``vpt_{i}``,
-``image_decoder.*``, ``projection.*``, ``text_encoder.*``,
+:func:`build_clip_ebc` marks what does not train with
+``requires_grad_(False)``: a ViT backbone trains by VPT, the trunk and
+the text tower frozen (the JAX package's ``_vpt_frozen_predicate``,
+which is also what routes the trunk's attention backward to its frozen
+kernel); a ResNet backbone trains every parameter but the text tower's,
+its BatchNorm in train mode (``_text_frozen_predicate``). Parameter
+names are the reference's torch names (``image_encoder.*``,
+``vpt_{i}``, ``image_decoder.*``, ``projection.*``, ``text_encoder.*``,
 ``logit_scale``).
 """
 
@@ -29,7 +32,7 @@ from torch import nn
 
 from ...ops.fused_head import fused_ebc_head
 from ...ops.quant import Int8Conv2d, Int8Linear
-from ..blocks import BatchNorm, Conv2d, ResNetStage, resize_bilinear
+from ..blocks import BatchNorm, Conv2d, ResNetStage, init_conv_, resize_bilinear
 from ..heads import expectation_from_logits
 from ..transformer import (
     ATTN_BACKENDS,
@@ -38,15 +41,20 @@ from ..transformer import (
     PatchifyMatmul,
     check_quant_args,
 )
-from .image_encoder import VIT_CONFIGS, ClipViT
+from .image_encoder import (RESNET_CONFIGS, VIT_CONFIGS, AttentionPool2d, ClipModifiedResNet,
+                            ClipViT)
 from .prompts import bin_prompts
 from .text_encoder import ClipTextEncoder
 from .tokenizer import tokenize
 from ...utils.platform import resolve_device
 
-# Text tower shapes per ViT backbone: (width, heads); all have 12 layers.
-# (The ResNet backbones' rows come with their image encoders, a later slice.)
+# Text tower shapes per backbone: (width, heads); all have 12 layers.
 TEXT_CONFIGS = {
+    "resnet50": (512, 8),
+    "resnet101": (512, 8),
+    "resnet50x4": (640, 10),
+    "resnet50x16": (768, 12),
+    "resnet50x64": (1024, 16),
     "vit_b_16": (512, 8),
     "vit_b_32": (512, 8),
     "vit_l_14": (768, 12),
@@ -55,6 +63,11 @@ TEXT_CONFIGS = {
 
 # Default decoder configurations.
 DECODER_CFGS = {
+    "resnet50": ("bottleneck", (2048,)),
+    "resnet50x4": ("bottleneck", (1280,)),
+    "resnet50x16": ("bottleneck", (1536,)),
+    "resnet50x64": ("bottleneck", (2048,)),
+    "resnet101": ("bottleneck", (2048, 1024)),
     "vit_b_16": ("basic", (768,)),
     "vit_b_32": ("basic", (768,)),
     "vit_l_14": ("basic", (1024,)),
@@ -62,10 +75,23 @@ DECODER_CFGS = {
 }
 
 FUSED_HEAD_MODES = ("auto", "on", "off")
+# Backbones with a W8A8 path: the int8 LN + projection kernels take D <= 768.
+QUANT_BACKBONES = ("vit_b_16", "vit_b_32")
+
+
+def check_quant_backbone(backbone: str, quant_int8: bool) -> None:
+    """W8A8 on a ViT-L (the int8 projection at D = 1024) or a CLIP ResNet
+    (its int8 decoder) is the next slice: refuse it by name."""
+    if quant_int8 and backbone not in QUANT_BACKBONES:
+        raise NotImplementedError(
+            f"not ported yet: W8A8 (--quant) on clip_{backbone} (ROADMAP Queue 1, the D = 1024 "
+            "backward and int8 kernels, and the CLIP ResNets' int8 decoder)"
+        )
 
 
 class ClipEBC(nn.Module):
-    """CLIP-EBC blockwise count classifier over a ViT backbone.
+    """CLIP-EBC blockwise count classifier over a ViT or ModifiedResNet
+    backbone.
 
     ``attn_backend`` ("auto" | "fused" | "flash" | "sdpa") picks the
     attention path of the trunk and the text tower
@@ -73,11 +99,11 @@ class ClipEBC(nn.Module):
     ("auto" | "on" | "off") the head's; "auto" means the CUDA kernels for
     CUDA tensors (the fused attention kernel on windows, the tiled flash
     kernel on a full image) and the plain torch versions for CPU tensors.
-    ``quant_int8`` (inference only) makes the trunk's projections and the
-    decoder's convolutions W8A8; the 1x1 projection and the text tower
-    stay unquantized. ``quant_mode="static"`` needs calibrated scales
-    (``ops.quant.calibrate_int8`` on the dynamic twin, then
-    ``load_quant_state``)."""
+    ``quant_int8`` (inference only, ViT-B backbones) makes the trunk's
+    projections and the decoder's convolutions W8A8; the 1x1 projection
+    and the text tower stay unquantized. ``quant_mode="static"`` needs
+    calibrated scales (``ops.quant.calibrate_int8`` on the dynamic twin,
+    then ``load_quant_state``)."""
 
     def __init__(
         self,
@@ -101,10 +127,8 @@ class ClipEBC(nn.Module):
         fuse_ln_mode: str = "auto",
     ) -> None:
         super().__init__()
-        if backbone not in VIT_CONFIGS:
-            raise NotImplementedError(
-                f"CLIP backbone {backbone!r} is not ported yet (ROADMAP Queue 1, other CLIP backbones)"
-            )
+        if backbone not in TEXT_CONFIGS:
+            raise ValueError(f"CLIP backbone must be one of {tuple(TEXT_CONFIGS)}, got {backbone!r}")
         if len(bins) != len(anchor_points):
             raise ValueError("bins and anchor_points must have equal length")
         if attn_backend not in ATTN_BACKENDS:
@@ -112,21 +136,29 @@ class ClipEBC(nn.Module):
         if fused_head not in FUSED_HEAD_MODES:
             raise ValueError(f"fused_head must be one of {FUSED_HEAD_MODES}, got {fused_head!r}")
         check_quant_args(quant_mode, quant_attn)
-        patch, width, layers, _, embed_dim = VIT_CONFIGS[backbone]
+        check_quant_backbone(backbone, quant_int8)
         self.backbone = backbone
+        self.is_vit = backbone in VIT_CONFIGS
+        self.dtype = dtype
         self.quant_int8, self.quant_mode = quant_int8, quant_mode
         self.bins = tuple(tuple(b) for b in bins)
-        self.encoder_reduction = patch
-        self.out_reduction = reduction or patch
         self.fused_head = fused_head
         self.decoder_before_upsample = decoder_before_upsample
-
-        self.image_encoder = ClipViT(
-            backbone, dtype=dtype, attn_backend=attn_backend, vpt_drop=vpt_drop,
-            quant_int8=quant_int8, quant_mode=quant_mode, quant_attn=quant_attn,
-            fuse_ln_mode=fuse_ln_mode,
-        )
-        self.vpt_depth = (layers if deep_vpt else 1) if num_vpt > 0 else 0
+        if self.is_vit:
+            patch, width, layers, _, embed_dim = VIT_CONFIGS[backbone]
+            self.encoder_reduction = patch
+            self.image_encoder = ClipViT(
+                backbone, dtype=dtype, attn_backend=attn_backend, vpt_drop=vpt_drop,
+                quant_int8=quant_int8, quant_mode=quant_mode, quant_attn=quant_attn,
+                fuse_ln_mode=fuse_ln_mode,
+            )
+            self.vpt_depth = (layers if deep_vpt else 1) if num_vpt > 0 else 0
+        else:
+            self.image_encoder = ClipModifiedResNet(backbone, reduction or 32)
+            self.encoder_reduction = self.image_encoder.encoder_reduction
+            width, embed_dim = self.image_encoder.channels, RESNET_CONFIGS[backbone][2]
+            self.vpt_depth = 0
+        self.out_reduction = reduction or self.encoder_reduction
         for i in range(self.vpt_depth):
             self.register_parameter(f"vpt_{i}", nn.Parameter(torch.empty(num_vpt, width)))
 
@@ -175,9 +207,12 @@ class ClipEBC(nn.Module):
         """``(N, H, W, 3)`` windows -> ``(N, H/r, W/r)`` fp32 density, or
         in training mode ``(logits (N, H/r, W/r, K), density)``.
         ``generator`` feeds the prompt dropout."""
-        feats = self.image_encoder(x, self.vpt(), generator)  # (N, gh, gw, C)
-        # NCHW view of the NHWC features: channels-last memory, no copy
-        feats = feats.permute(0, 3, 1, 2)
+        if self.is_vit:
+            feats = self.image_encoder(x, self.vpt(), generator)  # (N, gh, gw, C)
+            # NCHW view of the NHWC features: channels-last memory, no copy
+            feats = feats.permute(0, 3, 1, 2)
+        else:  # the NCHW view of the NHWC pixels, in the compute dtype
+            feats = self.image_encoder(x.permute(0, 3, 1, 2).to(self.dtype))
         scale = self.encoder_reduction / self.out_reduction
         if self.decoder_before_upsample:
             feats = self.image_decoder(feats)
@@ -215,7 +250,6 @@ class ClipEBC(nn.Module):
         before moving the model to another device), following the JAX
         package's initializers up to their truncation."""
         g = generator
-        vit_patch, vit_width = self.image_encoder.patch, self.image_encoder.width
         for m in self.modules():
             if isinstance(m, PatchifyMatmul):
                 fan_in = m.weight[0].numel()
@@ -235,15 +269,21 @@ class ClipEBC(nn.Module):
                 if m is self.projection:  # lecun normal, zero bias
                     m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=g)
                     m.bias.zero_()
+                elif isinstance(m, Conv2d) and m.kernel_init == "lecun":  # the ResNet trunk
+                    init_conv_(m, g)
                 else:  # kaiming normal, fan out
                     fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
                     m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=g)
+            elif isinstance(m, AttentionPool2d):
+                m.positional_embedding.normal_(0.0, m.q_proj.in_features**-0.5, generator=g)
         enc = self.image_encoder
-        enc.class_embedding.normal_(0.0, vit_width**-0.5, generator=g)
-        enc.positional_embedding.normal_(0.0, vit_width**-0.5, generator=g)
-        val = math.sqrt(6.0 / (3 * vit_patch + vit_width))
-        for p in self.vpt():
-            p.uniform_(-val, val, generator=g)
+        if self.is_vit:
+            vit_patch, vit_width = enc.patch, enc.width
+            enc.class_embedding.normal_(0.0, vit_width**-0.5, generator=g)
+            enc.positional_embedding.normal_(0.0, vit_width**-0.5, generator=g)
+            val = math.sqrt(6.0 / (3 * vit_patch + vit_width))
+            for p in self.vpt():
+                p.uniform_(-val, val, generator=g)
         txt = self.text_encoder
         txt.token_embedding.weight.normal_(0.0, 0.02, generator=g)
         txt.positional_embedding.normal_(0.0, 0.01, generator=g)
@@ -257,6 +297,12 @@ def vpt_frozen_predicate(name: str) -> bool:
     the prompts ``vpt_{i}`` live outside it) and the text tower. The JAX
     package's ``_vpt_frozen_predicate`` on the port's names."""
     return name.startswith(("image_encoder.", "text_encoder."))
+
+
+def text_frozen_predicate(name: str) -> bool:
+    """The parameters a ResNet backbone's model freezes: the text tower's
+    (the JAX package's ``_text_frozen_predicate``)."""
+    return name.startswith("text_encoder.")
 
 
 def build_clip_ebc(
@@ -284,8 +330,9 @@ def build_clip_ebc(
     """Build a CLIP-EBC model in eval mode on ``device`` (default
     ``cuda``; raises without CUDA unless ``device="cpu"``), randomly
     initialized from ``seed`` (load weights over it to use trained ones),
-    with the VPT-frozen parameters (:func:`vpt_frozen_predicate`) set to
-    ``requires_grad=False``."""
+    with the frozen parameters set to ``requires_grad=False``: the
+    VPT-frozen ones (:func:`vpt_frozen_predicate`) of a ViT backbone, the
+    text tower (:func:`text_frozen_predicate`) of a ResNet one."""
     device = resolve_device(device)
     if bins is None or anchor_points is None:
         raise ValueError("CLIP-EBC requires bins and anchor_points")
@@ -299,6 +346,7 @@ def build_clip_ebc(
         fuse_ln_mode=fuse_ln_mode,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
+    frozen = vpt_frozen_predicate if model.is_vit else text_frozen_predicate
     for name, p in model.named_parameters():
-        p.requires_grad_(not vpt_frozen_predicate(name))
+        p.requires_grad_(not frozen(name))
     return model.to(device).eval()

@@ -2,8 +2,9 @@
 ``clip_ebc_tpu/models/convert.py``, in the other direction.
 
 :func:`from_jax_params` turns a JAX ``ClipEBC`` variable tree (nested
-dicts of numpy arrays: ``params`` and ``batch_stats``) into this port's
-``state_dict``, whose keys are the reference's torch names. The JAX
+dicts of numpy arrays: ``params`` and ``batch_stats``), over any of the
+nine CLIP backbones, into this port's ``state_dict``, whose keys are the
+reference's torch names. The JAX
 package's ``convert_reference_clip_ebc`` maps such a state dict back, so
 the two packages share weights without either importing the other.
 
@@ -13,7 +14,11 @@ Layout rules:
 - stacked VPT (depth, n, width) -> ``vpt_{i}``;
 - LayerNorm ``<name>/LayerNorm_0/{scale,bias}`` -> ``<name>.{weight,bias}``;
 - BatchNorm ``scale/bias`` + ``batch_stats`` ``mean/var`` -> ``weight/bias/running_mean/running_var``;
-- decoder ``BasicBlock_{j}`` -> the j-th block's index in the decoder Sequential.
+- the CLIP ResNet trunk ``stem_conv{i}``/``stem_bn{i}`` -> ``conv{i}``/``bn{i}``,
+  ``layer{i}_{j}/{conv,bn}{1-3}`` -> ``layer{i}.{j}.{conv,bn}{1-3}``,
+  ``down_conv``/``down_bn`` -> ``downsample.{0,1}``, ``attnpool`` as it is;
+- decoder ``BasicBlock_{j}`` / ``BottleneckBlock_{j}`` -> the j-th block's
+  index in the decoder Sequential.
 
 :func:`head_state_from_jax` does the same for a JAX ``Classifier`` or
 ``Regressor`` (the non-CLIP models) into the port's model of that
@@ -102,17 +107,45 @@ def clip_text_state(tree: Mapping[str, Any]) -> StateDict:
     return sd
 
 
-def basic_block_state(params: Mapping[str, Any], stats: Mapping[str, Any]) -> StateDict:
-    """JAX decoder ``BasicBlock`` params + batch_stats -> ``BasicBlock``
-    state dict (``ConvBNAct_2``, the channel-changing shortcut, becomes
+def basic_block_state(params: Mapping[str, Any], stats: Mapping[str, Any],
+                      n_convs: int = 2) -> StateDict:
+    """JAX decoder ``BasicBlock`` (``n_convs`` 2) or ``BottleneckBlock``
+    (3) params + batch_stats -> the port block's state dict
+    (``ConvBNAct_{n_convs}``, the channel-changing shortcut, becomes
     ``downsample``)."""
     sd: StateDict = {}
-    names = {"ConvBNAct_0": ("conv1", "bn1"), "ConvBNAct_1": ("conv2", "bn2"),
-             "ConvBNAct_2": ("downsample.0", "downsample.1")}
+    names = {f"ConvBNAct_{i}": (f"conv{i + 1}", f"bn{i + 1}") for i in range(n_convs)}
+    names[f"ConvBNAct_{n_convs}"] = ("downsample.0", "downsample.1")
     for unit, (conv, bn) in names.items():
         if unit in params:
             sd[f"{conv}.weight"] = _conv(params[unit]["Conv_0"]["kernel"])
             _bn(sd, bn, params[unit]["BatchNorm_0"], stats[unit]["BatchNorm_0"])
+    return sd
+
+
+def clip_resnet_state(params: Mapping[str, Any], stats: Mapping[str, Any]) -> StateDict:
+    """JAX ``ClipModifiedResNet`` params + batch_stats ->
+    ``ClipModifiedResNet`` state dict (the attention pool where present)."""
+    sd: StateDict = {}
+    for i in (1, 2, 3):
+        sd[f"conv{i}.weight"] = _conv(params[f"stem_conv{i}"]["kernel"])
+        _bn(sd, f"bn{i}", params[f"stem_bn{i}"], stats[f"stem_bn{i}"])
+    for li in range(1, 5):
+        bi = 0
+        while f"layer{li}_{bi}" in params:
+            p, st, dst = params[f"layer{li}_{bi}"], stats[f"layer{li}_{bi}"], f"layer{li}.{bi}"
+            for c in (1, 2, 3):
+                sd[f"{dst}.conv{c}.weight"] = _conv(p[f"conv{c}"]["kernel"])
+                _bn(sd, f"{dst}.bn{c}", p[f"bn{c}"], st[f"bn{c}"])
+            if "down_conv" in p:
+                sd[f"{dst}.downsample.0.weight"] = _conv(p["down_conv"]["kernel"])
+                _bn(sd, f"{dst}.downsample.1", p["down_bn"], st["down_bn"])
+            bi += 1
+    if "attnpool" in params:
+        ap = params["attnpool"]
+        sd["attnpool.positional_embedding"] = _t(ap["positional_embedding"])
+        for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            _dense(sd, f"attnpool.{proj}", ap[proj])
     return sd
 
 
@@ -121,11 +154,14 @@ def from_jax_params(
     batch_stats: Mapping[str, Any],
     decoder_cfg: Sequence[Union[int, str]] = (768,),
 ) -> StateDict:
-    """JAX ``ClipEBC`` (ViT backbone) variables -> this port's state dict.
-    ``decoder_cfg`` places the decoder blocks at their Sequential indices
-    (``"U"`` entries take an index but hold no weights)."""
+    """JAX ``ClipEBC`` variables (a ViT or a ModifiedResNet backbone) ->
+    this port's state dict. ``decoder_cfg`` places the decoder blocks at
+    their Sequential indices (``"U"`` entries take an index but hold no
+    weights)."""
     ie = params["image_encoder"]
-    sd: StateDict = {f"image_encoder.{k}": v for k, v in clip_vit_state(ie).items()}
+    trunk = (clip_vit_state(ie) if "class_embedding" in ie
+             else clip_resnet_state(ie, batch_stats["image_encoder"]))
+    sd: StateDict = {f"image_encoder.{k}": v for k, v in trunk.items()}
     if "vpt" in ie:
         for i, v in enumerate(np.asarray(ie["vpt"])):
             sd[f"vpt_{i}"] = _t(v)
@@ -134,7 +170,9 @@ def from_jax_params(
     dec_p, dec_s = params["image_decoder"], batch_stats["image_decoder"]
     block_idx = [i for i, v in enumerate(decoder_cfg) if v != "U"]
     for j, idx in enumerate(block_idx):
-        block = basic_block_state(dec_p[f"BasicBlock_{j}"], dec_s[f"BasicBlock_{j}"])
+        kind, n_convs = (("BottleneckBlock", 3) if f"BottleneckBlock_{j}" in dec_p
+                         else ("BasicBlock", 2))
+        block = basic_block_state(dec_p[f"{kind}_{j}"], dec_s[f"{kind}_{j}"], n_convs)
         sd.update({f"image_decoder.{idx}.{k}": v for k, v in block.items()})
     if "projection" in params:
         sd["projection.weight"] = _conv(params["projection"]["kernel"])

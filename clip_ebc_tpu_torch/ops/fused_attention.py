@@ -53,12 +53,18 @@ MAX_FUSED_SEQ = 320
 # 128-key chunks (csrc/fused_attention_int8.cu, kI8MaxKeys); the JAX
 # package's padded limit.
 MAX_FUSED_SEQ_INT8_ATTN = 512
-# Widest model the kernel takes: a warpgroup's 64 LayerNormed rows stay
-# resident, 384 columns in registers and the rest in shared memory beside
-# the weight ring (csrc/fused_attention.cu, kMaxDim, kPRegTiles,
-# proj_smem_bytes); the fp32 variant's LayerNorm statistics pass holds a
-# row in registers sized for the same D (kFLnVecs).
-MAX_FUSED_DIM = 768
+# Widest model the float forward kernels take (ViT-L): a warpgroup's 64
+# LayerNormed rows stay resident, 384 columns in registers and the rest in
+# shared memory beside the weight ring, whose stages hold one W box instead
+# of two past D = 768 (csrc/fused_attention.cu, kMaxDim, ProjCfg); the fp32
+# variant's LayerNorm statistics pass holds a row of up to this D in
+# registers.
+MAX_FUSED_DIM = 1024
+# Widest model of the int8 kernels (csrc/int8_proj.cuh kQMaxDim: the
+# quantized rows held in registers) and of the frozen backward's dx launch
+# (csrc/fused_attention_bwd.cu kXMaxDim): D = 1024 is a later slice.
+MAX_INT8_DIM = 768
+MAX_BWD_DX_DIM = 768
 
 
 def supports(num_heads: int, head_dim: int, seq_len: int, max_seq: int = MAX_FUSED_SEQ) -> bool:
@@ -622,8 +628,8 @@ def ln_qkv_bwd_frozen(
     """dx ``(B, L, D)`` of ``attention(qkv_proj(LN(x)))`` with the LN and
     projection parameters frozen; g is the cotangent of the attention
     output. CPU tensors take :func:`ln_qkv_bwd_frozen_plain`. CUDA tensors
-    need bf16 x, g and w, fp32 LN parameters and bias, D a multiple of 128,
-    and launch the LN + projection recompute, the attention backward and
+    need bf16 x, g and w, fp32 LN parameters and bias, D a multiple of 128
+    and at most MAX_BWD_DX_DIM, and launch the LN + projection recompute, the attention backward and
     the dy = d_qkv W + LayerNorm-backward kernel (one call counted in
     ``ln_qkv_bwd_frozen.launches``, the recompute also in
     ``fused_ln_qkv_attention.launches_proj``, the last launch in
@@ -635,10 +641,10 @@ def ln_qkv_bwd_frozen(
     who = "ln_qkv_bwd_frozen"
     b, l, d = _check_attention(who, x, num_heads, kv_len)
     dev, dt = x.device, torch.bfloat16
-    if x.dtype != dt or d % 128:
+    if x.dtype != dt or d % 128 or d > MAX_BWD_DX_DIM:
         raise ValueError(
-            f"{who}: needs bf16 activations and D % 128 == 0 (fp32 takes the split "
-            f"path: attention_bwd); got {x.dtype}, D={d}"
+            f"{who}: needs bf16 activations, D % 128 == 0 and D <= {MAX_BWD_DX_DIM} (fp32 "
+            f"takes the split path: attention_bwd); got {x.dtype}, D={d}"
         )
     _check(who, x, "x", (b, l, d), dt, dev)
     _check(who, g, "g", (b, l, d), dt, dev)
@@ -676,8 +682,8 @@ def ln_bwd_dx(
     who = "ln_bwd_dx"
     d = x.shape[-1]
     m = x.numel() // d if d else 0
-    if d % 128 or not 128 <= d <= MAX_FUSED_DIM or m < 1:
-        raise ValueError(f"{who}: needs 128 <= D <= {MAX_FUSED_DIM}, D % 128 == 0 and at least "
+    if d % 128 or not 128 <= d <= MAX_BWD_DX_DIM or m < 1:
+        raise ValueError(f"{who}: needs 128 <= D <= {MAX_BWD_DX_DIM}, D % 128 == 0 and at least "
                          f"one row; got x {tuple(x.shape)}")
     dev, dt = x.device, torch.bfloat16
     _check(who, x, "x", tuple(x.shape), dt, dev)
@@ -820,8 +826,8 @@ def fused_ln_qkv_attention_int8(
     b, l, d = _check_attention(who, x, num_heads, kv_len,
                                MAX_FUSED_SEQ_INT8_ATTN if int8_attn else MAX_FUSED_SEQ,
                                None if int8_attn else sm_scale)
-    if d % 128:
-        raise ValueError(f"{who}: needs D % 128 == 0, got D={d}")
+    if d % 128 or d > MAX_INT8_DIM:
+        raise ValueError(f"{who}: needs D % 128 == 0 and D <= {MAX_INT8_DIM}, got D={d}")
     dev, dt = x.device, x.dtype
     _check(who, x, "x", (b, l, d), dt, dev)
     _check(who, ln_weight, "ln_weight", (d,), torch.float32, dev)
@@ -894,7 +900,7 @@ def qkv_quant_dynamic(qkv: torch.Tensor, num_heads: int, block_b: int) -> tuple:
     alone: ``(qkv_q, scales)`` of a qkv ``(B, L, 3D)``, as
     :func:`qkv_quant_dynamic_plain`. CPU tensors take that plain version.
     CUDA tensors need a contiguous bf16 or fp32 qkv, 64-wide heads in an
-    even number, D a multiple of 128 and at most MAX_FUSED_DIM, L at most
+    even number, D a multiple of 128 and at most MAX_INT8_DIM, L at most
     MAX_FUSED_SEQ_INT8_ATTN, and launch ``ebc_qkv_quant_dynamic`` (counted
     in ``qkv_quant_dynamic.launches``, as is the launch inside
     ``fused_ln_qkv_attention_int8``) or raise."""
@@ -907,15 +913,16 @@ def qkv_quant_dynamic(qkv: torch.Tensor, num_heads: int, block_b: int) -> tuple:
         raise ValueError(f"{who}: block_b must be >= 1, got {block_b}")
     b, l, d = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
     _check_attention(who, qkv[..., :d], num_heads, l, MAX_FUSED_SEQ_INT8_ATTN)
-    if d % 128:
-        raise ValueError(f"{who}: needs D % 128 == 0 (head pairs), got D={d}")
+    if d % 128 or d > MAX_INT8_DIM:
+        raise ValueError(f"{who}: needs D % 128 == 0 (head pairs) and D <= {MAX_INT8_DIM}, "
+                         f"got D={d}")
     _check(who, qkv, "qkv", (b, l, 3 * d), qkv.dtype, qkv.device)
     return _launch_qkv_quant_dynamic(who, qkv, num_heads, block_b)
 
 
 def _check_mlp_widths(who: str, d: int, hidden: int) -> None:
-    if d % 128 or d > MAX_FUSED_DIM or hidden % 128 or hidden < 128:
-        raise ValueError(f"{who}: needs D % 128 == 0, D <= {MAX_FUSED_DIM} and a hidden width "
+    if d % 128 or d > MAX_INT8_DIM or hidden % 128 or hidden < 128:
+        raise ValueError(f"{who}: needs D % 128 == 0, D <= {MAX_INT8_DIM} and a hidden width "
                          f"that is a multiple of 128; got D={d}, hidden={hidden}")
 
 
@@ -927,7 +934,7 @@ def int8_gemm_residual(
     tensors take that plain version. CUDA tensors need contiguous int8
     ``hq (..., 4D)`` and ``wpj_q (D, 4D)``, fp32 ``sw2`` and ``b_proj``
     ``(D,)``, a bf16 or fp32 ``x (..., D)``, D a multiple of 128 and at most
-    MAX_FUSED_DIM, 4D a multiple of 128, and launch ``ebc_int8_gemm_residual``
+    MAX_INT8_DIM, 4D a multiple of 128, and launch ``ebc_int8_gemm_residual``
     (counted in ``int8_gemm_residual.launches``, as is the second launch
     of ``fused_ln_mlp_int8``) or raise."""
     if x.device.type == "cpu":

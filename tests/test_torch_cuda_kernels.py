@@ -101,6 +101,10 @@ def _attn_inputs(b, l, d, seed, dev, dtype=torch.bfloat16):
     (3, 37, 128, 2, 33, "bfloat16"),  # ragged length, narrow width
     (4, 229, 768, 12, 229, "float32"),  # flagship block, fp32 activations (no --amp)
     (3, 37, 128, 2, 33, "float32"),  # ragged length, masked keys, narrow width
+    (2, 289, 1024, 16, 289, "bfloat16"),  # ViT-L window block: 1 + 32 VPT + 256 patches
+    (2, 289, 1024, 16, 250, "float32"),  # ViT-L, fp32, masked keys
+    (3, 37, 1024, 16, 33, "bfloat16"),  # ViT-L width, ragged length (one 128-row item)
+    (2, 320, 1024, 16, 320, "bfloat16"),  # ViT-L width at the route's longest window
 ])
 def test_attention_kernel_matches_plain(cuda, shape):
     b, l, d, h, kv_len, dtype = shape
@@ -125,9 +129,9 @@ def test_attention_wrapper_raises_instead_of_falling_back(cuda):
         fused_ln_qkv_attention(x.float(), g, be, w, bias, 2, 37, 0.125)  # bf16 w, fp32 x
     with pytest.raises(ValueError, match="head dim"):
         fused_ln_qkv_attention(x, g, be, w, bias, 4, 37, 0.125)  # dh = 32
-    wide = _attn_inputs(1, 37, 1024, seed=0, dev=cuda)  # ViT-L width: D > MAX_FUSED_DIM
-    with pytest.raises(ValueError, match="D <= 768"):
-        fused_ln_qkv_attention(*wide, 16, 37, 0.125)
+    wide = _attn_inputs(1, 37, 1088, seed=0, dev=cuda)  # 17 heads: D > MAX_FUSED_DIM
+    with pytest.raises(ValueError, match="D <= 1024"):
+        fused_ln_qkv_attention(*wide, 17, 37, 0.125)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -177,6 +181,9 @@ def _zero_and_large_rows(feats):
     (1030, 384, 12),  # a width between the instantiations (6 reads a lane)
     (33, 64, 5),  # the narrowest width (one read a lane)
     (109760, 512, 5),  # the flagship image
+    (4097, 640, 5),  # RN50x4's embedding
+    (4097, 768, 5),  # ViT-L's and RN50x16's
+    (140 * 56 * 56 // 4, 1024, 5),  # RN50's (and RN50x64's): 140 windows at reduction 8
 ])
 @pytest.mark.parametrize("rows", ["normal", "zero and large"])
 def test_head_kernel_matches_plain_at_edges(cuda, dtype, n, c, k, rows):
@@ -967,6 +974,9 @@ def _flash_inputs(b, h, l, seed, dev, dtype):
     ("tiled", 1, 2, 129, False),  # one key in the last tile
     ("tiled", 3, 12, 2048, True),  # more items than SMs, causal
     ("tiled", 1, 12, 1024, False),
+    ("tiled", 1, 16, 1 + 32 + 36 * 54, False),  # ViT-L/14, 16 heads, a 504 x 756 image whole
+    ("short", 5, 10, 77, True),  # RN50x4's text tower: 10 heads
+    ("short", 5, 16, 77, True),  # RN50x64's text tower: 16 heads
 ])
 def test_flash_kernels_match_plain(cuda, route, b, h, l, causal, dtype):
     dtype = getattr(torch, dtype)
@@ -1059,7 +1069,7 @@ def test_flash_backend_takes_the_short_kernel(cuda):
     assert abs(counts["flash"] - counts["auto"]) <= 1e-2 * abs(counts["auto"])
 
 
-@pytest.mark.parametrize("d", [128, 256, 768])
+@pytest.mark.parametrize("d", [128, 256, 768, 832, 1024])
 @pytest.mark.parametrize("m", [1, 63, 65, 129, 3664])
 def test_ln_qkv_proj_matches_plain(cuda, m, d):
     """The bf16 LN + QKV projection alone (``ebc_ln_qkv_proj``, the first
@@ -1249,3 +1259,31 @@ def test_plain_vit_takes_rows_2_and_4(cuda, dtype):
     assert abs(count - want) <= smoke.VIT_COUNT_TOL[dtype] * abs(want)
     print(f"plain ViT gradients: kernel vs plain path rel L2 {out['grad_err']:.3e}")
     assert out["grad_err"] <= smoke.VIT_GRAD_TOL[dtype]
+
+
+def test_vit_l_block_routes_to_row_2_and_matches_plain(cuda):
+    """A ViT-L window block (D = 1024, 16 heads, 289 tokens) on the card:
+    ``attention_route`` says ``fused``, the block launches row 2 once (in
+    bf16 its projection launch too) and its output is the plain block's
+    (``attn_backend="sdpa"``, same weights) within 2e-2 of the largest
+    magnitude in bf16 and 1e-4 in fp32."""
+    from clip_ebc_tpu_torch.models.transformer import ResidualAttentionBlock
+
+    torch.manual_seed(3)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        block = ResidualAttentionBlock(1024, 16).to(cuda)
+        plain = ResidualAttentionBlock(1024, 16, attn_backend="sdpa").to(cuda)
+        with torch.no_grad():
+            for p in block.parameters():
+                p.normal_(0.0, 0.03)
+            plain.load_state_dict(block.state_dict())
+            x = torch.randn(2, 289, 1024, device=cuda).to(dtype)
+            assert block.route(x, None, None, False) == "fused"
+            fused_ln_qkv_attention.launches = fused_ln_qkv_attention.launches_proj = 0
+            got = block(x)
+            torch.cuda.synchronize()
+            assert fused_ln_qkv_attention.launches == 1
+            assert fused_ln_qkv_attention.launches_proj == (1 if dtype == torch.bfloat16 else 0)
+            want = plain(x).float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), (dtype, err)
