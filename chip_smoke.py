@@ -137,6 +137,28 @@ Phases, each a hard failure (a raised exception, exit code 1):
    count by windows against its plain twin (1e-2 bf16, 1e-3 fp32); and
    ``clip_vit_l_14_336px`` by 336 px windows (609 tokens: the plain route,
    as in the JAX package).
+4d. ViT-L/14 trains and ViT-L and the CLIP ResNets serve W8A8
+   (``phase_vit_l``): the trainer CLI with the flagship flags on
+   ``clip_vit_l_14`` (16 windows of 224 px, 289 tokens, D = 1024, 16
+   heads) for an epoch of ``VIT_L_STEPS`` steps in bf16 and fp32 (24
+   launches of row 5 a bf16 step, ``ln_bwd_dx`` at D = 1024 among them; 24
+   of row 4 a fp32 step); the step's gradients on one batch against the
+   plain path (the same model switched in place, as ``_set_plain`` does),
+   ms per step in turns and peak memory; the predict CLI on the flagship
+   image by 140 windows under ``--quant int8_static`` (24 launches of the
+   int8 projection a forward), ``--quant_attn kernel`` (24 of the int8
+   attention) and ``xla``, ``--quant int8`` (24 of row 3) and
+   unquantized, with their counts against each other (kernel vs xla 2e-2,
+   each 8e-2 of bf16), one set of calibrated scales and the ``int8``
+   model against their plain twins (1e-2) and ms per image;
+   ``clip_resnet50`` by windows under ``--quant int8_static`` (its
+   Bottleneck decoder in int8) beside bf16. Phase 2 holds every kernel
+   widened to D = 1024 to its plain version at ViT-L's shapes by the same
+   phase functions as at D = 768, each given the launch shape
+   (``VIT_L14``; ``phase_kernels_d1024``: rows 5 dx, 5, 4 in both dtypes,
+   the int8 projection, 2b, 2c also at 70 x 433 tokens, the int8 body, 2d,
+   6 and its second launch, the scale pass, and row 3 at 140 and 16 x 289
+   tokens in both dtypes), each row named with ``_d1024``.
 
 Phase 2 also holds both flash-attention kernels against their plain
 versions, in bf16 and fp32: the tiled kernel at the flagship full image
@@ -222,6 +244,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -231,9 +254,24 @@ import torch
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PEAK_INT8 = 1979e12  # int8 tensor-core OP/s, dense
 
-B, L, D, H = 140, 229, 768, 12  # flagship trunk launch: 140 windows x (1 + 32 + 196) tokens
+
+
+class Shape(NamedTuple):
+    """A trunk launch: b windows of l tokens, width d, h heads of 64."""
+
+    b: int
+    l: int  # noqa: E741 - the token count, as in every formula here
+    d: int
+    h: int
+
+
+# the flagship trunk launch: 140 windows x (1 + 32 + 196) tokens
+FLAGSHIP = Shape(140, 229, 768, 12)
 # a ViT-L/14 window forward: 140 windows x (1 + 32 + 256) tokens, D = 1024, 16 heads
-VIT_L_B, VIT_L_L, VIT_L_D, VIT_L_H = 140, 289, 1024, 16
+VIT_L14 = Shape(140, 289, 1024, 16)
+# the flagship's, read by the phases that run at it only; a phase that runs
+# at both widths takes its Shape as an argument
+B, L, D, H = FLAGSHIP
 IMAGE_HW = (2048, 3072)
 # flagship training step: 8 images x 2 crops of 224 px; a synthetic dataset
 # of 32 train images (4 steps an epoch) and 2 val images of 512 x 768
@@ -248,6 +286,7 @@ LONG_WINDOW = 320
 LONG_L = 1 + 32 + (LONG_WINDOW // 16) ** 2
 LONG_B = math.ceil((IMAGE_HW[0] - LONG_WINDOW) / LONG_WINDOW + 1) * math.ceil(
     (IMAGE_HW[1] - LONG_WINDOW) / LONG_WINDOW + 1)
+LONG_WINDOWS = FLAGSHIP._replace(b=LONG_B, l=LONG_L)
 # kernels on no path of the package (the JAX package calls these TPU kernels
 # from its tests only): checked and timed in phase 2, launched 0 times
 OFF_PATH = ("int8_attention_dynamic", "int8_attention_dynamic_fp32", "fused_ln_mlp_int8",
@@ -404,7 +443,7 @@ def phase_attention(dev, dtype: torch.dtype) -> dict:
     bnd, by = bound_ms(flops, peak, nbytes)
     print(f"attention{tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s")
-    _time_launches(x, ln_w, ln_b, w, bias, sm)
+    _time_launches(x, ln_w, ln_b, w, bias, sm, H)
     return {
         "name": "fused_ln_qkv_attention" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention.cu",
@@ -414,7 +453,7 @@ def phase_attention(dev, dtype: torch.dtype) -> dict:
     }
 
 
-def _time_launches(x, ln_w, ln_b, w, bias, sm, h: int = H) -> tuple:
+def _time_launches(x, ln_w, ln_b, w, bias, sm, h: int) -> tuple:
     """Row 2's two launches apart (device time, ``time_spread``): the
     LayerNorm + projection (``ebc_ln_qkv_proj`` in bf16,
     ``ebc_ln_qkv_proj_f32`` in fp32) and the attention body on its qkv
@@ -457,7 +496,7 @@ def phase_attention_vit_l(dev, dtype: torch.dtype) -> dict:
     from clip_ebc_tpu_torch.ops import fused_attention as fa
 
     fp32 = dtype == torch.float32
-    b, l, d, h = VIT_L_B, VIT_L_L, VIT_L_D, VIT_L_H
+    b, l, d, h = VIT_L14
     tol, peak, tag = (1e-4, PEAK_FP32, " fp32") if fp32 else (2e-2, PEAK_BF16, "")
     g = torch.Generator(device=dev).manual_seed(24)
     x = torch.randn(b, l, d, generator=g, device=dev).to(dtype)
@@ -581,12 +620,12 @@ def phase_head(dev) -> dict:
     }
 
 
-def _bwd_inputs(dev, dtype, seed):
+def _bwd_inputs(dev, s: Shape, dtype, seed):
     """qkv at the trunk's scale (unit variance after the LN and the
     projection, so the softmax is peaked) and a unit cotangent."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    qkv = torch.randn(TRAIN_B, L, 3 * D, generator=g, device=dev).to(dtype)
-    gout = torch.randn(TRAIN_B, L, D, generator=g, device=dev).to(dtype)
+    qkv = torch.randn(TRAIN_B, s.l, 3 * s.d, generator=g, device=dev).to(dtype)
+    gout = torch.randn(TRAIN_B, s.l, s.d, generator=g, device=dev).to(dtype)
     return qkv, gout
 
 
@@ -600,9 +639,9 @@ def _check_scaled(who: str, got, want, tol: float) -> float:
     return err
 
 
-def phase_attention_bwd(dev, dtype: torch.dtype) -> dict:
-    """The attention backward at the flagship training shape against its
-    plain version: dQ, dK and dV each within 2e-2 (bf16) or 1e-4 (fp32)
+def phase_attention_bwd(dev, s: Shape, dtype: torch.dtype) -> dict:
+    """The attention backward at a training step of ``s`` (TRAIN_B windows
+    of its tokens) against its plain version: dQ, dK and dV each within 2e-2 (bf16) or 1e-4 (fp32)
     of its own largest magnitude, as in the GPU tests; library yardstick:
     the backward of ``F.scaled_dot_product_attention`` on the same q, k, v
     and g (timed here only)."""
@@ -610,29 +649,29 @@ def phase_attention_bwd(dev, dtype: torch.dtype) -> dict:
 
     fp32 = dtype == torch.float32
     tol, peak, tag = (1e-4, PEAK_FP32, " fp32") if fp32 else (2e-2, PEAK_BF16, "")
-    qkv, gout = _bwd_inputs(dev, dtype, 2)
-    sm = (D // H) ** -0.5
+    qkv, gout = _bwd_inputs(dev, s, dtype, 2)
+    sm = (s.d // s.h) ** -0.5
     errs = []
-    for kv_len in (L, 200):
-        got = attention_bwd(qkv, gout, H, kv_len, sm)
-        want = attention_bwd_plain(qkv, gout, H, kv_len, sm)
+    for kv_len in (s.l, 200):
+        got = attention_bwd(qkv, gout, s.h, kv_len, sm)
+        want = attention_bwd_plain(qkv, gout, s.h, kv_len, sm)
         torch.cuda.synchronize()
         for i, part in enumerate(("dQ", "dK", "dV")):
-            cols = slice(i * D, (i + 1) * D)
+            cols = slice(i * s.d, (i + 1) * s.d)
             errs.append(_check_scaled(f"attention_bwd{tag} {part} kernel vs plain, kv_len={kv_len}",
                                       got[..., cols], want[..., cols], tol))
-        check(got[:, kv_len:, D:].float().abs().sum().item() == 0,
+        check(got[:, kv_len:, s.d:].float().abs().sum().item() == 0,
               f"attention_bwd{tag}: masked keys got a gradient")
-    ms = time_spread(lambda: attention_bwd(qkv, gout, H, L, sm))
-    plain = time_ms(lambda: attention_bwd_plain(qkv, gout, H, L, sm))
-    q, k, v = (t.reshape(TRAIN_B, L, H, D // H).transpose(1, 2).detach().requires_grad_(True)
-               for t in qkv.split(D, dim=-1))
+    ms = time_spread(lambda: attention_bwd(qkv, gout, s.h, s.l, sm))
+    plain = time_ms(lambda: attention_bwd_plain(qkv, gout, s.h, s.l, sm))
+    q, k, v = (t.reshape(TRAIN_B, s.l, s.h, s.d // s.h).transpose(1, 2).detach().requires_grad_(True)
+               for t in qkv.split(s.d, dim=-1))
     out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
-    go = gout.reshape(TRAIN_B, L, H, D // H).transpose(1, 2)
+    go = gout.reshape(TRAIN_B, s.l, s.h, s.d // s.h).transpose(1, 2)
     library = time_spread(lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True))
     es = qkv.element_size()
-    flops = 5 * 2 * TRAIN_B * H * L * L * (D // H)  # S, dP, dQ, dK, dV
-    nbytes = TRAIN_B * L * (3 * D + D + 3 * D) * es
+    flops = 5 * 2 * TRAIN_B * s.h * s.l * s.l * (s.d // s.h)  # S, dP, dQ, dK, dV
+    nbytes = TRAIN_B * s.l * (3 * s.d + s.d + 3 * s.d) * es
     bnd, by = bound_ms(flops, peak, nbytes)
     print(f"attention_bwd{tag}: kernel {spread_str(ms)}, plain {plain:.3f} ms, SDPA backward "
           f"{spread_str(library)}, bound {bnd:.4f} ms ({by})")
@@ -645,37 +684,37 @@ def phase_attention_bwd(dev, dtype: torch.dtype) -> dict:
     }
 
 
-def phase_ln_qkv_bwd_frozen(dev) -> dict:
-    """The frozen LN + QKV + attention backward (bf16) at the flagship
-    training shape against its plain version, tolerance 2e-2 of the
+def phase_ln_qkv_bwd_frozen(dev, s: Shape) -> dict:
+    """The frozen LN + QKV + attention backward (bf16) at a training step
+    of ``s`` (TRAIN_B windows) against its plain version, tolerance 2e-2 of the
     largest magnitude of dx."""
     from clip_ebc_tpu_torch.ops.fused_attention import ln_qkv_bwd_frozen, ln_qkv_bwd_frozen_plain
 
     g = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn(TRAIN_B, L, D, generator=g, device=dev).to(torch.bfloat16)
-    gout = torch.randn(TRAIN_B, L, D, generator=g, device=dev).to(torch.bfloat16)
-    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
-    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
-    w = (torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5).to(torch.bfloat16)
-    bias = 0.02 * torch.randn(3 * D, generator=g, device=dev)
-    sm = (D // H) ** -0.5
-    args = (x, gout, ln_w, ln_b, w, bias, H)
+    x = torch.randn(TRAIN_B, s.l, s.d, generator=g, device=dev).to(torch.bfloat16)
+    gout = torch.randn(TRAIN_B, s.l, s.d, generator=g, device=dev).to(torch.bfloat16)
+    ln_w = 1.0 + 0.1 * torch.randn(s.d, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(s.d, generator=g, device=dev)
+    w = (torch.randn(3 * s.d, s.d, generator=g, device=dev) * s.d**-0.5).to(torch.bfloat16)
+    bias = 0.02 * torch.randn(3 * s.d, generator=g, device=dev)
+    sm = (s.d // s.h) ** -0.5
+    args = (x, gout, ln_w, ln_b, w, bias, s.h)
     errs = []
-    for kv_len in (L, 200):
+    for kv_len in (s.l, 200):
         got = ln_qkv_bwd_frozen(*args, kv_len, sm)
         want = ln_qkv_bwd_frozen_plain(*args, kv_len, sm)
         torch.cuda.synchronize()
         errs.append(_check_scaled(f"ln_qkv_bwd_frozen kernel vs plain, kv_len={kv_len}",
                                   got, want, 2e-2))
-    ms = time_spread(lambda: ln_qkv_bwd_frozen(*args, L, sm))
-    plain = time_ms(lambda: ln_qkv_bwd_frozen_plain(*args, L, sm))
-    m = TRAIN_B * L
-    flops = 2 * (2 * m * D * 3 * D) + 5 * 2 * TRAIN_B * H * L * L * (D // H)
-    nbytes = 3 * m * D * 2 + 3 * D * D * 2 + (2 * D + 3 * D) * 4
+    ms = time_spread(lambda: ln_qkv_bwd_frozen(*args, s.l, sm))
+    plain = time_ms(lambda: ln_qkv_bwd_frozen_plain(*args, s.l, sm))
+    m = TRAIN_B * s.l
+    flops = 2 * (2 * m * s.d * 3 * s.d) + 5 * 2 * TRAIN_B * s.h * s.l * s.l * (s.d // s.h)
+    nbytes = 3 * m * s.d * 2 + 3 * s.d * s.d * 2 + (2 * s.d + 3 * s.d) * 4
     bnd, by = bound_ms(flops, PEAK_BF16, nbytes)
     print(f"ln_qkv_bwd_frozen: kernel {spread_str(ms)}, plain {plain:.3f} ms, bound {bnd:.4f} ms "
           f"({by}); {flops / ms[0] / 1e9:.1f} TFLOP/s")
-    _time_frozen_launches(x, gout, ln_w, ln_b, w, bias, sm)
+    _time_frozen_launches(s, x, gout, ln_w, ln_b, w, bias, sm)
     ms = ms[0]
     return {
         "name": "ln_qkv_bwd_frozen", "route": "cuda",
@@ -685,32 +724,32 @@ def phase_ln_qkv_bwd_frozen(dev) -> dict:
     }
 
 
-def _time_frozen_launches(x, gout, ln_w, ln_b, w, bias, sm) -> None:
+def _time_frozen_launches(s: Shape, x, gout, ln_w, ln_b, w, bias, sm) -> None:
     """Row 5's three launches apart (device time, ``time_spread``): the
     LN + projection recompute, the attention backward and the dy = d_qkv W
     + LayerNorm-backward launch."""
     from clip_ebc_tpu_torch.ops import fused_attention as fa
 
-    dev, m = x.device, TRAIN_B * L
-    qkv = torch.empty(TRAIN_B, L, 3 * D, dtype=torch.bfloat16, device=dev)
+    dev, m = x.device, TRAIN_B * s.l
+    qkv = torch.empty(TRAIN_B, s.l, 3 * s.d, dtype=torch.bfloat16, device=dev)
 
     def recompute():
         fa._run("ebc_ln_qkv_proj", fa._entry("fused_attention", "ebc_ln_qkv_proj")(
             x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            qkv.data_ptr(), m, D, 1e-5, fa._stream(dev)))
+            qkv.data_ptr(), m, s.d, 1e-5, fa._stream(dev)))
 
     recompute()
-    dqkv = fa.attention_bwd(qkv, gout, H, L, sm)
+    dqkv = fa.attention_bwd(qkv, gout, s.h, s.l, sm)
     t = {"recompute (ebc_ln_qkv_proj)": time_spread(recompute),
-         "attention backward": time_spread(lambda: fa.attention_bwd(qkv, gout, H, L, sm)),
+         "attention backward": time_spread(lambda: fa.attention_bwd(qkv, gout, s.h, s.l, sm)),
          "ebc_ln_bwd_dx": time_spread(lambda: fa.ln_bwd_dx(x, dqkv, ln_w, w))}
     print("ln_qkv_bwd_frozen by launch: " + ", ".join(f"{k} {spread_str(v)}" for k, v in t.items()))
 
 
-def phase_ln_bwd_dx(dev) -> dict:
+def phase_ln_bwd_dx(dev, s: Shape) -> dict:
     """The frozen backward's last launch alone (``ebc_ln_bwd_dx``: dy =
-    d_qkv W, then the LayerNorm backward for dx) at the flagship training
-    step (M = 16 x 229 rows, D = 768), on the d_qkv of the attention
+    d_qkv W, then the LayerNorm backward for dx) at a training step of
+    ``s`` (M = 16 x 229 rows, D = 768 at the flagship), on the d_qkv of the attention
     backward at the trunk's scale, against ``ln_bwd_dx_plain`` (the tail of
     ``ln_qkv_bwd_frozen_plain``) within 2e-2 of the largest magnitude of
     dx, as the whole frozen backward is held; also on x with a large row
@@ -720,14 +759,14 @@ def phase_ln_bwd_dx(dev) -> dict:
     from clip_ebc_tpu_torch.ops import fused_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(15)
-    m = TRAIN_B * L
-    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
-    w = (torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5).to(torch.bfloat16)
-    qkv, gout = _bwd_inputs(dev, torch.bfloat16, 16)
-    dqkv = fa.attention_bwd_plain(qkv, gout, H, L, (D // H) ** -0.5).reshape(m, 3 * D)
+    m = TRAIN_B * s.l
+    ln_w = 1.0 + 0.1 * torch.randn(s.d, generator=g, device=dev)
+    w = (torch.randn(3 * s.d, s.d, generator=g, device=dev) * s.d**-0.5).to(torch.bfloat16)
+    qkv, gout = _bwd_inputs(dev, s, torch.bfloat16, 16)
+    dqkv = fa.attention_bwd_plain(qkv, gout, s.h, s.l, (s.d // s.h) ** -0.5).reshape(m, 3 * s.d)
     errs = []
-    for tag, x in (("unit rows", torch.randn(m, D, generator=g, device=dev)),
-                   ("rows of mean 50 +- 0.1", 50 + 0.1 * torch.randn(m, D, generator=g, device=dev))):
+    for tag, x in (("unit rows", torch.randn(m, s.d, generator=g, device=dev)),
+                   ("rows of mean 50 +- 0.1", 50 + 0.1 * torch.randn(m, s.d, generator=g, device=dev))):
         x = x.to(torch.bfloat16)
         got = fa.ln_bwd_dx(x, dqkv, ln_w, w)
         torch.cuda.synchronize()
@@ -736,10 +775,10 @@ def phase_ln_bwd_dx(dev) -> dict:
     ms = time_spread(lambda: fa.ln_bwd_dx(x, dqkv, ln_w, w))
     library = time_spread(lambda: torch.mm(dqkv, w))
     plain = time_ms(lambda: fa.ln_bwd_dx_plain(x, dqkv, ln_w, w), iters=5, warmup=1)
-    flops = 2 * m * 3 * D * D
-    nbytes = m * 3 * D * 2 + 3 * D * D * 2 + 2 * m * D * 2 + D * 4
+    flops = 2 * m * 3 * s.d * s.d
+    nbytes = m * 3 * s.d * 2 + 3 * s.d * s.d * 2 + 2 * m * s.d * 2 + s.d * 4
     bnd, by = bound_ms(flops, PEAK_BF16, nbytes)
-    print(f"ln_bwd_dx at M = {TRAIN_B} x {L}: kernel {spread_str(ms)} "
+    print(f"ln_bwd_dx at M = {TRAIN_B} x {s.l}: kernel {spread_str(ms)} "
           f"({flops / ms[0] / 1e9:.1f} TFLOP/s), torch.mm(d_qkv, W) {spread_str(library)} "
           f"({flops / library[0] / 1e9:.1f} TFLOP/s), kernel / torch.mm {ms[0] / library[0]:.2f}x; "
           f"plain {plain:.3f} ms; bound {bnd:.4f} ms ({by}), kernel at {bnd / ms[0]:.0%} of it")
@@ -767,8 +806,8 @@ def _check_max_median(who: str, got, want, max_tol: float, med_tol: float) -> fl
     return err
 
 
-def phase_attention_int8(dev, dtype: torch.dtype) -> dict:
-    """The W8A8 LN + projection + attention kernel at the flagship shape
+def phase_attention_int8(dev, s: Shape, dtype: torch.dtype) -> dict:
+    """The W8A8 LN + projection + attention kernel at the launch ``s``
     against its plain version, with the static scale a calibration would
     record (the LN output's max-abs). bf16: max 2e-2, median 1e-3 of the
     largest magnitude; fp32: max 2e-3, median 1e-4 (a flipped int8 step of
@@ -780,30 +819,30 @@ def phase_attention_int8(dev, dtype: torch.dtype) -> dict:
     fp32 = dtype == torch.float32
     max_tol, med_tol, attn_peak, tag = (2e-3, 1e-4, PEAK_FP32, " fp32") if fp32 else (2e-2, 1e-3, PEAK_BF16, "")
     g = torch.Generator(device=dev).manual_seed(4)
-    x = torch.randn(B, L, D, generator=g, device=dev).to(dtype)
-    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
-    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
-    w = torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5  # the fp32 master weight
-    bias = 0.02 * torch.randn(3 * D, generator=g, device=dev)
-    y = torch.nn.functional.layer_norm(x.float(), (D,), ln_w, ln_b)
+    x = torch.randn(s.b, s.l, s.d, generator=g, device=dev).to(dtype)
+    ln_w = 1.0 + 0.1 * torch.randn(s.d, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(s.d, generator=g, device=dev)
+    w = torch.randn(3 * s.d, s.d, generator=g, device=dev) * s.d**-0.5  # the fp32 master weight
+    bias = 0.02 * torch.randn(3 * s.d, generator=g, device=dev)
+    y = torch.nn.functional.layer_norm(x.float(), (s.d,), ln_w, ln_b)
     act_scale = y.abs().amax() / 127.0
     del y
     wq = quantize_weight(w)
-    sm = (D // H) ** -0.5
+    sm = (s.d // s.h) ** -0.5
     errs = []
-    for kv_len in (L, 200):
-        got = fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, kv_len, sm)
-        want = ln_qkv_attention_int8_plain(x, ln_w, ln_b, *wq, bias, act_scale, H, kv_len, sm)
+    for kv_len in (s.l, 200):
+        got = fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, s.h, kv_len, sm)
+        want = ln_qkv_attention_int8_plain(x, ln_w, ln_b, *wq, bias, act_scale, s.h, kv_len, sm)
         torch.cuda.synchronize()
         check(got.dtype == dtype, f"int8 attention kernel returned {got.dtype}, expected {dtype}")
         errs.append(_check_max_median(f"int8 attention{tag} kernel vs plain, kv_len={kv_len}",
                                       got[:, :kv_len], want[:, :kv_len], max_tol, med_tol))
-    ms = time_spread(lambda: fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, L, sm,
+    ms = time_spread(lambda: fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, s.h, s.l, sm,
                                                          quantized=wq))
-    plain = time_ms(lambda: ln_qkv_attention_int8_plain(x, ln_w, ln_b, *wq, bias, act_scale, H, L, sm))
-    m, es = B * L, x.element_size()
-    proj_ops, attn_flops = 2 * m * D * 3 * D, 2 * 2 * B * H * L * L * (D // H)
-    nbytes = m * D * es * 2 + 3 * D * D + 2 * D * 4 + 2 * 3 * D * 4 + 4
+    plain = time_ms(lambda: ln_qkv_attention_int8_plain(x, ln_w, ln_b, *wq, bias, act_scale, s.h, s.l, sm))
+    m, es = s.b * s.l, x.element_size()
+    proj_ops, attn_flops = 2 * m * s.d * 3 * s.d, 2 * 2 * s.b * s.h * s.l * s.l * (s.d // s.h)
+    nbytes = m * s.d * es * 2 + 3 * s.d * s.d + 2 * s.d * 4 + 2 * 3 * s.d * 4 + 4
     t_ops = (proj_ops / PEAK_INT8 + attn_flops / attn_peak) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     bnd, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -818,10 +857,10 @@ def phase_attention_int8(dev, dtype: torch.dtype) -> dict:
     }
 
 
-def phase_int8_proj(dev, dtype: torch.dtype) -> dict:
+def phase_int8_proj(dev, s: Shape, dtype: torch.dtype) -> dict:
     """The int8 LN + quantize + QKV projection alone, the first launch of
-    rows 2b and 2c, at the flagship shape (M = 140 x 229 rows, D = 768, N
-    = 2304) through its C entries: the float epilogue (row 2b: qkv in x's
+    rows 2b and 2c, at the launch ``s`` (M = 140 x 229 rows, D = 768, N
+    = 2304 at the flagship) through its C entries: the float epilogue (row 2b: qkv in x's
     dtype) and the int8 one (row 2c: q, k, v with calibrated scales
     folded in), each against the plain projection with the same
     epilogue (max 2e-2 and median 1e-3 of the largest output in bf16 and
@@ -834,12 +873,12 @@ def phase_int8_proj(dev, dtype: torch.dtype) -> dict:
 
     fp32 = dtype == torch.float32
     tag = " fp32" if fp32 else ""
-    x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, dtype, 12, B, L)
+    x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, s, dtype, 12)
     w_q, s_col = quantize_weight(w)
-    m, n = B * L, 3 * D
+    m, n = s.b * s.l, 3 * s.d
     inv_act = (1.0 / act_scale).reshape(1)
     sw_f = s_col * act_scale
-    sw_q, bias_q = fa.fold_attn_scales(s_col, bias, act_scale, aq, D)
+    sw_q, bias_q = fa.fold_attn_scales(s_col, bias, act_scale, aq, s.d)
     outs = {"float": torch.empty(m, n, dtype=dtype, device=dev),
             "int8": torch.empty(m, n, dtype=torch.int8, device=dev)}
     entries = {"float": ("ebc_ln_qkv_proj_int8", sw_f, bias),
@@ -849,7 +888,7 @@ def phase_int8_proj(dev, dtype: torch.dtype) -> dict:
         name, sw, bi = entries[epi]
         fa._run(name, fa._entry("fused_attention_int8", name)(
             x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
-            bi.data_ptr(), inv_act.data_ptr(), outs[epi].data_ptr(), m, D, int(fp32), 1e-5,
+            bi.data_ptr(), inv_act.data_ptr(), outs[epi].data_ptr(), m, s.d, int(fp32), 1e-5,
             fa._stream(dev)))
 
     acc = fa._int8_ln_project(x, ln_w, ln_b, w_q, act_scale, 1e-5).reshape(m, n)
@@ -865,16 +904,16 @@ def phase_int8_proj(dev, dtype: torch.dtype) -> dict:
                                       outs[epi], want[epi], max_tol, med_tol))
         ms[epi] = time_spread(lambda epi=epi: run(epi))
     del want
-    yq = torch.randint(-127, 128, (m, D), dtype=torch.int8, device=dev)
+    yq = torch.randint(-127, 128, (m, s.d), dtype=torch.int8, device=dev)
     int_mm = time_spread(lambda: torch._int_mm(yq, w_q.t()))
-    ops = 2 * m * D * n
+    ops = 2 * m * s.d * n
     es = x.element_size()
-    bounds = {epi: bound_ms(ops, PEAK_INT8, m * D * es + m * n * (es if epi == "float" else 1)
-                            + n * D + (2 * D + 2 * n) * 4 + 4) for epi in ("float", "int8")}
+    bounds = {epi: bound_ms(ops, PEAK_INT8, m * s.d * es + m * n * (es if epi == "float" else 1)
+                            + n * s.d + (2 * s.d + 2 * n) * 4 + 4) for epi in ("float", "int8")}
     for epi in ("float", "int8"):
         print(f"int8 projection{tag}, {epi} epilogue: kernel {spread_str(ms[epi])}, bound "
               f"{bounds[epi][0]:.4f} ms ({bounds[epi][1]}); {ops / ms[epi][0] / 1e9:.1f} TOP/s")
-    print(f"int8 projection{tag}: torch._int_mm on the bare int8 product ({m}, {D}) x ({D}, {n}) "
+    print(f"int8 projection{tag}: torch._int_mm on the bare int8 product ({m}, {s.d}) x ({s.d}, {n}) "
           f"{spread_str(int_mm)}; kernel / _int_mm: float {ms['float'][0] / int_mm[0]:.2f}x, "
           f"int8 {ms['int8'][0] / int_mm[0]:.2f}x")
     plain = time_ms(lambda: fa._int8_ln_project(x, ln_w, ln_b, w_q, act_scale, 1e-5) * sw_f + bias,
@@ -946,12 +985,12 @@ def phase_ln_qkv_proj(dev) -> dict:
     }
 
 
-def phase_int8_attention_body(dev) -> dict:
+def phase_int8_attention_body(dev, s: Shape) -> dict:
     """The int8 attention body alone (``ebc_int8_attention``, the attention
     launch of rows 2c and 2d) on an int8 qkv from the LN + int8 projection
-    kernel: static scales at the flagship windows (140 x 229 tokens) and at
-    ``--window_size 320`` (70 x 433), dynamic per-tile scales (from the
-    float projection and the scale pass) at 229 tokens, each with bf16 and
+    kernel: static scales at the windows of ``s`` (140 x 229 tokens at the
+    flagship) and at ``--window_size 320`` (70 x 433), dynamic per-tile
+    scales (from the float projection and the scale pass) at s.l tokens, each with bf16 and
     fp32 output, against ``int8_attention_static_plain`` and
     ``int8_attention_dynamic_plain`` at kv_len = L and L - 29 (max 2e-2 and
     median 1e-3 of the largest output, as ``phase_int8_attention_q``),
@@ -960,23 +999,24 @@ def phase_int8_attention_body(dev) -> dict:
     from clip_ebc_tpu_torch.ops import fused_attention as fa
     from clip_ebc_tpu_torch.ops.quant import quantize_weight
 
-    sm = (D // H) ** -0.5
+    sm = (s.d // s.h) ** -0.5
     who = "int8_attention_body"
     rows = {}
-    for branch, b, l in (("static", B, L), ("static", LONG_B, LONG_L), ("dynamic", B, L)):
-        x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, torch.bfloat16, 12, b, l)
+    for branch, b, l in (("static", s.b, s.l), ("static", LONG_B, LONG_L), ("dynamic", s.b, s.l)):
+        x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, s._replace(b=b, l=l),
+                                                                  torch.bfloat16, 12)
         w_q, s_col = quantize_weight(w)
         m = b * l
         inv_act = (1.0 / act_scale).reshape(1)
         if branch == "static":
-            sw, bi = fa.fold_attn_scales(s_col, bias, act_scale, aq, D)
-            name, proj_out = "ebc_ln_qkv_proj_int8_q", torch.empty(b, l, 3 * D, dtype=torch.int8, device=dev)
+            sw, bi = fa.fold_attn_scales(s_col, bias, act_scale, aq, s.d)
+            name, proj_out = "ebc_ln_qkv_proj_int8_q", torch.empty(b, l, 3 * s.d, dtype=torch.int8, device=dev)
         else:
             sw, bi = s_col * act_scale, bias
-            name, proj_out = "ebc_ln_qkv_proj_int8", torch.empty(b, l, 3 * D, dtype=torch.bfloat16, device=dev)
+            name, proj_out = "ebc_ln_qkv_proj_int8", torch.empty(b, l, 3 * s.d, dtype=torch.bfloat16, device=dev)
         fa._run(name, fa._entry("fused_attention_int8", name)(
             x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
-            bi.data_ptr(), inv_act.data_ptr(), proj_out.data_ptr(), m, D, 0, 1e-5, fa._stream(dev)))
+            bi.data_ptr(), inv_act.data_ptr(), proj_out.data_ptr(), m, s.d, 0, 1e-5, fa._stream(dev)))
         del x, w, w_q
         for out_dtype in (torch.bfloat16, torch.float32):
             f32 = out_dtype == torch.float32
@@ -985,34 +1025,34 @@ def phase_int8_attention_body(dev) -> dict:
             else:
                 # the scale pass on the float qkv (fp32 output: the same values in fp32)
                 qkv = proj_out.float() if f32 else proj_out
-                qkv_q, scales = fa.qkv_quant_dynamic(qkv, H, 1 if f32 else 2)
-            out = torch.empty(b, l, D, dtype=out_dtype, device=dev)
+                qkv_q, scales = fa.qkv_quant_dynamic(qkv, s.h, 1 if f32 else 2)
+            out = torch.empty(b, l, s.d, dtype=out_dtype, device=dev)
             tag = f"{branch} scales, {b} x {l} tokens, {'fp32' if f32 else 'bf16'} out"
             errs = []
             for kv_len in (l, l - 29):
-                fa._launch_int8_attention(who, qkv_q, scales, out, H, kv_len, sm, branch == "dynamic")
-                want = (fa.int8_attention_static_plain(qkv_q, aq, H, kv_len, sm, out_dtype)
+                fa._launch_int8_attention(who, qkv_q, scales, out, s.h, kv_len, sm, branch == "dynamic")
+                want = (fa.int8_attention_static_plain(qkv_q, aq, s.h, kv_len, sm, out_dtype)
                         if branch == "static" else
-                        fa.int8_attention_dynamic_plain(qkv, H, kv_len, sm, 1 if f32 else 2))
+                        fa.int8_attention_dynamic_plain(qkv, s.h, kv_len, sm, 1 if f32 else 2))
                 torch.cuda.synchronize()
                 errs.append(_check_max_median(f"{who}, {tag}, kernel vs plain, kv_len={kv_len}",
                                               out[:, :kv_len], want[:, :kv_len], 2e-2, 1e-3))
                 del want
-            ms = time_spread(lambda: fa._launch_int8_attention(who, qkv_q, scales, out, H, l, sm,
+            ms = time_spread(lambda: fa._launch_int8_attention(who, qkv_q, scales, out, s.h, l, sm,
                                                                branch == "dynamic"))
-            plain = (time_ms(lambda: fa.int8_attention_static_plain(qkv_q, aq, H, l, sm, out_dtype),
+            plain = (time_ms(lambda: fa.int8_attention_static_plain(qkv_q, aq, s.h, l, sm, out_dtype),
                              iters=5, warmup=1) if branch == "static" else
-                     time_ms(lambda: fa.int8_attention_dynamic_plain(qkv, H, l, sm, 1 if f32 else 2),
+                     time_ms(lambda: fa.int8_attention_dynamic_plain(qkv, s.h, l, sm, 1 if f32 else 2),
                              iters=5, warmup=1))
-            ops = 2 * 2 * b * H * l * l * (D // H)
-            bnd, by = bound_ms(ops, PEAK_INT8, m * 3 * D + m * D * out.element_size() + scales.numel() * 4)
+            ops = 2 * 2 * b * s.h * l * l * (s.d // s.h)
+            bnd, by = bound_ms(ops, PEAK_INT8, m * 3 * s.d + m * s.d * out.element_size() + scales.numel() * 4)
             print(f"{who}, {tag}: kernel {spread_str(ms)} ({ops / ms[0] / 1e9:.1f} TOP/s), plain "
                   f"{plain:.3f} ms, bound {bnd:.4f} ms ({by}), kernel at {bnd / ms[0]:.0%} of it")
             rows[(branch, l, f32)] = dict(err=max(errs), ms=ms[0], plain=plain,
                                           bound=(bnd, by))
             del out
         del proj_out
-    r = rows[("static", L, False)]
+    r = rows[("static", s.l, False)]
     return {
         "name": "int8_attention_body", "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention_int8.cu",
@@ -1024,53 +1064,53 @@ def phase_int8_attention_body(dev) -> dict:
     }
 
 
-def _int8_attn_inputs(dev, dtype, seed, b=B, l=L):
-    """The block's inputs (the flagship's, or b windows of l tokens) with
-    the scales a calibration records: the LN output's max-abs / 127 and
-    each of q, k, v's."""
+def _int8_attn_inputs(dev, s: Shape, dtype, seed):
+    """The block's inputs at the launch ``s`` with the scales a calibration
+    records: the LN output's max-abs / 127 and each of q, k, v's."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(b, l, D, generator=g, device=dev).to(dtype)
-    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
-    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
-    w = torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5  # the fp32 master weight
-    bias = 0.02 * torch.randn(3 * D, generator=g, device=dev)
-    y = torch.nn.functional.layer_norm(x.float(), (D,), ln_w, ln_b)
+    x = torch.randn(s.b, s.l, s.d, generator=g, device=dev).to(dtype)
+    ln_w = 1.0 + 0.1 * torch.randn(s.d, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(s.d, generator=g, device=dev)
+    w = torch.randn(3 * s.d, s.d, generator=g, device=dev) * s.d**-0.5  # the fp32 master weight
+    bias = 0.02 * torch.randn(3 * s.d, generator=g, device=dev)
+    y = torch.nn.functional.layer_norm(x.float(), (s.d,), ln_w, ln_b)
     act_scale = y.abs().amax() / 127.0
-    aq = (y @ w.T + bias).reshape(-1, 3, D).abs().amax((0, 2)) / 127.0
+    aq = (y @ w.T + bias).reshape(-1, 3, s.d).abs().amax((0, 2)) / 127.0
     return x, ln_w, ln_b, w, bias, act_scale, aq
 
 
-def phase_int8_attention_q(dev, dtype: torch.dtype, branch: str, b: int = B, l: int = L) -> dict:
-    """The fully int8 block attention at the flagship shape against its
+def phase_int8_attention_q(dev, s: Shape, dtype: torch.dtype, branch: str) -> dict:
+    """The fully int8 block attention at the launch ``s`` against its
     plain version: ``static`` (calibrated q, k, v scales: the projection
     writes int8 q, k, v, then the int8 attention kernel) or ``dynamic``
     (the float projection, the per-tile scale pass, the same int8 attention
-    kernel). With ``l`` = LONG_L, the static branch at the shape of
-    ``--window_size 320`` (LONG_B windows of 433 tokens), whose attention
-    sweeps the keys twice. Max 2e-2 and median 1e-3 of the largest output
+    kernel). With ``s.l`` = LONG_L, the static branch at the shape of
+    ``--window_size 320`` (LONG_B windows of 433 tokens; its row named
+    ``_l433``), whose attention sweeps the keys twice. Max 2e-2 and median 1e-3 of the largest output
     in both dtypes: a flipped int8 step of q, k, v or p moves an output by
     up to 1/127 of its range, a wrong scale every output."""
     from clip_ebc_tpu_torch.ops import fused_attention as fa
     from clip_ebc_tpu_torch.ops.quant import quantize_weight
 
     fp32 = dtype == torch.float32
-    tag = (" fp32" if fp32 else "") + (f" at L = {l}" if l != L else "")
-    x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, dtype, 12, b, l)
+    b, l = s.b, s.l
+    tag = (" fp32" if fp32 else "") + (f" at L = {l}" if l == LONG_L else "")
+    x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, s, dtype, 12)
     wq = quantize_weight(w)
-    sm = (D // H) ** -0.5
+    sm = (s.d // s.h) ** -0.5
     block_b = 1 if fp32 else 2
     kw = dict(attn_scales=aq) if branch == "static" else dict(quant_attn=True)
 
     def plain(kv_len):
         if branch == "static":
-            return fa.ln_qkv_attention_int8_static_plain(x, ln_w, ln_b, *wq, bias, act_scale, aq, H,
+            return fa.ln_qkv_attention_int8_static_plain(x, ln_w, ln_b, *wq, bias, act_scale, aq, s.h,
                                                          kv_len, sm)
-        return fa.ln_qkv_attention_int8_dynamic_plain(x, ln_w, ln_b, *wq, bias, act_scale, H, kv_len,
+        return fa.ln_qkv_attention_int8_dynamic_plain(x, ln_w, ln_b, *wq, bias, act_scale, s.h, kv_len,
                                                       sm, block_b=block_b)
 
     errs = []
     for kv_len in (l, l - 29):
-        got = fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, kv_len, sm,
+        got = fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, s.h, kv_len, sm,
                                              quantized=wq, **kw)
         want = plain(kv_len)
         torch.cuda.synchronize()
@@ -1079,18 +1119,18 @@ def phase_int8_attention_q(dev, dtype: torch.dtype, branch: str, b: int = B, l: 
                                       f"kv_len={kv_len}", got[:, :kv_len], want[:, :kv_len],
                                       2e-2, 1e-3))
         del got, want
-    ms = time_spread(lambda: fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, H, l, sm,
+    ms = time_spread(lambda: fa.fused_ln_qkv_attention_int8(x, ln_w, ln_b, w, bias, act_scale, s.h, l, sm,
                                                             quantized=wq, **kw))
     plain_ms = time_ms(lambda: plain(l), iters=5, warmup=1)
     m, es = b * l, x.element_size()
-    ops = 2 * m * D * 3 * D + 2 * 2 * b * H * l * l * (D // H)  # projection, QK^T and PV: all int8
-    nbytes = m * D * es * 2 + 3 * D * D + 2 * D * 4 + 2 * 3 * D * 4 + 4 + 3 * 4
+    ops = 2 * m * s.d * 3 * s.d + 2 * 2 * b * s.h * l * l * (s.d // s.h)  # projection, QK^T and PV: all int8
+    nbytes = m * s.d * es * 2 + 3 * s.d * s.d + 2 * s.d * 4 + 2 * 3 * s.d * 4 + 4 + 3 * 4
     bnd, by = bound_ms(ops, PEAK_INT8, nbytes)
     print(f"int8 attention, {branch} scales{tag}: kernel {spread_str(ms)}, plain {plain_ms:.3f} ms, bound "
           f"{bnd:.4f} ms ({by}: {ops / 1e9:.1f} GOP int8); {ops / ms[0] / 1e9:.1f} TOP/s")
     ms = ms[0]
     return {
-        "name": f"int8_attention_{branch}" + ("_fp32" if fp32 else "") + (f"_l{l}" if l != L else ""),
+        "name": f"int8_attention_{branch}" + ("_fp32" if fp32 else "") + (f"_l{l}" if l == LONG_L else ""),
         "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention_int8.cu",
         "replaces": ("clip_ebc_tpu/ops/fused_attention.py:195" if branch == "static"
@@ -1100,10 +1140,11 @@ def phase_int8_attention_q(dev, dtype: torch.dtype, branch: str, b: int = B, l: 
     }
 
 
-def phase_mlp_int8(dev, dtype: torch.dtype) -> list:
+def phase_mlp_int8(dev, s: Shape, dtype: torch.dtype) -> list:
     """The W8A8 MLP (LN, int8 fc, GELU, int8 proj, residual) at the
-    flagship shape (140 windows x 229 tokens, D = 768, hidden 3072) against
-    its plain version: QuickGELU, and in bf16 the tanh GELU once. Max 2e-2
+    launch ``s`` (140 windows x 229 tokens, D = 768, hidden 3072 at the
+    flagship) against its plain version: QuickGELU, and in bf16 the tanh
+    GELU once. Max 2e-2
     of the largest output (one flipped int8 step of an LN output moves all
     3072 hidden units of its row: 6.6e-2 on outputs of magnitude 12 in
     fp32 at this shape on an H100) and median 1e-3 in bf16, 1e-4 in fp32; in
@@ -1121,16 +1162,16 @@ def phase_mlp_int8(dev, dtype: torch.dtype) -> list:
 
     fp32 = dtype == torch.float32
     tag = " fp32" if fp32 else ""
-    hidden = 4 * D
+    hidden = 4 * s.d
     g = torch.Generator(device=dev).manual_seed(13)
-    x = torch.randn(B, L, D, generator=g, device=dev).to(dtype)
-    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
-    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
-    w_fc = 0.06 * torch.randn(hidden, D, generator=g, device=dev)
+    x = torch.randn(s.b, s.l, s.d, generator=g, device=dev).to(dtype)
+    ln_w = 1.0 + 0.1 * torch.randn(s.d, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(s.d, generator=g, device=dev)
+    w_fc = 0.06 * torch.randn(hidden, s.d, generator=g, device=dev)
     b_fc = 0.02 * torch.randn(hidden, generator=g, device=dev)
-    w_pj = 0.03 * torch.randn(D, hidden, generator=g, device=dev)
-    b_pj = 0.02 * torch.randn(D, generator=g, device=dev)
-    y = torch.nn.functional.layer_norm(x.float(), (D,), ln_w, ln_b)
+    w_pj = 0.03 * torch.randn(s.d, hidden, generator=g, device=dev)
+    b_pj = 0.02 * torch.randn(s.d, generator=g, device=dev)
+    y = torch.nn.functional.layer_norm(x.float(), (s.d,), ln_w, ln_b)
     hh = y @ w_fc.T + b_fc
     act1 = y.abs().amax() / 127.0
     act2 = (hh * torch.sigmoid(1.702 * hh)).abs().amax() / 127.0
@@ -1152,9 +1193,9 @@ def phase_mlp_int8(dev, dtype: torch.dtype) -> list:
     ms = time_spread(lambda: fa.fused_ln_mlp_int8(*args, quantized=qz))
     plain_ms = time_ms(lambda: fa.ln_mlp_int8_plain(x, ln_w, ln_b, *qz[:2], b_fc, act1, *qz[2:], b_pj,
                                                     act2, True), iters=5, warmup=1)
-    m, es = B * L, x.element_size()
-    ops = 2 * 2 * m * D * hidden
-    nbytes = m * D * es * 2 + 2 * D * hidden + (2 * hidden + 2 * D + 2 * D) * 4 + 8
+    m, es = s.b * s.l, x.element_size()
+    ops = 2 * 2 * m * s.d * hidden
+    nbytes = m * s.d * es * 2 + 2 * s.d * hidden + (2 * hidden + 2 * s.d + 2 * s.d) * 4 + 8
     bnd, by = bound_ms(ops, PEAK_INT8, nbytes)
     print(f"int8 MLP{tag}: kernel {spread_str(ms)}, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}: "
           f"{ops / 1e9:.1f} GOP int8); {ops / ms[0] / 1e9:.1f} TOP/s")
@@ -1169,24 +1210,24 @@ def phase_mlp_int8(dev, dtype: torch.dtype) -> list:
     def run1():
         fa._run("ebc_ln_proj_gelu_int8", launch1(
             x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wfc_q.data_ptr(), sw1.data_ptr(),
-            b_fc.data_ptr(), inv[0:1].data_ptr(), inv[1:2].data_ptr(), hq.data_ptr(), m, D, hidden, 1,
+            b_fc.data_ptr(), inv[0:1].data_ptr(), inv[1:2].data_ptr(), hq.data_ptr(), m, s.d, hidden, 1,
             int(fp32), 1e-5, fa._stream(dev)))
 
     run1()
-    x2 = x.reshape(m, D)
+    x2 = x.reshape(m, s.d)
     got = fa.int8_gemm_residual(hq, wpj_q, sw2, b_pj, x2)
     want = fa.int8_gemm_residual_plain(hq, wpj_q, sw2, b_pj, x2)
     torch.cuda.synchronize()
     check(torch.equal(got, want), f"int8 MLP launch 2{tag} differs from int8_gemm_residual_plain")
-    print(f"int8 MLP launch 2{tag}: bit-equal to int8_gemm_residual_plain at ({m}, {hidden}) x ({D}, {hidden})^T")
+    print(f"int8 MLP launch 2{tag}: bit-equal to int8_gemm_residual_plain at ({m}, {hidden}) x ({s.d}, {hidden})^T")
     del got, want
     ms1 = time_spread(run1)
     ms2 = time_spread(lambda: fa.int8_gemm_residual(hq, wpj_q, sw2, b_pj, x2))
     int_mm_ms = time_spread(lambda: quant.int_mm(hq, wpj_q))
     plain2 = time_ms(lambda: fa.int8_gemm_residual_plain(hq, wpj_q, sw2, b_pj, x2), iters=5, warmup=1)
-    ops1 = ops2 = 2 * m * D * hidden
-    bnd1 = bound_ms(ops1, PEAK_INT8, m * D * es + D * hidden + m * hidden + (2 * hidden + 2 * D) * 4 + 8)
-    bnd2 = bound_ms(ops2, PEAK_INT8, m * hidden + D * hidden + 2 * m * D * es + 2 * D * 4)
+    ops1 = ops2 = 2 * m * s.d * hidden
+    bnd1 = bound_ms(ops1, PEAK_INT8, m * s.d * es + s.d * hidden + m * hidden + (2 * hidden + 2 * s.d) * 4 + 8)
+    bnd2 = bound_ms(ops2, PEAK_INT8, m * hidden + s.d * hidden + 2 * m * s.d * es + 2 * s.d * 4)
     print(f"int8 MLP{tag} by launch: launch 1 (LN, fc, GELU, quantize) {spread_str(ms1)}, bound "
           f"{bnd1[0]:.4f} ms ({bnd1[1]}), at {bnd1[0] / ms1[0]:.0%} of it; launch 2 (proj, residual) "
           f"{spread_str(ms2)}, bound {bnd2[0]:.4f} ms ({bnd2[1]}), at {bnd2[0] / ms2[0]:.0%} of it, "
@@ -1207,33 +1248,33 @@ def phase_mlp_int8(dev, dtype: torch.dtype) -> list:
     }]
 
 
-def phase_qkv_quant_dynamic(dev, dtype: torch.dtype, b: int = B, l: int = L) -> dict:
+def phase_qkv_quant_dynamic(dev, s: Shape, dtype: torch.dtype) -> dict:
     """The dynamic scale pass alone (``qkv_quant_dynamic``: row 2d's
     per-tile max-abs scales and int8 q, k, v) on a float qkv at the
-    flagship windows (or b windows of l tokens), tiles of 2 windows in bf16
-    and 1 in fp32: qkv_q and the scales bit-equal to
-    ``qkv_quant_dynamic_plain``; timed by device time beside its bound
+    launch ``s``, tiles of 2 windows in bf16 and 1 in fp32: qkv_q and the
+    scales bit-equal to ``qkv_quant_dynamic_plain``; timed by device time beside its bound
     (qkv read once, written once as int8)."""
     from clip_ebc_tpu_torch.ops import fused_attention as fa
 
     fp32 = dtype == torch.float32
-    tag = (" fp32" if fp32 else "") + (f" at ({b}, {l})" if (b, l) != (B, L) else "")
+    b, l = s.b, s.l
+    tag = (" fp32" if fp32 else "") + (f" at ({b}, {l}, {3 * s.d})" if s != FLAGSHIP else "")
     block_b = 1 if fp32 else 2
     g = torch.Generator(device=dev).manual_seed(17)
     # heads of unlike magnitude, as a projection gives them
-    qkv = (torch.randn(b, l, 3 * D, generator=g, device=dev)
-           * (0.5 + torch.rand(3 * D // 64, generator=g, device=dev)).repeat_interleave(64)).to(dtype)
-    got_q, got_s = fa.qkv_quant_dynamic(qkv, H, block_b)
-    want_q, want_s = fa.qkv_quant_dynamic_plain(qkv, H, block_b)
+    qkv = (torch.randn(b, l, 3 * s.d, generator=g, device=dev)
+           * (0.5 + torch.rand(3 * s.d // 64, generator=g, device=dev)).repeat_interleave(64)).to(dtype)
+    got_q, got_s = fa.qkv_quant_dynamic(qkv, s.h, block_b)
+    want_q, want_s = fa.qkv_quant_dynamic_plain(qkv, s.h, block_b)
     torch.cuda.synchronize()
     check(torch.equal(got_q, want_q) and torch.equal(got_s, want_s),
           f"scale pass{tag} differs from qkv_quant_dynamic_plain")
     print(f"scale pass{tag}: qkv_q and scales bit-equal to qkv_quant_dynamic_plain")
     del got_q, got_s, want_q, want_s
-    ms = time_spread(lambda: fa.qkv_quant_dynamic(qkv, H, block_b))
-    plain = time_ms(lambda: fa.qkv_quant_dynamic_plain(qkv, H, block_b), iters=5, warmup=1)
+    ms = time_spread(lambda: fa.qkv_quant_dynamic(qkv, s.h, block_b))
+    plain = time_ms(lambda: fa.qkv_quant_dynamic_plain(qkv, s.h, block_b), iters=5, warmup=1)
     n = qkv.numel()
-    bnd, by = bound_ms(0.0, PEAK_FP32, n * qkv.element_size() + n + b * H * 3 * 4)
+    bnd, by = bound_ms(0.0, PEAK_FP32, n * qkv.element_size() + n + b * s.h * 3 * 4)
     print(f"scale pass{tag}: kernel {spread_str(ms)}, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by}), "
           f"kernel at {bnd / ms[0]:.0%} of it, {(n * qkv.element_size() + n) / ms[0] / 1e6:.0f} GB/s")
     return {
@@ -1244,16 +1285,13 @@ def phase_qkv_quant_dynamic(dev, dtype: torch.dtype, b: int = B, l: int = L) -> 
     }
 
 
-# (B, L, kv_len) of the masked attention's checks: a window forward, a
-# calibration batch with masked keys (its query tiles in two parts a pair),
-# one valid key, the longest fused length and a length that is no multiple
-# of 16
-QKV_ATTN_SHAPES = [(B, L, L), (CALIB_B, L, 200), (3, 64, 1), (2, 320, 320), (2, 77, 77)]
-
-
-def phase_qkv_attention(dev, dtype: torch.dtype) -> dict:
+def phase_qkv_attention(dev, s: Shape, dtype: torch.dtype) -> dict:
     """The attention from a precomputed qkv against its plain version at
-    ``QKV_ATTN_SHAPES`` (ViT-B width): bf16 max 2e-2 and median 1e-3 of the
+    the width and heads of ``s``, at (windows, tokens, valid keys): a window
+    forward (s.b, s.l, s.l), a calibration batch with masked keys (16, s.l,
+    200: its query tiles in two parts a pair), one valid key, the longest
+    fused length, a length that is no multiple of 16, and a calibration
+    batch whole and with s.l - 39 keys: bf16 max 2e-2 and median 1e-3 of the
     largest magnitude (the bf16 kernel multiplies O by the reciprocal of
     the fp32 row sum where the plain version divides), fp32 1e-4 and 1e-5
     (fp32 throughout). Timed
@@ -1267,13 +1305,15 @@ def phase_qkv_attention(dev, dtype: torch.dtype) -> dict:
 
     fp32 = dtype == torch.float32
     max_tol, med_tol, peak, tag = (1e-4, 1e-5, PEAK_FP32, " fp32") if fp32 else (2e-2, 1e-3, PEAK_BF16, "")
-    sm = (D // H) ** -0.5
+    sm = (s.d // s.h) ** -0.5
     errs = []
-    for i, (b, l, kv_len) in enumerate(QKV_ATTN_SHAPES):
+    cases = [(s.b, s.l, s.l), (CALIB_B, s.l, 200), (3, 64, 1), (2, 320, 320), (2, 77, 77),
+             (CALIB_B, s.l, s.l), (CALIB_B, s.l, s.l - 39)]
+    for i, (b, l, kv_len) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(5 + i)
-        qkv = torch.randn(b, l, 3 * D, generator=g, device=dev).to(dtype)
-        got = fused_qkv_attention(qkv, H, kv_len, sm)
-        want = qkv_attention_plain(qkv, H, kv_len, sm)
+        qkv = torch.randn(b, l, 3 * s.d, generator=g, device=dev).to(dtype)
+        got = fused_qkv_attention(qkv, s.h, kv_len, sm)
+        want = qkv_attention_plain(qkv, s.h, kv_len, sm)
         torch.cuda.synchronize()
         check(got.dtype == dtype, f"qkv attention kernel returned {got.dtype}, expected {dtype}")
         errs.append(_check_max_median(f"qkv attention{tag} kernel vs plain at ({b}, {l}), kv_len={kv_len}",
@@ -1281,26 +1321,26 @@ def phase_qkv_attention(dev, dtype: torch.dtype) -> dict:
         del qkv, got, want
     es = 4 if fp32 else 2
     times = {}
-    for b in (CALIB_B, B):
+    for b in (CALIB_B, s.b):
         g = torch.Generator(device=dev).manual_seed(5)
-        qkv = torch.randn(b, L, 3 * D, generator=g, device=dev).to(dtype)
-        q, k, v = (t.reshape(b, L, H, D // H).transpose(1, 2) for t in qkv.split(D, dim=-1))
-        t = {"kernel": time_spread(lambda: fused_qkv_attention(qkv, H, L, sm)),
+        qkv = torch.randn(b, s.l, 3 * s.d, generator=g, device=dev).to(dtype)
+        q, k, v = (t.reshape(b, s.l, s.h, s.d // s.h).transpose(1, 2) for t in qkv.split(s.d, dim=-1))
+        t = {"kernel": time_spread(lambda: fused_qkv_attention(qkv, s.h, s.l, sm)),
              "SDPA forward": time_spread(
                  lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=sm))}
-        if fp32 and b == B:
+        if fp32 and b == s.b:
             t["flash_short_fp32"] = time_spread(lambda: fl.flash_short(q, k, v, sm))
-        flops = 2 * 2 * b * H * L * L * (D // H)
-        bnd, by = bound_ms(flops, peak, b * L * (3 * D + D) * es)
-        print(f"qkv attention{tag} at ({b}, {L}, {3 * D}): " + ", ".join(
+        flops = 2 * 2 * b * s.h * s.l * s.l * (s.d // s.h)
+        bnd, by = bound_ms(flops, peak, b * s.l * (3 * s.d + s.d) * es)
+        print(f"qkv attention{tag} at ({b}, {s.l}, {3 * s.d}): " + ", ".join(
             f"{k} {spread_str(v)}" for k, v in t.items())
             + f"; bound {bnd:.4f} ms ({by}); kernel {flops / t['kernel'][0] / 1e9:.1f} TFLOP/s")
         times[b] = t
         del qkv, q, k, v
     g = torch.Generator(device=dev).manual_seed(5)
-    qkv = torch.randn(CALIB_B, L, 3 * D, generator=g, device=dev).to(dtype)
-    plain = time_ms(lambda: qkv_attention_plain(qkv, H, L, sm))
-    bnd, by = bound_ms(2 * 2 * CALIB_B * H * L * L * (D // H), peak, CALIB_B * L * (3 * D + D) * es)
+    qkv = torch.randn(CALIB_B, s.l, 3 * s.d, generator=g, device=dev).to(dtype)
+    plain = time_ms(lambda: qkv_attention_plain(qkv, s.h, s.l, sm))
+    bnd, by = bound_ms(2 * 2 * CALIB_B * s.h * s.l * s.l * (s.d // s.h), peak, CALIB_B * s.l * (3 * s.d + s.d) * es)
     return {
         "name": "fused_qkv_attention" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/attention_short.cuh",
@@ -1406,7 +1446,7 @@ def phase_library_kernels(dev) -> None:
               f"{kernels(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125))}")
         del q, k, v
     for dtype in (torch.bfloat16, torch.float32):
-        qkv, gout = _bwd_inputs(dev, dtype, 2)
+        qkv, gout = _bwd_inputs(dev, FLAGSHIP, dtype, 2)
         q, k, v = (t.reshape(TRAIN_B, L, H, D // H).transpose(1, 2).detach().requires_grad_(True)
                    for t in qkv.split(D, dim=-1))
         out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
@@ -2446,9 +2486,11 @@ def model_flags(model: str, size: int) -> list:
             "--truncation", "4", "--count_loss", "dmcount", "--batch_size", str(MODEL_B)]
 
 
-def run_model_trainer(dev, data_root: str, ckpt_dir: str, flags: list, amp: bool) -> dict:
-    """The trainer CLI for one epoch and one evaluation with ``flags``,
-    the kernels' counters zeroed just before and read just after."""
+def run_model_trainer(dev, data_root: str, ckpt_dir: str, flags: list, amp: bool,
+                      steps: int = TRAIN_IMAGES // MODEL_B) -> dict:
+    """The trainer CLI for one epoch (``steps`` steps) and one evaluation
+    with ``flags``, the kernels' counters zeroed just before and read just
+    after."""
     from clip_ebc_tpu_torch.cli import trainer
 
     argv = flags + ["--total_epochs", "1", "--eval_start", "1", "--data_root", data_root,
@@ -2467,7 +2509,7 @@ def run_model_trainer(dev, data_root: str, ckpt_dir: str, flags: list, amp: bool
     _tally_off_path(f"trainer CLI, {tag}")
     loss = meta["loss_history"][-1]["loss"]
     check(math.isfinite(loss), f"trainer CLI, {tag}: loss {loss} is not finite")
-    print(f"trainer CLI, {tag}: {secs:.1f} s (model build, {TRAIN_IMAGES // MODEL_B} steps, eval, "
+    print(f"trainer CLI, {tag}: {secs:.1f} s (model build, {steps} steps, eval, "
           f"checkpoints); launches {launches}; epoch {meta['loss_history'][-1]}; "
           f"val {meta['best_scores']}")
     return launches
@@ -3113,8 +3155,8 @@ def phase_clip_backbones(dev, kernels: dict, profile: bool) -> None:
                   f"clip_vit_l_14 windows: launches {n}, expected 24 of row 2")
             row = kernels["fused_ln_qkv_attention_d1024" + ("" if amp else "_fp32")]
             row["launches"] = row["launches_vit_l"] = n["fused_ln_qkv_attention"]
-            print(f"predict CLI, clip_vit_l_14, {'bf16' if amp else 'fp32'}, {VIT_L_B} windows x "
-                  f"{VIT_L_L} tokens: count {count:.2f}, {secs:.1f} s; launches {n}")
+            print(f"predict CLI, clip_vit_l_14, {'bf16' if amp else 'fp32'}, {VIT_L14.b} windows x "
+                  f"{VIT_L14.l} tokens: count {count:.2f}, {secs:.1f} s; launches {n}")
         for dtype in (torch.bfloat16, torch.float32):
             model = get_model("clip_vit_l_14", 224, 8, bins, anchors, dtype=dtype, seed=0, device=dev)
             ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
@@ -3156,17 +3198,17 @@ def phase_clip_backbones(dev, kernels: dict, profile: bool) -> None:
         from clip_ebc_tpu_torch.ops import flash_attention as fl
 
         vl = 1 + 32 + -(-IMAGE_HW[0] // 14) * -(-IMAGE_HW[1] // 14)
-        q, k, v = _flash_inputs(dev, torch.bfloat16, 1, VIT_L_H, vl, 44)
+        q, k, v = _flash_inputs(dev, torch.bfloat16, 1, VIT_L14.h, vl, 44)
         got = fl.flash_tiled(q, k, v, 0.125)
         want = fl.flash_tiled_plain(q[:, :, :1024], k, v, 0.125, False)
         torch.cuda.synchronize()
-        err = _check_scaled(f"flash_tiled at (1, {VIT_L_H}, {vl}, 64), first 1024 queries",
+        err = _check_scaled(f"flash_tiled at (1, {VIT_L14.h}, {vl}, 64), first 1024 queries",
                             got[:, :, :1024], want, 2e-2)
         tiled = time_spread(lambda: fl.flash_tiled(q, k, v, 0.125))
         sdpa = time_spread(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125))
-        bnd = bound_ms(4 * VIT_L_H * vl * vl * 64, PEAK_BF16, 4 * VIT_L_H * vl * 64 * 2)
+        bnd = bound_ms(4 * VIT_L14.h * vl * vl * 64, PEAK_BF16, 4 * VIT_L14.h * vl * 64 * 2)
         kernels["flash_tiled"].update(ms_vit_l=tiled[0], sdpa_ms_vit_l=sdpa[0], bound_ms_vit_l=bnd[0])
-        print(f"flash_tiled at ViT-L's whole image (1, {VIT_L_H}, {vl}, 64): max abs err {err:.3e}; "
+        print(f"flash_tiled at ViT-L's whole image (1, {VIT_L14.h}, {vl}, 64): max abs err {err:.3e}; "
               f"kernel {spread_str(tiled)}, SDPA forward {spread_str(sdpa)}, bound {bnd[0]:.3f} ms "
               f"({bnd[1]})")
         del q, k, v, got, want
@@ -3188,6 +3230,368 @@ def phase_clip_backbones(dev, kernels: dict, profile: bool) -> None:
               f"route): count {count:.2f}, {secs:.1f} s; launches {n}")
 
 
+# ---- ViT-L's width: the D = 1024 kernels (phase 2) and phase 4d -----------------------
+
+
+def _d1024(row: dict) -> dict:
+    """A kernel row measured at ViT-L's shapes, named apart from its ViT-B row."""
+    return dict(row, name=row["name"] + "_d1024")
+
+
+def phase_kernels_d1024(dev) -> list:
+    """The kernels widened to D = 1024 at ViT-L's shapes (``VIT_L14``),
+    each against its plain version with the tolerance of its ViT-B check,
+    timed by device time beside its bound and its yardstick, by the same
+    phase functions as at D = 768: the frozen backward's dx launch and the
+    whole row 5 at a training step (16 x 289 rows; ``torch.mm(d_qkv, W)``
+    beside it), row 4 in bf16 and fp32 at 16 heads and 289 tokens (the
+    SDPA backward beside it), the int8 LN + projection with both epilogues
+    (``torch._int_mm`` on the bare product beside it), rows 2b, 2c (also at
+    70 x 433 tokens) and 2d, the int8 attention body, the W8A8 MLP with its
+    second launch bit-equal (``torch._int_mm`` beside it) and the dynamic
+    scale pass, all at 140 x 289 tokens; and row 3 (the attention from a
+    precomputed qkv, which ``--quant int8`` and every calibration batch
+    run) at 140 and 16 x 289 tokens, bf16 and fp32 in one row (fp32 under
+    ``*_fp32`` keys). Rows 2d, 6 and the scale pass are on no path, as at
+    D = 768."""
+    s = VIT_L14
+    print(f"---- kernels at ViT-L's shapes: D = {s.d}, {s.h} heads, {s.b} x {s.l} tokens "
+          f"({TRAIN_B} x {s.l} for the backward)")
+    rows = [_d1024(phase_ln_bwd_dx(dev, s)), _d1024(phase_ln_qkv_bwd_frozen(dev, s)),
+            _d1024(phase_attention_bwd(dev, s, torch.bfloat16)),
+            _d1024(phase_attention_bwd(dev, s, torch.float32)),
+            _d1024(phase_int8_proj(dev, s, torch.bfloat16)),
+            _d1024(phase_attention_int8(dev, s, torch.bfloat16)),
+            _d1024(phase_int8_attention_body(dev, s))]
+    static = _d1024(phase_int8_attention_q(dev, s, torch.bfloat16, "static"))
+    long = phase_int8_attention_q(dev, s._replace(b=LONG_B, l=LONG_L), torch.bfloat16, "static")
+    static.update(ms_l433=long["ms"], bound_ms_l433=long["bound_ms"],
+                  max_abs_err=max(static["max_abs_err"], long["max_abs_err"]))
+    qkv = _d1024(phase_qkv_attention(dev, s, torch.bfloat16))
+    qkv32 = phase_qkv_attention(dev, s, torch.float32)
+    qkv.update({k + "_fp32": qkv32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "library_ms")})
+    return rows + [static, _d1024(phase_int8_attention_q(dev, s, torch.bfloat16, "dynamic")),
+                   *map(_d1024, phase_mlp_int8(dev, s, torch.bfloat16)),
+                   _d1024(phase_qkv_quant_dynamic(dev, s, torch.bfloat16)), qkv]
+
+
+def _set_quant_attn(model, mode) -> None:
+    """Switch a static W8A8 model's attention mode in place (False, True
+    for the int8 attention kernel, ``"xla"``): the same weights and scales,
+    no second build."""
+    from clip_ebc_tpu_torch.models.transformer import MultiHeadAttention
+
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.quant_attn = mode
+
+
+VIT_L_STEPS = 2  # steps of the ViT-L VPT epoch: 16 train images of 2 crops
+
+
+def _vit_l_model(dev, dtype, **kw):
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.models import get_model
+
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    return get_model("clip_vit_l_14", TRAIN_SIZE, 8, bins, anchors, dtype=dtype, num_vpt=32,
+                     device=dev, **dict(dict(seed=42), **kw))
+
+
+def phase_vit_l(dev, kernels: dict, profile: bool) -> None:
+    """ViT-L/14 trains by VPT and serves W8A8; the CLIP ResNets serve W8A8.
+
+    1. The trainer CLI with the flagship flags on ``clip_vit_l_14`` (16
+       windows of 224 px a step, 289 tokens, D = 1024; an epoch of
+       VIT_L_STEPS steps on 16 synthetic ``qnrf`` images and one
+       evaluation) in bf16 and fp32: 24 launches of row 5 (recompute, row 4,
+       dx) a bf16 step, 24 of row 4 a fp32 step (the split path); the trunk
+       and text tower unchanged, the prompts and the decoder moved.
+    2. On one batch, the step's VPT and decoder gradients against the
+       plain path (``attn_backend="sdpa"``, the same model switched in
+       place): relative L2 <= 5e-2 bf16, <= 1e-3 fp32; 24 dx launches in
+       the bf16 step; ms per step in turns (plain, kernels, kernels, plain)
+       and peak memory.
+    3. The predict CLI on the flagship image by 140 windows (289 tokens)
+       under ``--quant int8_static``, ``--quant_attn kernel`` and ``xla``,
+       ``--quant int8`` and unquantized, bf16: 24 launches of the int8
+       projection a static forward, 24 of the int8 attention with
+       ``kernel``, 24 of row 3 with ``int8``; then one model on one set of
+       calibrated scales: the kernel path against its plain twin within
+       1e-2 of the count, kernel against xla within 2e-2, each within 8e-2
+       of bf16, and ms per image; and the ``int8`` model on the same
+       weights against its plain twin within 1e-2.
+    4. ``clip_resnet50`` by 224 px windows under ``--quant int8_static``
+       (the Bottleneck decoder's convolutions in int8) beside bf16: within
+       8e-2 of the bf16 count, the kernel path against its plain twin on one
+       set of scales within 1e-2, ms per image."""
+    import argparse
+
+    from clip_ebc_tpu_torch.cli import predict
+    from clip_ebc_tpu_torch.cli._common import calibrate_static_int8
+    from clip_ebc_tpu_torch.config import ExperimentConfig, get_bins_and_anchors
+    from clip_ebc_tpu_torch.data.crowd import CrowdDataset, _load_image, normalize_image
+    from clip_ebc_tpu_torch.data.loader import TrainLoader, make_train_transforms
+    from clip_ebc_tpu_torch.data.synthetic import make_synthetic_crowd_dataset
+    from clip_ebc_tpu_torch.losses import make_loss_fn
+    from clip_ebc_tpu_torch.models import get_model
+    from clip_ebc_tpu_torch.ops.quant import load_quant_state, quant_state
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+    from clip_ebc_tpu_torch.training.trainer import Trainer
+
+    n_train = VIT_L_STEPS * TRAIN_B // 2
+    flags = train_flags()
+    flags[flags.index("clip_vit_b_16")] = "clip_vit_l_14"
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_synthetic_crowd_dataset(os.path.join(tmp, "data"), "qnrf", n_train=n_train,
+                                            n_val=1, size=DATA_HW, seed=0)
+        init = {k: v.cpu() for k, v in _vit_l_model(dev, torch.bfloat16).state_dict().items()}
+        for amp in (True, False):
+            ckpt = os.path.join(tmp, f"vl_{amp}")
+            n = run_model_trainer(dev, data, ckpt, flags, amp, VIT_L_STEPS)
+            if amp:
+                check(n["ln_qkv_bwd_frozen"] == n["ln_bwd_dx"] == n["attention_bwd"]
+                      == 24 * VIT_L_STEPS, f"clip_vit_l_14 bf16 epoch: launches {n}, expected "
+                      f"{24 * VIT_L_STEPS} of row 5")
+                kernels["ln_bwd_dx_d1024"]["launches"] = n["ln_bwd_dx"]
+                kernels["ln_qkv_bwd_frozen_d1024"]["launches"] = n["ln_qkv_bwd_frozen"]
+                kernels["attention_bwd_d1024"]["launches"] = n["attention_bwd"]
+            else:
+                check(n["attention_bwd"] == 24 * VIT_L_STEPS and n["ln_qkv_bwd_frozen"] == 0,
+                      f"clip_vit_l_14 fp32 epoch: launches {n}, expected {24 * VIT_L_STEPS} of "
+                      "row 4 and none of row 5")
+                kernels["attention_bwd_fp32_d1024"]["launches"] = n["attention_bwd"]
+            trained = torch.load(os.path.join(ckpt, "best", "1.pt"), map_location="cpu",
+                                 weights_only=True)
+            check(all(torch.equal(trained[k], init[k]) for k in init
+                      if k.startswith(("image_encoder.", "text_encoder."))),
+                  "clip_vit_l_14: a frozen trunk or text-tower parameter changed")
+            for prefix in ("vpt_", "image_decoder.", "projection."):
+                check(all(not torch.equal(trained[k], init[k]) for k in init
+                          if k.startswith(prefix) and "num_batches" not in k),
+                      f"clip_vit_l_14: a {prefix} parameter did not move")
+            shutil.rmtree(ckpt)
+        del init
+        cfg = ExperimentConfig(model="clip_vit_l_14", dataset="qnrf", input_size=TRAIN_SIZE,
+                               reduction=8, truncation=4, count_loss="dmcount",
+                               batch_size=TRAIN_B, num_crops=2, warmup_lr=1e-3).normalize()
+        ds = CrowdDataset("qnrf", "train", data, transforms=make_train_transforms(cfg),
+                          num_crops=2, check_sizes=False)
+        batch = next(iter(TrainLoader(ds, TRAIN_B, 8, seed=0))).to(dev)
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    groups = {"vpt": ("vpt_",), "decoder": ("image_decoder.", "projection.")}
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FP32)):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        model = _vit_l_model(dev, dtype).train()
+        loss_fn = make_loss_fn(cfg)
+        with torch.no_grad():
+            text = model.encode_text()
+        grads = {}
+        for plain in (False, True):
+            _set_plain(model, plain)
+            model.zero_grad(set_to_none=True)
+            _train_counters(reset=True)
+            logits, density = model(batch.images, text_feats=text)
+            loss_fn(logits, density, batch)[0].backward()
+            torch.cuda.synchronize()
+            n = _train_counters()
+            grads[plain] = {k: p.grad.clone() for k, p in model.named_parameters() if p.requires_grad}
+            if not plain:
+                want = ({"ln_bwd_dx": 24, "ln_qkv_bwd_frozen": 24, "attention_bwd": 24}
+                        if dtype == torch.bfloat16 else {"ln_bwd_dx": 0, "attention_bwd": 24})
+                check(all(n[k] == v for k, v in want.items()),
+                      f"clip_vit_l_14 {tag} step: launches {n}, expected {want}")
+        bound = VIT_GRAD_TOL[dtype]
+        for gname, prefixes in groups.items():
+            err = _group_err(grads[False], grads[True], prefixes)
+            print(f"clip_vit_l_14 step gradient {tag}, {gname}: kernel vs plain path rel L2 "
+                  f"{err:.3e} (bound {bound:g})")
+            check(err <= bound, f"clip_vit_l_14 {tag} {gname} gradient disagrees with the plain path")
+        del grads
+        model.zero_grad(set_to_none=True)
+        trainer = Trainer(cfg, model, loss_fn)
+        trainer.set_epoch_lr(1)
+        _set_plain(model, True)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            trainer.train_step(batch, text)
+        flops = float(counter.get_total_flops())
+        turns = []
+        for plain in (True, False, False, True):
+            _set_plain(model, plain)
+            if not plain:
+                torch.cuda.reset_peak_memory_stats(dev)
+            turns.append(time_steps(trainer, batch, text, reps=3, warmup=1))
+            if not plain:
+                mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        ms, plain_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        bnd = flops / peak * 1e3
+        print(f"clip_vit_l_14 training step {tag} ({TRAIN_B} windows of {TRAIN_SIZE} px, "
+              f"{VIT_L14.l} tokens): kernels {ms:.2f} ms/step, plain path {plain_ms:.2f} (turns "
+              f"plain, kernels, kernels, plain: {', '.join(f'{t:.2f}' for t in turns)}); peak "
+              f"memory {mem:.2f} GiB; bound {flops / 1e12:.3f} TFLOP / {peak / 1e12:.0f} TFLOP/s = "
+              f"{bnd:.2f} ms ({ms / bnd:.1f}x)")
+        if profile and dtype == torch.bfloat16:
+            _set_plain(model, False)
+            profile_step(trainer, batch, text, "clip_vit_l_14 bf16, kernel path")
+        del model, trainer
+
+    # W8A8 on ViT-L by windows, and on clip_resnet50
+    bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        path = os.path.join(img_dir, "flagship.npy")
+        np.save(path, np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8))
+        image = normalize_image(_load_image(path))
+        base = [img_dir, "--model", "clip_vit_l_14", "--reduction", "8", "--truncation", "4",
+                "--seed", "0", "--device", str(dev), "--amp", "--sliding_window", "--window_size",
+                "224", "--stride", "224", "--calib_images", "1"]
+        cli = {}
+        for mode, extra in (("bf16", []), ("int8_static", ["--quant", "int8_static"]),
+                            ("kernel", ["--quant", "int8_static", "--quant_attn"]),
+                            ("xla", ["--quant", "int8_static", "--quant_attn", "xla"]),
+                            ("int8", ["--quant", "int8"])):
+            out = os.path.join(tmp, f"{mode}.csv")
+            _quant_attn_counters(reset=True)
+            t0 = time.perf_counter()
+            predict.main(base + extra + ["--out", out])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = _quant_attn_counters()
+            _tally_off_path(f"predict CLI, clip_vit_l_14 {mode}")
+            with open(out) as f:
+                cli[mode] = float(next(csv.DictReader(f))["count"])
+            check(math.isfinite(cli[mode]), f"clip_vit_l_14 {mode}: count {cli[mode]}")
+            # one forward of 140 windows (24 blocks), after a calibration
+            # batch of 16 windows on the dynamic twin for the static modes
+            static = mode in ("int8_static", "kernel", "xla")
+            want = {"ln_qkv_proj_int8": 24 if mode in ("int8_static", "kernel") else 0,
+                    "fused_ln_qkv_attention_int8": 24 if mode == "int8_static" else 0,
+                    "int8_attention_static": 24 if mode == "kernel" else 0,
+                    "int8_attention_body": 24 if mode == "kernel" else 0,
+                    "int8_attention_dynamic": 0,
+                    "fused_qkv_attention": 24 * static + 24 * (mode == "int8"),
+                    "fused_ln_qkv_attention": 24 if mode == "bf16" else 0,
+                    "fused_ebc_head": 2 if static else 1}
+            check(n == want, f"clip_vit_l_14 {mode}: launches {n}, expected {want}")
+            print(f"predict CLI, clip_vit_l_14, {mode}, bf16, {VIT_L14.b} windows x {VIT_L14.l} "
+                  f"tokens: count {cli[mode]:.4f}, {secs:.1f} s; launches {n}")
+            if mode == "int8_static":
+                kernels["ln_qkv_proj_int8_d1024"]["launches"] = n["ln_qkv_proj_int8"]
+                kernels["fused_ln_qkv_attention_int8_d1024"]["launches"] = \
+                    n["fused_ln_qkv_attention_int8"]
+            elif mode == "kernel":
+                kernels["int8_attention_static_d1024"]["launches"] = n["int8_attention_static"]
+                kernels["int8_attention_body_d1024"]["launches"] = n["int8_attention_body"]
+            elif mode == "int8":
+                kernels["fused_qkv_attention_d1024"]["launches"] = n["fused_qkv_attention"]
+        rel_kx = abs(cli["kernel"] - cli["xla"]) / abs(cli["xla"])
+        print(f"clip_vit_l_14 W8A8 CLI counts: kernel vs xla |diff|/count {rel_kx:.2e} (tol 2e-2); "
+              + ", ".join(f"{k} {abs(v - cli['bf16']) / abs(cli['bf16']):.2e}" for k, v in cli.items()
+                          if k != "bf16") + " from bf16 (tol 8e-2)")
+        check(rel_kx <= 2e-2, "clip_vit_l_14: --quant_attn kernel and xla counts disagree")
+        check(all(abs(v - cli["bf16"]) <= 8e-2 * abs(cli["bf16"]) for v in cli.values()),
+              "clip_vit_l_14: a W8A8 count is more than 8e-2 from bf16")
+
+    # one model on one set of scales: each mode against its plain twin, timed
+    args = argparse.Namespace(model="clip_vit_l_14", input_size=224, reduction=8, window_size=224)
+    kw = dict(dtype=torch.bfloat16, num_vpt=32, seed=0, device=dev, quant_int8=True,
+              quant_attn=True)
+    model = get_model("clip_vit_l_14", 224, 8, bins, anchors, quant_mode="static", **kw)
+    calibrate_static_int8(args, kw, bins, anchors, model, [image])
+    state = quant_state(model)
+    check(len(state) == 24 * 5 + 2 and all(bool((v > 0).all()) for v in state.values()),
+          "clip_vit_l_14: the quant state has zero or missing leaves")
+    ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                   pad_to_multiple=14)
+    counts, ms = {}, {}
+    for mode, qa in (("int8_static", False), ("kernel", True), ("xla", "xla")):
+        _set_quant_attn(model, qa)
+        for plain in (False, True):
+            _set_plain(model, plain)
+            ev._text_key = None
+            counts[(mode, plain)] = ev.predict_count(image)
+        _set_plain(model, False)
+        ev._text_key = None
+        ms[mode] = time_image(ev, image, reps=3)
+    del model, ev
+    # --quant int8 (dynamic scales; row 3 after the int8 projection) on the same weights
+    model = get_model("clip_vit_l_14", 224, 8, bins, anchors, quant_mode="dynamic",
+                      **dict(kw, quant_attn=False))
+    ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                   pad_to_multiple=14)
+    for plain in (False, True):
+        _set_plain(model, plain)
+        ev._text_key = None
+        _quant_attn_counters(reset=True)
+        counts[("int8", plain)] = ev.predict_count(image)
+        torch.cuda.synchronize()
+        n = _quant_attn_counters()["fused_qkv_attention"]
+        check(n == (0 if plain else 24), f"clip_vit_l_14 int8, plain={plain}: {n} launches of row 3")
+    _set_plain(model, False)
+    ev._text_key = None
+    ms["int8"] = time_image(ev, image, reps=3)
+    del model, ev
+    for mode in ("int8_static", "xla", "int8"):
+        rel = abs(counts[(mode, False)] - counts[(mode, True)]) / abs(counts[(mode, True)])
+        print(f"clip_vit_l_14 {mode}: kernel path {counts[(mode, False)]:.4f}, plain twin "
+              f"{counts[(mode, True)]:.4f} (|diff|/count {rel:.2e}, tol 1e-2)")
+        check(rel <= 1e-2, f"clip_vit_l_14 {mode}: kernel path and plain path disagree")
+    rel_kx = abs(counts[("kernel", False)] - counts[("xla", False)]) / abs(counts[("xla", False)])
+    bf = get_model("clip_vit_l_14", 224, 8, bins, anchors, dtype=torch.bfloat16, num_vpt=32, seed=0,
+                   device=dev)
+    ev = Evaluator(bf, reduction=8, sliding_window=True, window_size=224, stride=224,
+                   pad_to_multiple=14)
+    bf_count = ev.predict_count(image)
+    ms["bf16"] = time_image(ev, image, reps=3)
+    del bf, ev
+    print(f"clip_vit_l_14 by {VIT_L14.b} windows, one set of scales: kernel vs xla |diff|/count "
+          f"{rel_kx:.2e} (tol 2e-2); "
+          + ", ".join(f"{m} {counts[(m, False)]:.4f} ({abs(counts[(m, False)] - bf_count) / abs(bf_count):.2e}"
+                      f" from bf16 {bf_count:.4f})" for m in ("int8_static", "kernel", "xla", "int8"))
+          + "; ms/image " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    check(rel_kx <= 2e-2, "clip_vit_l_14: kernel and xla disagree on one set of scales")
+
+    # clip_resnet50 W8A8: the Bottleneck decoder in int8, by 224 px windows
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        np.save(os.path.join(img_dir, "flagship.npy"),
+                np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8))
+        rn = {}
+        for mode, extra in (("bf16", []), ("int8_static", ["--quant", "int8_static"])):
+            rn[mode], n, secs = _clip_cli(
+                [img_dir, "--model", "clip_resnet50", "--reduction", "8", "--truncation", "4",
+                 "--seed", "0", "--device", str(dev), "--amp", "--sliding_window", "--window_size",
+                 "224", "--stride", "224", "--calib_images", "1", *extra], os.path.join(tmp, "rn.csv"))
+            check(n["fused_ebc_head"] == (2 if extra else 1) and n["fused_ln_qkv_attention"] == 0,
+                  f"clip_resnet50 {mode}: launches {n}")
+            print(f"predict CLI, clip_resnet50, {mode}, bf16, by 224 px windows: count "
+                  f"{rn[mode]:.4f}, {secs:.1f} s; launches {n}")
+        rel = abs(rn["int8_static"] - rn["bf16"]) / abs(rn["bf16"])
+        print(f"clip_resnet50 int8_static vs bf16 (CLI): |diff|/count {rel:.2e} (tol 8e-2)")
+        check(rel <= 8e-2, "clip_resnet50: the int8_static count is more than 8e-2 from bf16")
+    args = argparse.Namespace(model="clip_resnet50", input_size=224, reduction=8, window_size=224)
+    kw = dict(dtype=torch.bfloat16, seed=0, device=dev, quant_int8=True)
+    model = get_model("clip_resnet50", 224, 8, bins, anchors, quant_mode="static", **kw)
+    calibrate_static_int8(args, kw, bins, anchors, model, [image])
+    ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                   pad_to_multiple=8)
+    count = ev.predict_count(image)
+    ms_rn = time_image(ev, image, reps=3)
+    _set_plain(model, True)
+    plain = ev.predict_count(image)
+    rel = abs(count - plain) / abs(plain)
+    print(f"clip_resnet50 int8_static by windows: count {count:.4f}, plain twin {plain:.4f} "
+          f"(|diff|/count {rel:.2e}, tol 1e-2); {ms_rn:.1f} ms/image")
+    check(rel <= 1e-2, "clip_resnet50 int8_static: kernel path and plain path disagree")
+    del model, ev
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3201,24 +3605,26 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     phase_build()
+    f = FLAGSHIP
     kernels = [phase_attention(dev, torch.bfloat16), phase_attention(dev, torch.float32),
-               phase_head(dev), phase_attention_bwd(dev, torch.bfloat16),
-               phase_attention_bwd(dev, torch.float32), phase_ln_qkv_bwd_frozen(dev),
-               phase_ln_bwd_dx(dev),
-               phase_attention_int8(dev, torch.bfloat16), phase_attention_int8(dev, torch.float32),
-               phase_int8_proj(dev, torch.bfloat16), phase_int8_proj(dev, torch.float32),
-               phase_ln_qkv_proj(dev), phase_int8_attention_body(dev),
+               phase_head(dev), phase_attention_bwd(dev, f, torch.bfloat16),
+               phase_attention_bwd(dev, f, torch.float32), phase_ln_qkv_bwd_frozen(dev, f),
+               phase_ln_bwd_dx(dev, f),
+               phase_attention_int8(dev, f, torch.bfloat16), phase_attention_int8(dev, f, torch.float32),
+               phase_int8_proj(dev, f, torch.bfloat16), phase_int8_proj(dev, f, torch.float32),
+               phase_ln_qkv_proj(dev), phase_int8_attention_body(dev, f),
                phase_attention_vit_l(dev, torch.bfloat16), phase_attention_vit_l(dev, torch.float32),
-               phase_qkv_attention(dev, torch.bfloat16), phase_qkv_attention(dev, torch.float32),
+               phase_qkv_attention(dev, f, torch.bfloat16), phase_qkv_attention(dev, f, torch.float32),
                phase_flash(dev, "tiled", torch.bfloat16), phase_flash(dev, "tiled", torch.float32),
                phase_flash(dev, "short", torch.bfloat16), phase_flash(dev, "short", torch.float32),
-               phase_int8_attention_q(dev, torch.bfloat16, "static"),
-               phase_int8_attention_q(dev, torch.float32, "static"),
-               phase_int8_attention_q(dev, torch.bfloat16, "static", LONG_B, LONG_L),
-               phase_int8_attention_q(dev, torch.bfloat16, "dynamic"),
-               phase_int8_attention_q(dev, torch.float32, "dynamic"),
-               *phase_mlp_int8(dev, torch.bfloat16), *phase_mlp_int8(dev, torch.float32),
-               phase_qkv_quant_dynamic(dev, torch.bfloat16), phase_qkv_quant_dynamic(dev, torch.float32)]
+               phase_int8_attention_q(dev, f, torch.bfloat16, "static"),
+               phase_int8_attention_q(dev, f, torch.float32, "static"),
+               phase_int8_attention_q(dev, LONG_WINDOWS, torch.bfloat16, "static"),
+               phase_int8_attention_q(dev, f, torch.bfloat16, "dynamic"),
+               phase_int8_attention_q(dev, f, torch.float32, "dynamic"),
+               *phase_mlp_int8(dev, f, torch.bfloat16), *phase_mlp_int8(dev, f, torch.float32),
+               phase_qkv_quant_dynamic(dev, f, torch.bfloat16), phase_qkv_quant_dynamic(dev, f, torch.float32),
+               *phase_kernels_d1024(dev)]
     phase_int8_products(dev)
     print(f"phases 1-2: {time.perf_counter() - t0:.1f} s")
     by_name = {k["name"]: k for k in kernels}
@@ -3247,13 +3653,17 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_clip_backbones(dev, by_name, "--profile" in argv)
     print(f"phase 4c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_vit_l(dev, by_name, "--profile" in argv)
+    print(f"phase 4d: {time.perf_counter() - t0:.1f} s")
     if "--profile" not in argv:
         phase_library_kernels(dev)
-    for k in kernels:
-        if k["name"] in OFF_PATH:
-            k["launches"] = OFF_PATH_LAUNCHES[k["name"].removesuffix("_fp32")]
-    check(all(k.get("launches", 0) > 0 for k in kernels if k["name"] not in OFF_PATH),
-          "a kernel of the path was never launched")
+    off_path = [k for k in kernels if k["name"].removesuffix("_d1024") in OFF_PATH]
+    for k in off_path:
+        k["launches"] = OFF_PATH_LAUNCHES[k["name"].removesuffix("_d1024").removesuffix("_fp32")]
+    check(all(k.get("launches", 0) > 0 for k in kernels if k not in off_path),
+          "a kernel of the path was never launched: "
+          + ", ".join(k["name"] for k in kernels if k not in off_path and not k.get("launches")))
     check(all("launches" in k for k in kernels), "a kernel has no launch count")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -13,11 +13,7 @@ QUANT_ATTN = {"kernel": True, "xla": "xla", None: False}
 
 def check_quant_support(quant: str, model_name: str) -> None:
     """``--quant`` only quantizes the CLIP trunk and decoder: reject it for
-    any other model instead of letting it turn into a no-op, and raise
-    ``NotImplementedError`` for the CLIP backbones whose W8A8 path is not
-    ported yet (ViT-L, the ResNets)."""
-    from ..models.clip.model import check_quant_backbone
-
+    any other model instead of letting it turn into a no-op."""
     name = model_name.lower()
     if quant != "none" and not name.startswith("clip_"):
         raise SystemExit(
@@ -25,8 +21,6 @@ def check_quant_support(quant: str, model_name: str) -> None:
             f"(got --model {model_name}); the CNN backbones have no "
             "quantized path"
         )
-    if quant != "none":
-        check_quant_backbone(name[len("clip_"):], True)
 
 
 def calibrate_static_int8(args, model_kw, bins, anchors, model, images: Iterable) -> None:

@@ -7,8 +7,9 @@ the same flags and defaults, plus ``--device`` (default ``cuda``).
         --window_size 224 --stride 224 --warmup_lr 1e-3 --amp
 
 One process trains on one device from random weights (``--seed``). A
-``clip_*`` ViT model trains by VPT prompt tuning with the trunk and the
-text tower frozen; a CLIP ResNet (``clip_resnet50``, ``clip_resnet101``,
+``clip_*`` ViT model (ViT-B/16, ViT-B/32, ViT-L/14 and its 336 px
+variant) trains by VPT prompt tuning with the trunk and the text tower
+frozen; a CLIP ResNet (``clip_resnet50``, ``clip_resnet101``,
 ``clip_resnet50x{4,16,64}``) trains end to end with the text tower
 frozen, its BatchNorm in train mode, as at the reference's ``run.sh``
 flags:
@@ -31,9 +32,7 @@ Each epoch trains, evaluates on the val split from ``--eval_start`` on
 loads) and the full state (BatchNorm statistics included) in
 ``{ckpt_dir}/latest.pt``, from which a rerun resumes. Not ported yet, and
 refused: ``--pretrained``, multi-host (``--coordinator``, ``--num_hosts``
-> 1, ``--host_id`` > 0), ``--profile_dir``, ``--loader_procs`` > 0 and
-training a ViT-L backbone (``clip_vit_l_14``, ``clip_vit_l_14_336px``:
-its D = 1024 backward kernels are the next slice; both serve).
+> 1, ``--host_id`` > 0), ``--profile_dir`` and ``--loader_procs`` > 0.
 """
 
 from __future__ import annotations
@@ -128,21 +127,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# CLIP backbones that serve but do not train yet: the D = 1024 frozen backward
-# (csrc/fused_attention_bwd.cu ebc_ln_bwd_dx) stops at D = 768.
-SERVE_ONLY_CLIP = ("clip_vit_l_14", "clip_vit_l_14_336px")
-
-
 def _check_ported(args) -> None:
-    model = args.model.lower()
     todo = {
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
         "multi-host --coordinator/--num_hosts/--host_id (ROADMAP Queue 1, multi-GPU)": (
             args.coordinator is not None or args.num_hosts != 1 or args.host_id != 0),
         "--profile_dir (ROADMAP Queue 1, remaining tooling)": args.profile_dir is not None,
         "--loader_procs (ROADMAP Queue 1, VPT training: loader process pool)": args.loader_procs > 0,
-        f"training --model {args.model} (ROADMAP Queue 1, the D = 1024 backward and int8 "
-        "kernels)": model in SERVE_ONLY_CLIP,
     }
     missing = [k for k, asked in todo.items() if asked]
     if missing:

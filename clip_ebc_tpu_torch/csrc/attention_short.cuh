@@ -132,8 +132,6 @@ __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, cons
 // rows, heads and batch went.
 cudaError_t encode_rows_map(CUtensorMap* map, int (&pos)[3], const void* ptr, int rows, int h, int b,
                             const long long (&st)[3], int box_rows) {
-  const EncodeTiledFn enc = tensor_map_encoder();
-  if (!enc) return cudaErrorNotSupported;
   const long long stride[3] = {st[2], st[1], st[0]};  // rows, heads, batch
   const cuuint64_t extent[3] = {(cuuint64_t)rows, (cuuint64_t)h, (cuuint64_t)b};
   int order[3] = {0, 1, 2};
@@ -144,7 +142,7 @@ cudaError_t encode_rows_map(CUtensorMap* map, int (&pos)[3], const void* ptr, in
       order[y - 1] = tmp;
     }
   cuuint64_t dims[4] = {(cuuint64_t)kDh, 0, 0, 0}, strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)kDh, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)kDh, 1, 1, 1};
   for (int x = 0; x < 3; ++x) {
     const int which = order[x];
     dims[x + 1] = extent[which];
@@ -152,10 +150,8 @@ cudaError_t encode_rows_map(CUtensorMap* map, int (&pos)[3], const void* ptr, in
     box[x + 1] = which == 0 ? (cuuint32_t)box_rows : 1u;
     pos[which] = x + 1;
   }
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                         box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---- bf16 (wgmma) -----------------------------------------------------------

@@ -276,20 +276,41 @@ inline EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled of a rank-``rank`` map over the device memory at p.
+// The encode checks p against the calling thread's current CUDA context, and
+// a host thread that has made no CUDA runtime call yet has none (autograd's
+// device thread when a backward begins with one of these launches, or any
+// new thread): there it fails with an invalid value. So the primary context
+// of the device holding p is made current first (cudaSetDevice does so since
+// CUDA 12; a no-op where it already is, as on every thread that launched on
+// that device before), then the map is encoded once.
+inline cudaError_t encode_tiled(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank, const void* p,
+                                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                                CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (!enc) return cudaErrorNotSupported;
+  cudaPointerAttributes attr;
+  cudaError_t e = cudaPointerGetAttributes(&attr, p);
+  if (e != cudaSuccess) return e;
+  if ((attr.type == cudaMemoryTypeDevice || attr.type == cudaMemoryTypeManaged) &&
+      (e = cudaSetDevice(attr.device)) != cudaSuccess)
+    return e;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  const CUresult r = enc(map, type, rank, const_cast<void*>(p), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A 2D tensor map over a row-major (rows, cols) matrix of 1-, 2- or 4-byte
 // elements: boxes of 128 bytes x box_rows, 128B-swizzled (the layout
 // sw128_desc and sw128_offset read).
 inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* p, int cols,
                               int rows, int box_rows) {
-  const EncodeTiledFn enc = tensor_map_encoder();
-  if (!enc) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows}, estr[2] = {1, 1};
-  const CUresult r = enc(map, type, 2, const_cast<void*>(p), dims, strides, box, estr,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
+  return encode_tiled(map, type, 2, p, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---- thread-block clusters (sm_90) ----------------------------------------------

@@ -111,14 +111,20 @@
 //    memory) under the products (in the prologue they cost 0.0029 ms);
 //    the LayerNorm backward's two row sums over the block's columns go to
 //    every block the same way, and dx is staged in the x tile's place and
-//    stored by TMA. Only dx is written.
+//    stored by TMA. Only dx is written. At ViT-L's D = 1024 (M = 16 x 289
+//    at a training step: 29.1 GFLOP, 0.029 ms at 989 TFLOP/s, against 54
+//    MB, 0.016 ms) the 16 boxes of 64 columns do not split into three: a
+//    cluster of 8 blocks of 128 columns (wgmma m64n128k16), the portable
+//    cluster maximum, 174 KB of shared memory a block; the statistics
+//    warpgroup holds a row as 4 chunks of 8 a lane, 3 rows a warp at a time.
 //  * Costs to remove later: qkv and d_qkv each make a round trip through
 //    device memory (16.9 MB each per layer at the flagship shape), which
 //    the Pallas kernel kept in VMEM.
 //
 // Limits: head dim 64; L <= 320; the LN backward needs D % 128 == 0 and D
-// <= 768 (the statistics hold a row in registers; the ring and the x tile
-// fill shared memory).
+// <= 1024 (the statistics hold a row in registers, 4 x 8 values a lane past
+// D = 768; a row tile's cluster is D / 128 blocks past D = 768, 8 at D =
+// 1024, the portable maximum; the ring and the x tile fill shared memory).
 
 #include "attention_short.cuh"
 
@@ -704,17 +710,20 @@ constexpr int kXK = 64;            // depth of a ring step: one 128-byte swizzle
 constexpr int kXStages = 4;        // ring steps in flight
 constexpr int kXWarps = 8;         // two consumer warpgroups; the last warp done with a step refills it
 constexpr int kXThreads = kXWarps * 32 + 128;  // and a warpgroup for the LN statistics
-constexpr int kXMaxDim = 768;      // the statistics pass holds a row in registers (3 x 8 values a lane)
-constexpr int kXMaxCluster = 5;    // blocks of a row tile: D / 64 / NC (D = 640: 5 of 128 columns)
+constexpr int kXMaxDim = 1024;     // the statistics pass holds a row in registers (XC x 8 values a lane)
 constexpr int kXATile = kXM * 128;  // bytes of a 128-row tile 64 values deep (d_qkv step, x or dx box)
 constexpr int kXWBox = kXK * 128;   // bytes of a W box: 64 rows (the depth) x 64 columns
 
 __host__ __device__ constexpr int dx_stage_bytes(int nc) { return kXATile + nc * kXWBox; }
+// Blocks of a row tile, D / 64 / NC, at most: 5 for the instantiations of
+// D <= 768 (D = 640: 5 of 128 columns), 8 (the portable cluster maximum)
+// for those of D = 896 and 1024 (8 of 128 columns at D = 1024)
+__host__ __device__ constexpr int dx_max_cluster(int xc) { return xc > 3 ? 8 : 5; }
 // the ring, the x tile (dx staged in its place), each row's (mu, rstd), the
 // cluster's partial row sums, the barriers and done counts, 1024-byte alignment
-__host__ __device__ constexpr size_t dx_smem_bytes(int nc) {
+__host__ __device__ constexpr size_t dx_smem_bytes(int nc, int xc) {
   return (size_t)kXStages * dx_stage_bytes(nc) + (size_t)nc * kXATile + kXM * sizeof(float2) +
-         (size_t)kXMaxCluster * kXM * sizeof(float2) + (kXStages + 1) * 8 + kXStages * 4 + 1024;
+         (size_t)dx_max_cluster(xc) * kXM * sizeof(float2) + (kXStages + 1) * 8 + kXStages * 4 + 1024;
 }
 
 // Shared-memory descriptor of an MN-major bf16 B operand in the 128-byte
@@ -789,8 +798,9 @@ __device__ __forceinline__ void dx_mma(float (&d)[32 * NC], uint64_t desc_a, uin
 // CN, ..) and writes them to every block. Then dyh = dy gamma, the row sums of dyh
 // and dyh xhat over the block's columns go to every block, and dx = rstd
 // (dyh - m1 - xhat m2) is staged in the x tile's place and stored by TMA
-// (rows past m clipped).
-template <int NC>
+// (rows past m clipped). XC = ceil(D / 256): the 8-value chunks a lane
+// holds of a row in the statistics pass (3 up to D = 768, 4 past it).
+template <int NC, int XC>
 __global__ void __launch_bounds__(kXThreads, 1)
 ln_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                  const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
@@ -803,7 +813,7 @@ ln_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   unsigned char* xs = ring + kXStages * kStage;                        // [NC][128 rows x 128 B]
   float2* stats = reinterpret_cast<float2*>(xs + NC * kXATile);        // [128]: mu, rstd
   float2* red = stats + kXM;                                           // [cluster rank][128]: the row sums
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + kXMaxCluster * kXM);  // [kXStages]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + dx_max_cluster(XC) * kXM);  // [kXStages]
   uint64_t* xbar = full + kXStages;
   int* done = reinterpret_cast<int*>(xbar + 1);                        // [kXStages]
 
@@ -847,9 +857,10 @@ ln_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
     // 1. LN statistics (fp32, two passes over the row in registers, a warp
     //    a row, the first port's order of operations; rows past m are
     //    zeros) of rows rank, rank + cn, .. of the tile, a warp's rows 4 at
-    //    a time with their loads issued together, to every block of the
-    //    cluster, under the products
-    constexpr int kStatRows = 4, kXC = kXMaxDim / 256;
+    //    a time (3 past D = 768, so that a warp still holds 96 values) with
+    //    their loads issued together, to every block of the cluster, under
+    //    the products
+    constexpr int kStatRows = XC > 3 ? 3 : 4, kXC = XC;
     const int xvec = d / 8, sw = warp & 3;
     for (int i0 = sw * kStatRows; i0 * cn + rank < kXM; i0 += 4 * kStatRows) {
       float v[kStatRows][kXC][8];
@@ -991,7 +1002,7 @@ ln_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-template <int NC>
+template <int NC, int XC>
 cudaError_t launch_ln_bwd_dx(const void* x, const void* dqkv, const void* gamma, const void* w, void* dx,
                              int m, int d, float eps, cudaStream_t st) {
   CUtensorMap ta, tw, tx, tdx;
@@ -1000,11 +1011,11 @@ cudaError_t launch_ln_bwd_dx(const void* x, const void* dqkv, const void* gamma,
   if (e == cudaSuccess) e = encode_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, d, m, kXM);
   if (e == cudaSuccess) e = encode_map(&tdx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dx, d, m, kXM);
   if (e != cudaSuccess) return e;
-  const size_t smem = dx_smem_bytes(NC);
-  e = cudaFuncSetAttribute(ln_bwd_dx_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = dx_smem_bytes(NC, XC);
+  e = cudaFuncSetAttribute(ln_bwd_dx_kernel<NC, XC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int cn = d / (64 * NC);
-  return launch_clustered(ln_bwd_dx_kernel<NC>, cn * ((m + kXM - 1) / kXM), kXThreads, smem, cn, st,
+  return launch_clustered(ln_bwd_dx_kernel<NC, XC>, cn * ((m + kXM - 1) / kXM), kXThreads, smem, cn, st,
                           static_cast<const bf16*>(x), static_cast<const float*>(gamma), ta, tw, tx, tdx, m, d,
                           eps);
 }
@@ -1064,7 +1075,9 @@ extern "C" int ebc_ln_bwd_dx(const void* x, const void* dqkv, const void* gamma,
   using namespace ebc;
   if (m < 1 || d < 128 || d % 128 || d > kXMaxDim) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 64-column boxes a block: 3 where they split D evenly, else 2
-  return (int)((d / 64) % 3 == 0 ? launch_ln_bwd_dx<3>(x, dqkv, gamma, w, dx, m, d, eps, st)
-                                 : launch_ln_bwd_dx<2>(x, dqkv, gamma, w, dx, m, d, eps, st));
+  // 64-column boxes a block: 3 where they split D evenly, else 2 (D = 896
+  // and 1024: clusters of 7 and 8 blocks, a row of 4 chunks a lane)
+  if (d > 768) return (int)launch_ln_bwd_dx<2, 4>(x, dqkv, gamma, w, dx, m, d, eps, st);
+  return (int)((d / 64) % 3 == 0 ? launch_ln_bwd_dx<3, 3>(x, dqkv, gamma, w, dx, m, d, eps, st)
+                                 : launch_ln_bwd_dx<2, 3>(x, dqkv, gamma, w, dx, m, d, eps, st));
 }

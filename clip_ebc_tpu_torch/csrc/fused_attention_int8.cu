@@ -80,7 +80,9 @@
 //    dropped: two warpgroups (255 registers, no spill) in place of three
 //    (168 registers, a little spill at 256 keys): 0.177 against 0.158.
 //
-// Limits: D a multiple of 128, D <= 768 (the projection), head dim 64, L <=
+// Limits: D a multiple of 128, D <= 1024 (the projection; ViT-L's 16
+// heads: the attention and the scale pass work a (window, head) or a head
+// pair at a time, so D only sets the column offsets), head dim 64, L <=
 // 512 (--window_size 320: 433 tokens).
 
 #include "int8_proj.cuh"
@@ -481,14 +483,9 @@ mha_int8_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 // A 2D int8 tensor map over qkv (B L, 3D): boxes of 64 columns (one head)
 // x box_rows, 64B-swizzled (the layout sw64_desc reads).
 inline cudaError_t encode_qkv8_map(CUtensorMap* map, const void* qkv, int rows, int three_d, int box_rows) {
-  const EncodeTiledFn enc = tensor_map_encoder();
-  if (!enc) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)three_d, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)three_d};
-  const cuuint32_t box[2] = {(cuuint32_t)kDh8, (cuuint32_t)box_rows}, elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(qkv), dims, strides, box,
-                         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  const cuuint32_t box[2] = {(cuuint32_t)kDh8, (cuuint32_t)box_rows};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qkv, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 template <typename T, int KC>

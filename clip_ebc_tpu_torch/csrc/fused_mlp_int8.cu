@@ -47,8 +47,10 @@
 //      tile's first stages load under the epilogue; its x tile as soon as
 //      the store has read this one.
 //
-// Limits: D a multiple of 128, D <= 768 (launch 1's resident rows), the
-// hidden width a multiple of 128.
+// Limits: D a multiple of 128, D <= 1024 (launch 1's rows: registers, and
+// shared memory past D = 768), the hidden width a multiple of 128. At D =
+// 1024 (ViT-L, hidden 4096) launch 2 takes 128-column tiles (D / 64 = 16
+// does not divide by 3), 8 a row block.
 
 #include "int8_proj.cuh"
 

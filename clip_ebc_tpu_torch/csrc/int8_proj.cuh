@@ -38,9 +38,9 @@
 //    first port did (a row in registers, 8 columns a lane at a time, two
 //    passes, the same order of operations), then normalizes and quantizes
 //    its rows straight into the register A fragments of wgmma (16 rows x
-//    32 values a k-step, 4 bytes a register): the yq of all D columns stay
-//    in registers (D / 8 a thread), so no quantized row touches shared
-//    memory and the ring takes it all.
+//    32 values a k-step, 4 bytes a register): up to D = 768 the yq of all
+//    D columns stay in registers (D / 8 a thread), so no quantized row
+//    touches shared memory and the ring takes it all (past it, see below).
 //  * W, read in torch's (out, in) layout, is the K-major B operand as it
 //    stands (8-bit wgmma takes both operands K-major only). It comes by
 //    TMA in chunks of 64 output columns x D (boxes of 64 rows x
@@ -71,10 +71,20 @@
 //    accumulators without staging.
 //  * fp32 activations (a model run without --amp) take the same int8
 //    product; only the loads of x and the float stores differ.
+//  * past D = 768 (ViT-L, D = 1024: 4 more A fragments a k-box, 128
+//    registers a thread for all of A, which will not fit beside the
+//    accumulators and the epilogue) the first kQRegK = 6 k-boxes (768
+//    columns) stay in registers as above and the rest go to shared memory,
+//    each warpgroup's 64 rows x 128 bytes a box in the 128B-swizzled
+//    K-major layout, fed to wgmma as the A descriptor (the SS form). At D =
+//    1024 that is 32 KB beside a ring of 64 KB chunks: 2 stages (3 with
+//    fp32 outputs, which stage nothing), the fewest the ping-pong needs
+//    (a warpgroup's next chunk must have landed while the other still
+//    reads this one). D <= 768 is the same template with no shared A.
 //
-// Limits: D a multiple of 128, D <= 768 (the quantized rows held in
-// registers; a lane holds a row's 8-column chunks in the statistics pass);
-// N a multiple of 128.
+// Limits: D a multiple of 128, D <= 1024 (the quantized rows held in
+// registers, the k-boxes past 6 in shared memory; a lane holds a row's
+// 8-column chunks in the statistics pass); N a multiple of 128.
 #pragma once
 
 #include <type_traits>
@@ -88,9 +98,11 @@ constexpr int kQN = 64;          // output columns of a chunk (the wgmma N)
 constexpr int kQAcc = kQN / 2;   // int32 accumulators a thread
 constexpr int kQK = 128;         // depth (bytes) of one TMA box of W: one 128-byte swizzle row
 constexpr int kQThreads = 2 * 128;  // two warpgroups (all 255 registers a thread: no producer warp)
-constexpr int kQLnChunks = 3;    // 8-column chunks a lane holds in the statistics pass
-constexpr int kQMaxDim = kQLnChunks * 256;
+constexpr int kQLnChunks = 3;    // 8-column chunks a lane holds in the statistics pass (D <= 768)
+constexpr int kQRegK = 6;        // k-boxes of A held in registers; the rest in shared memory
+constexpr int kQMaxDim = 1024;
 constexpr int kQMaxStages = 4;
+constexpr int kQABox = 64 * kQK;  // bytes of a warpgroup's shared A box: 64 rows x 128 bytes
 constexpr int kQColBytes = 2 * kQN * 4;  // a stage's sw and bias of its kQN columns
 constexpr size_t kQSmemBudget = 227 * 1024 - 1024 - kQMaxStages * 12;
 
@@ -105,16 +117,21 @@ __host__ __device__ constexpr int qout_tile_bytes() { return sizeof(TOut) < 4 ? 
 // beside it in a small ring of their own).
 template <int DK>
 __host__ __device__ constexpr int qstage_bytes() { return kQN * kQK * DK; }
-// Stages in the ring beside the staged outputs (one a warpgroup)
+// Bytes of both warpgroups' A boxes in shared memory (the k-boxes past kQRegK)
+template <int DK>
+__host__ __device__ constexpr int qshared_a_bytes() { return DK > kQRegK ? 2 * (DK - kQRegK) * kQABox : 0; }
+// Stages in the ring beside the shared A boxes and the staged outputs (one a warpgroup)
 template <int DK, typename TOut>
 __host__ __device__ constexpr int qproj_stages() {
-  return (int)((kQSmemBudget - 2 * qout_tile_bytes<TOut>()) / (qstage_bytes<DK>() + kQColBytes)) < kQMaxStages
-             ? (int)((kQSmemBudget - 2 * qout_tile_bytes<TOut>()) / (qstage_bytes<DK>() + kQColBytes))
+  return (int)((kQSmemBudget - qshared_a_bytes<DK>() - 2 * qout_tile_bytes<TOut>()) /
+               (qstage_bytes<DK>() + kQColBytes)) < kQMaxStages
+             ? (int)((kQSmemBudget - qshared_a_bytes<DK>() - 2 * qout_tile_bytes<TOut>()) /
+                     (qstage_bytes<DK>() + kQColBytes))
              : kQMaxStages;
 }
 template <int DK, typename TOut>
 constexpr size_t qproj_smem_bytes() {
-  return (size_t)qproj_stages<DK, TOut>() * (qstage_bytes<DK>() + kQColBytes) +
+  return (size_t)qproj_stages<DK, TOut>() * (qstage_bytes<DK>() + kQColBytes) + qshared_a_bytes<DK>() +
          2 * qout_tile_bytes<TOut>() + kQMaxStages * 12 + 1024;
 }
 
@@ -148,6 +165,22 @@ __device__ __forceinline__ void wgmma_s8_m64n64k32_rs(int (&d)[32], const uint32
         "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// The same with A (64 x 32 int8) K-major in shared memory (128B-swizzled
+// rows of 128 bytes).
+__device__ __forceinline__ void wgmma_s8_m64n64k32_ss(int (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // d (64 x 128 int32, 64 a thread in the layout of wgmma_m64n128k16's d)
@@ -273,7 +306,8 @@ __device__ __forceinline__ void stage_pair(unsigned char* p, float a, float b, f
 // item after item, stream through the ring: the second warpgroup done with
 // a stage refills it with the chunk kStages on (no producer warp, so the
 // two warpgroups keep all 255 registers a thread). DK = D / 128 (the A
-// fragments are registers, so their count is a template).
+// fragments are registers, so their count is a template); k-boxes past
+// kQRegK are A boxes in shared memory.
 template <typename T, int Epi, int DK>
 __global__ void __launch_bounds__(kQThreads, 1)
 ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
@@ -283,7 +317,11 @@ ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                     float eps, const float* __restrict__ inv_out_ptr, int quick) {
   using TOut = std::conditional_t<Epi == kEpiFloat, T, int8_t>;
   constexpr int d = DK * kQK;
+  constexpr int RK = DK < kQRegK ? DK : kQRegK;     // k-boxes of A in registers
+  constexpr int SK = DK - RK;                       // and in shared memory
+  constexpr int LC = DK > kQRegK ? 4 : kQLnChunks;  // 8-column chunks a lane holds of a row
   constexpr int kStages = qproj_stages<DK, TOut>();
+  static_assert(kStages >= 2, "the ping-pong needs a chunk in flight beside the one read");
   constexpr int kChunk = kQN * d;                 // bytes of a W chunk: DK boxes of kQN rows x 128 B
   constexpr int kStage = qstage_bytes<DK>();
   constexpr int kTile = qout_tile_bytes<TOut>();  // one staged output tile
@@ -291,7 +329,8 @@ ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* ring = sm;                                           // [kStages][kStage]
-  unsigned char* tiles = ring + kStages * kStage;                     // [2 warpgroups][kTile]
+  unsigned char* sha = ring + kStages * kStage;                       // [2 warpgroups][SK][kQABox]
+  unsigned char* tiles = sha + qshared_a_bytes<DK>();                 // [2 warpgroups][kTile]
   float* cols = reinterpret_cast<float*>(tiles + 2 * kTile);          // [kStages][sw, bias][kQN]
   uint64_t* full = reinterpret_cast<uint64_t*>(cols + kStages * 2 * kQN);  // [kStages]
   int* done = reinterpret_cast<int*>(full + kStages);                 // [kStages]
@@ -330,7 +369,8 @@ ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   const float inv_out = Epi == kEpiGeluInt8 ? *inv_out_ptr : 0.f;
   unsigned char* my_tile = tiles + wg * kTile;
   constexpr int xvec = d / 8;
-  uint32_t a[DK * 4][4];  // yq of rows r0, r1 as the A fragments of the D / 32 k-steps
+  uint32_t a[RK * 4][4];  // yq of rows r0, r1 as the A fragments of the first RK * 4 k-steps
+  unsigned char* my_a = sha + wg * SK * kQABox;  // this warpgroup's A boxes past RK
   int acc[kQAcc];
 #pragma unroll
   for (int i = 0; i < kQAcc; ++i) acc[i] = 0;
@@ -344,11 +384,17 @@ ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     const unsigned char* wb = ring + st * kStage;
     wgmma_fence();
 #pragma unroll
-    for (int kb = 0; kb < DK; ++kb)
+    for (int kb = 0; kb < RK; ++kb)
 #pragma unroll
       for (int kk = 0; kk < kQK / 32; ++kk)
         wgmma_s8_m64n64k32_rs(acc, a[kb * 4 + kk], sw128_desc(wb + kb * kQN * kQK + kk * 32),
                               kb + kk > 0);
+#pragma unroll
+    for (int kb = RK; kb < DK; ++kb)
+#pragma unroll
+      for (int kk = 0; kk < kQK / 32; ++kk)
+        wgmma_s8_m64n64k32_ss(acc, sw128_desc(my_a + (kb - RK) * kQABox + kk * 32),
+                              sw128_desc(wb + kb * kQN * kQK + kk * 32), 1);
     wgmma_commit();
   };
 
@@ -362,10 +408,10 @@ ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll 4
     for (int i = 0; i < 16; ++i) {
       const int gr = rw + warp * 16 + i;
-      float v[kQLnChunks][8];
+      float v[LC][8];
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < kQLnChunks; ++c) {
+      for (int c = 0; c < LC; ++c) {
         const int cc = c * 32 + lane;
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[c][e] = 0.f;
@@ -376,7 +422,7 @@ ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       const float mu = warp_sum(sum) / d;
       float var = 0.f;
 #pragma unroll
-      for (int c = 0; c < kQLnChunks; ++c) {
+      for (int c = 0; c < LC; ++c) {
         if (c * 32 + lane < xvec) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) var += (v[c][e] - mu) * (v[c][e] - mu);
@@ -396,7 +442,10 @@ ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 
     // 2. normalize and quantize this thread's A fragments: rows r0 and r1
     //    = r0 + 8, columns 32 s + 4 t4 .. + 3 and 32 s + 16 + 4 t4 .. + 3 of
-    //    k-step s (rows past m: zeros, as the first port's LayerNorm saw)
+    //    k-step s (rows past m: zeros, as the first port's LayerNorm saw);
+    //    past k-box RK the same four bytes go to the warpgroup's shared A
+    //    box instead (16-byte piece 2 (s % 4) + h of rows warp 16 + g and +
+    //    8, which share one swizzle)
     const int r0 = rw + warp * 16 + g, r1 = r0 + 8;
     const T* x0 = x + (size_t)(r0 < m ? r0 : 0) * d;
     const T* x1 = x + (size_t)(r1 < m ? r1 : 0) * d;
@@ -408,9 +457,21 @@ ln_proj_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
         const int col = 32 * s + 16 * h + 4 * t4;
         const float4 ga = *reinterpret_cast<const float4*>(gamma + col);
         const float4 be = *reinterpret_cast<const float4*>(beta + col);
-        a[s][2 * h] = ln_quant4(r0 < m ? load4(x0 + col) : zero, mu0, rs0, ga, be, inv_act);
-        a[s][2 * h + 1] = ln_quant4(r1 < m ? load4(x1 + col) : zero, mu1, rs1, ga, be, inv_act);
+        const uint32_t q0 = ln_quant4(r0 < m ? load4(x0 + col) : zero, mu0, rs0, ga, be, inv_act);
+        const uint32_t q1 = ln_quant4(r1 < m ? load4(x1 + col) : zero, mu1, rs1, ga, be, inv_act);
+        if (s < RK * 4) {
+          a[s < RK * 4 ? s : 0][2 * h] = q0;
+          a[s < RK * 4 ? s : 0][2 * h + 1] = q1;
+        } else {
+          unsigned char* p = my_a + (s / 4 - RK) * kQABox + sw128_offset(warp * 16 + g, 2 * (s % 4) + h) + 4 * t4;
+          *reinterpret_cast<uint32_t*>(p) = q0;
+          *reinterpret_cast<uint32_t*>(p + 8 * 128) = q1;
+        }
       }
+    if constexpr (SK > 0) {
+      fence_proxy_async();  // the shared A boxes, for wgmma's async proxy
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup only
+    }
 
     // 3. chunk by chunk (block chunk number t), the two warpgroups taking
     //    turns to issue their products (named barriers 3 and 4), so that one
@@ -513,6 +574,8 @@ cudaError_t launch_ln_proj_int8(const void* x, const void* gamma, const void* be
     case 4: return EBC_QPROJ(4);
     case 5: return EBC_QPROJ(5);
     case 6: return EBC_QPROJ(6);
+    case 7: return EBC_QPROJ(7);
+    case 8: return EBC_QPROJ(8);
     default: return cudaErrorInvalidValue;
   }
 #undef EBC_QPROJ

@@ -75,18 +75,6 @@ DECODER_CFGS = {
 }
 
 FUSED_HEAD_MODES = ("auto", "on", "off")
-# Backbones with a W8A8 path: the int8 LN + projection kernels take D <= 768.
-QUANT_BACKBONES = ("vit_b_16", "vit_b_32")
-
-
-def check_quant_backbone(backbone: str, quant_int8: bool) -> None:
-    """W8A8 on a ViT-L (the int8 projection at D = 1024) or a CLIP ResNet
-    (its int8 decoder) is the next slice: refuse it by name."""
-    if quant_int8 and backbone not in QUANT_BACKBONES:
-        raise NotImplementedError(
-            f"not ported yet: W8A8 (--quant) on clip_{backbone} (ROADMAP Queue 1, the D = 1024 "
-            "backward and int8 kernels, and the CLIP ResNets' int8 decoder)"
-        )
 
 
 class ClipEBC(nn.Module):
@@ -99,9 +87,10 @@ class ClipEBC(nn.Module):
     ("auto" | "on" | "off") the head's; "auto" means the CUDA kernels for
     CUDA tensors (the fused attention kernel on windows, the tiled flash
     kernel on a full image) and the plain torch versions for CPU tensors.
-    ``quant_int8`` (inference only, ViT-B backbones) makes the trunk's
-    projections and the decoder's convolutions W8A8; the 1x1 projection
-    and the text tower stay unquantized. ``quant_mode="static"`` needs
+    ``quant_int8`` (inference only) makes the decoder's convolutions W8A8
+    and, on a ViT backbone, the trunk's projections too; a ModifiedResNet
+    trunk, the 1x1 projection and the text tower stay unquantized, as in
+    the JAX package. ``quant_mode="static"`` needs
     calibrated scales (``ops.quant.calibrate_int8`` on the dynamic twin,
     then ``load_quant_state``)."""
 
@@ -136,7 +125,6 @@ class ClipEBC(nn.Module):
         if fused_head not in FUSED_HEAD_MODES:
             raise ValueError(f"fused_head must be one of {FUSED_HEAD_MODES}, got {fused_head!r}")
         check_quant_args(quant_mode, quant_attn)
-        check_quant_backbone(backbone, quant_int8)
         self.backbone = backbone
         self.is_vit = backbone in VIT_CONFIGS
         self.dtype = dtype

@@ -181,11 +181,20 @@ def from_jax_params(
     return sd
 
 
-_DECODER_CONVS = {"ConvBNAct_0": "conv1", "ConvBNAct_1": "conv2", "ConvBNAct_2": "downsample.0"}
+# The decoder convolutions of each block kind: JAX ConvBNAct scope -> port
+# module (a bottleneck's shortcut is its fourth ConvBNAct)
+_DECODER_CONVS = {
+    "BasicBlock": {"ConvBNAct_0": "conv1", "ConvBNAct_1": "conv2", "ConvBNAct_2": "downsample.0"},
+    "BottleneckBlock": {"ConvBNAct_0": "conv1", "ConvBNAct_1": "conv2", "ConvBNAct_2": "conv3",
+                        "ConvBNAct_3": "downsample.0"},
+}
 
 
-def _quant_names(n_blocks: int, decoder_cfg: Sequence[Union[int, str]]) -> Dict[str, str]:
-    """``{port buffer name: JAX quant-tree path}`` of a ViT ``ClipEBC``."""
+def _quant_names(n_blocks: int, decoder_cfg: Sequence[Union[int, str]],
+                 kind: str = "BasicBlock") -> Dict[str, str]:
+    """``{port buffer name: JAX quant-tree path}`` of a ``ClipEBC``: the
+    ``n_blocks`` ViT blocks' (0 for a ModifiedResNet trunk, which stays
+    float) and the decoder's, whose blocks are ``kind``."""
     names = {}
     for i in range(n_blocks):
         src, dst = f"image_encoder/resblock_{i}", f"image_encoder.transformer.resblocks.{i}"
@@ -196,9 +205,9 @@ def _quant_names(n_blocks: int, decoder_cfg: Sequence[Union[int, str]]) -> Dict[
         names[f"{dst}.mlp.c_proj.act_amax"] = f"{src}/mlp_proj/act_amax"
     block_idx = [i for i, v in enumerate(decoder_cfg) if v != "U"]
     for j, idx in enumerate(block_idx):
-        for unit, conv in _DECODER_CONVS.items():
+        for unit, conv in _DECODER_CONVS[kind].items():
             names[f"image_decoder.{idx}.{conv}.act_amax"] = (
-                f"image_decoder/BasicBlock_{j}/{unit}/Conv_0/act_amax"
+                f"image_decoder/{kind}_{j}/{unit}/Conv_0/act_amax"
             )
     return names
 
@@ -218,10 +227,13 @@ def quant_state_from_jax(
     quant: Mapping[str, Any], decoder_cfg: Sequence[Union[int, str]] = (768,)
 ) -> StateDict:
     """A JAX ``variables["quant"]`` tree (nested dicts of numpy leaves) ->
-    the port's quant state (``ops.quant.load_quant_state``)."""
+    the port's quant state (``ops.quant.load_quant_state``); the decoder's
+    block kind is read from the tree."""
     flat = _flatten_tree(quant)
     n_blocks = len({k.split("/")[1] for k in flat if k.startswith("image_encoder/")})
-    names = _quant_names(n_blocks, decoder_cfg)
+    kind = ("BottleneckBlock" if any(k.startswith("image_decoder/BottleneckBlock_") for k in flat)
+            else "BasicBlock")
+    names = _quant_names(n_blocks, decoder_cfg, kind)
     state = {dst: _t(flat[src]) for dst, src in names.items() if src in flat}
     if len(state) != len(flat):
         raise KeyError(f"unknown quant leaves: {sorted(set(flat) - set(names.values()))[:8]}")
@@ -232,9 +244,11 @@ def quant_state_to_jax(
     state: Mapping[str, torch.Tensor], decoder_cfg: Sequence[Union[int, str]] = (768,)
 ) -> Dict[str, Any]:
     """The port's quant state (``ops.quant.quant_state``) -> a JAX
-    ``variables["quant"]`` tree of numpy leaves."""
+    ``variables["quant"]`` tree of numpy leaves; a decoder with ``conv3``
+    buffers is a bottleneck decoder."""
     n_blocks = len({k.split(".")[3] for k in state if k.startswith("image_encoder.")})
-    names = _quant_names(n_blocks, decoder_cfg)
+    kind = "BottleneckBlock" if any(".conv3." in k for k in state) else "BasicBlock"
+    names = _quant_names(n_blocks, decoder_cfg, kind)
     unknown = sorted(set(state) - set(names))
     if unknown:
         raise KeyError(f"unknown quant buffers: {unknown[:8]}")

@@ -61,10 +61,11 @@ MAX_FUSED_SEQ_INT8_ATTN = 512
 # registers.
 MAX_FUSED_DIM = 1024
 # Widest model of the int8 kernels (csrc/int8_proj.cuh kQMaxDim: the
-# quantized rows held in registers) and of the frozen backward's dx launch
-# (csrc/fused_attention_bwd.cu kXMaxDim): D = 1024 is a later slice.
-MAX_INT8_DIM = 768
-MAX_BWD_DX_DIM = 768
+# quantized rows held in registers, past D = 768 partly in shared memory)
+# and of the frozen backward's dx launch (csrc/fused_attention_bwd.cu
+# kXMaxDim: a row tile's cluster of D / 128 blocks past D = 768): ViT-L.
+MAX_INT8_DIM = 1024
+MAX_BWD_DX_DIM = 1024
 
 
 def supports(num_heads: int, head_dim: int, seq_len: int, max_seq: int = MAX_FUSED_SEQ) -> bool:
@@ -674,8 +675,8 @@ def ln_bwd_dx(
     """dx ``(..., D)`` of the frozen LayerNorm + QKV projection from d_qkv
     ``(..., 3D)``: the third launch of :func:`ln_qkv_bwd_frozen`. CPU
     tensors take :func:`ln_bwd_dx_plain`. CUDA tensors need bf16 x, d_qkv
-    and w ``(3D, D)``, fp32 ln_weight, ``128 <= D <= 768`` a multiple of
-    128, and launch ``ebc_ln_bwd_dx`` (counted in ``ln_bwd_dx.launches``)
+    and w ``(3D, D)``, fp32 ln_weight, ``128 <= D <= MAX_BWD_DX_DIM`` a
+    multiple of 128, and launch ``ebc_ln_bwd_dx`` (counted in ``ln_bwd_dx.launches``)
     or raise."""
     if x.device.type == "cpu":
         return ln_bwd_dx_plain(x, d_qkv, ln_weight, w, eps)
@@ -985,7 +986,7 @@ def fused_ln_mlp_int8(
 
     CPU tensors take :func:`ln_mlp_int8_plain`. CUDA tensors need bf16 or
     fp32 x, fp32 LN parameters, biases and scales, D a multiple of 128 and
-    at most 768, the hidden width a multiple of 128, and launch
+    at most MAX_INT8_DIM, the hidden width a multiple of 128, and launch
     ``csrc/fused_mlp_int8.cu`` (one call counted in
     ``fused_ln_mlp_int8.launches``, its second launch also in
     ``int8_gemm_residual.launches``) or raise."""

@@ -3,7 +3,7 @@
 PyTorch port in turns on one card, each tree in a process of its own.
 
     python3 scripts/torch_kernel_ab.py TREE [TREE ...] \\
-        --phase qkv_attention:float32 --phase flash:tiled:bfloat16
+        --phase qkv_attention:flagship:float32 --phase flash:tiled:bfloat16
 
 Each TREE is a directory that holds ``chip_smoke.py`` and
 ``clip_ebc_tpu_torch/``: ``.`` for this checkout, or a ``git archive`` of
@@ -11,7 +11,10 @@ another commit unpacked under a git-ignored directory such as ``build/``.
 The trees run in the order given, so ``parent . . parent`` times in turns.
 A phase is ``NAME[:ARG...]`` for ``chip_smoke.phase_NAME(device, *args)``;
 ``float32`` and ``bfloat16`` are passed as those torch dtypes, digits as
-ints, ``true`` and ``false`` as booleans, and ``kernels`` as an
+ints, ``true`` and ``false`` as booleans, ``flagship``, ``long_windows``
+and ``vit_l14`` as the launch shapes ``chip_smoke.FLAGSHIP``, ``LONG_WINDOWS``
+and ``VIT_L14`` (the phases that run at both widths take one), and
+``kernels`` as an
 empty table of the kernels' launch counts (the path phases fill it in), so
 ``--phase main_path:kernels:false`` times a path without the profiler.
 Each tree builds its own kernels into its own ``build/``.
@@ -46,6 +49,8 @@ def arg(a):
         return getattr(torch, a)
     if a.isdigit():
         return int(a)
+    if a in ("flagship", "long_windows", "vit_l14"):
+        return getattr(chip_smoke, a.upper())
     return {"true": True, "false": False, "kernels": collections.defaultdict(dict)}.get(a, a)
 
 

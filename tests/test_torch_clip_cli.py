@@ -11,8 +11,8 @@ image's count is held to the JAX Evaluator's on the same weights (read
 back by the JAX package's ``convert_reference_clip_ebc``): fp32, 1e-4
 relative.
 
-Refused by name, with ``NotImplementedError`` naming ROADMAP: training a
-ViT-L backbone, and ``--quant`` on a ViT-L or a CLIP ResNet.
+Training a ViT-L backbone and ``--quant`` on a ViT-L or a CLIP ResNet,
+refused by name until this slice, now get past the CLIs' checks.
 """
 
 import shutil
@@ -30,6 +30,8 @@ from clip_ebc_tpu_torch.cli import predict, test_nwpu, trainer as trainer_cli
 from clip_ebc_tpu_torch.config import get_bins_and_anchors
 from clip_ebc_tpu_torch.data.synthetic import make_synthetic_crowd_dataset
 from clip_ebc_tpu_torch.models import get_model
+from clip_ebc_tpu_torch.models.clip.model import ClipEBC
+from clip_ebc_tpu_torch.ops.quant import Int8Conv2d, Int8Linear
 
 torch.set_num_threads(4)
 SIZE, RED = 32, 8
@@ -84,25 +86,37 @@ def test_clip_resnet50_trains_and_serves_through_the_clis(tmp_path):
 
 @pytest.mark.parametrize("model", ["clip_vit_l_14", "clip_vit_l_14_336px"])
 def test_trainer_cli_refuses_vit_l_training(tmp_path, model):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer_cli.main(["--model", model, "--dataset", "sha", "--truncation", "4",
-                          "--data_root", str(tmp_path), "--ckpt_dir", str(tmp_path / "ck"),
-                          "--device", "cpu"])
+    """The trainer CLI refuses a ViT-L backbone no more (its D = 1024
+    frozen backward is ported): it refuses only what it refuses for every
+    model, here the multi-host flags (ROADMAP Queue 1, multi-GPU)."""
+    argv = ["--model", model, "--dataset", "sha", "--truncation", "4",
+            "--data_root", str(tmp_path), "--ckpt_dir", str(tmp_path / "ck"), "--device", "cpu"]
+    trainer_cli._check_ported(trainer_cli.build_parser().parse_args(argv))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, multi-GPU"):
+        trainer_cli.main([*argv, "--num_hosts", "2"])
 
 
 @pytest.mark.parametrize("model", ["clip_vit_l_14", "clip_vit_l_14_336px", "clip_resnet50",
                                    "clip_resnet101", "clip_resnet50x4"])
 @pytest.mark.parametrize("quant", ["int8", "int8_static"])
 def test_quant_is_refused_for_vit_l_and_clip_resnets(tmp_path, model, quant):
-    """Both serving CLIs and the factory refuse W8A8 on these backbones
-    until the next slice (the D = 1024 int8 projection, the ResNets' int8
-    decoder)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """W8A8 on ViT-L and the CLIP ResNets is refused no more: both serving
+    CLIs get past their checks to the first thing they lack here (images,
+    weights), and the factory builds the model (on the meta device: no
+    weights) with every decoder convolution in int8; a ViT trunk's
+    projections too, a ResNet trunk float, as in the JAX package."""
+    with pytest.raises(SystemExit, match="no images found"):
         predict.main([str(tmp_path), "--model", model, "--quant", quant, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="--weight_path"):
         test_nwpu.main(["--data_root", str(tmp_path), "--model", model, "--quant", quant,
-                        "--weight_path", "w.pt", "--device", "cpu"])
+                        "--device", "cpu"])
     bins, anchors = get_bins_and_anchors(RED, 4, "sha")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(model, SIZE, RED, bins, anchors, quant_int8=True,
-                  quant_mode="static" if quant == "int8_static" else "dynamic", device="cpu")
+    with torch.device("meta"):
+        m = ClipEBC(model[len("clip_"):], bins, anchors, reduction=RED, quant_int8=True,
+                    quant_mode="static" if quant == "int8_static" else "dynamic")
+    convs = [n for n, mod in m.named_modules() if isinstance(mod, torch.nn.Conv2d)
+             and n.startswith("image_decoder.")]
+    assert convs and all(isinstance(m.get_submodule(n), Int8Conv2d) for n in convs)
+    trunk_int8 = [n for n, mod in m.image_encoder.named_modules()
+                  if isinstance(mod, (Int8Conv2d, Int8Linear))]
+    assert bool(trunk_int8) == model.startswith("clip_vit"), trunk_int8[:3]

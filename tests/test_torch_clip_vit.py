@@ -225,9 +225,11 @@ def test_vit_l_window_blocks_route_to_the_fused_kernel_on_cuda():
     MAX_FUSED_SEQ) takes row 2 on the card, as the JAX package fuses it;
     the 336 px window (609 tokens, padded to 640 > 512 in the JAX
     package) stays plain, a whole image goes to the flash kernel, and a
-    CPU tensor takes the plain path. The int8 and backward kernels keep
-    their D <= 768."""
-    assert fa.MAX_FUSED_DIM == 1024 and fa.MAX_INT8_DIM == fa.MAX_BWD_DX_DIM == 768
+    CPU tensor takes the plain path. The int8 and backward kernels take
+    D = 1024 too, and a calibrated int8 attention block the same 289
+    tokens."""
+    assert fa.MAX_FUSED_DIM == fa.MAX_INT8_DIM == fa.MAX_BWD_DX_DIM == 1024
+    assert tr.attention_route("auto", "cuda", 289, "none", 16, 64, int8_attn=True) == "fused"
     for l in (289, fa.MAX_FUSED_SEQ):
         assert fa.supports(16, 64, l)
         for backend in ("auto", "fused"):

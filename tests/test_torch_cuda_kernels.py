@@ -40,6 +40,8 @@ their plain versions (exact int32 products, then the same IEEE operations
 in the same order on both sides).
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -276,6 +278,9 @@ def _assert_close_scaled(got, want, tol):
     (3, 64, 128, 2, 1, "bfloat16"),  # one valid key
     (2, 229, 128, 2, 65, "bfloat16"),  # one key past a 64-key chunk
     (3, 37, 128, 2, 37, "bfloat16"),  # ragged length, no masked key
+    (16, 289, 1024, 16, 289, "bfloat16"),  # a ViT-L training step: 16 heads, 1 + 32 + 256 tokens
+    (16, 289, 1024, 16, 250, "bfloat16"),  # ViT-L, masked keys
+    (16, 289, 1024, 16, 289, "float32"),  # ViT-L without --amp (the split path's kernel)
 ])
 def test_attention_bwd_kernel_matches_plain(cuda, shape):
     b, l, d, h, kv_len, dtype = shape
@@ -299,6 +304,8 @@ def test_attention_bwd_kernel_matches_plain(cuda, shape):
     (16, 229, 768, 12, 229),
     (16, 229, 768, 12, 200),
     (3, 37, 128, 2, 33),
+    (16, 289, 1024, 16, 289),  # a ViT-L training step
+    (16, 289, 1024, 16, 250),
 ])
 def test_ln_qkv_bwd_frozen_kernel_matches_plain(cuda, shape):
     b, l, d, h, kv_len = shape
@@ -323,15 +330,16 @@ def _ln_bwd_dx_inputs(cuda, m, d, seed, x_mean=0.0, x_std=1.0, dqkv_scale=1.0):
     return x, dqkv, gam, w
 
 
-@pytest.mark.parametrize("d", [128, 384, 512, 640, 768])
-@pytest.mark.parametrize("m", [1, 37, 229, 300, 3664])
+@pytest.mark.parametrize("d", [128, 384, 512, 640, 768, 896, 1024])
+@pytest.mark.parametrize("m", [1, 37, 229, 300, 3664, 4624])
 def test_ln_bwd_dx_matches_plain(cuda, m, d):
     """The frozen backward's last launch alone (``ebc_ln_bwd_dx``: dy =
     d_qkv W, then the LayerNorm backward) at one row, ragged row counts
     (37, 229, 300: not multiples of its 128-row tiles) and a training step's
-    16 x 229 rows, at widths that split into clusters of 1 to 5 blocks,
-    against ``ln_bwd_dx_plain``: 2e-2 of the largest magnitude of dx, as
-    the whole frozen backward is held."""
+    16 x 229 (ViT-B) and 16 x 289 (ViT-L) rows, at widths that split into
+    clusters of 1 to 8 blocks (896 and 1024: 7 and 8 blocks of 128 columns,
+    a row of 4 chunks a lane), against ``ln_bwd_dx_plain``: 2e-2 of the
+    largest magnitude of dx, as the whole frozen backward is held."""
     args = _ln_bwd_dx_inputs(cuda, m, d, seed=m + d)
     before = ln_bwd_dx.launches
     got = ln_bwd_dx(*args)
@@ -341,7 +349,7 @@ def test_ln_bwd_dx_matches_plain(cuda, m, d):
     _assert_close_scaled(got, ln_bwd_dx_plain(*args), 2e-2)
 
 
-@pytest.mark.parametrize("m,d", [(229, 384), (3664, 768)])
+@pytest.mark.parametrize("m,d", [(229, 384), (3664, 768), (4624, 1024)])
 @pytest.mark.parametrize("case", ["large mean", "large d_qkv"])
 def test_ln_bwd_dx_on_hard_inputs(cuda, m, d, case):
     """Rows of mean 50 +- 0.1 (a one-pass variance, E[x^2] - mu^2, would
@@ -358,7 +366,7 @@ def test_ln_bwd_dx_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     x, dqkv, gam, w = _ln_bwd_dx_inputs(cuda, 8, 768, seed=0)
     with pytest.raises(ValueError):
         ln_bwd_dx(x.float(), dqkv, gam, w)
-    wide = _ln_bwd_dx_inputs(cuda, 8, 1024, seed=0)  # D > 768
+    wide = _ln_bwd_dx_inputs(cuda, 8, 1152, seed=0)  # D > 1024
     with pytest.raises(ValueError):
         ln_bwd_dx(*wide)
     narrow = _ln_bwd_dx_inputs(cuda, 8, 192, seed=0)  # D % 128 != 0
@@ -446,6 +454,11 @@ def test_fused_head_refuses_grad(cuda):
     (2, 320, 768, 12, 320, "float32"),  # the longest fused length
     (3, 64, 128, 2, 1, "float32"),  # one valid key
     (140, 229, 768, 12, 229, "float32"),  # a window forward's batch
+    (16, 289, 1024, 16, 289, "bfloat16"),  # a ViT-L/14 calibration batch
+    (16, 289, 1024, 16, 250, "bfloat16"),  # masked keys
+    (140, 289, 1024, 16, 289, "bfloat16"),  # a ViT-L/14 --quant int8 window forward
+    (16, 289, 1024, 16, 289, "float32"),
+    (16, 289, 1024, 16, 250, "float32"),
 ])
 def test_qkv_attention_kernel_matches_plain_and_differentiates(cuda, shape):
     b, l, d, h, kv_len, dtype = shape
@@ -474,6 +487,69 @@ def test_qkv_attention_kernel_matches_plain_and_differentiates(cuda, shape):
         fused_qkv_attention(qkv.transpose(0, 1).contiguous().transpose(0, 1), h, kv_len, sm)
     with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
         fused_qkv_attention(qkv.half(), h, kv_len, sm)
+
+
+def _in_new_thread(fn):
+    """``fn()`` run on a new host thread (one that has made no CUDA call
+    yet), its result or its exception handed back."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+            torch.cuda.synchronize()
+        except BaseException as e:  # noqa: BLE001 - re-raised on this thread
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+@pytest.mark.parametrize("entry", ["attention_bwd", "fused_ln_qkv_attention", "ln_bwd_dx",
+                                   "int8_attention", "flash_tiled", "autograd"])
+def test_tma_kernels_launch_from_a_new_thread(cuda, entry):
+    """Every launch that encodes a TMA tensor map, made from a new host
+    thread, gives what the same launch gives on this one. Such a thread has
+    no current CUDA context until it makes a CUDA call, and the encode
+    failed there with error 1 (``cudaErrorInvalidValue``): the bf16
+    attention backward, when a backward began with it on autograd's device
+    thread, as it did in a filtered run of
+    ``test_qkv_attention_kernel_matches_plain_and_differentiates``
+    (``csrc/common.cuh`` ``encode_tiled`` now makes the tensor's device
+    current and encodes again). ``autograd``: the masked attention's
+    backward called through autograd from the new thread."""
+    b, l, d, h, kv = 3, 37, 128, 2, 33
+    x, gam, be, w, bias = _attn_inputs(b, l, d, seed=7, dev=cuda)
+    rng = np.random.default_rng(8)
+    qkv = torch.from_numpy(rng.normal(size=(b, l, 3 * d)).astype(np.float32)).to(cuda, torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=(b, l, d)).astype(np.float32)).to(cuda, torch.bfloat16)
+    sm = (d // h) ** -0.5
+    if entry == "attention_bwd":
+        fn = lambda: attention_bwd(qkv, g, h, kv, sm)  # noqa: E731
+    elif entry == "fused_ln_qkv_attention":
+        fn = lambda: fused_ln_qkv_attention(x, gam, be, w, bias, h, kv, sm)  # noqa: E731
+    elif entry == "ln_bwd_dx":
+        fn = lambda: ln_bwd_dx(x, qkv, gam, w)  # noqa: E731
+    elif entry == "int8_attention":
+        xi, gi, bi, wi, biasi, act, aq = _int8_attn_inputs(b, l, d, kv, cuda, torch.bfloat16)
+        fn = lambda: fused_ln_qkv_attention_int8(xi, gi, bi, wi, biasi, act, h, kv, sm,  # noqa: E731
+                                                 attn_scales=aq)
+    elif entry == "flash_tiled":
+        q, k, v = _flash_inputs(1, 2, 1100, 9, cuda, torch.bfloat16)
+        fn = lambda: fa.flash_tiled(q, k, v, 0.125)  # noqa: E731
+    else:
+        def fn():
+            leaf = qkv.clone().requires_grad_()
+            fused_qkv_attention(leaf, h, kv, sm).backward(g)
+            return leaf.grad
+    got = _in_new_thread(fn)
+    want = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _max_median(got, want):
@@ -642,6 +718,9 @@ INT8_ATTN_SHAPES = [
     (2, 433, 768, 12, 400, "bfloat16"),  # --window_size 320, masked keys
     (2, 433, 768, 12, 433, "float32"),
     (3, 512, 256, 4, 500, "float32"),  # the longest key instantiation
+    (8, 289, 1024, 16, 289, "bfloat16"),  # a ViT-L window block: 16 heads, D = 1024
+    (8, 289, 1024, 16, 250, "float32"),  # ViT-L, fp32, masked keys
+    (2, 433, 1024, 16, 433, "bfloat16"),  # ViT-L at 433 tokens
 ]
 
 
@@ -746,7 +825,7 @@ def _proj_kernel(x, gam, be, w_q, sw, bias, act, epilogue, act_out=None):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("epilogue", ["float", "int8", "gelu_int8"])
-@pytest.mark.parametrize("d", [128, 256, 768])
+@pytest.mark.parametrize("d", [128, 256, 768, 896, 1024])
 @pytest.mark.parametrize("b,l", [(3, 37), (16, 229), (140, 229)])
 def test_int8_projection_matches_plain(cuda, b, l, d, epilogue, dtype):
     """The LN + int8 projection alone (csrc/int8_proj.cuh) with each
@@ -824,6 +903,33 @@ def test_int8_projection_int8_epilogue_is_exact(cuda, dtype):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [768, 1024])
+def test_int8_projection_is_exact_at_the_largest_sums(cuda, d, dtype):
+    """Rows of +-1 (half each way: LN outputs +-1 / sqrt(1 + eps), all
+    quantized to +-127) against weight rows of +-127 with the same signs:
+    accumulators up to D x 127 x 127 (16,516,096 at D = 1024, just under
+    2^24, where an fp32 still holds every integer). The float epilogue
+    equals its plain version bit for bit, so every int32 sum reached the
+    float multiply exact."""
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(d)
+    m, n = 128, 3 * d
+    signs = np.stack([rng.permutation(np.repeat([1.0, -1.0], d // 2)) for _ in range(m)])
+    w_q = (127 * signs[np.arange(n) % m] * np.where(np.arange(n) // m % 2, -1, 1)[:, None]).astype(np.int8)
+    x = torch.from_numpy(signs.reshape(2, m // 2, d).astype(np.float32)).to(cuda, dtype)
+    gam, be = torch.ones(d, device=cuda), torch.zeros(d, device=cuda)
+    act = torch.tensor(1.0 / np.sqrt(1.0 + 1e-5) / 127.0, dtype=torch.float32, device=cuda)
+    sw = torch.full((n,), 1e-6, device=cuda)
+    bias = torch.zeros(n, device=cuda)
+    args = (x, gam, be, torch.from_numpy(w_q).to(cuda), sw, bias, act)
+    got = _proj_kernel(*args, "float")
+    want = ln_proj_int8_plain(*args, "float")
+    torch.cuda.synchronize()
+    assert float(want.float().abs().max()) == pytest.approx(d * 127 * 127 * 1e-6, rel=1e-2)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("shape", [
     (8, 229, 768, 3072, True, "bfloat16"),  # flagship block's MLP
     (8, 229, 768, 3072, True, "float32"),
@@ -853,7 +959,35 @@ def test_mlp_int8_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("m,d,hidden", [(140 * 229, 768, 3072), (3 * 37, 256, 1024), (300, 640, 2560)])
+def test_mlp_int8_kernel_matches_plain_at_vit_l_width(cuda, dtype):
+    """A ViT-L block's W8A8 MLP (8 windows x 289 tokens, D = 1024, hidden
+    4096) against its plain version: max 2e-2 and median 1e-3 (bf16) or
+    1e-4 (fp32) of the largest output, and in fp32 the MLP branch (output
+    - x) within 5e-2 and 1e-3 of its own, as ``chip_smoke.py``
+    ``phase_mlp_int8`` holds the flagship's: the kernel and the plain
+    version sum the LayerNorm in another order, and an LN output one int8
+    step apart moves all 4096 hidden units of its row (one such step is
+    4.6e-3 of the largest fp32 output here, on an H100), while a wrong
+    scale or fold moves every output (the median)."""
+    dtype = getattr(torch, dtype)
+    args = _mlp_inputs(8, 289, 1024, 4096, cuda, dtype)
+    before = fused_ln_mlp_int8.launches
+    got = fused_ln_mlp_int8(*args)
+    torch.cuda.synchronize()
+    assert fused_ln_mlp_int8.launches == before + 1 and got.dtype == dtype
+    x, gam, be, w_fc, b_fc, act1, w_pj, b_pj, act2 = args
+    want = ln_mlp_int8_plain(x, gam, be, *quant.quantize_weight(w_fc), b_fc, act1,
+                             *quant.quantize_weight(w_pj), b_pj, act2, True)
+    err, med = _max_median(got, want)
+    assert err <= 2e-2 and med <= (1e-3 if dtype == torch.bfloat16 else 1e-4), (err, med)
+    if dtype == torch.float32:
+        err, med = _max_median(got - x, want - x)
+        assert err <= 5e-2 and med <= 1e-3, (err, med)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m,d,hidden", [(140 * 229, 768, 3072), (3 * 37, 256, 1024), (300, 640, 2560),
+                                        (140 * 289, 1024, 4096), (300, 1024, 4096)])
 def test_int8_gemm_residual_matches_plain_bitwise(cuda, m, d, hidden, dtype):
     """The MLP's second launch alone: x + (hq . W_pj^T * sw2 + b_proj) at the
     flagship block (D = 768: persistent blocks on 128-row tiles of 192
@@ -914,6 +1048,21 @@ def test_qkv_quant_dynamic_tiles_wider_than_a_cluster(cuda, b, block_b, dtype):
         fatt.qkv_quant_dynamic(torch.zeros(1, 513, 3 * 768, dtype=qkv.dtype, device=cuda), 12, 2)
     with pytest.raises(ValueError, match="block_b"):
         fatt.qkv_quant_dynamic(qkv, 12, 0)
+
+
+@pytest.mark.parametrize("dtype,block_b", [("bfloat16", 2), ("float32", 1)])
+@pytest.mark.parametrize("b,l", [(140, 289), (70, 433), (5, 64)])
+def test_qkv_quant_dynamic_matches_plain_bitwise_at_vit_l_width(cuda, b, l, dtype, block_b):
+    """The dynamic scale pass at ViT-L's 16 heads (D = 1024: 8 head pairs
+    a part) at its windows of 289 tokens, of 433 and an odd batch: bit-equal
+    to ``qkv_quant_dynamic_plain``."""
+    g = torch.Generator(device=cuda).manual_seed(b * l)
+    mag = (0.5 + torch.rand(48, generator=g, device=cuda)).repeat_interleave(64)
+    qkv = (torch.randn(b, l, 3 * 1024, generator=g, device=cuda) * mag).to(getattr(torch, dtype))
+    got_q, got_s = fatt.qkv_quant_dynamic(qkv, 16, block_b)
+    torch.cuda.synchronize()
+    want_q, want_s = fatt.qkv_quant_dynamic_plain(qkv, 16, block_b)
+    assert torch.equal(got_s, want_s) and torch.equal(got_q, want_q)
 
 
 def test_quant_attn_model_takes_the_int8_attention(cuda):

@@ -131,7 +131,7 @@ def test_nwpu_cli_matches_jax_cli(tmp_path):
     (["--quant", "int8", "--quant_attn", "xla"], SystemExit),  # int8 attention needs static scales
     (["--packed_eval", "--sliding_window"], NotImplementedError),
     (["--pretrained", "clip.pt"], NotImplementedError),
-    (["--model", "clip_resnet50", "--quant", "int8", "--weight_path", "w.pt"], NotImplementedError),
+    (["--model", "clip_resnet50", "--quant", "int8"], SystemExit),  # W8A8 on a CLIP ResNet: no weights
     (["--packed_eval"], SystemExit),  # needs --sliding_window, as the JAX CLI says
     (["--quant_attn"], SystemExit),  # needs --quant int8_static
     (["--batch_windows", "8"], SystemExit),  # options of unported features are not accepted
