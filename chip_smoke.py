@@ -159,6 +159,26 @@ Phases, each a hard failure (a raised exception, exit code 1):
    the int8 projection, 2b, 2c also at 70 x 433 tokens, the int8 body, 2d,
    6 and its second launch, the scale pass, and row 3 at 140 and 16 x 289
    tokens in both dtypes), each row named with ``_d1024``.
+4e. data parallel (``phase_data_parallel``): the flagship bf16 VPT step
+   (16 windows) under ``DistributedDataParallel`` in a group of one rank
+   over NCCL, joined through ``parallel/mesh.py`` (the CLI's
+   ``initialize_distributed`` is a no-op for one process): 12 launches of
+   rows 2, 4, 5 and 5 dx a step under DDP's hooks, ms per step and peak
+   memory. Then two ranks sharing the card over gloo, spawned (this
+   process holds a CUDA context), each loading the kernels phase 1 built
+   and sending its counters and results back as one JSON line, against
+   one process on the same global batches: the flagship VPT step at 16
+   windows (8 a rank; 2 steps, bf16 and fp32: the prompt and decoder
+   gradients within phase 4's 5e-2 / 1e-3 relative L2, the losses too,
+   the same launches a rank), ``clip_resnet50`` at its run.sh flags (8
+   crops of 448 px, 4 a rank; one fp32 step: every synced BatchNorm
+   statistic within 1e-4 relative L2), and the flagship image by 140
+   windows (70 a rank, gathered by one all-reduce; bf16 and fp32: the
+   count within phase 3's 1e-2 / 1e-3, one head launch a rank). ms per
+   step of one NCCL rank and of the two ranks, and each process's peak
+   memory, are printed beside the card line. Two ranks on one card show
+   that the path is right, not that it scales. A rank's failure, non-zero
+   exit or silence past its time limit fails the run.
 
 Phase 2 also holds both flash-attention kernels against their plain
 versions, in bf16 and fp32: the tiled kernel at the flagship full image
@@ -3592,6 +3612,300 @@ def phase_vit_l(dev, kernels: dict, profile: bool) -> None:
     del model, ev
 
 
+# phase 4e, data parallel: the flagship VPT step under DDP over NCCL (one
+# rank), then two ranks sharing the card over gloo against one process on
+# the global batch: the VPT step (16 windows, 8 a rank), clip_resnet50 at
+# its run.sh flags (8 crops of 448 px, 4 a rank) and the flagship image by
+# 140 windows (70 a rank)
+DDP_WORLD, DDP_STEPS, DDP_TIMED, DDP_POINTS = 2, 2, 5, 64
+DDP_GRAD_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}  # phase 4's
+DDP_COUNT_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}  # phase 3's
+DDP_STAT_TOL = 1e-4
+DDP_CHILD_TIMEOUT = 240  # seconds, each rank
+
+
+def _ddp_batch(n: int, size: int, seed: int):
+    """A seeded global batch of ``n`` crops of ``size`` px with up to
+    ``DDP_POINTS`` points each, on the CPU."""
+    from clip_ebc_tpu_torch.data.loader import Batch
+
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(n, size, size, 3)).astype(np.float32)
+    points = np.zeros((n, DDP_POINTS, 2), np.float32)
+    mask = np.zeros((n, DDP_POINTS), bool)
+    density = np.zeros((n, size // 8, size // 8), np.float32)
+    for i in range(n):
+        k = int(rng.integers(0, DDP_POINTS + 1))
+        points[i, :k] = rng.uniform(0, size, size=(k, 2))
+        mask[i, :k] = True
+        np.add.at(density[i], (points[i, :k, 1].astype(int) // 8,
+                               points[i, :k, 0].astype(int) // 8), 1.0)
+    return Batch(*map(torch.from_numpy, (images, points, mask, density)))
+
+
+def _ddp_trainer(model_name: str, size: int, dataset: str, batch: int, model):
+    from clip_ebc_tpu_torch.config import ExperimentConfig
+    from clip_ebc_tpu_torch.losses import make_loss_fn
+    from clip_ebc_tpu_torch.parallel import mesh
+    from clip_ebc_tpu_torch.training.trainer import Trainer
+
+    cfg = ExperimentConfig(model=model_name, dataset=dataset, input_size=size, reduction=8,
+                           truncation=4, count_loss="dmcount", batch_size=batch,
+                           warmup_lr=1e-3).normalize()
+    trainer = Trainer(cfg, model.train(), make_loss_fn(cfg, mesh.get_world_size()))
+    trainer.set_epoch_lr(1)
+    return trainer
+
+
+def _ddp_vpt(dev, dtype, timed: int = 0, save: str = "") -> dict:
+    """``DDP_STEPS`` flagship VPT steps on this rank's shard of the global
+    batch of ``TRAIN_B`` windows: the global losses, the launches, the
+    first step's prompt and decoder gradients (saved to ``save``), then
+    the median ms of ``timed`` more steps (host clock, synchronized)."""
+    from clip_ebc_tpu_torch.losses import SUMMED_TERMS
+    from clip_ebc_tpu_torch.models.blocks import BatchNorm
+    from clip_ebc_tpu_torch.parallel import mesh
+
+    model = _flagship_model(dev, dtype, axis_name=mesh.DATA_AXIS)
+    trainer = _ddp_trainer("clip_vit_b_16", TRAIN_SIZE, "qnrf",
+                           TRAIN_B // mesh.get_world_size(), model)
+    check(mesh.get_world_size() == 1 or all(m.axis_name == mesh.DATA_AXIS for m in model.modules()
+                                            if isinstance(m, BatchNorm)), "BatchNorm not synced")
+    batch = mesh.shard_batch(_ddp_batch(TRAIN_B, TRAIN_SIZE, seed=1)).to(dev)
+    text = trainer.text_features()
+    _train_counters(reset=True)
+    losses = []
+    for step in range(DDP_STEPS):
+        info = trainer.train_step(batch, text)
+        losses.append(mesh.reduce_metrics(info, SUMMED_TERMS)["loss"])
+        if step == 0 and save:
+            torch.save({n: p.grad.float().cpu() for n, p in model.named_parameters()
+                        if n.startswith(("vpt_", "image_decoder.", "projection."))}, save)
+    torch.cuda.synchronize()
+    out = {"losses": losses, "launches": _train_counters(),
+           "ddp": type(trainer.net).__name__}
+    if timed:
+        out["ms"] = time_steps(trainer, batch, text, reps=timed, warmup=0)
+    return out
+
+
+def _ddp_rn50(dev, save: str = "") -> dict:
+    """One fp32 ``clip_resnet50`` step at its run.sh flags on this rank's
+    shard of ``RN_B`` crops: the BatchNorm running statistics after it
+    (saved to ``save``) and the global loss."""
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.losses import SUMMED_TERMS
+    from clip_ebc_tpu_torch.models import get_model
+    from clip_ebc_tpu_torch.parallel import mesh
+
+    bins, anchors = get_bins_and_anchors(8, 4, "sha")
+    model = get_model("clip_resnet50", RN_SIZE, 8, bins, anchors, seed=42, device=dev,
+                      axis_name=mesh.DATA_AXIS)
+    trainer = _ddp_trainer("clip_resnet50", RN_SIZE, "sha",
+                           RN_B // mesh.get_world_size(), model)
+    batch = mesh.shard_batch(_ddp_batch(RN_B, RN_SIZE, seed=2)).to(dev)
+    info = trainer.train_step(batch, trainer.text_features())
+    loss = mesh.reduce_metrics(info, SUMMED_TERMS)["loss"]
+    if save:
+        torch.save({k: v.cpu() for k, v in model.state_dict().items() if "running_" in k}, save)
+    return {"loss": loss}
+
+
+def _ddp_counts(dev) -> dict:
+    """The flagship image's count by 140 windows of 224 px in bf16 and
+    fp32, the windows split over the ranks; the windows this rank ran and
+    the head's launches."""
+    from clip_ebc_tpu_torch.ops.fused_head import fused_ebc_head
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+
+    image = _flagship_image()
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = _flagship_model(dev, dtype)
+        ran = []
+        model.image_encoder.register_forward_pre_hook(lambda m, a: ran.append(a[0].shape[0]))
+        ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                       pad_to_multiple=16)
+        ev.text_features()  # the text tower's forward runs no window
+        fused_ebc_head.launches = 0
+        out[str(dtype)] = {"count": ev.predict_count(image), "windows": ran,
+                           "head_launches": fused_ebc_head.launches}
+        del model, ev
+    return out
+
+
+def _flagship_image() -> np.ndarray:
+    """Phase 3's seeded 2048 x 3072 image, ImageNet-normalized."""
+    from clip_ebc_tpu_torch.data.crowd import normalize_image
+
+    pixels = np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8)
+    return normalize_image(pixels.astype(np.float32) / 255.0)
+
+
+def _ddp_child(rank: int, world: int, init: str, backend: str, out_dir: str, conn) -> None:
+    """One rank (a spawned process) on ``cuda:{rank % devices}``: joins the
+    group, runs the cases on its shards, sends one JSON line."""
+    from clip_ebc_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.rank_device("cuda", rank)
+    torch.cuda.set_device(dev)
+    mesh.init_process_group(init, world, rank, backend, dev)
+    try:
+        res = {"rank": rank, "device": str(dev)}
+        for dtype in (torch.bfloat16, torch.float32):
+            save = os.path.join(out_dir, f"vpt_{dtype}_grads.pt") if rank == 0 else ""
+            res[f"vpt {dtype}"] = _ddp_vpt(dev, dtype, DDP_TIMED if dtype == torch.bfloat16 else 0,
+                                           save)
+        res["rn50"] = _ddp_rn50(dev, os.path.join(out_dir, "rn50_stats.pt") if rank == 0 else "")
+        res["counts"] = _ddp_counts(dev)
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        conn.send(json.dumps(res))
+    finally:
+        mesh.shutdown()
+
+
+def ddp_references(dev, tmp: str) -> dict:
+    """The one-process runs of the cases on the global batches (no group):
+    the VPT step's gradients and the ResNet's statistics saved under
+    ``tmp``, its losses, ms per step, counts and peak memory."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref = {dtype: _ddp_vpt(dev, dtype, DDP_TIMED if dtype == torch.bfloat16 else 0,
+                           os.path.join(tmp, f"ref_vpt_{dtype}.pt"))
+           for dtype in (torch.bfloat16, torch.float32)}
+    ref["rn50"] = _ddp_rn50(dev, os.path.join(tmp, "ref_rn50.pt"))
+    ref["counts"] = _ddp_counts(dev)
+    ref["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.empty_cache()
+    return ref
+
+
+def ddp_ranks(world: int, backend: str, ref: dict, tmp: str) -> list:
+    """``world`` ranks spawned (this process holds a CUDA context, so no
+    fork) over ``backend``, each ``_ddp_child``, held to the one-process
+    references ``ref``: the VPT step's gradients and losses (phase 4's
+    tolerances), its launches, the ResNet's BatchNorm statistics, the
+    windowed counts (phase 3's). A rank's failure, non-zero exit or
+    silence past ``DDP_CHILD_TIMEOUT`` fails the phase. Returns each
+    rank's JSON result."""
+    import multiprocessing as mp
+
+    from clip_ebc_tpu_torch.parallel import mesh
+
+    tag = f"DDP over {backend}, {world} ranks"
+    ctx = mp.get_context("spawn")
+    store = f"file://{os.path.join(tmp, backend + '_store')}"
+    pipes, procs = [], []
+    t0 = time.perf_counter()
+    for r in range(world):
+        recv, send = ctx.Pipe(duplex=False)
+        p = ctx.Process(target=_ddp_child, args=(r, world, store, backend, tmp, send))
+        p.start()
+        send.close()
+        pipes.append(recv)
+        procs.append(p)
+    results = []
+    try:
+        for r, (p, recv) in enumerate(zip(procs, pipes)):
+            left = DDP_CHILD_TIMEOUT - (time.perf_counter() - t0)
+            check(recv.poll(max(left, 1)), f"{tag}: rank {r} sent no result within "
+                  f"{DDP_CHILD_TIMEOUT} s (exit code {p.exitcode})")
+            results.append(json.loads(recv.recv()))
+            p.join(max(DDP_CHILD_TIMEOUT - (time.perf_counter() - t0), 1))
+            check(p.exitcode == 0, f"{tag}: rank {r} exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    spawn_s = time.perf_counter() - t0
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+        got = torch.load(os.path.join(tmp, f"vpt_{dtype}_grads.pt"))
+        want = torch.load(os.path.join(tmp, f"ref_vpt_{dtype}.pt"))
+        for gname, prefixes in (("vpt", ("vpt_",)),
+                                ("decoder", ("image_decoder.", "projection."))):
+            err = _group_err(got, want, prefixes)
+            print(f"{tag}, VPT step {dt}, {gname} gradient: rel L2 {err:.3e} from one process "
+                  f"at {TRAIN_B} (bound {DDP_GRAD_TOL[dtype]:g})")
+            check(err <= DDP_GRAD_TOL[dtype], f"{tag} {dt} {gname} gradient disagrees")
+        for res in results:
+            run = res[f"vpt {dtype}"]
+            n = run["launches"]
+            check(run["ddp"] == "DistributedDataParallel", f"{tag}: rank {res['rank']}: no DDP")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref[dtype]["losses"]))
+            print(f"  rank {res['rank']} ({res['device']}) {dt}: launches {n}; global losses "
+                  f"{run['losses']} (one process {ref[dtype]['losses']}, rel {rel:.2e})")
+            check(rel <= DDP_GRAD_TOL[dtype], f"{tag}: rank {res['rank']} {dt}: loss differs")
+            if dtype == torch.bfloat16:
+                check(n["fused_ln_qkv_attention"] >= 12 * DDP_STEPS
+                      and n["attention_bwd"] == n["ln_qkv_bwd_frozen"] == n["ln_bwd_dx"]
+                      == 12 * DDP_STEPS, f"{tag}: rank {res['rank']} bf16: launches {n}")
+    got = torch.load(os.path.join(tmp, "rn50_stats.pt"))
+    want = torch.load(os.path.join(tmp, "ref_rn50.pt"))
+    check(sorted(got) == sorted(want) and len(want) > 100, f"{tag}: clip_resnet50 statistics")
+    errs = {k: float((got[k] - want[k]).norm() / want[k].norm()) for k in want}
+    worst = max(errs, key=errs.get)
+    print(f"{tag}, clip_resnet50 fp32 step ({RN_B} crops of {RN_SIZE} px): {len(want)} "
+          f"BatchNorm statistics, worst rel L2 {errs[worst]:.3e} ({worst}; bound "
+          f"{DDP_STAT_TOL:g}); losses {[r['rn50']['loss'] for r in results]} (one process "
+          f"{ref['rn50']['loss']})")
+    check(errs[worst] <= DDP_STAT_TOL, f"{tag}: clip_resnet50's synced statistics differ")
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype)
+        want = ref["counts"][key]["count"]
+        for res in results:
+            c = res["counts"][key]
+            rows = mesh.shard_rows(B, res["rank"], world)
+            rel = abs(c["count"] - want) / abs(want)
+            print(f"{tag}, rank {res['rank']}, flagship image {key}: count {c['count']:.4f} by "
+                  f"windows {c['windows']} (one process {want:.4f}), rel {rel:.2e} (bound "
+                  f"{DDP_COUNT_TOL[dtype]:g}); head launches {c['head_launches']}")
+            share = rows.stop - rows.start  # a rank with no windows runs no forward
+            check(sum(c["windows"]) == share and c["head_launches"] == int(share > 0)
+                  and rel <= DDP_COUNT_TOL[dtype], f"{tag}: rank {res['rank']} {key}: count")
+    print(f"{tag}: {spawn_s:.1f} s from spawn to join; bf16 VPT step "
+          f"{[round(r['vpt torch.bfloat16']['ms'], 2) for r in results]} ms/step (median of "
+          f"{DDP_TIMED}, host clock; one process at {TRAIN_B}: {ref[torch.bfloat16]['ms']:.2f}); "
+          f"peak memory {[round(r['peak_gib'], 2) for r in results]} GiB a rank (the one-process "
+          f"references {ref['peak_gib']:.2f}); {card_line()}")
+    return results
+
+
+def phase_data_parallel(dev, kernels: dict) -> None:
+    from clip_ebc_tpu_torch.parallel import mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) one rank over NCCL: the flagship bf16 step under DDP, rows 2, 4, 5, 5 dx
+        mesh.init_process_group(f"file://{os.path.join(tmp, 'nccl_store')}", 1, 0, "nccl", dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            nccl = _ddp_vpt(dev, torch.bfloat16, timed=DDP_TIMED)
+        finally:
+            mesh.shutdown()
+        n = nccl["launches"]
+        check(nccl["ddp"] == "DistributedDataParallel", f"NCCL rank: the step ran {nccl['ddp']}")
+        check(n["fused_ln_qkv_attention"] >= 12 * DDP_STEPS
+              and n["attention_bwd"] == n["ln_qkv_bwd_frozen"] == n["ln_bwd_dx"] == 12 * DDP_STEPS,
+              f"NCCL DDP step: launches {n}, expected 12 a step of rows 2, 4, 5 and 5 dx")
+        check(all(math.isfinite(v) for v in nccl["losses"]), f"NCCL DDP losses {nccl['losses']}")
+        print(f"DDP over NCCL, 1 rank, flagship bf16 VPT step ({TRAIN_B} windows): "
+              f"{nccl['ms']:.2f} ms/step (median of {DDP_TIMED}, host clock), peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches over "
+              f"{DDP_STEPS} steps {n}; losses {nccl['losses']}")
+        # (b) two ranks sharing the card over gloo against one process on the global batches
+        results = ddp_ranks(DDP_WORLD, "gloo", ddp_references(dev, tmp), tmp)
+
+    for row in ("fused_ln_qkv_attention", "attention_bwd", "ln_qkv_bwd_frozen", "ln_bwd_dx"):
+        kernels[row]["launches_ddp_nccl"] = nccl["launches"][row]
+        kernels[row]["launches_ddp_gloo"] = [r["vpt torch.bfloat16"]["launches"][row]
+                                             for r in results]
+    kernels["fused_ebc_head"]["launches_ddp_gloo"] = [
+        r["counts"][str(torch.bfloat16)]["head_launches"] for r in results]
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3656,6 +3970,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_vit_l(dev, by_name, "--profile" in argv)
     print(f"phase 4d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_data_parallel(dev, by_name)
+    print(f"phase 4e: {time.perf_counter() - t0:.1f} s")
     if "--profile" not in argv:
         phase_library_kernels(dev)
     off_path = [k for k in kernels if k["name"].removesuffix("_d1024") in OFF_PATH]

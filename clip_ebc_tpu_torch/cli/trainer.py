@@ -30,9 +30,23 @@ Each epoch trains, evaluates on the val split from ``--eval_start`` on
 (MAE, RMSE), keeps the best ``--save_best_k`` weights under
 ``{ckpt_dir}/best/{epoch}.pt`` (which ``cli.predict --weight_path``
 loads) and the full state (BatchNorm statistics included) in
-``{ckpt_dir}/latest.pt``, from which a rerun resumes. Not ported yet, and
-refused: ``--pretrained``, multi-host (``--coordinator``, ``--num_hosts``
-> 1, ``--host_id`` > 0), ``--profile_dir`` and ``--loader_procs`` > 0.
+``{ckpt_dir}/latest.pt``, from which a rerun resumes.
+
+Data parallel: ``--num_hosts N`` processes, one a device, each started
+with its own ``--host_id`` (0..N-1) and the same ``--coordinator
+host:port`` (rank 0 listens there), train one model. ``--batch_size`` is
+per process: the N processes take the step one process takes on a global
+batch of N x ``--batch_size`` (DDP over NCCL on CUDA, gloo on the CPU;
+BatchNorm statistics over the global batch), as the JAX trainer does
+with one process a host. Process r drives ``cuda:{r % devices}``. Every
+process trains and evaluates (the windows split over the processes);
+process 0 alone writes ``train.log`` and the checkpoints:
+
+    python -m clip_ebc_tpu_torch.cli.trainer --coordinator 10.0.0.1:29500 \
+        --num_hosts 2 --host_id 0 ...   # and --host_id 1 in a second process
+
+Not ported yet, and refused: ``--pretrained``, ``--profile_dir`` and
+``--loader_procs`` > 0.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import logging
 import os
 import sys
 import time
+from typing import Optional
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -130,8 +145,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_ported(args) -> None:
     todo = {
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
-        "multi-host --coordinator/--num_hosts/--host_id (ROADMAP Queue 1, multi-GPU)": (
-            args.coordinator is not None or args.num_hosts != 1 or args.host_id != 0),
         "--profile_dir (ROADMAP Queue 1, remaining tooling)": args.profile_dir is not None,
         "--loader_procs (ROADMAP Queue 1, VPT training: loader process pool)": args.loader_procs > 0,
     }
@@ -147,7 +160,9 @@ def config_from_args(args):
     return ExperimentConfig(**{k: v for k, v in vars(args).items() if k in names}).normalize()
 
 
-def _logger(path: str) -> logging.Logger:
+def _logger(path: Optional[str]) -> logging.Logger:
+    """The trainer's log, to stdout and ``path``; silent without a path
+    (the processes other than rank 0)."""
     log = logging.getLogger("clip_ebc_tpu_torch.trainer")
     log.setLevel(logging.INFO)
     log.propagate = False
@@ -155,7 +170,9 @@ def _logger(path: str) -> logging.Logger:
         log.removeHandler(h)
         h.close()
     fmt = logging.Formatter("%(asctime)s %(message)s")
-    for h in (logging.StreamHandler(sys.stdout), logging.FileHandler(path)):
+    handlers = (logging.StreamHandler(sys.stdout), logging.FileHandler(path)) if path else (
+        logging.NullHandler(),)
+    for h in handlers:
         h.setFormatter(fmt)
         log.addHandler(h)
     return log
@@ -166,21 +183,39 @@ def main(argv=None) -> None:
     _check_ported(args)
     cfg = config_from_args(args)
 
+    from ..parallel import mesh
+
+    mesh.initialize_distributed(args.coordinator, args.num_hosts, args.host_id,
+                                device=args.device)
+    try:
+        _train(args, cfg)
+    finally:
+        mesh.shutdown()
+
+
+def _train(args, cfg) -> None:
     import torch
 
     from ..data.crowd import CrowdDataset
     from ..data.loader import TrainLoader, make_eval_transforms, make_train_transforms
     from ..losses import make_loss_fn
     from ..models import get_model
+    from ..parallel import mesh
     from ..training.checkpoint import CheckpointManager
     from ..training.evaluate import Evaluator, evaluate
     from ..training.trainer import Trainer
-    from ..utils.platform import resolve_device
 
-    device = resolve_device(args.device)
-    os.makedirs(cfg.ckpt_dir, exist_ok=True)
-    log = _logger(os.path.join(cfg.ckpt_dir, "train.log"))
+    device = mesh.rank_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    world, primary = mesh.get_world_size(), mesh.is_primary()
+    if primary:
+        os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    log = _logger(os.path.join(cfg.ckpt_dir, "train.log") if primary else None)
     log.info("config: %s", cfg)
+    if world > 1:
+        log.info("data parallel: %d processes, global batch %d", world,
+                 world * cfg.batch_size)
 
     model = get_model(
         cfg.model, cfg.input_size, cfg.reduction, cfg.bins, cfg.bin_anchors,
@@ -188,8 +223,9 @@ def main(argv=None) -> None:
         num_vpt=cfg.num_vpt, deep_vpt=not cfg.shallow_vpt, vpt_drop=cfg.vpt_drop,
         attn_backend=args.attn_backend, fused_head=args.fused_head,
         decoder_before_upsample=args.decoder_before_upsample, seed=cfg.seed, device=device,
+        axis_name=mesh.DATA_AXIS if world > 1 else None,
     )
-    trainer = Trainer(cfg, model, make_loss_fn(cfg))
+    trainer = Trainer(cfg, model, make_loss_fn(cfg, world))
     train_ds = CrowdDataset(
         cfg.dataset, "train", data_root=cfg.data_root, transforms=make_train_transforms(cfg),
         num_crops=cfg.num_crops, check_sizes=not args.eval_disable_size_check,
@@ -197,6 +233,7 @@ def main(argv=None) -> None:
     loader = TrainLoader(
         train_ds, batch_size=cfg.batch_size, reduction=cfg.reduction,
         max_points=args.max_points or None, seed=cfg.seed, num_threads=cfg.num_workers,
+        host_id=mesh.get_rank(), num_hosts=world,
     )
     val_ds = CrowdDataset(
         cfg.dataset, "val", data_root=cfg.data_root, transforms=make_eval_transforms(cfg),
@@ -215,6 +252,8 @@ def main(argv=None) -> None:
         trainer.load_state_dict(state)
         log.info("resumed from %s at epoch %d", cfg.ckpt_dir, start_epoch)
 
+    # every process trains and evaluates (an evaluation on rank 0 alone
+    # would wait forever on the others' share of the windows)
     for epoch in range(start_epoch, cfg.total_epochs + 1):
         t0 = time.time()
         metrics, steps = trainer.train_epoch(loader, epoch)

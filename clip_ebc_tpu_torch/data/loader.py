@@ -7,8 +7,10 @@ Ragged point lists become a dense ``(B, P_max, 2)`` tensor plus a
 density map is block-summed to the output reduction on the host. Items
 are decoded and augmented by a pool of threads, each from its own seed
 drawn up front, so the batches do not depend on thread timing and equal
-the JAX loader's from the same seed. The JAX loader's process pool
-(``num_workers > 0``) is not ported yet.
+the JAX loader's from the same seed. Under data parallelism rank
+``host_id`` of ``num_hosts`` loads its own shard of every epoch's
+permutation, as each host of the JAX loader does. The JAX loader's process
+pool (``num_workers > 0``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -99,7 +101,12 @@ def make_eval_transforms(cfg):
 class TrainLoader:
     """Shuffled, prefetching train loader: ``Batch``es of ``batch_size``
     crops, ``dataset.num_crops`` from each image, flattened into the batch
-    dimension; the last partial batch of an epoch is dropped."""
+    dimension; the last partial batch of an epoch is dropped. With
+    ``num_hosts`` > 1 the epoch's permutation is cut to a multiple of
+    ``num_hosts`` and this rank takes every ``num_hosts``-th item from
+    ``host_id`` on, its item seeds drawn from a stream offset by
+    ``host_id`` (the JAX loader's shards); ``max_points`` is sized from the
+    whole dataset, so every rank pads to the same shape."""
 
     def __init__(
         self,
@@ -109,7 +116,11 @@ class TrainLoader:
         max_points: Optional[int] = None,
         seed: int = 0,
         num_threads: int = 4,
+        host_id: int = 0,
+        num_hosts: int = 1,
     ) -> None:
+        if not 0 <= host_id < num_hosts:
+            raise ValueError(f"host_id {host_id} is outside [0, num_hosts={num_hosts})")
         if batch_size % max(dataset.num_crops, 1):
             raise ValueError(
                 f"batch_size {batch_size} must be divisible by num_crops {dataset.num_crops}"
@@ -126,6 +137,8 @@ class TrainLoader:
         self.max_points = max_points
         self.seed = seed
         self.num_threads = num_threads
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.epoch = 0
         self._warned_epoch: Optional[int] = None
 
@@ -133,15 +146,18 @@ class TrainLoader:
         self.epoch = epoch
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.items_per_batch
+        return len(self.dataset) // self.num_hosts // self.items_per_batch
 
     def _epoch_indices(self) -> np.ndarray:
         rng = np.random.default_rng(self.seed * 1_000_003 + self.epoch)
-        return rng.permutation(len(self.dataset))
+        perm = rng.permutation(len(self.dataset))
+        usable = len(perm) // self.num_hosts * self.num_hosts  # equal shards
+        return perm[:usable][self.host_id::self.num_hosts]
 
     def __iter__(self) -> Iterator[Batch]:
         indices = self._epoch_indices()
-        item_rng = np.random.default_rng((self.seed + 1) * 7_777_777 + self.epoch * 131)
+        item_rng = np.random.default_rng(
+            (self.seed + 1) * 7_777_777 + self.epoch * 131 + self.host_id)
         # one child seed per item, drawn up front: results do not depend
         # on which thread loads which item
         item_seeds = item_rng.integers(0, 2**63 - 1, size=len(indices))

@@ -40,7 +40,11 @@ def dace_loss(
     weight_count_loss: float = 1.0,
     count_loss: str = "mae",
     dm_cfg: Optional[DMCountConfig] = None,
+    world_size: int = 1,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-entropy over the bins (summed over the map, averaged over the
+    batch) + ``weight_count_loss`` x the count loss; ``world_size`` weights
+    DMCount's OT sum for data parallelism (:func:`~.dmcount.dmcount_loss`)."""
     if pred_density.shape != target_density.shape:
         raise ValueError(
             f"pred/target density shape mismatch: {tuple(pred_density.shape)} vs "
@@ -56,7 +60,8 @@ def dace_loss(
     if count_loss == "dmcount":
         if dm_cfg is None:
             raise ValueError("dm_cfg is required when count_loss='dmcount'")
-        cl, info = dmcount_loss(pred_density, target_density, points, point_mask, dm_cfg)
+        cl, info = dmcount_loss(pred_density, target_density, points, point_mask, dm_cfg,
+                                world_size)
         info["ce_loss"] = ce.detach()
     else:
         diff = pred_density - target_density

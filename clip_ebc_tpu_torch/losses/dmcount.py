@@ -80,9 +80,18 @@ def dmcount_loss(
     points: torch.Tensor,  # (B, P, 2)
     point_mask: torch.Tensor,  # (B, P) bool
     cfg: DMCountConfig,
+    world_size: int = 1,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """loss = weight_ot * OT (summed over the batch) + weight_tv * TV +
-    count L1; ``info`` holds the detached terms."""
+    count L1; ``info`` holds the detached terms.
+
+    Under data parallelism each of ``world_size`` ranks holds an equal
+    shard of the global batch and DDP averages the ranks' gradients: the
+    means (TV, count) average to the global ones as they are, and the OT
+    sum is weighted by ``world_size`` so that the average is the global
+    batch's sum, as the JAX package computes it under its mesh.
+    ``info["ot_loss"]`` stays this shard's own sum (the ranks' sums add up
+    to the global one)."""
     pred_density = pred_density.float()
     target_density = target_density.float()
     b, h, w = pred_density.shape
@@ -100,7 +109,7 @@ def dmcount_loss(
     tv = ((normed_pred - normed_target).abs().sum((1, 2)) * target_count).mean()
     count = (pred_count - target_count).abs().mean()
 
-    loss = ot * cfg.weight_ot + tv * cfg.weight_tv + count
+    loss = ot * (cfg.weight_ot * world_size) + tv * cfg.weight_tv + count
     info = {"loss": loss.detach(), "ot_loss": ot.detach(), "tv_loss": tv.detach(),
             "count_loss": count.detach()}
     return loss, info

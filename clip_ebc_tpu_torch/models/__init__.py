@@ -73,14 +73,6 @@ def register_backbone(name: str):
     return wrap
 
 
-def _check_axis_name(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (cross-replica BatchNorm statistics) is not ported yet "
-            "(ROADMAP Queue 1, multi-GPU)"
-        )
-
-
 def get_backbone(
     name: str,
     input_size: int,
@@ -91,22 +83,22 @@ def get_backbone(
 ):
     """A backbone module by name (the JAX ``get_backbone``); ``input_size``
     sets the grid of a ViT's positional embedding, ``attn_backend`` a
-    ViT's attention route."""
-    _check_axis_name(axis_name)
+    ViT's attention route, ``axis_name`` syncs every BatchNorm's training
+    statistics over the ranks (``parallel.mesh.DATA_AXIS``)."""
     name = name.lower()
     if name in _VGG_NAMES:
-        return make_vgg(name, reduction)
+        return make_vgg(name, reduction, axis_name)
     if name in _RESNET_AE_NAMES:
-        return ResNetAutoEncoder(name[: -len("_ae")], reduction)
+        return ResNetAutoEncoder(name[: -len("_ae")], reduction, axis_name)
     if name in _RESNET_NAMES:
-        return PlainResNetBackbone(name, reduction)
+        return PlainResNetBackbone(name, reduction, axis_name)
     if name in ("mobilenetv2", "mobilenet_v2"):
-        return MobileNetV2Backbone(reduction)
+        return MobileNetV2Backbone(reduction, axis_name=axis_name)
     if name in _DENSENET_CONFIGS:
-        return DenseNetBackbone(name, reduction)
+        return DenseNetBackbone(name, reduction, axis_name)
     if name in ("csrnet", "csrnet_bn", "cannet", "cannet_bn"):
         return CSRNet(use_bn=name.endswith("_bn"), reduction=reduction,
-                      use_context=name.startswith("cannet"))
+                      use_context=name.startswith("cannet"), axis_name=axis_name)
     if name in _VIT_CONFIGS:
         return ViTEncoder(name, image_size=input_size, reduction=reduction, dtype=dtype,
                           attn_backend=attn_backend)
@@ -138,8 +130,10 @@ def get_model(
     ``fused_head`` ...; ``input_size`` sets no weight shape of a CLIP ViT,
     whose positional embedding resizes to any window); a non-CLIP model
     ignores the CLIP route's options, every one of its parameters trains,
-    and ``quant_int8`` (CLIP-only, as in the JAX CLIs) raises."""
-    _check_axis_name(axis_name)
+    and ``quant_int8`` (CLIP-only, as in the JAX CLIs) raises.
+    ``axis_name`` (``parallel.mesh.DATA_AXIS``) takes every BatchNorm's
+    training statistics over the global batch of all ranks; a model
+    without batch statistics (a CLIP ViT's trunk, ConvNeXt) ignores it."""
     backbone = backbone.lower()
     if backbone.startswith("clip_"):
         name = backbone[len("clip_"):]
@@ -150,7 +144,7 @@ def get_model(
         return build_clip_ebc(
             backbone=name, bins=bins, anchor_points=anchor_points, reduction=reduction,
             dtype=dtype, seed=seed, device=device, attn_backend=attn_backend,
-            quant_int8=quant_int8, **kwargs,
+            quant_int8=quant_int8, axis_name=axis_name, **kwargs,
         )
     unknown = set(kwargs) - set(_CLIP_ONLY_KWARGS)
     if unknown:
@@ -158,7 +152,7 @@ def get_model(
     if quant_int8:
         raise ValueError(f"quant_int8 is only supported for clip_* models (got {backbone!r})")
     device = resolve_device(device)
-    bb = get_backbone(backbone, input_size, reduction, dtype, attn_backend=attn_backend)
+    bb = get_backbone(backbone, input_size, reduction, dtype, axis_name, attn_backend)
     if bins is None and anchor_points is None:
         model = Regressor(bb, dtype)
     elif bins is None or anchor_points is None:

@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum_autograd, get_world_size
+
 KERNEL_INITS = ("kaiming_out", "lecun")
 
 
@@ -126,10 +128,17 @@ class BatchNorm(nn.BatchNorm2d):
     variance over (N, H, W) in fp32, applied in fp32 and cast back; the
     running statistics move by torch momentum 0.1 (flax 0.9) towards the
     batch mean and the BIASED batch variance, as flax updates them (torch's
-    own BatchNorm would take the unbiased one)."""
+    own BatchNorm would take the unbiased one). With ``axis_name`` (the
+    data axis, ``parallel.mesh.DATA_AXIS``) and more than one rank, the
+    batch is the global one, as under the JAX package's mesh: the mean,
+    then the squared deviations from it, are summed over the ranks
+    (differentiably: the backward sums the gradients of the sums too), so
+    every rank normalizes with, and moves its running statistics by, the
+    same global statistics."""
 
-    def __init__(self, channels: int) -> None:
+    def __init__(self, channels: int, axis_name: Optional[str] = None) -> None:
         super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.axis_name = axis_name
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -137,7 +146,10 @@ class BatchNorm(nn.BatchNorm2d):
             shift = self.bias - self.running_mean * scale
             return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
         xf = x.float()
-        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        if self.axis_name is not None and get_world_size() > 1:
+            var, mean = _global_var_mean(xf)
+        else:
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
@@ -146,6 +158,18 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+def _global_var_mean(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The biased variance and the mean per channel of NCHW ``xf`` over
+    every rank's batch: two differentiable all-reduces of per-channel sums
+    (the element count rides with the first)."""
+    n = xf.new_full((1,), xf.numel() // xf.shape[1])
+    sums = all_reduce_sum_autograd(torch.cat([xf.sum((0, 2, 3)), n]))
+    count = sums[-1]
+    mean = sums[:-1] / count
+    sq = all_reduce_sum_autograd((xf - mean[:, None, None]).square().sum((0, 2, 3)))
+    return sq / count, mean
 
 
 class ConvBNAct(nn.Sequential):
@@ -158,7 +182,7 @@ class ConvBNAct(nn.Sequential):
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  act: bool = True, conv_cls=None, stride: int = 1, dilation: int = 1,
                  use_bn: bool = True, bias: Optional[bool] = None,
-                 kernel_init: str = "kaiming_out") -> None:
+                 kernel_init: str = "kaiming_out", axis_name: Optional[str] = None) -> None:
         bias = (not use_bn) if bias is None else bias
         kw = dict(stride=stride, padding=(kernel_size - 1) // 2 * dilation, dilation=dilation,
                   bias=bias)
@@ -166,7 +190,7 @@ class ConvBNAct(nn.Sequential):
                 else Conv2d(in_channels, features, kernel_size, kernel_init=kernel_init, **kw))
         layers = [conv]
         if use_bn:
-            layers.append(BatchNorm(features))
+            layers.append(BatchNorm(features, axis_name))
         if act:
             layers.append(nn.ReLU())
         super().__init__(*layers)
@@ -177,15 +201,17 @@ class BasicBlock(nn.Module):
     1x1 + BN shortcut when the channel count changes, then ReLU.
     ``conv_cls`` replaces every convolution (``ops.quant.Int8Conv2d``)."""
 
-    def __init__(self, in_channels: int, features: int, conv_cls=None) -> None:
+    def __init__(self, in_channels: int, features: int, conv_cls=None,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         conv = conv_cls or _kaiming_conv
         self.conv1 = conv(in_channels, features, 3, padding=1, bias=False)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = BatchNorm(features, axis_name)
         self.conv2 = conv(features, features, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm(features)
+        self.bn2 = BatchNorm(features, axis_name)
         self.downsample = (
-            ConvBNAct(in_channels, features, 1, act=False, conv_cls=conv_cls)
+            ConvBNAct(in_channels, features, 1, act=False, conv_cls=conv_cls,
+                      axis_name=axis_name)
             if in_channels != features else None
         )
 
@@ -201,17 +227,19 @@ class BottleneckBlock(nn.Module):
     use): 1x1 -> 3x3 -> 1x1, each with BN, ReLU after the first two, a
     1x1 + BN shortcut when the channel count changes, then ReLU."""
 
-    def __init__(self, in_channels: int, features: int, conv_cls=None) -> None:
+    def __init__(self, in_channels: int, features: int, conv_cls=None,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         conv = conv_cls or _kaiming_conv
         self.conv1 = conv(in_channels, features, 1, bias=False)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = BatchNorm(features, axis_name)
         self.conv2 = conv(features, features, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm(features)
+        self.bn2 = BatchNorm(features, axis_name)
         self.conv3 = conv(features, features, 1, bias=False)
-        self.bn3 = BatchNorm(features)
+        self.bn3 = BatchNorm(features, axis_name)
         self.downsample = (
-            ConvBNAct(in_channels, features, 1, act=False, conv_cls=conv_cls)
+            ConvBNAct(in_channels, features, 1, act=False, conv_cls=conv_cls,
+                      axis_name=axis_name)
             if in_channels != features else None
         )
 
@@ -239,7 +267,7 @@ class ResNetStage(nn.Sequential):
     ``make_resnet_layers`` does."""
 
     def __init__(self, in_channels: int, cfg: Sequence[Union[int, str]],
-                 block: str = "basic", conv_cls=None) -> None:
+                 block: str = "basic", conv_cls=None, axis_name: Optional[str] = None) -> None:
         blocks = {"basic": BasicBlock, "bottleneck": BottleneckBlock}
         if block not in blocks:
             raise ValueError(f"decoder block must be one of {tuple(blocks)}, got {block!r}")
@@ -249,7 +277,7 @@ class ResNetStage(nn.Sequential):
             if v == "U":
                 layers.append(Upsample2x())
             else:
-                layers.append(blocks[block](ch, int(v), conv_cls))
+                layers.append(blocks[block](ch, int(v), conv_cls, axis_name))
                 ch = int(v)
         super().__init__(*layers)
 
@@ -261,7 +289,8 @@ class VGGStage(nn.Sequential):
     Sequential index. ``dilation`` dilates (and pads) every conv."""
 
     def __init__(self, in_channels: int, cfg: Sequence[Union[int, str]],
-                 use_bn: bool = False, dilation: int = 1) -> None:
+                 use_bn: bool = False, dilation: int = 1,
+                 axis_name: Optional[str] = None) -> None:
         layers = []
         ch = in_channels
         for v in cfg:
@@ -273,7 +302,7 @@ class VGGStage(nn.Sequential):
                 layers.append(Conv2d(ch, int(v), 3, padding=dilation, dilation=dilation,
                                      kernel_init="kaiming_out"))
                 if use_bn:
-                    layers.append(BatchNorm(int(v)))
+                    layers.append(BatchNorm(int(v), axis_name))
                 layers.append(nn.ReLU())
                 ch = int(v)
         self.out_channels = ch

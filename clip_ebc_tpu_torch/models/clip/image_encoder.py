@@ -14,8 +14,10 @@ no mask under ``attn_backend="auto"`` and every token attends to every
 other, as in the reference.
 In training mode, ``vpt_drop`` drops prompt entries (flax ``Dropout``
 semantics: keep with 1 - rate, scale by 1 / (1 - rate)) with noise from
-the caller's ``torch.Generator``. ``quant_int8`` makes the trunk's
-projections W8A8 (``ops/quant.py``); the patchify stays unquantized.
+the caller's ``torch.Generator``; under data parallelism each rank draws
+the noise of the global batch and keeps its own rows. ``quant_int8``
+makes the trunk's projections W8A8 (``ops/quant.py``); the patchify
+stays unquantized.
 
 ``ClipModifiedResNet`` is CLIP's ModifiedResNet: a 3-conv stem (the
 first at stride 2) and a 2x2 average pool, then four stages of
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import get_rank, get_world_size
 from ..blocks import BatchNorm, Conv2d
 from ..transformer import (LayerNormF32, Linear, PatchifyMatmul, Transformer,
                            interpolate_pos_embed, sdpa_attention)
@@ -120,7 +123,11 @@ class ClipViT(nn.Module):
             pr = vpt[i].to(x.dtype).expand(b, n_vpt, width)
             if self.training and self.vpt_drop > 0:
                 keep = 1.0 - self.vpt_drop
-                noise = torch.rand(pr.shape, generator=generator, device=pr.device)
+                # the noise of the global batch, this rank's rows: N ranks of
+                # b windows drop what one process of N x b drops
+                world, rank = get_world_size(), get_rank()
+                noise = torch.rand((world * b,) + pr.shape[1:], generator=generator,
+                                   device=pr.device)[rank * b:(rank + 1) * b]
                 pr = torch.where(noise < keep, pr / keep, torch.zeros((), dtype=pr.dtype, device=pr.device))
             return pr
 
@@ -149,20 +156,22 @@ class ClipBottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, in_channels: int, planes: int, stride: int = 1) -> None:
+    def __init__(self, in_channels: int, planes: int, stride: int = 1,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         out = planes * self.expansion
         self.stride = stride
         self.conv1 = Conv2d(in_channels, planes, 1, bias=False)
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = BatchNorm(planes, axis_name)
         self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = BatchNorm(planes, axis_name)
         self.conv3 = Conv2d(planes, out, 1, bias=False)
-        self.bn3 = BatchNorm(out)
+        self.bn3 = BatchNorm(out, axis_name)
         self.downsample = None
         if stride > 1 or in_channels != out:
             self.downsample = nn.Sequential(OrderedDict(
-                [("0", Conv2d(in_channels, out, 1, bias=False)), ("1", BatchNorm(out))]))
+                [("0", Conv2d(in_channels, out, 1, bias=False)),
+                 ("1", BatchNorm(out, axis_name))]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -209,7 +218,8 @@ class ClipModifiedResNet(nn.Module):
     ``input_size`` / 32 grid (the joint CLIP model's image embedding)."""
 
     def __init__(self, variant: str = "resnet50", reduction: int = 32,
-                 features_only: bool = True, input_size: int = 224) -> None:
+                 features_only: bool = True, input_size: int = 224,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         counts, width, embed_dim, heads = RESNET_CONFIGS[variant]
         self.variant = variant
@@ -220,14 +230,14 @@ class ClipModifiedResNet(nn.Module):
         cin = 3
         for i, (ch, stride) in enumerate(((width // 2, 2), (width // 2, 1), (width, 1))):
             self.add_module(f"conv{i + 1}", Conv2d(cin, ch, 3, stride=stride, padding=1, bias=False))
-            self.add_module(f"bn{i + 1}", BatchNorm(ch))
+            self.add_module(f"bn{i + 1}", BatchNorm(ch, axis_name))
             cin = ch
         strides = (1, 2, 2, 1 if reduction <= 16 else 2)
         for li, (n, s) in enumerate(zip(counts, strides)):
             planes = width * 2**li
             blocks = []
             for bi in range(n):
-                blocks.append(ClipBottleneck(cin, planes, s if bi == 0 else 1))
+                blocks.append(ClipBottleneck(cin, planes, s if bi == 0 else 1, axis_name))
                 cin = planes * ClipBottleneck.expansion
             self.add_module(f"layer{li + 1}", nn.Sequential(*blocks))
         self.attnpool = (None if features_only else

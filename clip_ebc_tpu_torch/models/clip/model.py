@@ -92,7 +92,9 @@ class ClipEBC(nn.Module):
     trunk, the 1x1 projection and the text tower stay unquantized, as in
     the JAX package. ``quant_mode="static"`` needs
     calibrated scales (``ops.quant.calibrate_int8`` on the dynamic twin,
-    then ``load_quant_state``)."""
+    then ``load_quant_state``). ``axis_name`` makes every BatchNorm (a
+    ResNet trunk's, the decoder's) take its training statistics over the
+    global batch of all ranks."""
 
     def __init__(
         self,
@@ -114,6 +116,7 @@ class ClipEBC(nn.Module):
         quant_mode: str = "dynamic",
         quant_attn=False,
         fuse_ln_mode: str = "auto",
+        axis_name: Optional[str] = None,
     ) -> None:
         super().__init__()
         if backbone not in TEXT_CONFIGS:
@@ -142,7 +145,7 @@ class ClipEBC(nn.Module):
             )
             self.vpt_depth = (layers if deep_vpt else 1) if num_vpt > 0 else 0
         else:
-            self.image_encoder = ClipModifiedResNet(backbone, reduction or 32)
+            self.image_encoder = ClipModifiedResNet(backbone, reduction or 32, axis_name=axis_name)
             self.encoder_reduction = self.image_encoder.encoder_reduction
             width, embed_dim = self.image_encoder.channels, RESNET_CONFIGS[backbone][2]
             self.vpt_depth = 0
@@ -155,7 +158,7 @@ class ClipEBC(nn.Module):
         cfg = tuple(decoder_cfg) if decoder_cfg is not None else cfg
         self.decoder_cfg = cfg
         conv_cls = functools.partial(Int8Conv2d, quant_mode=quant_mode) if quant_int8 else None
-        self.image_decoder = ResNetStage(width, cfg, block, conv_cls)
+        self.image_decoder = ResNetStage(width, cfg, block, conv_cls, axis_name)
         dec_out = int([c for c in cfg if c != "U"][-1])
         self.projection = Conv2d(dec_out, embed_dim, 1) if dec_out != embed_dim else None
 
@@ -312,6 +315,7 @@ def build_clip_ebc(
     quant_mode: str = "dynamic",
     quant_attn=False,
     fuse_ln_mode: str = "auto",
+    axis_name: Optional[str] = None,
     seed: int = 0,
     device: Optional[Union[str, torch.device]] = None,
 ) -> ClipEBC:
@@ -331,7 +335,7 @@ def build_clip_ebc(
         attn_backend=attn_backend, fused_head=fused_head,
         decoder_before_upsample=decoder_before_upsample, vpt_drop=vpt_drop,
         quant_int8=quant_int8, quant_mode=quant_mode, quant_attn=quant_attn,
-        fuse_ln_mode=fuse_ln_mode,
+        fuse_ln_mode=fuse_ln_mode, axis_name=axis_name,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
     frozen = vpt_frozen_predicate if model.is_vit else text_frozen_predicate

@@ -8,7 +8,7 @@
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -64,12 +64,13 @@ class CSRNet(nn.Module):
     encoder_reduction = 8
 
     def __init__(self, use_bn: bool = False, reduction: int = 8, use_context: bool = False,
-                 sizes: Sequence[int] = (1, 2, 3, 6)) -> None:
+                 sizes: Sequence[int] = (1, 2, 3, 6), axis_name: Optional[str] = None) -> None:
         super().__init__()
         self.reduction = reduction
-        self.features = VGGStage(3, ENCODER_CFG, use_bn=use_bn)
+        self.features = VGGStage(3, ENCODER_CFG, use_bn=use_bn, axis_name=axis_name)
         self.context = ContextualModule(512, 512, sizes) if use_context else None
-        self.backend = VGGStage(512, DECODER_CFG, use_bn=use_bn, dilation=2)
+        self.backend = VGGStage(512, DECODER_CFG, use_bn=use_bn, dilation=2,
+                                axis_name=axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.features(x)

@@ -12,6 +12,8 @@ a bilinear rescale covers the rest. Names are the JAX module's (``stem``,
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,11 +31,11 @@ _BN_SIZE = 4  # bottleneck width multiplier (torch DenseNet default)
 
 
 class _DenseLayer(nn.Module):
-    def __init__(self, cin: int, growth: int) -> None:
+    def __init__(self, cin: int, growth: int, axis_name: Optional[str] = None) -> None:
         super().__init__()
-        self.bn1 = BatchNorm(cin)
+        self.bn1 = BatchNorm(cin, axis_name)
         self.conv1 = Conv2d(cin, _BN_SIZE * growth, 1, bias=False)
-        self.bn2 = BatchNorm(_BN_SIZE * growth)
+        self.bn2 = BatchNorm(_BN_SIZE * growth, axis_name)
         self.conv2 = Conv2d(_BN_SIZE * growth, growth, 3, padding=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -43,30 +45,31 @@ class _DenseLayer(nn.Module):
 
 
 class DenseNetBackbone(nn.Module):
-    def __init__(self, variant: str = "densenet121", reduction: int = 32) -> None:
+    def __init__(self, variant: str = "densenet121", reduction: int = 32,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         growth, blocks, stem = _CONFIGS[variant]
         self.reduction = reduction
         self.encoder_reduction = 16 if reduction <= 16 else 32
         self.stem = Conv2d(3, stem, 7, stride=2, padding=3, bias=False)
-        self.stem_bn = BatchNorm(stem)
+        self.stem_bn = BatchNorm(stem, axis_name)
         ch = stem
         self._plan = []  # (module names, average-pool after) of each block
         for bi, n in enumerate(blocks):
             names = []
             for li in range(n):
-                self.add_module(f"block{bi + 1}_layer{li + 1}", _DenseLayer(ch, growth))
+                self.add_module(f"block{bi + 1}_layer{li + 1}", _DenseLayer(ch, growth, axis_name))
                 names.append(f"block{bi + 1}_layer{li + 1}")
                 ch += growth
             pool = False
             if bi < len(blocks) - 1:
-                self.add_module(f"trans{bi + 1}_bn", BatchNorm(ch))
+                self.add_module(f"trans{bi + 1}_bn", BatchNorm(ch, axis_name))
                 self.add_module(f"trans{bi + 1}_conv", Conv2d(ch, ch // 2, 1, bias=False))
                 names += [f"trans{bi + 1}_bn", f"trans{bi + 1}_conv"]
                 ch //= 2
                 pool = not (bi == 2 and reduction <= 16)
             self._plan.append((names, pool))
-        self.final_bn = BatchNorm(ch)
+        self.final_bn = BatchNorm(ch, axis_name)
         self.channels = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,8 @@ rest. Names are the JAX module's (``stem``, ``stem_bn``,
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -32,19 +34,20 @@ class InvertedResidual(nn.Module):
     """expand 1x1 -> depthwise 3x3 (stride) -> project 1x1, ReLU6 after the
     first two, residual when stride 1 and the channels match."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1, expand_ratio: int = 6) -> None:
+    def __init__(self, cin: int, features: int, stride: int = 1, expand_ratio: int = 6,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         hidden = cin * expand_ratio
         self.residual = stride == 1 and cin == features
         if expand_ratio != 1:
             self.expand = Conv2d(cin, hidden, 1, bias=False)
-            self.expand_bn = BatchNorm(hidden)
+            self.expand_bn = BatchNorm(hidden, axis_name)
         else:
             self.expand = self.expand_bn = None
         self.dw = Conv2d(hidden, hidden, 3, stride=stride, padding=1, groups=hidden, bias=False)
-        self.dw_bn = BatchNorm(hidden)
+        self.dw_bn = BatchNorm(hidden, axis_name)
         self.project = Conv2d(hidden, features, 1, bias=False)
-        self.project_bn = BatchNorm(features)
+        self.project_bn = BatchNorm(features, axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = x
@@ -56,7 +59,8 @@ class InvertedResidual(nn.Module):
 
 
 class MobileNetV2Backbone(nn.Module):
-    def __init__(self, reduction: int = 32, width_mult: float = 1.0) -> None:
+    def __init__(self, reduction: int = 32, width_mult: float = 1.0,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         self.reduction = reduction
         self.encoder_reduction = 16 if reduction <= 16 else 32
@@ -67,7 +71,7 @@ class MobileNetV2Backbone(nn.Module):
 
         self.channels = max(int(320 * width_mult), 8)
         self.stem = Conv2d(3, c(32), 3, stride=2, padding=1, bias=False)
-        self.stem_bn = BatchNorm(c(32))
+        self.stem_bn = BatchNorm(c(32), axis_name)
         cin = c(32)
         names = []
         for si, (t, ch, n, s) in enumerate(_STAGES):
@@ -75,7 +79,7 @@ class MobileNetV2Backbone(nn.Module):
                 s = 1
             for bi in range(n):
                 self.add_module(f"stage{si}_{bi}",
-                                InvertedResidual(cin, c(ch), s if bi == 0 else 1, t))
+                                InvertedResidual(cin, c(ch), s if bi == 0 else 1, t, axis_name))
                 names.append(f"stage{si}_{bi}")
                 cin = c(ch)
         self._blocks = names

@@ -11,6 +11,8 @@ Convolutions have no bias and flax's default (lecun normal) init.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,22 +37,23 @@ _DECODER_CFGS = {
 }
 
 
-def _downsample(cin: int, cout: int, stride: int):
+def _downsample(cin: int, cout: int, stride: int, axis_name: Optional[str]):
     if stride == 1 and cin == cout:
         return None
-    return nn.Sequential(Conv2d(cin, cout, 1, stride=stride, bias=False), BatchNorm(cout))
+    return nn.Sequential(Conv2d(cin, cout, 1, stride=stride, bias=False), BatchNorm(cout, axis_name))
 
 
 class _TVBasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, features: int, stride: int = 1) -> None:
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         self.conv1 = Conv2d(cin, features, 3, stride=stride, padding=1, bias=False)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = BatchNorm(features, axis_name)
         self.conv2 = Conv2d(features, features, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm(features)
-        self.downsample = _downsample(cin, features, stride)
+        self.bn2 = BatchNorm(features, axis_name)
+        self.downsample = _downsample(cin, features, stride, axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -64,16 +67,17 @@ class _TVBottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, features: int, stride: int = 1) -> None:
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         out = features * self.expansion
         self.conv1 = Conv2d(cin, features, 1, bias=False)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = BatchNorm(features, axis_name)
         self.conv2 = Conv2d(features, features, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = BatchNorm(features)
+        self.bn2 = BatchNorm(features, axis_name)
         self.conv3 = Conv2d(features, out, 1, bias=False)
-        self.bn3 = BatchNorm(out)
-        self.downsample = _downsample(cin, out, stride)
+        self.bn3 = BatchNorm(out, axis_name)
+        self.downsample = _downsample(cin, out, stride, axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -87,19 +91,20 @@ class ResNetEncoder(nn.Module):
     """Features-only ResNet; ``encoder_reduction`` is 16 when layer4 runs at
     stride 1, else 32."""
 
-    def __init__(self, variant: str = "resnet34", layer4_stride: int = 2) -> None:
+    def __init__(self, variant: str = "resnet34", layer4_stride: int = 2,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         counts, kind = _LAYERS[variant]
         block = _TVBasicBlock if kind == "basic" else _TVBottleneck
         self.channels = 512 * block.expansion
         self.encoder_reduction = 32 if layer4_stride == 2 else 16
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm(64)
+        self.bn1 = BatchNorm(64, axis_name)
         cin = 64
         for i, (w, s, n) in enumerate(zip((64, 128, 256, 512), (1, 2, 2, layer4_stride), counts)):
             blocks = []
             for j in range(n):
-                blocks.append(block(cin, w, s if j == 0 else 1))
+                blocks.append(block(cin, w, s if j == 0 else 1, axis_name))
                 cin = w * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
 
@@ -113,10 +118,12 @@ class PlainResNetBackbone(nn.Module):
     """Plain (non-AE) ResNet backbone: the encoder, bilinearly rescaled to
     the requested reduction."""
 
-    def __init__(self, variant: str = "resnet50", reduction: int = 32) -> None:
+    def __init__(self, variant: str = "resnet50", reduction: int = 32,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         self.reduction = reduction
-        self.encoder = ResNetEncoder(variant, layer4_stride=1 if reduction <= 16 else 2)
+        self.encoder = ResNetEncoder(variant, layer4_stride=1 if reduction <= 16 else 2,
+                                     axis_name=axis_name)
         self.channels = self.encoder.channels
         self.encoder_reduction = self.encoder.encoder_reduction
 
@@ -127,10 +134,12 @@ class PlainResNetBackbone(nn.Module):
 class ResNetAutoEncoder(PlainResNetBackbone):
     """ResNet encoder, rescale, then the residual decoder of the variant."""
 
-    def __init__(self, variant: str = "resnet34", reduction: int = 32) -> None:
-        super().__init__(variant, reduction)
+    def __init__(self, variant: str = "resnet34", reduction: int = 32,
+                 axis_name: Optional[str] = None) -> None:
+        super().__init__(variant, reduction, axis_name)
         cfg = _DECODER_CFGS[variant]
-        self.decoder = ResNetStage(self.encoder.channels, cfg, _LAYERS[variant][1])
+        self.decoder = ResNetStage(self.encoder.channels, cfg, _LAYERS[variant][1],
+                                   axis_name=axis_name)
         self.channels = cfg[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,8 @@ NCHW features out at stride ``reduction``; attributes ``channels``,
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -23,10 +25,11 @@ class VGGEncoder(nn.Module):
     channels = 512
     encoder_reduction = 16
 
-    def __init__(self, cfg_key: str = "E", use_bn: bool = False, reduction: int = 8) -> None:
+    def __init__(self, cfg_key: str = "E", use_bn: bool = False, reduction: int = 8,
+                 axis_name: Optional[str] = None) -> None:
         super().__init__()
         self.reduction = reduction
-        self.features = VGGStage(3, VGG_CFGS[cfg_key], use_bn=use_bn)
+        self.features = VGGStage(3, VGG_CFGS[cfg_key], use_bn=use_bn, axis_name=axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return resize_bilinear(self.features(x), self.encoder_reduction / self.reduction)
@@ -35,8 +38,9 @@ class VGGEncoder(nn.Module):
 class VGGAutoEncoder(VGGEncoder):
     channels = 128
 
-    def __init__(self, cfg_key: str = "E", use_bn: bool = False, reduction: int = 8) -> None:
-        super().__init__(cfg_key, use_bn, reduction)
+    def __init__(self, cfg_key: str = "E", use_bn: bool = False, reduction: int = 8,
+                 axis_name: Optional[str] = None) -> None:
+        super().__init__(cfg_key, use_bn, reduction, axis_name)
         self.reg_layer = nn.Sequential(
             *ConvBNAct(512, 256, 3, use_bn=False, bias=True),
             *ConvBNAct(256, 128, 3, use_bn=False, bias=True),
@@ -49,7 +53,7 @@ class VGGAutoEncoder(VGGEncoder):
 _VGG_KEYS = {"vgg11": "A", "vgg13": "B", "vgg16": "D", "vgg19": "E"}
 
 
-def make_vgg(name: str, reduction: int) -> VGGEncoder:
+def make_vgg(name: str, reduction: int, axis_name: Optional[str] = None) -> VGGEncoder:
     """Factory for ``vgg{11,13,16,19}[_bn][_ae]`` backbones."""
     base = name
     ae = base.endswith("_ae")
@@ -61,4 +65,4 @@ def make_vgg(name: str, reduction: int) -> VGGEncoder:
     if base not in _VGG_KEYS:
         raise ValueError(f"unknown VGG variant {name!r}")
     cls = VGGAutoEncoder if ae else VGGEncoder
-    return cls(cfg_key=_VGG_KEYS[base], use_bn=bn, reduction=reduction)
+    return cls(cfg_key=_VGG_KEYS[base], use_bn=bn, reduction=reduction, axis_name=axis_name)

@@ -5,8 +5,13 @@ Windows are cut out with one advanced-indexing gather (the counterpart of
 both ``gather_windows_dense`` and the vmapped ``dynamic_slice`` path), run
 through the model as one batch, and reassembled by overlap-averaging
 (or max) with one scatter. Eager torch does not recompile per window
-count, so the batch is not padded to a bucket. :func:`resize_density_map`
-resizes a density map and keeps its mass.
+count, so the batch is not padded to a bucket. In a process group of more
+than one rank the window batch is split over the ranks, as the JAX
+package shards it on its mesh's ``data`` axis: each rank runs its own
+windows and the per-window densities are gathered back by one all-reduce
+(``parallel.mesh.gather_rows``), so every rank must predict the same
+image. :func:`resize_density_map` resizes a
+density map and keeps its mass.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import gather_rows, get_world_size, shard_rows
 
 
 def window_grid(
@@ -102,16 +109,34 @@ def sliding_window_predict(
     strategy: str = "average",
 ) -> torch.Tensor:
     """Predict the full-image ``(H/r, W/r)`` density map by sliding windows:
-    one gather, one batched forward, one assembly."""
+    one gather, one batched forward, one assembly. In a process group every
+    rank holds the same image and runs its share of the windows (their
+    count rounded up to a multiple of the world size, ``ceil(N / world)``
+    a rank, ``parallel.mesh.shard_rows``); the densities are gathered in
+    fp32 and every rank assembles the same map."""
     h, w, _ = image.shape
-    preds = apply_fn(gather_windows(image, window, stride))
+    windows = gather_windows(image, window, stride)
+    bh, bw = window[0] // reduction, window[1] // reduction
+    if get_world_size() > 1:
+        n, rows = windows.shape[0], shard_rows(windows.shape[0])
+        # a rank whose share is empty runs nothing and adds zeros
+        local = (apply_fn(windows[rows]) if rows.stop > rows.start
+                 else windows.new_zeros((0, bh, bw), dtype=torch.float32))
+        _check_blocks(local, window, reduction)
+        preds = gather_rows(local, rows, n)
+    else:
+        preds = apply_fn(windows)
+        _check_blocks(preds, window, reduction)
+    return assemble_windows(preds, (h, w), window, stride, reduction, strategy)
+
+
+def _check_blocks(preds: torch.Tensor, window: Tuple[int, int], reduction: int) -> None:
     bh, bw = window[0] // reduction, window[1] // reduction
     if tuple(preds.shape[-2:]) != (bh, bw):
         raise ValueError(
             f"model produced {tuple(preds.shape[-2:])} blocks for window {window} "
             f"at reduction {reduction}"
         )
-    return assemble_windows(preds, (h, w), window, stride, reduction, strategy)
 
 
 def resize_density_map(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

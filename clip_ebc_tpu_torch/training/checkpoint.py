@@ -9,6 +9,12 @@ the top ``save_best_k`` of some metric; ``meta.json`` maps each metric to
 its ranked ``[score, epoch]`` list, with the score history and the
 per-epoch loss history, and snapshots that fell out of every list are
 deleted.
+
+In a process group every rank calls every method; rank 0 alone writes,
+prunes and updates ``meta.json``, and a barrier after each write holds
+the others until it is on disk (the JAX package fences its primary-only
+file work the same way). Every rank restores the same ``latest.pt`` onto
+its own device.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import barrier, is_primary
 
 METRICS = ("mae", "rmse")
 
@@ -32,7 +40,10 @@ class CheckpointManager:
     def __init__(self, ckpt_dir: str, save_best_k: int = 3) -> None:
         self.dir = os.path.abspath(ckpt_dir)
         self.save_best_k = save_best_k
-        os.makedirs(os.path.join(self.dir, "best"), exist_ok=True)
+        self._primary = is_primary()
+        if self._primary:
+            os.makedirs(os.path.join(self.dir, "best"), exist_ok=True)
+        barrier()
         self._meta_path = os.path.join(self.dir, "meta.json")
 
     def _load_meta(self) -> Dict[str, Any]:
@@ -54,12 +65,15 @@ class CheckpointManager:
 
     def save_latest(self, state: dict, epoch: int, loss_info: Optional[Dict[str, float]] = None) -> None:
         """Replace ``latest.pt`` with ``state`` (``Trainer.state_dict()``)."""
-        _atomic_save(state, os.path.join(self.dir, "latest.pt"))
-        meta = self._load_meta()
-        meta["epoch"] = epoch
-        if loss_info:
-            meta["loss_history"].append({"epoch": epoch, **{k: float(v) for k, v in loss_info.items()}})
-        self._save_meta(meta)
+        if self._primary:
+            _atomic_save(state, os.path.join(self.dir, "latest.pt"))
+            meta = self._load_meta()
+            meta["epoch"] = epoch
+            if loss_info:
+                meta["loss_history"].append(
+                    {"epoch": epoch, **{k: float(v) for k, v in loss_info.items()}})
+            self._save_meta(meta)
+        barrier()
 
     def restore_latest(self) -> Optional[Tuple[dict, int]]:
         """Auto-resume: ``(state, next_epoch)``, or None without a checkpoint."""
@@ -73,7 +87,15 @@ class CheckpointManager:
                     ) -> Dict[str, List[Tuple[float, int]]]:
         """Insert this epoch's val scores; save ``weights`` (a model state
         dict) if the epoch entered any top-k; prune snapshots that left
-        every list. Returns the ranked tables."""
+        every list. Returns the ranked tables (on every rank)."""
+        if self._primary:
+            self._update_best(scores, epoch, weights)
+        barrier()
+        meta = self._load_meta()
+        return {m: [tuple(x) for x in meta["best_scores"][m]] for m in METRICS}
+
+    def _update_best(self, scores: Dict[str, float], epoch: int,
+                     weights: Dict[str, torch.Tensor]) -> None:
         meta = self._load_meta()
         entered = False
         for m in METRICS:
@@ -95,4 +117,3 @@ class CheckpointManager:
             if name.endswith(".pt") and name not in keep:
                 os.remove(os.path.join(best_root, name))
         self._save_meta(meta)
-        return {m: [tuple(x) for x in meta["best_scores"][m]] for m in METRICS}

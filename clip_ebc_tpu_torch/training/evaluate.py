@@ -7,7 +7,10 @@ argument. A CLIP-EBC model's prompt features are constant per weight
 set: they are encoded once and reused until a text-tower parameter
 changes (a new tensor or an in-place load). A model without a text tower
 (the Classifier and Regressor heads) is called as ``model(windows)``.
-Packed eval, the decode pool and the mesh are later slices.
+In a process group every rank evaluates the same image and the sliding
+windows are split over the ranks (``ops.sliding_window``), as the JAX
+Evaluator shards them on its mesh; a whole image runs on every rank.
+Every rank must then evaluate, in the same order. Packed eval and the decode pool are later slices.
 """
 
 from __future__ import annotations

@@ -340,8 +340,20 @@ def test_registered_backbone_is_built_by_name():
 
 
 def test_axis_name_and_quant_are_refused():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        get_model("vgg19_ae", 32, 8, BINS, ANCHORS, axis_name="data", device="cpu")
+    """``axis_name`` is refused no more (data parallelism is ported): every
+    backbone of the JAX factory builds with it, and each of its BatchNorms
+    (none in the plain ViTs and ConvNeXt) takes it, so its training
+    statistics are synced over the ranks; ``quant_int8`` stays CLIP-only."""
+    from clip_ebc_tpu_torch.models.blocks import BatchNorm
+
+    with_bn = 0
+    for name in _jax_names():
+        with torch.device("meta"):
+            bb = get_backbone(name, 224, 8, axis_name="data")
+        norms = [m for m in bb.modules() if isinstance(m, BatchNorm)]
+        assert all(m.axis_name == "data" for m in norms), name
+        with_bn += bool(norms)
+    assert with_bn == 8 + 10 + 2 + 2 + 4  # the _bn VGGs, ResNets, MobileNetV2, *_bn, DenseNets
     with pytest.raises(ValueError, match="clip_"):
         get_model("vgg19_ae", 32, 8, BINS, ANCHORS, quant_int8=True, device="cpu")
 

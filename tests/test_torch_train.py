@@ -205,9 +205,7 @@ def test_trainer_cli_writes_a_checkpoint_that_predict_loads(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--pretrained", "clip.pt"], ["--num_hosts", "2"], ["--profile_dir", "p"],
-    ["--host_id", "1"], ["--loader_procs", "2"], ["--coordinator", "localhost:1234"],
-    ["--model", "clip_vit_l_14", "--num_hosts", "2"],  # ViT-L trains; multi-host is refused
+    ["--pretrained", "clip.pt"], ["--profile_dir", "p"], ["--loader_procs", "2"],
 ])
 def test_trainer_cli_refuses_unported_options(tmp_path, extra):
     argv = ["--model", "clip_vit_b_16", "--dataset", "qnrf", "--truncation", "4",
