@@ -178,7 +178,44 @@ Phases, each a hard failure (a raised exception, exit code 1):
    step of one NCCL rank and of the two ranks, and each process's peak
    memory, are printed beside the card line. Two ranks on one card show
    that the path is right, not that it scales. A rank's failure, non-zero
-   exit or silence past its time limit fails the run.
+   exit or silence past its time limit fails the run. The ranks also pack
+   phase 4f's stream into batches of 128 windows (64 a rank, gathered by
+   one all-reduce a batch), bf16 and fp32: the counts within phase 3's
+   limits of one process's, three forwards and three head launches a
+   rank, and a batch of 120 windows raises.
+4f. cross-image window packing and the process pools
+   (``phase_packing``): a stream of 8 seeded JPEGs (2048x3072, 768x1024,
+   512x768, 1024x768, 384x512, 1536x2048, 640x896, 448x448: 284 windows
+   of 224 px at stride 224, 352 slots in chunks of 16) through the predict
+   CLI with ``--packed_eval --batch_windows 128`` (three forwards, the
+   third a flush) and per image (eight), ViT-B/16 deep VPT-32, in bf16
+   and fp32: counters zeroed just before and read just after, 12 launches
+   of row 2 (and in bf16 of the LN + QKV projection) and 1 of the head a
+   forward; each image's count from its saved density, packed against per
+   image, within 1e-2 (bf16) and 1e-3 (fp32). The same stream under
+   ``--quant int8_static --quant_attn`` in bf16: two calibration batches
+   (24 launches of row 3), then 12 launches of the int8 attention a
+   forward; counts within 2e-2. The NWPU CLI by windows (stride 112, 54
+   windows an image) on phase 3d's tree with ``--packed_eval
+   --batch_windows 48`` (three forwards of 48) against its per-image run:
+   the submission lines within 1e-2. Then, through the Evaluator, the
+   stream packed with no host read between images (the host runs ahead of
+   the forwards) against per image, and images/s of both by CUDA events
+   around the whole stream (the host clock beside; in turns per image,
+   packed, packed, per image) with peak device memory, in both dtypes.
+   Then the loader pool on phase 4's synthetic dataset at the flagship
+   flags: epoch 1's first batch from 2 worker processes bit-equal to 4
+   threads'; items/s of the loader alone with 4 threads and 2, 4 and 8
+   processes beside the host's core count; the device idle share of a
+   profiled 4-step bf16 epoch with the threads and with 2 processes; and
+   the trainer CLI for one epoch with ``--loader_procs 2`` (12 launches
+   of row 5 a step). No speed-up is claimed.
+
+Phase 2 also holds rows 1, 2 (bf16 and fp32), 2b and 2c at the packed
+path's launches, 128 and 48 windows of 229 tokens (``phase_packed_shapes``:
+the same phase functions and tolerances as at 140, the results under
+``at_b`` in the row of the 140-window launch, the packed path's launches
+under ``launches_packed`` and ``launches_packed_b48``).
 
 Phase 2 also holds both flash-attention kernels against their plain
 versions, in bf16 and fp32: the tiled kernel at the flagship full image
@@ -237,8 +274,9 @@ fp32; times beside the SDPA forward and the bound.
 5. the kernels behind the PyTorch yardsticks of the redesigned rows (the
    SDPA forward at the windows' shape, in fp32 at a calibration batch and
    in bf16 at the whole image; the SDPA backward at the training shape),
-   named by torch.profiler after every timing; not under ``--profile``,
-   where the earlier profiles leave it no device time.
+   named by torch.profiler after every timing, in a spawned process of
+   its own: after phase 4f's (or ``--profile``'s) traces, a trace in this
+   process records no device time.
 
 ``phase_path_ms`` is run by ``scripts/torch_kernel_ab.py`` only: ms per
 image of the flagship windows in bf16 and under ``--quant int8``, and of
@@ -307,6 +345,9 @@ LONG_L = 1 + 32 + (LONG_WINDOW // 16) ** 2
 LONG_B = math.ceil((IMAGE_HW[0] - LONG_WINDOW) / LONG_WINDOW + 1) * math.ceil(
     (IMAGE_HW[1] - LONG_WINDOW) / LONG_WINDOW + 1)
 LONG_WINDOWS = FLAGSHIP._replace(b=LONG_B, l=LONG_L)
+# the packed path's launches (--batch_windows 128, the default, and 48): rows
+# 1, 2, 2b and 2c are held to their plain versions at these window counts too
+PACKED_B = (128, 48)
 # kernels on no path of the package (the JAX package calls these TPU kernels
 # from its tests only): checked and timed in phase 2, launched 0 times
 OFF_PATH = ("int8_attention_dynamic", "int8_attention_dynamic_fp32", "fused_ln_mlp_int8",
@@ -428,26 +469,28 @@ def phase_build() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_attention(dev, dtype: torch.dtype) -> dict:
-    """The attention kernel of one activation dtype against its plain
-    version: bf16 (the tensor-core kernels, tolerance 2e-2: both round at
-    the same points, summing in another order) or fp32 (the fp32 variant,
-    tolerance 1e-4: fp32 throughout)."""
+def phase_attention(dev, dtype: torch.dtype, s: Shape = FLAGSHIP) -> dict:
+    """The attention kernel of one activation dtype at the launch ``s``
+    against its plain version: bf16 (the tensor-core kernels, tolerance
+    2e-2: both round at the same points, summing in another order) or fp32
+    (the fp32 variant, tolerance 1e-4: fp32 throughout)."""
     from clip_ebc_tpu_torch.ops.fused_attention import fused_ln_qkv_attention, ln_qkv_attention_plain
 
     fp32 = dtype == torch.float32
-    tol, peak, tag = (1e-4, PEAK_FP32, " fp32") if fp32 else (2e-2, PEAK_BF16, "")
+    b, l, d, h = s  # noqa: E741
+    tol, peak = (1e-4, PEAK_FP32) if fp32 else (2e-2, PEAK_BF16)
+    tag = (" fp32" if fp32 else "") + (f" at B = {b}" if s != FLAGSHIP else "")
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(B, L, D, generator=g, device=dev).to(dtype)
-    ln_w = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
-    ln_b = 0.1 * torch.randn(D, generator=g, device=dev)
-    w = (torch.randn(3 * D, D, generator=g, device=dev) * D**-0.5).to(dtype)
-    bias = 0.02 * torch.randn(3 * D, generator=g, device=dev)
-    sm = (D // H) ** -0.5
+    x = torch.randn(b, l, d, generator=g, device=dev).to(dtype)
+    ln_w = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+    ln_b = 0.1 * torch.randn(d, generator=g, device=dev)
+    w = (torch.randn(3 * d, d, generator=g, device=dev) * d**-0.5).to(dtype)
+    bias = 0.02 * torch.randn(3 * d, generator=g, device=dev)
+    sm = (d // h) ** -0.5
     errs = {}
-    for kv_len in (L, 200):
-        got = fused_ln_qkv_attention(x, ln_w, ln_b, w, bias, H, kv_len, sm)
-        want = ln_qkv_attention_plain(x, ln_w, ln_b, w, bias, H, kv_len, sm)
+    for kv_len in (l, 200):
+        got = fused_ln_qkv_attention(x, ln_w, ln_b, w, bias, h, kv_len, sm)
+        want = ln_qkv_attention_plain(x, ln_w, ln_b, w, bias, h, kv_len, sm)
         torch.cuda.synchronize()
         check(got.dtype == dtype, f"attention kernel returned {got.dtype}, expected {dtype}")
         err = (got[:, :kv_len].float() - want[:, :kv_len].float()).abs().max().item()
@@ -455,15 +498,15 @@ def phase_attention(dev, dtype: torch.dtype) -> dict:
         check(math.isfinite(err) and err <= tol,
               f"attention{tag} kernel disagrees (kv_len={kv_len})")
         errs[kv_len] = err
-    ms = time_ms(lambda: fused_ln_qkv_attention(x, ln_w, ln_b, w, bias, H, L, sm))
-    plain = time_ms(lambda: ln_qkv_attention_plain(x, ln_w, ln_b, w, bias, H, L, sm))
-    m, es = B * L, x.element_size()
-    flops = 2 * m * D * 3 * D + 2 * 2 * B * H * L * L * (D // H)
-    nbytes = m * D * es * 2 + 3 * D * D * es + 2 * D * 4 + 3 * D * 4
+    ms = time_ms(lambda: fused_ln_qkv_attention(x, ln_w, ln_b, w, bias, h, l, sm))
+    plain = time_ms(lambda: ln_qkv_attention_plain(x, ln_w, ln_b, w, bias, h, l, sm))
+    m, es = b * l, x.element_size()
+    flops = 2 * m * d * 3 * d + 2 * 2 * b * h * l * l * (d // h)
+    nbytes = m * d * es * 2 + 3 * d * d * es + 2 * d * 4 + 3 * d * 4
     bnd, by = bound_ms(flops, peak, nbytes)
     print(f"attention{tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s")
-    _time_launches(x, ln_w, ln_b, w, bias, sm, H)
+    _time_launches(x, ln_w, ln_b, w, bias, sm, h)
     return {
         "name": "fused_ln_qkv_attention" + ("_fp32" if fp32 else ""), "route": "cuda",
         "source": "clip_ebc_tpu_torch/csrc/fused_attention.cu",
@@ -581,25 +624,26 @@ def phase_attention_vit_l(dev, dtype: torch.dtype) -> dict:
     }
 
 
-def phase_head(dev) -> dict:
-    """The fused head at the flagship image (140 windows x 28 x 28 feature
-    rows, C = 512, the QNRF bins' K = 5) with bf16 (``--amp``) and fp32
-    features (the CLIs' default), each against its plain version (rtol
-    1e-4, atol 1e-6: all math in fp32 on both sides) and timed by device
-    time beside its byte bound and the rate it reaches: the wrapper's call
-    (what the path pays) and the C entry alone."""
+def phase_head(dev, b: int = B) -> dict:
+    """The fused head at ``b`` windows x 28 x 28 feature rows (the flagship
+    image's 140 by default), C = 512, the QNRF bins' K = 5, with bf16
+    (``--amp``) and fp32 features (the CLIs' default), each against its
+    plain version (rtol 1e-4, atol 1e-6: all math in fp32 on both sides)
+    and timed by device time beside its byte bound and the rate it
+    reaches: the wrapper's call (what the path pays) and the C entry
+    alone."""
     from clip_ebc_tpu_torch.config import get_bins_and_anchors
     from clip_ebc_tpu_torch.ops.fused_head import _lib, ebc_head_plain, fused_ebc_head
 
     _, anchors = get_bins_and_anchors(8, 4, "qnrf")
-    n, c, k = B * 28 * 28, 512, len(anchors)
+    n, c, k = b * 28 * 28, 512, len(anchors)
     g = torch.Generator(device=dev).manual_seed(1)
     text = torch.randn(k, c, generator=g, device=dev)
     scale = torch.tensor(1 / 0.07, device=dev)
     anch = torch.tensor(anchors, device=dev)
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
-        tag = str(dtype)[6:]
+        tag = str(dtype)[6:] + (f" at B = {b}" if b != B else "")
         feats = torch.randn(n, c, generator=g, device=dev).to(dtype)
         got = fused_ebc_head(feats, text, scale, anch)
         want = ebc_head_plain(feats, text, scale, anch)
@@ -638,6 +682,22 @@ def phase_head(dev) -> dict:
         "entry_ms_fp32": r32["alone"], "plain_ms_fp32": r32["plain"],
         "bound_ms_fp32": r32["bound"][0],
     }
+
+
+def phase_packed_shapes(dev, kernels: dict) -> None:
+    """Rows 1, 2 (bf16 and fp32), 2b and 2c (bf16) at the packed path's
+    launches, ``PACKED_B`` windows (``--batch_windows`` 128, the default,
+    and 48) of 229 tokens, by the same phase functions as at 140 windows:
+    each against its plain version at that phase's tolerance and timed
+    beside its bound. The results go into the row of the 140-window launch
+    as ``at_b``: ``{B: {max_abs_err, ms, plain_ms, bound_ms, bound_by}}``."""
+    for b in PACKED_B:
+        s = FLAGSHIP._replace(b=b)
+        for row in (phase_attention(dev, torch.bfloat16, s), phase_attention(dev, torch.float32, s),
+                    phase_head(dev, b), phase_attention_int8(dev, s, torch.bfloat16),
+                    phase_int8_attention_q(dev, s, torch.bfloat16, "static")):
+            kernels[row["name"]].setdefault("at_b", {})[str(b)] = {
+                k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
 
 
 def _bwd_inputs(dev, s: Shape, dtype, seed):
@@ -838,6 +898,7 @@ def phase_attention_int8(dev, s: Shape, dtype: torch.dtype) -> dict:
 
     fp32 = dtype == torch.float32
     max_tol, med_tol, attn_peak, tag = (2e-3, 1e-4, PEAK_FP32, " fp32") if fp32 else (2e-2, 1e-3, PEAK_BF16, "")
+    tag += f" at B = {s.b}" if s.b in PACKED_B else ""
     g = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn(s.b, s.l, s.d, generator=g, device=dev).to(dtype)
     ln_w = 1.0 + 0.1 * torch.randn(s.d, generator=g, device=dev)
@@ -1114,7 +1175,8 @@ def phase_int8_attention_q(dev, s: Shape, dtype: torch.dtype, branch: str) -> di
 
     fp32 = dtype == torch.float32
     b, l = s.b, s.l
-    tag = (" fp32" if fp32 else "") + (f" at L = {l}" if l == LONG_L else "")
+    tag = ((" fp32" if fp32 else "") + (f" at L = {l}" if l == LONG_L else "")
+           + (f" at B = {b}" if b in PACKED_B else ""))
     x, ln_w, ln_b, w, bias, act_scale, aq = _int8_attn_inputs(dev, s, dtype, 12)
     wq = quantize_weight(w)
     sm = (s.d // s.h) ** -0.5
@@ -1438,14 +1500,35 @@ def phase_flash(dev, route: str, dtype: torch.dtype) -> dict:
     }
 
 
+def _library_kernels_child() -> None:
+    phase_library_kernels(torch.device("cuda", 0))
+
+
+def phase_library_kernels_apart() -> None:
+    """:func:`phase_library_kernels` in a spawned process (this one holds a
+    CUDA context, so no fork), its output on this one's; its failure, exit
+    or silence past 600 s fails the run."""
+    import multiprocessing as mp
+
+    sys.stdout.flush()
+    p = mp.get_context("spawn").Process(target=_library_kernels_child)
+    p.start()
+    p.join(600)
+    if p.is_alive():
+        p.kill()
+        p.join()
+    check(p.exitcode == 0, f"phase 5's process exited with {p.exitcode}")
+
+
 def phase_library_kernels(dev) -> None:
     """The kernels behind the PyTorch yardsticks of the redesigned rows (the
     SDPA forward of the short flash route's windows, of a calibration batch
     in fp32 and of the whole image in bf16; the SDPA backward of the
-    training step), by device time under torch.profiler. Run last: the
-    profiler's tracing stays attached to the process and slows the launches
-    of every timing after it. Under ``--profile`` it is not run: after the
-    earlier phases' profiles it recorded no device time."""
+    training step), by device time under torch.profiler. Run last, in a
+    process of its own (:func:`phase_library_kernels_apart`): the
+    profiler's tracing stays attached to a process and slows the launches
+    of every timing after it, and after an earlier trace in the process it
+    recorded no device time."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     def kernels(fn) -> str:
@@ -2179,29 +2262,48 @@ def phase_quant_attn(dev, kernels: dict, profile: bool) -> None:
         print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
 
-def phase_nwpu(dev) -> None:
-    """``cli/test_nwpu.py`` on a synthetic NWPU test tree, whole images in
-    bf16, against the predict CLI on the same images and weights."""
+NWPU_SIZES = {3099: (1024, 768), 3098: (768, 1024)}  # phase 3d's test tree
+
+
+def nwpu_tree(dev, tmp: str) -> tuple:
+    """Phase 3d's synthetic NWPU test tree under ``tmp`` (two seeded JPEGs)
+    and a weights file of a seeded model: ``(image dir, weights)``."""
     from PIL import Image
 
-    from clip_ebc_tpu_torch.cli import predict, test_nwpu
     from clip_ebc_tpu_torch.config import get_bins_and_anchors
     from clip_ebc_tpu_torch.models import get_model
 
-    sizes = {3099: (1024, 768), 3098: (768, 1024)}
+    img_dir = os.path.join(tmp, "data", "nwpu", "test", "images")
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(2)
+    for iid, hw in NWPU_SIZES.items():
+        Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8), "RGB").save(
+            os.path.join(img_dir, f"{iid}.jpg"))
+    bins, anchors = get_bins_and_anchors(8, 4, "nwpu")
+    weights = os.path.join(tmp, "ckpt", "best", "1.pt")
+    os.makedirs(os.path.dirname(weights))
+    model = get_model("clip_vit_b_16", 224, 8, bins, anchors, seed=5, device=dev)
+    torch.save(model.state_dict(), weights)
+    return img_dir, weights
+
+
+def read_submission(path: str) -> list:
+    """The ``{id} {count}`` lines of an NWPU submission file, checked for
+    the format's missing trailing newline."""
+    with open(path) as f:
+        text = f.read()
+    check(not text.endswith("\n"), "the submission file ends in a newline")
+    return [line.split(" ") for line in text.split("\n")]
+
+
+def phase_nwpu(dev) -> None:
+    """``cli/test_nwpu.py`` on a synthetic NWPU test tree, whole images in
+    bf16, against the predict CLI on the same images and weights."""
+    from clip_ebc_tpu_torch.cli import predict, test_nwpu
+
+    sizes = NWPU_SIZES
     with tempfile.TemporaryDirectory() as tmp:
-        img_dir = os.path.join(tmp, "data", "nwpu", "test", "images")
-        os.makedirs(img_dir)
-        rng = np.random.default_rng(2)
-        for iid, hw in sizes.items():
-            Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8), "RGB").save(
-                os.path.join(img_dir, f"{iid}.jpg"))
-        bins, anchors = get_bins_and_anchors(8, 4, "nwpu")
-        weights = os.path.join(tmp, "ckpt", "best", "1.pt")
-        os.makedirs(os.path.dirname(weights))
-        model = get_model("clip_vit_b_16", 224, 8, bins, anchors, seed=5, device=dev)
-        torch.save(model.state_dict(), weights)
-        del model
+        img_dir, weights = nwpu_tree(dev, tmp)
         _full_counters(reset=True)
         t0 = time.perf_counter()
         test_nwpu.main(["--data_root", os.path.join(tmp, "data"), "--weight_path", weights,
@@ -2210,10 +2312,7 @@ def phase_nwpu(dev) -> None:
         secs = time.perf_counter() - t0
         n = _full_counters()
         _tally_off_path("test_nwpu CLI")
-        with open(os.path.join(tmp, "results", "best_1.txt")) as f:
-            text = f.read()
-        check(not text.endswith("\n"), "the submission file ends in a newline")
-        lines = [line.split(" ") for line in text.split("\n")]
+        lines = read_submission(os.path.join(tmp, "results", "best_1.txt"))
         check([r[0] for r in lines] == ["3098", "3099"], f"submission ids {[r[0] for r in lines]}")
         check(n["flash_tiled"] == 24 and n["fused_ln_qkv_attention"] == 0,
               f"test_nwpu launches {n}, expected 24 tiled")
@@ -2255,15 +2354,16 @@ def _flagship_model(dev, dtype, **paths):
                      device=dev, **paths)
 
 
-def run_trainer(dev, data_root: str, ckpt_dir: str, amp: bool) -> dict:
-    """The trainer CLI for one epoch (4 steps) and one evaluation, counters
-    zeroed just before and read just after; returns them with the epoch's
-    loss terms (the checkpoint's loss history)."""
+def run_trainer(dev, data_root: str, ckpt_dir: str, amp: bool, extra: tuple = ()) -> dict:
+    """The trainer CLI for one epoch (4 steps) and one evaluation (with the
+    flags ``extra`` too), counters zeroed just before and read just after;
+    returns them with the epoch's loss terms (the checkpoint's loss
+    history)."""
     from clip_ebc_tpu_torch.cli import trainer
 
     argv = train_flags() + ["--total_epochs", "1", "--eval_start", "1", "--data_root", data_root,
                             "--ckpt_dir", ckpt_dir, "--eval_disable_size_check",
-                            "--device", str(dev)]
+                            "--device", str(dev), *extra]
     argv += ["--amp"] if amp else []
     _train_counters(reset=True)
     t0 = time.perf_counter()
@@ -2273,7 +2373,7 @@ def run_trainer(dev, data_root: str, ckpt_dir: str, amp: bool) -> dict:
     launches = _train_counters()
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
-    mode = "bf16 (--amp)" if amp else "fp32 (default)"
+    mode = ("bf16 (--amp)" if amp else "fp32 (default)") + "".join(f" {a}" for a in extra)
     _tally_off_path(f"trainer CLI, {mode}")
     print(f"trainer CLI, {mode}: {secs:.1f} s (model build, {_steps()} steps, eval, "
           f"checkpoints); launches {launches}; epoch {meta['loss_history'][-1]}; "
@@ -2322,22 +2422,34 @@ def time_steps(trainer, batch, text, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def profile_step(trainer, batch, text, tag: str) -> None:
-    """Device time of one training step by CUDA kernel (torch.profiler),
-    the step's wall time under the profiler and the device's idle share."""
+def profiled(fn, cpu: bool = True) -> tuple:
+    """``fn()`` under torch.profiler, ending in a synchronize: ``(profile,
+    wall ms, device busy ms, host CPU ms)``. Busy is the kernel and copy
+    events only (an operator's own device time repeats its kernels'; the
+    profiler's buffer entry is not work); idle share = 1 - busy / wall.
+    ``cpu=False`` traces the device alone (no host CPU ms): after a trace
+    of both, a later device-only trace in the process (phase 5's) records
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with prof(activities=activities + [ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        trainer.train_step(batch, text)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # device time: the kernel and copy events only (an operator's own
-    # device time repeats its kernels'); the profiler's buffer entry is not work
     events = [e for e in p.events() if e.name != "Activity Buffer Request"]
     busy = sum(e.device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
     host = sum(e.self_cpu_time_total for e in events if e.device_type == DeviceType.CPU) / 1e3
+    return p, wall, busy, host
+
+
+def profile_step(trainer, batch, text, tag: str) -> None:
+    """Device time of one training step by CUDA kernel (torch.profiler),
+    the step's wall time under the profiler and the device's idle share."""
+    p, wall, busy, host = profiled(lambda: trainer.train_step(batch, text))
     print(f"profiled training step {tag}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"(idle share {1 - busy / wall:.2f}), host CPU {host:.2f} ms")
     print(p.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
@@ -2347,16 +2459,7 @@ def profile_image(evaluator, image, tag: str) -> None:
     """Device time of one image through ``evaluator`` by CUDA kernel
     (torch.profiler), its wall time under the profiler and the device's
     idle share, as :func:`profile_step` reads a step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as prof
-
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        evaluator.predict_count(image)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in p.events() if e.name != "Activity Buffer Request"]
-    busy = sum(e.device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    p, wall, busy, _ = profiled(lambda: evaluator.predict_count(image))
     print(f"profiled image {tag}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"(idle share {1 - busy / wall:.2f})")
     print(p.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
@@ -3714,11 +3817,14 @@ def _ddp_rn50(dev, save: str = "") -> dict:
 def _ddp_counts(dev) -> dict:
     """The flagship image's count by 140 windows of 224 px in bf16 and
     fp32, the windows split over the ranks; the windows this rank ran and
-    the head's launches."""
+    the head's launches. Then phase 4f's stream packed into batches of
+    ``PACK_B`` windows, each batch split over the ranks: its counts, the
+    windows of each forward on this rank, the head's launches, and the
+    error a batch of 120 windows raises."""
     from clip_ebc_tpu_torch.ops.fused_head import fused_ebc_head
     from clip_ebc_tpu_torch.training.evaluate import Evaluator
 
-    image = _flagship_image()
+    image, stream = _flagship_image(), stream_images()
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         model = _flagship_model(dev, dtype)
@@ -3728,8 +3834,17 @@ def _ddp_counts(dev) -> dict:
                        pad_to_multiple=16)
         ev.text_features()  # the text tower's forward runs no window
         fused_ebc_head.launches = 0
-        out[str(dtype)] = {"count": ev.predict_count(image), "windows": ran,
-                           "head_launches": fused_ebc_head.launches}
+        res = {"count": ev.predict_count(image), "windows": ran[:],
+               "head_launches": fused_ebc_head.launches}
+        ran.clear()
+        fused_ebc_head.launches = 0
+        res["packed"] = [float(d.sum()) for d in ev.predict_densities_packed(stream, PACK_B)]
+        res["packed_windows"], res["packed_head_launches"] = ran[:], fused_ebc_head.launches
+        try:
+            next(ev.predict_densities_packed(stream, 120))
+        except ValueError as e:
+            res["error_120"] = str(e)
+        out[str(dtype)] = res
         del model, ev
     return out
 
@@ -3866,6 +3981,17 @@ def ddp_ranks(world: int, backend: str, ref: dict, tmp: str) -> list:
             share = rows.stop - rows.start  # a rank with no windows runs no forward
             check(sum(c["windows"]) == share and c["head_launches"] == int(share > 0)
                   and rel <= DDP_COUNT_TOL[dtype], f"{tag}: rank {res['rank']} {key}: count")
+            # the packed stream: each batch of PACK_B split over the ranks
+            want_packed = ref["counts"][key]["packed"]
+            gap = max(abs(a - b) / abs(b) for a, b in zip(c["packed"], want_packed))
+            print(f"{tag}, rank {res['rank']}, packed stream {key}: windows a forward "
+                  f"{c['packed_windows']}, head launches {c['packed_head_launches']}; counts "
+                  f"within {gap:.2e} of one process's (bound {DDP_COUNT_TOL[dtype]:g}); a batch "
+                  f"of 120: {c.get('error_120')!r}")
+            check(len(c["packed"]) == len(STREAM_HW) and gap <= DDP_COUNT_TOL[dtype]
+                  and c["packed_windows"] == [PACK_B // world] * PACK_BATCHES
+                  and c["packed_head_launches"] == PACK_BATCHES and "error_120" in c,
+                  f"{tag}: rank {res['rank']} {key}: packed stream")
     print(f"{tag}: {spawn_s:.1f} s from spawn to join; bf16 VPT step "
           f"{[round(r['vpt torch.bfloat16']['ms'], 2) for r in results]} ms/step (median of "
           f"{DDP_TIMED}, host clock; one process at {TRAIN_B}: {ref[torch.bfloat16]['ms']:.2f}); "
@@ -3906,6 +4032,324 @@ def phase_data_parallel(dev, kernels: dict) -> None:
         r["counts"][str(torch.bfloat16)]["head_launches"] for r in results]
 
 
+# phase 4f: a mixed-size stream by windows of 224 at stride 224: 140 + 20 +
+# 12 + 20 + 6 + 70 + 12 + 4 = 284 windows, 352 slots in chunks of 16, so
+# three forwards of PACK_B (the third a flush) where the per-image path runs 8
+STREAM_HW = [(2048, 3072), (768, 1024), (512, 768), (1024, 768), (384, 512), (1536, 2048),
+             (640, 896), (448, 448)]
+PACK_B, PACK_BATCHES, NWPU_PACK_B = 128, 3, 48
+PACK_COUNT_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}  # phase 3's
+PACK_INT8_TOL = 2e-2
+# the loader alone: (threads, worker processes)
+LOADER_MODES = ((4, 0), (0, 2), (0, 4), (0, 8))
+
+
+def _stream_pixels() -> list:
+    rng = np.random.default_rng(18)
+    return [rng.integers(0, 256, hw + (3,), dtype=np.uint8) for hw in STREAM_HW]
+
+
+def stream_images() -> list:
+    """Phase 4f's stream, ImageNet-normalized (seeded pixels)."""
+    from clip_ebc_tpu_torch.data.crowd import normalize_image
+
+    return [normalize_image(px.astype(np.float32) / 255.0) for px in _stream_pixels()]
+
+
+def _stream_counters(reset: bool = False) -> dict:
+    from clip_ebc_tpu_torch.ops import fused_attention as fa
+
+    n = _quant_attn_counters(reset)
+    if reset:
+        fa.fused_ln_qkv_attention.launches_proj = 0
+    n["ln_qkv_proj"] = fa.fused_ln_qkv_attention.launches_proj
+    return n
+
+
+def run_stream_cli(img_dir: str, tmp: str, flags: list, tag: str) -> tuple:
+    """The predict CLI on the stream by windows of 224 at stride 224 with
+    ``flags``, counters zeroed just before and read just after: ``(counts
+    from the saved densities, launches)``."""
+    from clip_ebc_tpu_torch.cli import predict
+
+    dens = os.path.join(tmp, tag.replace(" ", "_") + "_dens")
+    argv = [img_dir, "--model", "clip_vit_b_16", "--reduction", "8", "--truncation", "4",
+            "--num_vpt", "32", "--sliding_window", "--window_size", "224", "--stride", "224",
+            "--seed", "0", "--out", dens + ".csv", "--save_density", dens, *flags]
+    _stream_counters(reset=True)
+    t0 = time.perf_counter()
+    predict.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = _stream_counters()
+    _tally_off_path(f"predict CLI, {tag}")
+    counts = [float(np.load(os.path.join(dens, f"{i}.npy")).astype(np.float64).sum())
+              for i in range(len(STREAM_HW))]
+    check(all(math.isfinite(c) and c > 0 for c in counts), f"{tag}: counts {counts}")
+    print(f"predict CLI, {tag}: {secs:.1f} s (model build, weights, {len(STREAM_HW)} images); "
+          f"launches {n}")
+    return counts, n
+
+
+def _gap(got: list, want: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def time_stream(fn, reps: int = 2) -> tuple:
+    """``fn()`` over the whole stream (ending in host reads of the counts)
+    after one warm-up: the median of ``reps`` of CUDA events around the
+    call and of the host clock, ms."""
+    fn()
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+def packed_against_per_image(evaluator, images: list, batch_windows: int = PACK_B) -> tuple:
+    """The stream's densities packed into batches of ``batch_windows``,
+    queued with no host read between images (the host runs ahead of the
+    forwards, so the gather of the next image into the staging slots is
+    ordered after the forward reading them only by the stream), against
+    the per-image path: ``(largest count gap, relative; largest density
+    gap over the largest density)``."""
+    packed = list(evaluator.predict_densities_packed(images, batch_windows=batch_windows))
+    per_image = [evaluator.predict_density(im) for im in images]
+    check(len(packed) == len(images), f"the packed stream gave {len(packed)} densities")
+    count_gap = dens_gap = 0.0
+    for got, want in zip(packed, per_image):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"packed density {tuple(got.shape)}, per image {tuple(want.shape)}")
+        count_gap = max(count_gap, abs(float(got.sum() - want.sum())) / abs(float(want.sum())))
+        dens_gap = max(dens_gap, float((got - want).abs().max() / want.abs().max()))
+    return count_gap, dens_gap
+
+
+def _loader_rate(loader, epoch: int) -> float:
+    """Items per second of one epoch of ``loader`` alone (no model)."""
+    loader.set_epoch(epoch)
+    t0 = time.perf_counter()
+    crops = sum(b.images.shape[0] for b in loader)
+    return crops / loader.dataset.num_crops / (time.perf_counter() - t0)
+
+
+def phase_packing(dev, kernels: dict) -> None:
+    for part in (lambda: packing_clis(dev, kernels), lambda: packing_evaluator(dev),
+                 lambda: packing_loader(dev, kernels)):
+        t0 = time.perf_counter()
+        part()
+        print(f"  phase 4f part: {time.perf_counter() - t0:.1f} s")
+
+
+def packing_clis(dev, kernels: dict) -> None:
+    """Phase 4f through the serving CLIs: the stream by the predict CLI
+    packed and per image (bf16, fp32, ``--quant int8_static --quant_attn``)
+    and the NWPU CLI by windows, packed at ``NWPU_PACK_B``."""
+    from clip_ebc_tpu_torch.cli import test_nwpu
+    from clip_ebc_tpu_torch.ops.sliding_window import window_grid
+    from PIL import Image
+
+    n_win = [len(window_grid(hw, (224, 224), (224, 224))) for hw in STREAM_HW]
+    slots = sum(-(-n // 16) * 16 for n in n_win)
+    check(sum(n_win) == 284 and slots == 352 and -(-slots // PACK_B) == PACK_BATCHES,
+          f"the stream has {n_win} windows, {slots} slots")
+    pack = ["--packed_eval", "--batch_windows", str(PACK_B)]
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "stream")
+        os.makedirs(img_dir)
+        for i, px in enumerate(_stream_pixels()):
+            Image.fromarray(px, "RGB").save(os.path.join(img_dir, f"{i}.jpg"))
+        # (a) the predict CLI, packed and per image, bf16 and fp32
+        for dtype in (torch.bfloat16, torch.float32):
+            amp = dtype == torch.bfloat16
+            dt = "bf16" if amp else "fp32"
+            runs = {}
+            for packed in (True, False):
+                tag = f"stream {dt}" + (f", --packed_eval --batch_windows {PACK_B}" if packed
+                                        else ", per image")
+                runs[packed] = run_stream_cli(img_dir, tmp, (["--amp"] if amp else [])
+                                              + (pack if packed else []), tag)
+                fwd = PACK_BATCHES if packed else len(STREAM_HW)
+                want = {"fused_ln_qkv_attention": 12 * fwd, "ln_qkv_proj": 12 * fwd if amp else 0,
+                        "fused_ebc_head": fwd}
+                n = runs[packed][1]
+                check({k: n[k] for k in want} == want, f"{tag}: launches {n}, expected {want}")
+            gap = _gap(runs[True][0], runs[False][0])
+            print(f"stream {dt}: packed counts within {gap:.2e} of the per-image counts "
+                  f"(bound {PACK_COUNT_TOL[dtype]:g}); packed {[round(c, 2) for c in runs[True][0]]}")
+            check(gap <= PACK_COUNT_TOL[dtype], f"stream {dt}: packed and per-image counts differ")
+            n = runs[True][1]
+            kernels["fused_ln_qkv_attention" + ("" if amp else "_fp32")]["launches_packed"] = \
+                n["fused_ln_qkv_attention"]
+            if amp:
+                kernels["ln_qkv_proj"]["launches_packed"] = n["ln_qkv_proj"]
+                kernels["fused_ebc_head"]["launches_packed"] = n["fused_ebc_head"]
+        # (b) --quant int8_static --quant_attn, bf16: two calibration batches
+        # of 16 windows (row 3), then the static int8 attention a block
+        runs = {}
+        for packed in (True, False):
+            tag = "stream int8_static --quant_attn bf16" + (", packed" if packed else ", per image")
+            runs[packed] = run_stream_cli(img_dir, tmp, ["--amp", "--quant", "int8_static",
+                                                         "--calib_images", "2", "--quant_attn"]
+                                          + (pack if packed else []), tag)
+            fwd = PACK_BATCHES if packed else len(STREAM_HW)
+            want = {"int8_attention_static": 12 * fwd, "ln_qkv_proj_int8": 12 * fwd,
+                    "int8_attention_body": 12 * fwd, "fused_qkv_attention": 24,
+                    "fused_ln_qkv_attention_int8": 0, "fused_ln_qkv_attention": 0,
+                    "fused_ebc_head": fwd + 2}
+            n = runs[packed][1]
+            check({k: n[k] for k in want} == want, f"{tag}: launches {n}, expected {want}")
+        gap = _gap(runs[True][0], runs[False][0])
+        print(f"stream int8_static --quant_attn bf16: packed counts within {gap:.2e} of the "
+              f"per-image counts (bound {PACK_INT8_TOL:g})")
+        check(gap <= PACK_INT8_TOL, "int8 stream: packed and per-image counts differ")
+        n = runs[True][1]
+        kernels["int8_attention_static"]["launches_packed"] = n["int8_attention_static"]
+        kernels["int8_attention_body"]["launches_packed"] = n["int8_attention_body"]
+        kernels["fused_ln_qkv_attention_int8"]["launches_packed"] = n["fused_ln_qkv_attention_int8"]
+        # (c) the NWPU CLI by windows (stride 112: 54 windows, 64 slots an
+        # image), packed at --batch_windows 48: three forwards, the last a flush
+        nwpu_dir = os.path.join(tmp, "nwpu")
+        os.makedirs(nwpu_dir)
+        _, weights = nwpu_tree(dev, nwpu_dir)
+        subs = {}
+        for packed in (True, False):
+            _stream_counters(reset=True)
+            test_nwpu.main(["--data_root", os.path.join(nwpu_dir, "data"), "--weight_path", weights,
+                            "--result_dir", os.path.join(nwpu_dir, str(packed)), "--amp",
+                            "--disable_size_check", "--sliding_window"]
+                           + (["--packed_eval", "--batch_windows", str(NWPU_PACK_B)] if packed else []))
+            torch.cuda.synchronize()
+            n = _stream_counters()
+            _tally_off_path("test_nwpu CLI by windows")
+            subs[packed] = read_submission(os.path.join(nwpu_dir, str(packed), "best_1.txt"))
+            fwd = 3 if packed else len(NWPU_SIZES)
+            check(n["fused_ln_qkv_attention"] == 12 * fwd and n["fused_ebc_head"] == fwd,
+                  f"test_nwpu by windows (packed {packed}): launches {n}")
+            if packed:
+                kernels["fused_ln_qkv_attention"]["launches_packed_b48"] = n["fused_ln_qkv_attention"]
+                kernels["fused_ebc_head"]["launches_packed_b48"] = n["fused_ebc_head"]
+        check([r[0] for r in subs[True]] == [r[0] for r in subs[False]] == ["3098", "3099"],
+              f"submission ids {subs}")
+        gap = _gap([float(c) for _, c in subs[True]], [float(c) for _, c in subs[False]])
+        print(f"test_nwpu CLI by windows, bf16, --packed_eval --batch_windows {NWPU_PACK_B}: "
+              f"submission {subs[True]}, within {gap:.2e} of the per-image lines (bound 1e-2)")
+        check(gap <= PACK_COUNT_TOL[torch.bfloat16], "test_nwpu: packed and per-image lines differ")
+
+
+def packing_evaluator(dev) -> None:
+    """Phase 4f through the Evaluator: the stream's densities packed with
+    the host ahead of the device against per image; images/s by device
+    time (the host clock beside) and peak memory, in turns."""
+    from clip_ebc_tpu_torch.ops.sliding_window import window_grid
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+
+    images = stream_images()
+    n_win = sum(len(window_grid(hw, (224, 224), (224, 224))) for hw in STREAM_HW)
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+        ev = Evaluator(_flagship_model(dev, dtype), reduction=8, sliding_window=True,
+                       window_size=224, stride=224, pad_to_multiple=16)
+        count_gap, dens_gap = packed_against_per_image(ev, images)
+        print(f"stream {dt} through the Evaluator, host ahead of the device: packed counts within "
+              f"{count_gap:.2e} of per image (bound {PACK_COUNT_TOL[dtype]:g}), densities within "
+              f"{dens_gap:.2e} of the largest")
+        check(count_gap <= PACK_COUNT_TOL[dtype], f"stream {dt}: packed densities differ")
+
+        def per_image():
+            return [ev.predict_count(im) for im in images]
+
+        def packed():
+            return [float(d.sum()) for d in ev.predict_densities_packed(images, PACK_B)]
+
+        peak = {}
+        for name, fn in (("per image", per_image), ("packed", packed)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            fn()
+            peak[name] = torch.cuda.max_memory_allocated(dev) / 2**30
+        turns = [time_stream(f) for f in (per_image, packed, packed, per_image)]
+        res = {"per image": (turns[0], turns[3]), "packed": (turns[1], turns[2])}
+        n = len(images)
+        print(f"stream {dt} ({n} images, {n_win} windows): " + "; ".join(
+            f"{name} {', '.join(f'{d:.2f}' for d, _ in t)} ms device ({n / (sum(d for d, _ in t) / 2) * 1e3:.1f} "
+            f"images/s), host {', '.join(f'{h:.2f}' for _, h in t)} ms, peak {peak[name]:.2f} GiB"
+            for name, t in res.items()) + f"; turns per image, packed, packed, per image; {card_line()}")
+        del ev
+
+
+def packing_loader(dev, kernels: dict) -> None:
+    """Phase 4f's loader pool: its first batch against the threads', the
+    loader alone by threads and processes, the step's idle share with each,
+    and the trainer CLI with ``--loader_procs 2``."""
+    from clip_ebc_tpu_torch.config import ExperimentConfig
+    from clip_ebc_tpu_torch.data.crowd import CrowdDataset
+    from clip_ebc_tpu_torch.data.loader import TrainLoader, make_train_transforms
+    from clip_ebc_tpu_torch.data.synthetic import make_synthetic_crowd_dataset
+    from clip_ebc_tpu_torch.losses import make_loss_fn
+    from clip_ebc_tpu_torch.training.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_synthetic_crowd_dataset(os.path.join(tmp, "data"), "qnrf",
+                                            n_train=TRAIN_IMAGES, n_val=2, size=DATA_HW, seed=0)
+        cfg = ExperimentConfig(model="clip_vit_b_16", dataset="qnrf", input_size=TRAIN_SIZE,
+                               reduction=8, truncation=4, count_loss="dmcount",
+                               batch_size=TRAIN_B, num_crops=2, warmup_lr=1e-3).normalize()
+        ds = CrowdDataset("qnrf", "train", data, transforms=make_train_transforms(cfg),
+                          num_crops=2, check_sizes=False)
+        loaders = {mode: TrainLoader(ds, TRAIN_B, 8, seed=cfg.seed, num_threads=mode[0] or 4,
+                                     num_workers=mode[1]) for mode in LOADER_MODES}
+        threads, pool = loaders[(4, 0)], loaders[(0, 2)]
+        try:
+            first = []
+            for loader in (threads, pool):  # epoch 1's first batch, as the trainer draws it
+                loader.set_epoch(1)
+                it = iter(loader)
+                first.append(next(it))
+                it.close()
+            check(all(torch.equal(getattr(first[0], f), getattr(first[1], f))
+                      for f in ("images", "points", "point_mask", "density")),
+                  "the loader pool's first batch differs from the threads'")
+            rates = {}
+            for mode, loader in loaders.items():
+                if mode[1]:
+                    _loader_rate(loader, 2)  # warm-up: the pool's start-up
+                rates[mode] = _loader_rate(loader, 3)
+                if mode not in ((4, 0), (0, 2)):
+                    loader.close()
+            cores = len(os.sched_getaffinity(0))
+            print(f"loader alone ({TRAIN_IMAGES} images of {DATA_HW[0]}x{DATA_HW[1]}, 2 crops of "
+                  f"{TRAIN_SIZE} px each, every augmentation of the flagship flags), items/s: "
+                  + ", ".join((f"{t} threads" if t else f"{w} processes") + f" {r:.1f}"
+                              for (t, w), r in rates.items())
+                  + f"; {cores} host cores ({os.cpu_count()} in the machine); first batch of the "
+                  "pool bit-equal to the threads'")
+            model = _flagship_model(dev, torch.bfloat16).train()
+            trainer = Trainer(cfg, model, make_loss_fn(cfg))
+            trainer.train_epoch(threads, 4)  # warm-up
+            for name, loader in (("threads", threads), ("2 processes", pool)):
+                _, wall, busy, _ = profiled(lambda: trainer.train_epoch(loader, 5), cpu=False)
+                print(f"profiled epoch of {_steps()} bf16 steps, loader of {name}: wall "
+                      f"{wall:.1f} ms, device busy {busy:.1f} ms (idle share {1 - busy / wall:.2f})")
+            del trainer, model
+        finally:
+            for loader in loaders.values():
+                loader.close()
+        res = run_trainer(dev, data, os.path.join(tmp, "ckpt_pool"), True, ("--loader_procs", "2"))
+        n, steps = res["launches"], _steps()
+        check(math.isfinite(res["loss"]) and n["ln_qkv_bwd_frozen"] == 12 * steps,
+              f"trainer CLI --loader_procs 2: loss {res['loss']}, launches {n}")
+        kernels["ln_qkv_bwd_frozen"]["launches_loader_procs"] = n["ln_qkv_bwd_frozen"]
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3939,6 +4383,7 @@ def main(argv) -> int:
                *phase_mlp_int8(dev, f, torch.bfloat16), *phase_mlp_int8(dev, f, torch.float32),
                phase_qkv_quant_dynamic(dev, f, torch.bfloat16), phase_qkv_quant_dynamic(dev, f, torch.float32),
                *phase_kernels_d1024(dev)]
+    phase_packed_shapes(dev, {k["name"]: k for k in kernels})
     phase_int8_products(dev)
     print(f"phases 1-2: {time.perf_counter() - t0:.1f} s")
     by_name = {k["name"]: k for k in kernels}
@@ -3973,8 +4418,10 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_data_parallel(dev, by_name)
     print(f"phase 4e: {time.perf_counter() - t0:.1f} s")
-    if "--profile" not in argv:
-        phase_library_kernels(dev)
+    t0 = time.perf_counter()
+    phase_packing(dev, by_name)
+    print(f"phase 4f: {time.perf_counter() - t0:.1f} s")
+    phase_library_kernels_apart()
     off_path = [k for k in kernels if k["name"].removesuffix("_d1024") in OFF_PATH]
     for k in off_path:
         k["launches"] = OFF_PATH_LAUNCHES[k["name"].removesuffix("_d1024").removesuffix("_fp32")]

@@ -32,9 +32,17 @@ default ``vgg19_ae`` whole, and ``--regression`` for a Regressor:
 
 ``--quant`` is for ``clip_*`` models only, as in the JAX CLI.
 
-Not ported yet: ``--packed_eval`` and ``--pretrained``; each raises. The
-options of those features (``--allow_byte_tokenizer``, ``--batch_windows``)
-are not accepted until the features are.
+``--packed_eval`` (with ``--sliding_window``) packs the windows of
+consecutive images into forward batches of ``--batch_windows`` (128):
+every forward has the same batch however small the images are
+(``ops/packed_eval.py``); the counts and density files are the per-image
+path's, written as each image's last batch has run:
+
+    python -m clip_ebc_tpu_torch.cli.predict IMAGES --sliding_window --stride 224 \
+        --packed_eval --batch_windows 128 --amp
+
+Not ported yet: ``--pretrained`` raises, and its option
+``--allow_byte_tokenizer`` is not accepted until it is.
 """
 
 from __future__ import annotations
@@ -81,7 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["kernel", "xla"],
                    help="with --quant int8_static: int8 QK^T and PV, in the attention "
                    "kernel (bare or 'kernel') or as plain integer products ('xla')")
-    p.add_argument("--packed_eval", action="store_true")
+    p.add_argument("--packed_eval", action="store_true",
+                   help="with --sliding_window: pack windows across images into "
+                   "fixed-size forward batches (ops/packed_eval.py)")
+    p.add_argument("--batch_windows", type=int, default=128,
+                   help="forward batch size for --packed_eval")
     p.add_argument("--out", type=str, default="predictions.csv")
     p.add_argument("--save_density", type=str, default=None,
                    help="directory for per-image density .npy files")
@@ -107,7 +119,6 @@ def _list_images(spec: str):
 
 def _check_ported(args) -> None:
     todo = {
-        "--packed_eval (ROADMAP Queue 1, remaining tooling)": args.packed_eval,
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
     }
     missing = [k for k, asked in todo.items() if asked]
@@ -119,6 +130,8 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.quant_attn and args.quant != "int8_static":
         raise SystemExit("--quant_attn requires --quant int8_static")
+    if args.packed_eval and not args.sliding_window:
+        raise SystemExit("--packed_eval requires --sliding_window")
     _check_ported(args)
     if args.sliding_window:
         args.window_size = args.input_size if args.window_size is None else args.window_size
@@ -173,12 +186,18 @@ def main(argv=None) -> None:
     if args.save_density:
         os.makedirs(args.save_density, exist_ok=True)
 
+    def densities():
+        images = (normalize_image(_load_image(p)) for p in paths)
+        if args.packed_eval:
+            yield from evaluator.predict_densities_packed(images, batch_windows=args.batch_windows)
+        else:
+            yield from map(evaluator.predict_density, images)
+
     # incremental write: one bad image must not lose prior results
     n = 0
     with open(args.out, "w") as f:
         f.write("image,count\n")
-        for i, path in enumerate(paths):
-            density = evaluator.predict_density(normalize_image(_load_image(path)))
+        for i, (path, density) in enumerate(zip(paths, densities())):
             density = density.cpu().numpy()
             f.write(f"{os.path.basename(path)},{float(density.sum()):.2f}\n")
             f.flush()

@@ -26,10 +26,12 @@ Every model the trainer CLI builds is accepted (``--model vgg19_ae``,
 ``--regression`` for a Regressor); ``--quant`` is for ``clip_*`` models
 only, as in the JAX CLI.
 
-Not ported yet: ``--packed_eval`` and ``--pretrained``; each raises
-``NotImplementedError``. The options of
-those features (``--allow_byte_tokenizer``, ``--batch_windows``) are not
-accepted until the features are.
+``--sliding_window --packed_eval`` packs the windows of consecutive test
+images into forward batches of ``--batch_windows`` (128;
+``ops/packed_eval.py``); the submission file is the same.
+
+Not ported yet: ``--pretrained`` raises ``NotImplementedError``, and its
+option ``--allow_byte_tokenizer`` is not accepted until it is.
 """
 
 from __future__ import annotations
@@ -73,7 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["kernel", "xla"],
                    help="with --quant int8_static: int8 QK^T and PV, in the attention "
                    "kernel (bare or 'kernel') or as plain integer products ('xla')")
-    p.add_argument("--packed_eval", action="store_true")
+    p.add_argument("--packed_eval", action="store_true",
+                   help="with --sliding_window: pack windows across images into "
+                   "fixed-size forward batches (ops/packed_eval.py)")
+    p.add_argument("--batch_windows", type=int, default=128,
+                   help="forward batch size for --packed_eval")
     p.add_argument("--limit", type=int, default=None,
                    help="process only the first N images (smoke tests)")
     p.add_argument("--disable_size_check", action="store_true")
@@ -83,7 +89,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args) -> None:
     todo = {
-        "--packed_eval (ROADMAP Queue 1, remaining tooling)": args.packed_eval,
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
     }
     missing = [k for k, asked in todo.items() if asked]
@@ -184,11 +189,21 @@ def main(argv=None) -> None:
     )
 
     n = len(dataset) if args.limit is None else min(args.limit, len(dataset))
+    names = []
+
+    def images():
+        for i in range(n):
+            image, name = dataset[i]
+            names.append(name)
+            yield image
+
+    if args.packed_eval:
+        densities = evaluator.predict_densities_packed(images(), batch_windows=args.batch_windows)
+    else:
+        densities = map(evaluator.predict_density, images())
     lines = []
-    for i in range(n):
-        image, name = dataset[i]
-        count = evaluator.predict_count(image)
-        lines.append(f"{os.path.splitext(name)[0]} {count}")
+    for i, density in enumerate(densities):
+        lines.append(f"{os.path.splitext(names[i])[0]} {float(density.sum())}")
         if (i + 1) % 100 == 0:
             print(f"{i + 1}/{n}")
 

@@ -45,8 +45,12 @@ process 0 alone writes ``train.log`` and the checkpoints:
     python -m clip_ebc_tpu_torch.cli.trainer --coordinator 10.0.0.1:29500 \
         --num_hosts 2 --host_id 0 ...   # and --host_id 1 in a second process
 
-Not ported yet, and refused: ``--pretrained``, ``--profile_dir`` and
-``--loader_procs`` > 0.
+``--loader_procs N`` loads the training items in N spawned worker
+processes in place of the ``--num_workers`` threads (the same batches),
+and decodes the validation images in N more; each process of a data
+parallel run owns its pools.
+
+Not ported yet, and refused: ``--pretrained`` and ``--profile_dir``.
 """
 
 from __future__ import annotations
@@ -118,7 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_best_k", type=int, default=3)
     p.add_argument("--amp", action="store_true", help="bf16 compute (fp32 parameters)")
     p.add_argument("--num_workers", type=int, default=4, help="loader decode threads")
-    p.add_argument("--loader_procs", type=int, default=0)
+    p.add_argument("--loader_procs", type=int, default=0,
+                   help="worker processes that load the training items and decode the "
+                   "validation images (0: threads)")
     p.add_argument("--seed", type=int, default=42, help="seed of the weights, data order and dropout")
     # Paths
     p.add_argument("--pretrained", type=str, default=None)
@@ -146,7 +152,6 @@ def _check_ported(args) -> None:
     todo = {
         "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
         "--profile_dir (ROADMAP Queue 1, remaining tooling)": args.profile_dir is not None,
-        "--loader_procs (ROADMAP Queue 1, VPT training: loader process pool)": args.loader_procs > 0,
     }
     missing = [k for k, asked in todo.items() if asked]
     if missing:
@@ -233,7 +238,7 @@ def _train(args, cfg) -> None:
     loader = TrainLoader(
         train_ds, batch_size=cfg.batch_size, reduction=cfg.reduction,
         max_points=args.max_points or None, seed=cfg.seed, num_threads=cfg.num_workers,
-        host_id=mesh.get_rank(), num_hosts=world,
+        host_id=mesh.get_rank(), num_hosts=world, num_workers=args.loader_procs,
     )
     val_ds = CrowdDataset(
         cfg.dataset, "val", data_root=cfg.data_root, transforms=make_eval_transforms(cfg),
@@ -254,18 +259,22 @@ def _train(args, cfg) -> None:
 
     # every process trains and evaluates (an evaluation on rank 0 alone
     # would wait forever on the others' share of the windows)
-    for epoch in range(start_epoch, cfg.total_epochs + 1):
-        t0 = time.time()
-        metrics, steps = trainer.train_epoch(loader, epoch)
-        log.info("epoch %d/%d (%.1fs, %d steps): %s", epoch, cfg.total_epochs, time.time() - t0,
-                 steps, " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-        if epoch >= cfg.eval_start and (epoch - cfg.eval_start) % cfg.eval_freq == 0:
-            scores = evaluate(evaluator, val_ds)
-            best = ckpt.update_best(scores, epoch, model.state_dict())
-            log.info("eval epoch %d: mae=%.2f rmse=%.2f | best mae=%s", epoch, scores["mae"],
-                     scores["rmse"], [f"{s:.2f}@{e}" for s, e in best["mae"]])
-        if epoch % cfg.save_freq == 0 or epoch == cfg.total_epochs:
-            ckpt.save_latest(trainer.state_dict(), epoch, metrics)
+    try:
+        for epoch in range(start_epoch, cfg.total_epochs + 1):
+            t0 = time.time()
+            metrics, steps = trainer.train_epoch(loader, epoch)
+            log.info("epoch %d/%d (%.1fs, %d steps): %s", epoch, cfg.total_epochs,
+                     time.time() - t0, steps, " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+            if epoch >= cfg.eval_start and (epoch - cfg.eval_start) % cfg.eval_freq == 0:
+                scores = evaluate(evaluator, val_ds, decode_procs=args.loader_procs)
+                best = ckpt.update_best(scores, epoch, model.state_dict())
+                log.info("eval epoch %d: mae=%.2f rmse=%.2f | best mae=%s", epoch,
+                         scores["mae"], scores["rmse"], [f"{s:.2f}@{e}" for s, e in best["mae"]])
+            if epoch % cfg.save_freq == 0 or epoch == cfg.total_epochs:
+                ckpt.save_latest(trainer.state_dict(), epoch, metrics)
+    finally:
+        loader.close()
+        evaluator.close()
 
 
 if __name__ == "__main__":

@@ -9,15 +9,22 @@ are decoded and augmented by a pool of threads, each from its own seed
 drawn up front, so the batches do not depend on thread timing and equal
 the JAX loader's from the same seed. Under data parallelism rank
 ``host_id`` of ``num_hosts`` loads its own shard of every epoch's
-permutation, as each host of the JAX loader does. The JAX loader's process
-pool (``num_workers > 0``) is not ported yet.
+permutation, as each host of the JAX loader does. ``num_workers > 0``
+loads the items in a persistent pool of spawned worker processes instead
+of threads (the augmentations hold the interpreter lock most of their
+time), with the same seeds, so the batches are bit-identical.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import logging
+import multiprocessing as mp
+import os
+import pickle
 import queue
 import threading
+from concurrent.futures.process import BrokenProcessPool
 from dataclasses import dataclass, fields
 from typing import Iterator, Optional, Sequence
 
@@ -98,6 +105,67 @@ def make_eval_transforms(cfg):
     return None
 
 
+def _pool_init(pickled_dataset: bytes) -> None:
+    """Worker start-up: one thread (N workers must not each take every
+    core) and the dataset, unpickled once. Workers stay off CUDA."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+    torch.set_num_threads(1)
+    global _POOL_DATASET
+    _POOL_DATASET = pickle.loads(pickled_dataset)
+
+
+def pool_dataset():
+    """In a worker of :func:`spawn_pool`: its copy of the dataset."""
+    return _POOL_DATASET
+
+
+def spawn_pool(dataset, workers: int) -> cf.ProcessPoolExecutor:
+    """A pool of ``workers`` processes, each holding a copy of ``dataset``
+    (:func:`pool_dataset`). Spawned, not forked: the parent may hold a CUDA
+    context, which a forked child cannot use."""
+    return cf.ProcessPoolExecutor(max_workers=workers, mp_context=mp.get_context("spawn"),
+                                  initializer=_pool_init, initargs=(pickle.dumps(dataset),))
+
+
+def ordered_results(pool: cf.ProcessPoolExecutor, fn, args: Sequence, window: int) -> Iterator:
+    """``fn(args[i])`` for each i in order, run in ``pool``, where ``fn``
+    returns ``(i, result)`` and the results are yielded. At most ``window``
+    items are submitted and not yet yielded, so finished results are not
+    held for the whole run; they are delivered in order however they
+    finish. A worker's exception is raised here; closing the generator
+    early cancels what is in flight."""
+    ready: dict = {}
+    pending: set = set()
+    submitted = 0
+
+    def top_up():
+        nonlocal submitted
+        while submitted < len(args) and len(pending) + len(ready) < window:
+            pending.add(pool.submit(fn, args[submitted]))
+            submitted += 1
+
+    try:
+        top_up()
+        for nxt in range(len(args)):
+            while nxt not in ready:
+                done, pending = cf.wait(pending, return_when=cf.FIRST_COMPLETED)
+                for f in done:
+                    i, out = f.result()
+                    ready[i] = out
+                top_up()
+            yield ready.pop(nxt)
+            top_up()
+    finally:
+        for f in pending:
+            f.cancel()
+
+
+def _pool_load(args: tuple) -> tuple:
+    """Item ``ds_index`` from its pre-drawn ``seed``: the thread path's item."""
+    i, ds_index, seed = args
+    return i, _POOL_DATASET.__getitem__(int(ds_index), rng=np.random.default_rng(seed))
+
+
 class TrainLoader:
     """Shuffled, prefetching train loader: ``Batch``es of ``batch_size``
     crops, ``dataset.num_crops`` from each image, flattened into the batch
@@ -106,7 +174,11 @@ class TrainLoader:
     ``num_hosts`` and this rank takes every ``num_hosts``-th item from
     ``host_id`` on, its item seeds drawn from a stream offset by
     ``host_id`` (the JAX loader's shards); ``max_points`` is sized from the
-    whole dataset, so every rank pads to the same shape."""
+    whole dataset, so every rank pads to the same shape.
+
+    ``num_workers > 0`` loads items in a persistent pool of that many
+    spawned processes (made on the first epoch, kept until :meth:`close`)
+    in place of ``num_threads`` threads; the batches are the same."""
 
     def __init__(
         self,
@@ -118,6 +190,7 @@ class TrainLoader:
         num_threads: int = 4,
         host_id: int = 0,
         num_hosts: int = 1,
+        num_workers: int = 0,
     ) -> None:
         if not 0 <= host_id < num_hosts:
             raise ValueError(f"host_id {host_id} is outside [0, num_hosts={num_hosts})")
@@ -139,6 +212,8 @@ class TrainLoader:
         self.num_threads = num_threads
         self.host_id = host_id
         self.num_hosts = num_hosts
+        self.num_workers = num_workers
+        self._pool: Optional[cf.ProcessPoolExecutor] = None
         self.epoch = 0
         self._warned_epoch: Optional[int] = None
 
@@ -154,15 +229,51 @@ class TrainLoader:
         usable = len(perm) // self.num_hosts * self.num_hosts  # equal shards
         return perm[:usable][self.host_id::self.num_hosts]
 
+    def _get_pool(self) -> cf.ProcessPoolExecutor:
+        if self._pool is None:
+            self._pool = spawn_pool(self.dataset, self.num_workers)
+        return self._pool
+
+    def close(self) -> None:
+        """Shut down the worker pool, if there is one."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+
+    def _iter_process_pool(self, indices, item_seeds, n_items: int) -> Iterator[Batch]:
+        # enough in flight to keep every worker busy and assemble a batch,
+        # not the epoch: a finished item is held until its batch goes out
+        items = ordered_results(
+            self._get_pool(), _pool_load,
+            [(i, int(indices[i]), int(item_seeds[i])) for i in range(n_items)],
+            window=max(2 * self.items_per_batch, 4 * self.num_workers))
+        try:
+            for b in range(len(self)):
+                n = min((b + 1) * self.items_per_batch, n_items) - b * self.items_per_batch
+                yield self._collate([next(items) for _ in range(n)])
+        except BrokenProcessPool as e:
+            # a worker died (killed, or crashed in native code): the pool is
+            # broken for good, so drop it and let the next epoch make another
+            self.close()
+            raise RuntimeError(
+                "a loader worker process died (not a Python exception: killed, or a "
+                "crash in native code); the pool was dropped and the next epoch "
+                "makes a new one") from e
+        finally:
+            items.close()  # an abandoned epoch: nothing of it stays queued in the pool
+
     def __iter__(self) -> Iterator[Batch]:
         indices = self._epoch_indices()
         item_rng = np.random.default_rng(
             (self.seed + 1) * 7_777_777 + self.epoch * 131 + self.host_id)
         # one child seed per item, drawn up front: results do not depend
-        # on which thread loads which item
+        # on which thread or process loads which item
         item_seeds = item_rng.integers(0, 2**63 - 1, size=len(indices))
         n_batches = len(self)
         n_items = min(n_batches * self.items_per_batch, len(indices))
+        if self.num_workers > 0 and n_items > 0:
+            yield from self._iter_process_pool(indices, item_seeds, n_items)
+            return
         work: "queue.Queue[int]" = queue.Queue()
         for i in range(n_items):
             work.put(i)

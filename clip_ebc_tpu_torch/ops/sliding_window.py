@@ -48,9 +48,15 @@ def gather_windows(
 ) -> torch.Tensor:
     """``(H, W, C)`` -> ``(N, wh, ww, C)`` windows in :func:`window_grid`
     order, gathered in one indexing op."""
-    h, w, _ = image.shape
+    return gather_windows_at(image, window_grid(tuple(image.shape[:2]), window, stride), window)
+
+
+def gather_windows_at(image: torch.Tensor, starts: np.ndarray, window: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """``(H, W, C)`` -> ``(N, wh, ww, C)``: the windows whose ``(y, x)``
+    starts are the rows of ``starts``, gathered in one indexing op."""
     wh, ww = window
-    starts = torch.as_tensor(window_grid((h, w), window, stride), device=image.device).long()
+    starts = torch.as_tensor(starts, device=image.device).long()
     rows = starts[:, 0, None] + torch.arange(wh, device=image.device)  # (N, wh)
     cols = starts[:, 1, None] + torch.arange(ww, device=image.device)  # (N, ww)
     return image[rows[:, :, None], cols[:, None, :]]

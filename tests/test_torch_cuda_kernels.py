@@ -107,6 +107,10 @@ def _attn_inputs(b, l, d, seed, dev, dtype=torch.bfloat16):
     (2, 289, 1024, 16, 250, "float32"),  # ViT-L, fp32, masked keys
     (3, 37, 1024, 16, 33, "bfloat16"),  # ViT-L width, ragged length (one 128-row item)
     (2, 320, 1024, 16, 320, "bfloat16"),  # ViT-L width at the route's longest window
+    (128, 229, 768, 12, 229, "bfloat16"),  # a packed forward (--batch_windows 128)
+    (48, 229, 768, 12, 229, "bfloat16"),  # --batch_windows 48
+    (128, 229, 768, 12, 229, "float32"),
+    (48, 229, 768, 12, 229, "float32"),
 ])
 def test_attention_kernel_matches_plain(cuda, shape):
     b, l, d, h, kv_len, dtype = shape
@@ -186,6 +190,8 @@ def _zero_and_large_rows(feats):
     (4097, 640, 5),  # RN50x4's embedding
     (4097, 768, 5),  # ViT-L's and RN50x16's
     (140 * 56 * 56 // 4, 1024, 5),  # RN50's (and RN50x64's): 140 windows at reduction 8
+    (128 * 28 * 28, 512, 5),  # a packed forward of 128 windows
+    (48 * 28 * 28, 512, 5),  # --batch_windows 48
 ])
 @pytest.mark.parametrize("rows", ["normal", "zero and large"])
 def test_head_kernel_matches_plain_at_edges(cuda, dtype, n, c, k, rows):
@@ -564,6 +570,8 @@ def _max_median(got, want):
     (3, 37, 128, 2, 33, "bfloat16"),  # ragged length, one W tile deep
     (8, 229, 768, 12, 229, "float32"),  # fp32 activations (no --amp)
     (3, 37, 128, 2, 33, "float32"),
+    (128, 229, 768, 12, 229, "bfloat16"),  # a packed forward (--batch_windows 128)
+    (48, 229, 768, 12, 229, "bfloat16"),  # --batch_windows 48
 ])
 def test_int8_attention_kernel_matches_plain(cuda, shape):
     b, l, d, h, kv_len, dtype = shape
@@ -721,6 +729,8 @@ INT8_ATTN_SHAPES = [
     (8, 289, 1024, 16, 289, "bfloat16"),  # a ViT-L window block: 16 heads, D = 1024
     (8, 289, 1024, 16, 250, "float32"),  # ViT-L, fp32, masked keys
     (2, 433, 1024, 16, 433, "bfloat16"),  # ViT-L at 433 tokens
+    (128, 229, 768, 12, 229, "bfloat16"),  # a packed forward (--batch_windows 128)
+    (48, 229, 768, 12, 229, "bfloat16"),  # --batch_windows 48
 ]
 
 
@@ -1436,3 +1446,21 @@ def test_vit_l_block_routes_to_row_2_and_matches_plain(cuda):
             want = plain(x).float()
         err = (got.float() - want).abs().max().item()
         assert err <= tol * want.abs().max().item(), (dtype, err)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_packed_stream_matches_per_image_with_the_host_ahead(cuda, dtype):
+    """``chip_smoke.py`` phase 4f's mixed-size stream (284 windows of 224 px)
+    through the flagship model, packed into three forwards of 128 windows
+    queued with no host read between images, against the per-image path:
+    the counts within 1e-2 (bf16) or 1e-3 (fp32), the launches 12 of row 2
+    and 1 of the head a forward."""
+    dtype = getattr(torch, dtype)
+    ev = Evaluator(smoke._flagship_model(cuda, dtype), reduction=8, sliding_window=True,
+                   window_size=224, stride=224, pad_to_multiple=16)
+    ev.text_features()
+    fused_ln_qkv_attention.launches = fused_ebc_head.launches = 0
+    count_gap, _ = smoke.packed_against_per_image(ev, smoke.stream_images())
+    forwards = smoke.PACK_BATCHES + len(smoke.STREAM_HW)
+    assert (fused_ln_qkv_attention.launches, fused_ebc_head.launches) == (12 * forwards, forwards)
+    assert count_gap <= smoke.PACK_COUNT_TOL[dtype], count_gap

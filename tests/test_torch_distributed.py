@@ -32,7 +32,11 @@ the sizes of ``tests/test_torch_train.py`` and
 - ``sliding_window_predict`` on 15 overlapping windows (8
   and 7 a rank), both strategies, against the JAX
   ``sliding_window_predict`` on its 8-device mesh and the numpy oracle of
-  ``tests/test_sliding_window.py``, within 1e-5.
+  ``tests/test_sliding_window.py``, within 1e-5;
+- ``Evaluator.predict_densities_packed`` on a stream of five images of
+  mixed sizes (76 window slots in batches of 16, 8 a rank) against one
+  process's packed and per-image densities, within 1e-5; a batch the
+  world does not divide, and one that is not whole chunks, raise.
 
 ``TrainLoader(host_id=r, num_hosts=2)`` is held to the JAX loader's
 shards in this process, batch for batch and bit for bit. The file takes
@@ -62,6 +66,7 @@ from clip_ebc_tpu_torch.models import get_model  # noqa: E402
 from clip_ebc_tpu_torch.models.blocks import BatchNorm  # noqa: E402
 from clip_ebc_tpu_torch.ops.sliding_window import sliding_window_predict  # noqa: E402
 from clip_ebc_tpu_torch.parallel import mesh  # noqa: E402
+from clip_ebc_tpu_torch.training.evaluate import Evaluator  # noqa: E402
 from clip_ebc_tpu_torch.training.trainer import Trainer  # noqa: E402
 
 WORLD, GLOBAL_B, SIZE, RED, STEPS, LR = 2, 4, 32, 8, 2, 1e-3
@@ -77,6 +82,8 @@ CFGS = {
 STEP_CASES = {"vgg": ("vgg", 0.0, None, STEPS), "clip": ("clip", 0.0, None, STEPS),
               "clip_drop": ("clip", 0.3, None, 1), "clip_no_factor": ("clip", 0.0, 1, 1)}
 WINDOW_IMAGE, WINDOW, STRIDE = (80, 128), (32, 32), (24, 24)  # 3 x 5 = 15 windows
+# the packed stream: 12, 1, 9, 10 and 35 windows, 76 slots in chunks of 4
+PACKED_SIZES, PACKED_B, PACKED_CHUNK = [(64, 96), (24, 16), (80, 56), (40, 120), (128, 160)], 16, 4
 REL_TOL, STAT_TOL = 1e-5, 1e-6
 
 
@@ -171,11 +178,46 @@ def _window_case() -> dict:
     return {"density": out, "ran": ran}
 
 
+class _BlockModel(torch.nn.Module):
+    """``fake_apply`` as a model with a parameter, for the ``Evaluator``;
+    records the windows of each forward."""
+
+    def __init__(self):
+        super().__init__()
+        self.scale = torch.nn.Parameter(torch.ones(()))
+        self.ran = []
+
+    def forward(self, windows):
+        self.ran.append(windows.shape[0])
+        return fake_apply(windows) * self.scale
+
+
+def _packed_case() -> dict:
+    """The packed stream through the ``Evaluator`` (every rank feeds the
+    same images), its per-image densities, the windows of each forward and
+    what two geometries raise."""
+    rng = np.random.default_rng(4)
+    images = [rng.uniform(0, 1, hw + (3,)).astype(np.float32) for hw in PACKED_SIZES]
+    model = _BlockModel()
+    ev = Evaluator(model, reduction=RED, sliding_window=True, window_size=WINDOW[0],
+                   stride=STRIDE[0], pad_to_multiple=16)
+    packed = list(ev.predict_densities_packed(images, PACKED_B, PACKED_CHUNK))
+    out = {"density": packed, "ran": model.ran[:]}
+    out["per_image"] = [ev.predict_density(im) for im in images]
+    out["errors"] = {}
+    for batch, chunk in ((7, 1), (120, 16)):
+        try:
+            next(ev.predict_densities_packed(images, batch, chunk))
+        except ValueError as e:
+            out["errors"][batch] = str(e)
+    return out
+
+
 def worker(rank: int, world: int, init: str, out: str) -> None:
     torch.set_num_threads(1)
     mesh.init_process_group(init, world, rank, "gloo")
     try:
-        results = {"bn": _bn_case(), "window": _window_case(),
+        results = {"bn": _bn_case(), "window": _window_case(), "packed": _packed_case(),
                    "replicated": mesh.replicate(torch.tensor([rank + 1.0])).item(),
                    "metrics": mesh.reduce_metrics(
                        {"ot_loss": torch.tensor(rank + 1.0), "loss": torch.tensor(rank + 1.0)},
@@ -209,7 +251,7 @@ def ranks(tmp_path_factory):
 @pytest.fixture(scope="module")
 def one_process(ranks):
     torch.set_num_threads(4)
-    refs = {"bn": _bn_case(), "window": _window_case()}
+    refs = {"bn": _bn_case(), "window": _window_case(), "packed": _packed_case()}
     for name in ("vgg", "clip", "clip_drop"):
         refs[name] = _step_case(name, steps=1)
     return refs
@@ -422,6 +464,26 @@ def test_sharded_sliding_window_matches_jax_mesh_and_oracle(results, one_process
                 one_process["window"]["density"][strategy]]:
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
             np.testing.assert_allclose(got.numpy(), oracle, rtol=1e-5, atol=1e-5)
+
+
+def test_two_ranks_pack_windows_as_one_process(results, one_process):
+    """Each forward batch of 16 windows runs 8 a rank and is gathered back:
+    every rank gets one process's densities, which are the per-image
+    path's. A world that does not divide the batch raises the JAX
+    message; so does a batch that is not whole chunks."""
+    want = one_process["packed"]
+    assert want["ran"] == [PACKED_B] * 5
+    for got, ref in zip(want["density"], want["per_image"]):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    assert list(want["errors"]) == [120]
+    for r in results:
+        got = r["packed"]
+        assert got["ran"] == [PACKED_B // WORLD] * 5
+        assert [d.shape for d in got["density"]] == [(h // RED, w // RED) for h, w in PACKED_SIZES]
+        for g, w in zip(got["density"], want["density"]):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+        assert "must be divisible by the mesh's 2 devices" in got["errors"][7]
+        assert "multiple of chunk" in got["errors"][120]
 
 
 def test_loader_shards_equal_jax(tmp_path, monkeypatch):

@@ -129,12 +129,10 @@ def test_nwpu_cli_matches_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("extra,error", [
     (["--quant", "int8", "--quant_attn", "xla"], SystemExit),  # int8 attention needs static scales
-    (["--packed_eval", "--sliding_window"], NotImplementedError),
     (["--pretrained", "clip.pt"], NotImplementedError),
     (["--model", "clip_resnet50", "--quant", "int8"], SystemExit),  # W8A8 on a CLIP ResNet: no weights
     (["--packed_eval"], SystemExit),  # needs --sliding_window, as the JAX CLI says
     (["--quant_attn"], SystemExit),  # needs --quant int8_static
-    (["--batch_windows", "8"], SystemExit),  # options of unported features are not accepted
     ([], SystemExit),  # no weights: the JAX CLI's "one of --weight_path / --pretrained"
 ])
 def test_nwpu_cli_rejects_what_it_cannot_do(tmp_path, extra, error):

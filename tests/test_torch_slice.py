@@ -128,9 +128,8 @@ def test_predict_cli_with_jax_weights_matches_jax(port_weights, jax_variables, j
 
 @pytest.mark.parametrize("extra,error", [
     (["--quant", "int8", "--quant_attn", "xla"], SystemExit),  # int8 attention needs static scales
-    (["--packed_eval"], NotImplementedError),
+    (["--packed_eval"], SystemExit),  # needs --sliding_window, as the JAX CLI says
     (["--pretrained", "clip.pt"], NotImplementedError),
-    (["--batch_windows", "8"], SystemExit),  # options of unported features are not accepted
     (["--quant_attn"], SystemExit),  # needs --quant int8_static, as the JAX CLI says
     (["--allow_byte_tokenizer"], SystemExit),
 ])

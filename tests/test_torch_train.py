@@ -205,7 +205,7 @@ def test_trainer_cli_writes_a_checkpoint_that_predict_loads(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--pretrained", "clip.pt"], ["--profile_dir", "p"], ["--loader_procs", "2"],
+    ["--pretrained", "clip.pt"], ["--profile_dir", "p"],
 ])
 def test_trainer_cli_refuses_unported_options(tmp_path, extra):
     argv = ["--model", "clip_vit_b_16", "--dataset", "qnrf", "--truncation", "4",

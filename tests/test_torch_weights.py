@@ -107,7 +107,7 @@ def test_port_imports_no_jax():
         "print(len([k for k in sys.modules if k.startswith('clip_ebc_tpu_torch')]))\n"
         "assert not bad, bad\n"
         "for name in ('ops.quant', 'cli._common', 'ops.fused_attention', 'models.convert',\n"
-        "             'parallel.mesh'):\n"
+        "             'parallel.mesh', 'ops.packed_eval', 'utils.metrics'):\n"
         "    assert 'clip_ebc_tpu_torch.' + name in sys.modules, name\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
