@@ -211,6 +211,26 @@ Phases, each a hard failure (a raised exception, exit code 1):
    the trainer CLI for one epoch with ``--loader_procs 2`` (12 launches
    of row 5 a step). No speed-up is claimed.
 
+4g. pretrained checkpoints (``phase_pretrained``): a seeded full-width
+   OpenAI-layout CLIP ViT-B/16 (149.6 M numbers, fp16, as a TorchScript
+   archive) through ``python -m clip_ebc_tpu_torch.cli.prepare --src ...
+   --no-verify`` (its six files); the predict CLI on the flagship image by
+   windows in bf16 with ``--pretrained`` of the archive and of the
+   prepared ``clip_vit_b_16.npz`` (``--allow_byte_tokenizer``: no BPE
+   vocab here), deterministic algorithms on for the two runs (the
+   windows' overlap-average is an ``index_add_``): densities bit-equal, 12
+   launches of row 2 and 1 of row 1 each; the same weights loaded here
+   into a model on the plain path and one on the kernel path, each
+   tower tensor the file's cast to fp32, the counts within phase 3's 1e-2,
+   ms per image of both; the NWPU CLI with ``--pretrained`` on phase 3d's
+   images (the JAX CLI's file name, ``clip_ViT-B-16.pt.txt``; 24 tiled
+   launches); the trainer CLI at the flagship flags from the ``.npz`` for 2
+   epochs of 2 steps with ``--profile_dir`` (rows 1, 2, 4, 5 launched; the
+   trunk and text tower still the file's; ``scalars.tsv`` with ``train/*``
+   at steps 1 and 2; one trace, of epoch 2); a torchvision VGG19 with its
+   FC layers into ``vgg19_ae`` and one step at 448 px; the times of each,
+   with the card line.
+
 Phase 2 also holds rows 1, 2 (bf16 and fp32), 2b and 2c at the packed
 path's launches, 128 and 48 windows of 229 tokens (``phase_packed_shapes``:
 the same phase functions and tolerances as at 140, the results under
@@ -2265,13 +2285,10 @@ def phase_quant_attn(dev, kernels: dict, profile: bool) -> None:
 NWPU_SIZES = {3099: (1024, 768), 3098: (768, 1024)}  # phase 3d's test tree
 
 
-def nwpu_tree(dev, tmp: str) -> tuple:
-    """Phase 3d's synthetic NWPU test tree under ``tmp`` (two seeded JPEGs)
-    and a weights file of a seeded model: ``(image dir, weights)``."""
+def nwpu_images(tmp: str) -> str:
+    """Phase 3d's synthetic NWPU test tree under ``tmp`` (two seeded
+    JPEGs); returns its image directory."""
     from PIL import Image
-
-    from clip_ebc_tpu_torch.config import get_bins_and_anchors
-    from clip_ebc_tpu_torch.models import get_model
 
     img_dir = os.path.join(tmp, "data", "nwpu", "test", "images")
     os.makedirs(img_dir)
@@ -2279,6 +2296,16 @@ def nwpu_tree(dev, tmp: str) -> tuple:
     for iid, hw in NWPU_SIZES.items():
         Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8), "RGB").save(
             os.path.join(img_dir, f"{iid}.jpg"))
+    return img_dir
+
+
+def nwpu_tree(dev, tmp: str) -> tuple:
+    """Phase 3d's synthetic NWPU test tree under ``tmp`` and a weights file
+    of a seeded model: ``(image dir, weights)``."""
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.models import get_model
+
+    img_dir = nwpu_images(tmp)
     bins, anchors = get_bins_and_anchors(8, 4, "nwpu")
     weights = os.path.join(tmp, "ckpt", "best", "1.pt")
     os.makedirs(os.path.dirname(weights))
@@ -4350,6 +4377,294 @@ def packing_loader(dev, kernels: dict) -> None:
         kernels["ln_qkv_bwd_frozen"]["launches_loader_procs"] = n["ln_qkv_bwd_frozen"]
 
 
+PRETRAINED_TRAIN = 16  # phase 4g's train images: 2 steps of 8 images x 2 crops an epoch
+
+
+def openai_vit_b16(seed: int) -> dict:
+    """A full-size OpenAI-layout CLIP ViT-B/16 state dict (the visual
+    tower, the text tower, ``logit_scale``; 149.6 M numbers), seeded
+    random values in fp16, as OpenAI ships CLIP."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def rand(std, *shape):
+        return (torch.randn(shape, generator=g) * std).half()
+
+    def norm(prefix, c):
+        sd[f"{prefix}.weight"] = (1.0 + 0.1 * torch.randn(c, generator=g)).half()
+        sd[f"{prefix}.bias"] = rand(0.02, c)
+
+    def blocks(prefix, w):
+        for i in range(12):
+            p = f"{prefix}.{i}"
+            norm(f"{p}.ln_1", w)
+            norm(f"{p}.ln_2", w)
+            sd[f"{p}.attn.in_proj_weight"] = rand(w ** -0.5, 3 * w, w)
+            sd[f"{p}.attn.in_proj_bias"] = rand(0.02, 3 * w)
+            sd[f"{p}.attn.out_proj.weight"] = rand(w ** -0.5, w, w)
+            sd[f"{p}.attn.out_proj.bias"] = rand(0.02, w)
+            sd[f"{p}.mlp.c_fc.weight"] = rand(w ** -0.5, 4 * w, w)
+            sd[f"{p}.mlp.c_fc.bias"] = rand(0.02, 4 * w)
+            sd[f"{p}.mlp.c_proj.weight"] = rand((4 * w) ** -0.5, w, 4 * w)
+            sd[f"{p}.mlp.c_proj.bias"] = rand(0.02, w)
+
+    sd["visual.conv1.weight"] = rand(768 ** -0.5, 768, 3, 16, 16)
+    sd["visual.class_embedding"] = rand(0.02, 768)
+    sd["visual.positional_embedding"] = rand(0.02, 197, 768)
+    norm("visual.ln_pre", 768)
+    blocks("visual.transformer.resblocks", 768)
+    norm("visual.ln_post", 768)
+    sd["visual.proj"] = rand(768 ** -0.5, 768, 512)
+    sd["token_embedding.weight"] = rand(0.02, 49408, 512)
+    sd["positional_embedding"] = rand(0.01, 77, 512)
+    blocks("transformer.resblocks", 512)
+    norm("ln_final", 512)
+    sd["text_projection"] = rand(512 ** -0.5, 512, 512)
+    sd["logit_scale"] = torch.tensor(math.log(100.0)).half()
+    return sd
+
+
+def save_torchscript(sd: dict, path: str) -> None:
+    """``sd`` as a TorchScript archive (how OpenAI ships CLIP): empty
+    modules nested along each key's path, every tensor a parameter at its
+    leaf."""
+    root = torch.nn.Module()
+    for key, t in sd.items():
+        *mods, leaf = key.split(".")
+        node = root
+        for m in mods:
+            if not hasattr(node, m):
+                node.add_module(m, torch.nn.Module())
+            node = getattr(node, m)
+        node.register_parameter(leaf, torch.nn.Parameter(t, requires_grad=False))
+    torch.jit.save(torch.jit.script(root), path)
+
+
+def torchvision_vgg19(seed: int) -> dict:
+    """A torchvision VGG19 state dict, its ``classifier.*`` FC layers
+    (123.6 M numbers) included, seeded fp32 values."""
+    g = torch.Generator().manual_seed(seed)
+    sd, idx, cin = {}, 0, 3
+    for c in (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M", 512, 512, 512, 512, "M",
+              512, 512, 512, 512, "M"):
+        if c == "M":
+            idx += 1
+            continue
+        sd[f"features.{idx}.weight"] = torch.randn(c, cin, 3, 3, generator=g) * (cin * 9) ** -0.5
+        sd[f"features.{idx}.bias"] = torch.randn(c, generator=g) * 0.02
+        idx, cin = idx + 2, c
+    for i, (o, k) in ((0, (4096, 25088)), (3, (4096, 4096)), (6, (1000, 4096))):
+        sd[f"classifier.{i}.weight"] = torch.randn(o, k, generator=g) * k ** -0.5
+        sd[f"classifier.{i}.bias"] = torch.zeros(o)
+    return sd
+
+
+def _towers_are(state: dict, sd: dict, tag: str) -> None:
+    """Every tensor of the model's image and text towers is the OpenAI
+    checkpoint's (the same names under ``visual.`` and at the top) cast to
+    fp32."""
+    n = 0
+    for k, v in state.items():
+        if k.startswith("image_encoder."):
+            src = "visual." + k[len("image_encoder."):]
+        elif k.startswith("text_encoder."):
+            src = k[len("text_encoder."):]
+        else:
+            continue
+        check(src in sd and torch.equal(v.cpu(), sd[src].float()),
+              f"{tag}: {k} is not the checkpoint's {src}")
+        n += 1
+    check(n == 300, f"{tag}: {n} tower tensors, expected 300")
+
+
+def _pretrained_counters(reset: bool = False) -> dict:
+    n = _train_counters(reset)
+    return {k: n[k] for k in ("fused_ln_qkv_attention", "ln_qkv_proj", "fused_ebc_head",
+                              "attention_bwd", "ln_qkv_bwd_frozen", "ln_bwd_dx")}
+
+
+def phase_pretrained(dev, kernels: dict) -> None:
+    """Phase 4g: a full-width OpenAI-layout ViT-B/16 checkpoint through
+    ``cli/prepare.py`` and the three CLIs' ``--pretrained``, and a
+    torchvision VGG19 into ``vgg19_ae``."""
+    from clip_ebc_tpu_torch.cli import predict, test_nwpu, trainer
+    from clip_ebc_tpu_torch.config import get_bins_and_anchors
+    from clip_ebc_tpu_torch.data.crowd import _load_image, normalize_image
+    from clip_ebc_tpu_torch.data.synthetic import make_synthetic_crowd_dataset
+    from clip_ebc_tpu_torch.models import get_model
+    from clip_ebc_tpu_torch.models.pretrained import apply_pretrained
+    from clip_ebc_tpu_torch.training.evaluate import Evaluator
+
+    secs = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sd = openai_vit_b16(seed=19)
+        ckpt = os.path.join(tmp, "clip", "ViT-B-16.pt")
+        os.makedirs(os.path.dirname(ckpt))
+        save_torchscript(sd, ckpt)
+        secs["write"] = time.perf_counter() - t0
+        mb = os.path.getsize(ckpt) / 2 ** 20
+
+        prep = os.path.join(tmp, "prepared")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "clip_ebc_tpu_torch.cli.prepare", "--src", ckpt,
+                              "--no-verify", "--out", prep], cwd=root, capture_output=True,
+                             text=True, timeout=600)
+        secs["prepare"] = time.perf_counter() - t0
+        check(out.returncode == 0, f"cli.prepare failed:\n{out.stderr[-3000:]}")
+        stems = ("clip_vit_b_16", "clip_image_encoder_vit_b_16", "clip_text_encoder_vit_b_16")
+        check(sorted(os.listdir(os.path.join(prep, "weights"))) == sorted(f"{s}.npz" for s in stems)
+              and sorted(os.listdir(os.path.join(prep, "configs"))) == sorted(f"{s}.json" for s in stems),
+              "cli.prepare did not write its six files")
+        npz = os.path.join(prep, "weights", "clip_vit_b_16.npz")
+
+        # serve: the predict CLI from the archive and from its prepared artifact
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        path = os.path.join(img_dir, "flagship.npy")
+        np.save(path, np.random.default_rng(0).integers(0, 256, IMAGE_HW + (3,), dtype=np.uint8))
+        dens = {}
+        # the windows' overlap-average is an index_add_, whose CUDA atomics add a
+        # cell's 3-4 overlapping windows in any order (two calls on the same
+        # weights can differ in the last bits): deterministic algorithms for
+        # the two runs compared
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for tag, src in (("pt", ckpt), ("npz", npz)):
+            _pretrained_counters(reset=True)
+            t0 = time.perf_counter()
+            predict.main([img_dir, "--model", "clip_vit_b_16", "--reduction", "8", "--truncation", "4",
+                          "--num_vpt", "32", "--sliding_window", "--window_size", "224", "--stride",
+                          "224", "--seed", "0", "--amp", "--pretrained", src, "--allow_byte_tokenizer",
+                          "--save_density", os.path.join(tmp, f"dens_{tag}"),
+                          "--out", os.path.join(tmp, f"{tag}.csv")])
+            torch.cuda.synchronize()
+            secs[f"predict_{tag}"] = time.perf_counter() - t0
+            n = _pretrained_counters()
+            _tally_off_path(f"predict CLI --pretrained {tag}")
+            check(n["fused_ln_qkv_attention"] == 12 and n["ln_qkv_proj"] == 12
+                  and n["fused_ebc_head"] == 1, f"predict --pretrained {tag}: launches {n}")
+            kernels["fused_ln_qkv_attention"][f"launches_pretrained_{tag}"] = n["fused_ln_qkv_attention"]
+            kernels["fused_ebc_head"][f"launches_pretrained_{tag}"] = n["fused_ebc_head"]
+            dens[tag] = np.load(os.path.join(tmp, f"dens_{tag}", "flagship.npy"))
+        torch.use_deterministic_algorithms(False)
+        check(np.array_equal(dens["pt"], dens["npz"]),
+              "predict --pretrained: the .pt and the .npz give different densities")
+        count = float(dens["pt"].astype(np.float64).sum())
+        check(math.isfinite(count), f"pretrained count {count} is not finite")
+
+        # the same model on the plain path and on the kernel path, loaded here
+        bins, anchors = get_bins_and_anchors(8, 4, "qnrf")
+        image = normalize_image(_load_image(path))
+        counts, ms = {}, {}
+        for tag, src, paths in (("plain", ckpt, {"attn_backend": "sdpa", "fused_head": "off"}),
+                                ("kernels", npz, {})):
+            model = get_model("clip_vit_b_16", 224, 8, bins, anchors, dtype=torch.bfloat16,
+                              num_vpt=32, seed=0, device=dev, **paths)
+            t0 = time.perf_counter()
+            apply_pretrained(model, src, allow_byte_tokenizer=True)
+            torch.cuda.synchronize()
+            secs[f"load_{'pt' if src == ckpt else 'npz'}"] = time.perf_counter() - t0
+            _towers_are(model.state_dict(), sd, f"apply_pretrained({os.path.basename(src)})")
+            ev = Evaluator(model, reduction=8, sliding_window=True, window_size=224, stride=224,
+                           pad_to_multiple=16)
+            counts[tag] = ev.predict_count(image)
+            ms[tag] = time_image(ev, image)
+            del model, ev
+        gap = abs(counts["plain"] - count) / max(abs(counts["plain"]), 1e-6)
+        check(gap <= 1e-2, f"pretrained CLI count {count} vs the plain path's {counts['plain']}: {gap:.2e}")
+        check(counts["kernels"] == count or abs(counts["kernels"] - count) <= 1e-5 * abs(count),
+              f"pretrained Evaluator count {counts['kernels']} vs the CLI's {count}")
+
+        # the NWPU CLI on the archive: the JAX CLI's file name keeps the extension
+        nwpu_images(tmp)
+        _full_counters(reset=True)
+        t0 = time.perf_counter()
+        test_nwpu.main(["--data_root", os.path.join(tmp, "data"), "--pretrained", ckpt,
+                        "--allow_byte_tokenizer", "--result_dir", os.path.join(tmp, "results"),
+                        "--amp", "--disable_size_check"])
+        torch.cuda.synchronize()
+        secs["nwpu"] = time.perf_counter() - t0
+        nf = _full_counters()
+        _tally_off_path("test_nwpu CLI --pretrained")
+        lines = read_submission(os.path.join(tmp, "results", "clip_ViT-B-16.pt.txt"))
+        check([r[0] for r in lines] == ["3098", "3099"] and all(math.isfinite(float(r[1])) for r in lines),
+              f"test_nwpu --pretrained submission {lines}")
+        check(nf["flash_tiled"] == 24, f"test_nwpu --pretrained launches {nf}, expected 24 tiled")
+
+        # train: two epochs of two steps from the prepared artifact, traced and logged
+        data = make_synthetic_crowd_dataset(os.path.join(tmp, "train"), "qnrf", n_train=PRETRAINED_TRAIN,
+                                            n_val=2, size=DATA_HW, seed=3)
+        ck, prof = os.path.join(tmp, "ck"), os.path.join(tmp, "prof")
+        _pretrained_counters(reset=True)
+        t0 = time.perf_counter()
+        trainer.main(train_flags() + ["--total_epochs", "2", "--eval_start", "2", "--data_root", data,
+                                      "--ckpt_dir", ck, "--eval_disable_size_check", "--device", str(dev),
+                                      "--amp", "--pretrained", npz, "--allow_byte_tokenizer",
+                                      "--profile_dir", prof])
+        torch.cuda.synchronize()
+        secs["train"] = time.perf_counter() - t0
+        nt = _pretrained_counters()
+        _tally_off_path("trainer CLI --pretrained")
+        steps = 2 * PRETRAINED_TRAIN // (TRAIN_B // 2)
+        check(nt["fused_ln_qkv_attention"] > 0 and nt["fused_ebc_head"] > 0
+              and nt["attention_bwd"] == 12 * steps and nt["ln_qkv_bwd_frozen"] == 12 * steps
+              and nt["ln_bwd_dx"] == 12 * steps, f"trainer --pretrained launches {nt} ({steps} steps)")
+        for row, key in (("attention_bwd", "attention_bwd"), ("ln_qkv_bwd_frozen", "ln_qkv_bwd_frozen"),
+                         ("ln_bwd_dx", "ln_bwd_dx")):
+            kernels[row]["launches_pretrained_train"] = nt[key]
+        latest = torch.load(os.path.join(ck, "latest.pt"), map_location="cpu", weights_only=True)
+        _towers_are(latest["model"], sd, "the trained model")
+        with open(os.path.join(ck, "scalars.tsv")) as f:
+            rows = [line.split("\t") for line in f.read().splitlines()]
+        check({r[0] for r in rows if r[1].startswith("train/")} == {"1", "2"}
+              and any(r[1] == "val/mae" and r[0] == "2" for r in rows),
+              f"scalars.tsv rows {[r[:2] for r in rows]}")
+        traces = [t for t in os.listdir(prof) if t.endswith(".pt.trace.json")]
+        check(len(traces) == 1 and traces[0].startswith("epoch2_"), f"--profile_dir holds {traces}")
+        trace_mb = os.path.getsize(os.path.join(prof, traces[0])) / 2 ** 20
+
+        # vgg19_ae from a torchvision VGG19 (its FC layers unread): one Adam step
+        # at lr 1e-30 moves a weight by at most ~lr, below the rounding step of
+        # every weight but an exact 0, so the features stay the file's within 1e-29
+        vgg = os.path.join(tmp, "vgg19.pth")
+        vsd = torchvision_vgg19(seed=23)
+        torch.save(vsd, vgg)
+        t0 = time.perf_counter()
+        trainer.main(["--dataset", "qnrf", "--input_size", "448", "--reduction", "8", "--truncation",
+                      "4", "--count_loss", "dmcount", "--batch_size", str(PRETRAINED_TRAIN),
+                      "--total_epochs", "1", "--eval_start", "9", "--lr", "1e-30", "--warmup_lr",
+                      "1e-30", "--eta_min", "1e-31", "--data_root", data, "--ckpt_dir",
+                      os.path.join(tmp, "ck_vgg"), "--eval_disable_size_check", "--device",
+                      str(dev), "--amp", "--pretrained", vgg])
+        torch.cuda.synchronize()
+        secs["vgg19_ae"] = time.perf_counter() - t0
+        _tally_off_path("trainer CLI vgg19_ae --pretrained")
+        latest = torch.load(os.path.join(tmp, "ck_vgg", "latest.pt"), map_location="cpu",
+                            weights_only=True)
+        feats = {k: v for k, v in latest["model"].items() if k.startswith("backbone.features.")}
+        moved = {k: float((v - vsd[k[len("backbone."):]]).abs().max()) for k, v in feats.items()}
+        check(len(feats) == 32 and max(moved.values()) <= 1e-29,
+              f"vgg19_ae: the features after the step are not the torchvision checkpoint's "
+              f"(max abs differences {moved})")
+        exact = sum(d == 0.0 for d in moved.values())
+        with open(os.path.join(tmp, "ck_vgg", "meta.json")) as f:
+            vgg_loss = json.load(f)["loss_history"][-1]["loss"]
+        check(latest["step"] == 1 and math.isfinite(vgg_loss),
+              f"vgg19_ae: {latest['step']} steps (expected 1), loss {vgg_loss}")
+    print(f"phase 4g, {card_line()}: OpenAI ViT-B/16 archive {mb:.0f} MiB (fp16) written in "
+          f"{secs['write']:.1f} s; cli.prepare {secs['prepare']:.1f} s (process included); "
+          f"apply_pretrained {secs['load_pt']:.2f} s from the .pt, {secs['load_npz']:.2f} s from "
+          f"the .npz (on the card, bf16 model); predict CLI (build, load, one 2048x3072 image) "
+          f"{secs['predict_pt']:.1f} s (.pt) / {secs['predict_npz']:.1f} s (.npz), the counts "
+          f"bit-equal ({count:.4f}; plain path {counts['plain']:.4f}, {gap:.2e}); ms per image "
+          f"(host clock, median of 5) kernels {ms['kernels']:.2f}, plain {ms['plain']:.2f}; "
+          f"test_nwpu CLI {secs['nwpu']:.1f} s; trainer CLI (2 epochs of 2 steps, eval, trace "
+          f"{trace_mb:.1f} MiB) {secs['train']:.1f} s, launches {nt}; vgg19_ae one step "
+          f"{secs['vgg19_ae']:.1f} s, loss {vgg_loss:.4f}, {exact} of 32 feature tensors "
+          f"bit-equal to the file, the rest within {max(moved.values()):.1e}")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4421,6 +4736,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_packing(dev, by_name)
     print(f"phase 4f: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_pretrained(dev, by_name)
+    print(f"phase 4g: {time.perf_counter() - t0:.1f} s")
     phase_library_kernels_apart()
     off_path = [k for k in kernels if k["name"].removesuffix("_d1024") in OFF_PATH]
     for k in off_path:

@@ -1,10 +1,11 @@
 """Helpers shared by the inference entry points: counterpart of
-``clip_ebc_tpu/cli/_common.py`` (``check_quant_support``,
+``clip_ebc_tpu/cli/_common.py`` (``check_quant_support``, ``load_weights``,
 ``calibrate_static_int8``), kept in one place for every inference CLI.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterable
 
 # --quant_attn -> the models' quant_attn (the JAX CLIs' mapping)
@@ -21,6 +22,43 @@ def check_quant_support(quant: str, model_name: str) -> None:
             f"(got --model {model_name}); the CNN backbones have no "
             "quantized path"
         )
+
+
+def check_pretrained_path(args) -> None:
+    """A ``--pretrained`` file that does not exist fails before the model
+    is built."""
+    if args.pretrained is not None and not os.path.exists(args.pretrained):
+        raise FileNotFoundError(f"--pretrained {args.pretrained}: no such file")
+
+
+def load_weights(args, model, required: bool = True) -> None:
+    """Resolve ``--pretrained`` / ``--weight_path`` into ``model``'s
+    weights, in place. ``--pretrained`` overlays a converted checkpoint
+    (``models.pretrained.apply_pretrained``) onto the fresh weights; then
+    ``--weight_path``, a complete trained state, replaces every weight: a
+    trainer checkpoint directory (its ``latest.pt``), a port ``.pt`` state
+    dict or a JAX prepared-tree ``.npz``. With ``required``, one of the
+    two must be given."""
+    if required and args.pretrained is None and args.weight_path is None:
+        raise SystemExit("one of --weight_path / --pretrained is required")
+    if args.pretrained:
+        from ..models.pretrained import apply_pretrained
+
+        apply_pretrained(model, args.pretrained, allow_byte_tokenizer=args.allow_byte_tokenizer)
+    if args.weight_path is not None:
+        import torch
+
+        from ..models.convert import load_weights as load_file
+
+        path = args.weight_path
+        if os.path.isdir(path):
+            latest = os.path.join(path, "latest.pt")
+            if not os.path.exists(latest):
+                raise SystemExit(f"{path} is a directory without latest.pt")
+            state = torch.load(latest, map_location="cpu", weights_only=True)
+            model.load_state_dict(state["model"], strict=True)
+        else:
+            load_file(model, path)
 
 
 def calibrate_static_int8(args, model_kw, bins, anchors, model, images: Iterable) -> None:

@@ -9,8 +9,13 @@ Without ``--sliding_window`` each image runs whole, as one sequence: on
 the card the trunk's attention of a full image (L >= 1024 tokens; 24,609
 on a 2048 x 3072 image) is the tiled flash kernel
 (``ops/flash_attention.py``), and the windows' attention the fused kernel.
-``--weight_path`` takes a port ``.pt`` state dict or a JAX prepared-tree
-``.npz``; without it the weights are random from ``--seed``. Runs on
+``--weight_path`` takes a port ``.pt`` state dict, a trainer checkpoint
+directory or a JAX prepared-tree ``.npz``; ``--pretrained`` overlays a
+converted checkpoint before it (``models/pretrained.py``: an OpenAI CLIP
+``.pt``, a prepared ``clip_{name}.npz`` from ``cli/prepare.py``, a
+reference or torchvision state dict; ``--allow_byte_tokenizer`` lets a
+CLIP text tower load without the BPE vocab, for synthetic weights only).
+With neither, the weights are random from ``--seed``. Runs on
 ``cuda`` unless ``--device cpu`` is given. ``--quant int8`` runs the trunk
 and the decoder W8A8 with dynamic activation scales; ``--quant
 int8_static`` first calibrates static scales on the first
@@ -40,9 +45,6 @@ path's, written as each image's last batch has run:
 
     python -m clip_ebc_tpu_torch.cli.predict IMAGES --sliding_window --stride 224 \
         --packed_eval --batch_windows 128 --amp
-
-Not ported yet: ``--pretrained`` raises, and its option
-``--allow_byte_tokenizer`` is not accepted until it is.
 """
 
 from __future__ import annotations
@@ -73,7 +75,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_path", type=str, default=None,
                    help="port .pt state dict or JAX prepared-tree .npz; "
                    "default: random weights from --seed")
-    p.add_argument("--pretrained", type=str, default=None)
+    p.add_argument("--pretrained", type=str, default=None,
+                   help="torch checkpoint or prepared .npz overlaid before --weight_path "
+                   "(models/pretrained.py)")
+    p.add_argument("--allow_byte_tokenizer", action="store_true",
+                   help="permit pretrained CLIP text towers without the real BPE vocab "
+                   "(synthetic-weight testing only)")
     p.add_argument("--sliding_window", action="store_true")
     p.add_argument("--window_size", type=int, default=None)
     p.add_argument("--stride", type=int, default=None)
@@ -117,22 +124,12 @@ def _list_images(spec: str):
     return paths
 
 
-def _check_ported(args) -> None:
-    todo = {
-        "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
-    }
-    missing = [k for k, asked in todo.items() if asked]
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-
-
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.quant_attn and args.quant != "int8_static":
         raise SystemExit("--quant_attn requires --quant int8_static")
     if args.packed_eval and not args.sliding_window:
         raise SystemExit("--packed_eval requires --sliding_window")
-    _check_ported(args)
     if args.sliding_window:
         args.window_size = args.input_size if args.window_size is None else args.window_size
         args.stride = args.window_size // 2 if args.stride is None else args.stride
@@ -146,12 +143,13 @@ def main(argv=None) -> None:
     from ..config import get_bins_and_anchors
     from ..data.crowd import _load_image, normalize_image
     from ..models import get_model
-    from ..models.convert import load_weights
     from ..training.evaluate import Evaluator
     from ..utils.platform import resolve_device
-    from ._common import QUANT_ATTN, calibrate_static_int8, check_quant_support
+    from ._common import (QUANT_ATTN, calibrate_static_int8, check_pretrained_path,
+                          check_quant_support, load_weights)
 
     check_quant_support(args.quant, args.model)
+    check_pretrained_path(args)
     device = resolve_device(args.device)
     paths = _list_images(args.images)
     bins = anchors = None
@@ -170,9 +168,8 @@ def main(argv=None) -> None:
         args.model, args.input_size, args.reduction, bins, anchors,
         quant_mode="static" if args.quant == "int8_static" else "dynamic", **model_kw,
     )
-    if args.weight_path is not None:
-        load_weights(model, args.weight_path)
-    if args.quant == "int8_static":
+    load_weights(args, model, required=False)
+    if args.quant == "int8_static":  # the scales of the loaded weights
         calibrate_static_int8(
             args, model_kw, bins, anchors, model,
             (normalize_image(_load_image(p)) for p in paths[: args.calib_images]),

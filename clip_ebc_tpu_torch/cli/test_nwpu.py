@@ -15,7 +15,14 @@ line per image, no trailing newline (the crowdbenchmark.com format).
 weights file (a ``best/{epoch}.pt`` state dict) or a JAX prepared-tree
 ``.npz``; ``tag`` is its base name without the ``.pt`` / ``.npz``
 extension, ``parent`` its directory's name, so ``CKPT/best/12.pt`` writes
-``best_12.txt`` as the JAX CLI does for ``CKPT/best/12``. ``--quant int8``
+``best_12.txt`` as the JAX CLI does for ``CKPT/best/12``. ``--pretrained``
+overlays a converted checkpoint first (``models/pretrained.py``: an
+OpenAI CLIP ``.pt``, a prepared ``.npz``, a reference or torchvision
+state dict; ``--allow_byte_tokenizer`` for a CLIP text tower without the
+BPE vocab), and ``--weight_path``, if given, then replaces every weight;
+without ``--weight_path`` the file is named after the ``--pretrained``
+path with its extension kept, as the JAX CLI names it
+(``{parent}_ViT-B-16.pt.txt``). ``--quant int8``
 and ``--quant int8_static`` (calibrated on the first ``--calib_images``
 test images) run the trunk and the decoder W8A8; ``--quant_attn
 [kernel|xla]`` with ``--quant int8_static`` runs the attention in int8 too
@@ -29,9 +36,6 @@ only, as in the JAX CLI.
 ``--sliding_window --packed_eval`` packs the windows of consecutive test
 images into forward batches of ``--batch_windows`` (128;
 ``ops/packed_eval.py``); the submission file is the same.
-
-Not ported yet: ``--pretrained`` raises ``NotImplementedError``, and its
-option ``--allow_byte_tokenizer`` is not accepted until it is.
 """
 
 from __future__ import annotations
@@ -56,7 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_path", type=str, default=None,
                    help="trainer checkpoint dir (latest.pt), weights .pt (best/*) or JAX "
                    "prepared-tree .npz")
-    p.add_argument("--pretrained", type=str, default=None)
+    p.add_argument("--pretrained", type=str, default=None,
+                   help="torch checkpoint or prepared .npz overlaid before --weight_path "
+                   "(models/pretrained.py)")
+    p.add_argument("--allow_byte_tokenizer", action="store_true",
+                   help="permit pretrained CLIP text towers without the real BPE vocab "
+                   "(synthetic-weight testing only)")
     p.add_argument("--sliding_window", action="store_true")
     p.add_argument("--window_size", type=int, default=None)
     p.add_argument("--stride", type=int, default=None, help="defaults to window_size//2")
@@ -87,39 +96,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_ported(args) -> None:
-    todo = {
-        "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
-    }
-    missing = [k for k, asked in todo.items() if asked]
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-
-
-def load_checkpoint(model, path: str) -> None:
-    """A trainer checkpoint directory (the model of its ``latest.pt``), or
-    what ``models.convert.load_weights`` reads (``.pt``, ``.npz``)."""
-    import torch
-
-    from ..models.convert import load_weights
-
-    latest = os.path.join(path, "latest.pt")
-    if os.path.isdir(path):
-        if not os.path.exists(latest):
-            raise SystemExit(f"{path} is a directory without latest.pt")
-        state = torch.load(latest, map_location="cpu", weights_only=True)
-        model.load_state_dict(state["model"], strict=True)
-    else:
-        load_weights(model, path)
-
-
-def result_path(result_dir: str, weight_path: str) -> str:
-    """``{result_dir}/{parent}_{tag}.txt`` of the JAX CLI, the weights
-    file's extension dropped from the tag."""
-    src = os.path.normpath(weight_path)
+def result_path(result_dir: str, weight_path, pretrained=None) -> str:
+    """``{result_dir}/{parent}_{tag}.txt`` of the JAX CLI, named after
+    ``weight_path`` with its ``.pt`` / ``.npz`` extension dropped from the
+    tag, or, without one, after ``pretrained`` as it is (the JAX CLI's
+    name for either)."""
+    src = os.path.normpath(weight_path if weight_path is not None else pretrained)
     tag = os.path.basename(src)
     root, ext = os.path.splitext(tag)
-    if ext in (".pt", ".npz"):
+    if weight_path is not None and ext in (".pt", ".npz"):
         tag = root
     parent = os.path.basename(os.path.dirname(src))
     return os.path.join(result_dir, f"{parent}_{tag}.txt".lstrip("_"))
@@ -134,7 +119,6 @@ def main(argv=None) -> None:
         raise SystemExit("--quant_attn requires --quant int8_static")
     if args.packed_eval and not args.sliding_window:
         raise SystemExit("--packed_eval requires --sliding_window")
-    _check_ported(args)
 
     import torch
 
@@ -144,12 +128,14 @@ def main(argv=None) -> None:
     from ..models import get_model
     from ..training.evaluate import Evaluator
     from ..utils.platform import resolve_device
-    from ._common import QUANT_ATTN, calibrate_static_int8, check_quant_support
+    from ._common import (QUANT_ATTN, calibrate_static_int8, check_pretrained_path,
+                          check_quant_support, load_weights)
 
     check_quant_support(args.quant, args.model)
-    device = resolve_device(args.device)
-    if args.weight_path is None:
+    if args.pretrained is None and args.weight_path is None:
         raise SystemExit("one of --weight_path / --pretrained is required")
+    check_pretrained_path(args)
+    device = resolve_device(args.device)
     bins = anchors = None
     if not args.regression:
         bins, anchors = get_bins_and_anchors(
@@ -165,7 +151,7 @@ def main(argv=None) -> None:
         args.model, args.input_size, args.reduction, bins, anchors,
         quant_mode="static" if args.quant == "int8_static" else "dynamic", **model_kw,
     )
-    load_checkpoint(model, args.weight_path)
+    load_weights(args, model)
 
     if args.quant == "int8_static":
         calib = NWPUTestDataset(args.data_root, check_sizes=not args.disable_size_check)
@@ -208,7 +194,7 @@ def main(argv=None) -> None:
             print(f"{i + 1}/{n}")
 
     os.makedirs(args.result_dir, exist_ok=True)
-    out_path = result_path(args.result_dir, args.weight_path)
+    out_path = result_path(args.result_dir, args.weight_path, args.pretrained)
     with open(out_path, "w") as f:
         f.write("\n".join(lines))  # no trailing newline
     print(f"wrote {out_path}")

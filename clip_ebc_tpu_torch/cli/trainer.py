@@ -6,7 +6,14 @@ the same flags and defaults, plus ``--device`` (default ``cuda``).
         --count_loss dmcount --batch_size 16 --num_crops 2 --sliding_window \\
         --window_size 224 --stride 224 --warmup_lr 1e-3 --amp
 
-One process trains on one device from random weights (``--seed``). A
+One process trains on one device from random weights (``--seed``), or
+from a checkpoint overlaid on them with ``--pretrained`` (an OpenAI CLIP
+``.pt`` or its prepared ``.npz`` from ``cli/prepare.py``, a reference
+CLIP-EBC or Classifier state dict, a torchvision backbone; see
+``models/pretrained.py``; ``--allow_byte_tokenizer`` lets a CLIP text
+tower load without the BPE vocab, for synthetic weights only). Every
+process overlays the same file before the model is wrapped for data
+parallel, and a resumed run's ``latest.pt`` wins over it. A
 ``clip_*`` ViT model (ViT-B/16, ViT-B/32, ViT-L/14 and its 336 px
 variant) trains by VPT prompt tuning with the trunk and the text tower
 frozen; a CLIP ResNet (``clip_resnet50``, ``clip_resnet101``,
@@ -30,7 +37,12 @@ Each epoch trains, evaluates on the val split from ``--eval_start`` on
 (MAE, RMSE), keeps the best ``--save_best_k`` weights under
 ``{ckpt_dir}/best/{epoch}.pt`` (which ``cli.predict --weight_path``
 loads) and the full state (BatchNorm statistics included) in
-``{ckpt_dir}/latest.pt``, from which a rerun resumes.
+``{ckpt_dir}/latest.pt``, from which a rerun resumes. Every scalar goes
+to ``{ckpt_dir}/scalars.tsv`` (a tab-separated step, tag, value line a
+scalar: ``train/*`` each epoch, ``val/*`` each evaluation;
+``utils/logging.py``), and ``--profile_dir`` records a ``torch.profiler``
+trace of the run's second epoch there (``utils/profiling.py``), as the
+JAX trainer traces its first resumed epoch.
 
 Data parallel: ``--num_hosts N`` processes, one a device, each started
 with its own ``--host_id`` (0..N-1) and the same ``--coordinator
@@ -49,19 +61,14 @@ process 0 alone writes ``train.log`` and the checkpoints:
 processes in place of the ``--num_workers`` threads (the same batches),
 and decodes the validation images in N more; each process of a data
 parallel run owns its pools.
-
-Not ported yet, and refused: ``--pretrained`` and ``--profile_dir``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import logging
 import os
-import sys
 import time
-from typing import Optional
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,7 +134,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "validation images (0: threads)")
     p.add_argument("--seed", type=int, default=42, help="seed of the weights, data order and dropout")
     # Paths
-    p.add_argument("--pretrained", type=str, default=None)
+    p.add_argument("--pretrained", type=str, default=None,
+                   help="torch checkpoint or prepared .npz to initialize from "
+                   "(models/pretrained.py)")
+    p.add_argument("--allow_byte_tokenizer", action="store_true",
+                   help="permit pretrained CLIP text towers without the real BPE vocab "
+                   "(synthetic-weight testing only)")
     p.add_argument("--data_root", type=str, default="data")
     p.add_argument("--ckpt_dir", type=str, default=None)
     p.add_argument("--max_points", type=int, default=0,
@@ -138,7 +150,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_hosts", type=int, default=1)
     p.add_argument("--host_id", type=int, default=0)
     # Observability
-    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run's second epoch here")
     # Paths of the model
     p.add_argument("--attn_backend", type=str, default="auto",
                    choices=["auto", "fused", "flash", "sdpa"])
@@ -148,16 +161,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_ported(args) -> None:
-    todo = {
-        "--pretrained (ROADMAP Queue 1, remaining tooling)": args.pretrained is not None,
-        "--profile_dir (ROADMAP Queue 1, remaining tooling)": args.profile_dir is not None,
-    }
-    missing = [k for k, asked in todo.items() if asked]
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-
-
 def config_from_args(args):
     from ..config import ExperimentConfig
 
@@ -165,28 +168,12 @@ def config_from_args(args):
     return ExperimentConfig(**{k: v for k, v in vars(args).items() if k in names}).normalize()
 
 
-def _logger(path: Optional[str]) -> logging.Logger:
-    """The trainer's log, to stdout and ``path``; silent without a path
-    (the processes other than rank 0)."""
-    log = logging.getLogger("clip_ebc_tpu_torch.trainer")
-    log.setLevel(logging.INFO)
-    log.propagate = False
-    for h in list(log.handlers):
-        log.removeHandler(h)
-        h.close()
-    fmt = logging.Formatter("%(asctime)s %(message)s")
-    handlers = (logging.StreamHandler(sys.stdout), logging.FileHandler(path)) if path else (
-        logging.NullHandler(),)
-    for h in handlers:
-        h.setFormatter(fmt)
-        log.addHandler(h)
-    return log
-
-
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     cfg = config_from_args(args)
+    from ._common import check_pretrained_path
+
+    check_pretrained_path(args)
 
     from ..parallel import mesh
 
@@ -209,6 +196,8 @@ def _train(args, cfg) -> None:
     from ..training.checkpoint import CheckpointManager
     from ..training.evaluate import Evaluator, evaluate
     from ..training.trainer import Trainer
+    from ..utils.logging import MetricWriter, get_logger
+    from ..utils.profiling import trace
 
     device = mesh.rank_device(args.device)
     if device.type == "cuda":
@@ -216,7 +205,7 @@ def _train(args, cfg) -> None:
     world, primary = mesh.get_world_size(), mesh.is_primary()
     if primary:
         os.makedirs(cfg.ckpt_dir, exist_ok=True)
-    log = _logger(os.path.join(cfg.ckpt_dir, "train.log") if primary else None)
+    log = get_logger(os.path.join(cfg.ckpt_dir, "train.log") if primary else None)
     log.info("config: %s", cfg)
     if world > 1:
         log.info("data parallel: %d processes, global batch %d", world,
@@ -230,6 +219,13 @@ def _train(args, cfg) -> None:
         decoder_before_upsample=args.decoder_before_upsample, seed=cfg.seed, device=device,
         axis_name=mesh.DATA_AXIS if world > 1 else None,
     )
+    if args.pretrained:
+        # before the DDP wrap, on every rank: the wrap broadcasts rank 0's
+        # weights, and a later load would race it
+        from ..models.pretrained import apply_pretrained
+
+        apply_pretrained(model, args.pretrained, allow_byte_tokenizer=args.allow_byte_tokenizer)
+        log.info("initialized from pretrained checkpoint %s", args.pretrained)
     trainer = Trainer(cfg, model, make_loss_fn(cfg, world))
     train_ds = CrowdDataset(
         cfg.dataset, "train", data_root=cfg.data_root, transforms=make_train_transforms(cfg),
@@ -259,22 +255,31 @@ def _train(args, cfg) -> None:
 
     # every process trains and evaluates (an evaluation on rank 0 alone
     # would wait forever on the others' share of the windows)
+    writer = MetricWriter(cfg.ckpt_dir) if primary else None
     try:
         for epoch in range(start_epoch, cfg.total_epochs + 1):
             t0 = time.time()
-            metrics, steps = trainer.train_epoch(loader, epoch)
+            with trace(args.profile_dir, enabled=bool(args.profile_dir) and epoch == start_epoch + 1,
+                       worker_name=f"epoch{epoch}_rank{mesh.get_rank()}"):
+                metrics, steps = trainer.train_epoch(loader, epoch)
             log.info("epoch %d/%d (%.1fs, %d steps): %s", epoch, cfg.total_epochs,
                      time.time() - t0, steps, " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+            if writer:
+                writer.write_scalars(epoch, {f"train/{k}": v for k, v in metrics.items()})
             if epoch >= cfg.eval_start and (epoch - cfg.eval_start) % cfg.eval_freq == 0:
                 scores = evaluate(evaluator, val_ds, decode_procs=args.loader_procs)
                 best = ckpt.update_best(scores, epoch, model.state_dict())
                 log.info("eval epoch %d: mae=%.2f rmse=%.2f | best mae=%s", epoch,
                          scores["mae"], scores["rmse"], [f"{s:.2f}@{e}" for s, e in best["mae"]])
+                if writer:
+                    writer.write_scalars(epoch, {f"val/{k}": v for k, v in scores.items()})
             if epoch % cfg.save_freq == 0 or epoch == cfg.total_epochs:
                 ckpt.save_latest(trainer.state_dict(), epoch, metrics)
     finally:
         loader.close()
         evaluator.close()
+        if writer:
+            writer.close()
 
 
 if __name__ == "__main__":

@@ -29,10 +29,18 @@ backbone; its VGG and head names are the reference's torch names, so
 ``quant`` collection (the calibrated ``act_amax`` / ``qkv_amax`` leaves)
 between a JAX variable tree and the port's ``ops.quant.quant_state``
 names, so both packages can be fed the same scales.
+
+The last section reads torch checkpoints: counterpart of the JAX
+package's converters (``load_torch_state_dict``, ``detect_checkpoint_kind``,
+``detect_clip_arch``, one ``convert_*`` per family, ``save_prepared_tree``).
+They write the JAX tree layout as numpy, as the JAX converters do, so a
+prepared artifact serves both packages; the bridge above then carries a
+converted tree into the port's names (``models/pretrained.py``).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
@@ -157,27 +165,33 @@ def from_jax_params(
     """JAX ``ClipEBC`` variables (a ViT or a ModifiedResNet backbone) ->
     this port's state dict. ``decoder_cfg`` places the decoder blocks at
     their Sequential indices (``"U"`` entries take an index but hold no
-    weights)."""
-    ie = params["image_encoder"]
-    trunk = (clip_vit_state(ie) if "class_embedding" in ie
-             else clip_resnet_state(ie, batch_stats["image_encoder"]))
-    sd: StateDict = {f"image_encoder.{k}": v for k, v in trunk.items()}
-    if "vpt" in ie:
-        for i, v in enumerate(np.asarray(ie["vpt"])):
-            sd[f"vpt_{i}"] = _t(v)
-    sd.update({f"text_encoder.{k}": v for k, v in clip_text_state(params["text_encoder"]).items()})
-
-    dec_p, dec_s = params["image_decoder"], batch_stats["image_decoder"]
-    block_idx = [i for i, v in enumerate(decoder_cfg) if v != "U"]
-    for j, idx in enumerate(block_idx):
-        kind, n_convs = (("BottleneckBlock", 3) if f"BottleneckBlock_{j}" in dec_p
-                         else ("BasicBlock", 2))
-        block = basic_block_state(dec_p[f"{kind}_{j}"], dec_s[f"{kind}_{j}"], n_convs)
-        sd.update({f"image_decoder.{idx}.{k}": v for k, v in block.items()})
+    weights). A top-level subtree the variables lack (a checkpoint's
+    overlay: the towers alone) is left out of the state dict."""
+    sd: StateDict = {}
+    ie = params.get("image_encoder")
+    if ie is not None:
+        trunk = (clip_vit_state(ie) if "class_embedding" in ie
+                 else clip_resnet_state(ie, batch_stats["image_encoder"]))
+        sd.update({f"image_encoder.{k}": v for k, v in trunk.items()})
+        if "vpt" in ie:
+            for i, v in enumerate(np.asarray(ie["vpt"])):
+                sd[f"vpt_{i}"] = _t(v)
+    if "text_encoder" in params:
+        sd.update({f"text_encoder.{k}": v
+                   for k, v in clip_text_state(params["text_encoder"]).items()})
+    if "image_decoder" in params:
+        dec_p, dec_s = params["image_decoder"], batch_stats["image_decoder"]
+        block_idx = [i for i, v in enumerate(decoder_cfg) if v != "U"]
+        for j, idx in enumerate(block_idx):
+            kind, n_convs = (("BottleneckBlock", 3) if f"BottleneckBlock_{j}" in dec_p
+                             else ("BasicBlock", 2))
+            block = basic_block_state(dec_p[f"{kind}_{j}"], dec_s[f"{kind}_{j}"], n_convs)
+            sd.update({f"image_decoder.{idx}.{k}": v for k, v in block.items()})
     if "projection" in params:
         sd["projection.weight"] = _conv(params["projection"]["kernel"])
         sd["projection.bias"] = _t(params["projection"]["bias"])
-    sd["logit_scale"] = _t(params["logit_scale"]).reshape(())
+    if "logit_scale" in params:
+        sd["logit_scale"] = _t(params["logit_scale"]).reshape(())
     return sd
 
 
@@ -402,7 +416,9 @@ def head_state_from_jax(model: nn.Module, params: Mapping[str, Any],
                         batch_stats: Mapping[str, Any]) -> StateDict:
     """JAX ``Classifier``/``Regressor`` variables (nested dicts of numpy
     arrays: ``params`` and ``batch_stats``) -> the state dict of the
-    port's ``model`` of the same backbone and head."""
+    port's ``model`` of the same backbone and head. A module whose JAX
+    scope the variables lack (a checkpoint's overlay: the backbone alone)
+    is left out of the state dict."""
     from .heads import Classifier
 
     names = {f"backbone.{k}".rstrip("."): f"backbone/{v}".rstrip("/")
@@ -419,10 +435,13 @@ def head_state_from_jax(model: nn.Module, params: Mapping[str, Any],
     for dst, src in names.items():
         if dst.endswith(".attn"):  # the joint in-projection lives on the attention module
             proj = _subtree(params, f"{src}/in_proj")
-            sd[f"{dst}.in_proj_weight"] = _t(np.asarray(proj["kernel"]).T)
-            sd[f"{dst}.in_proj_bias"] = _t(proj["bias"])
+            if proj:
+                sd[f"{dst}.in_proj_weight"] = _t(np.asarray(proj["kernel"]).T)
+                sd[f"{dst}.in_proj_bias"] = _t(proj["bias"])
             continue
-        _leaf_state(sd, dst, modules[dst], _subtree(params, src), _subtree(batch_stats, src))
+        p, s = _subtree(params, src), _subtree(batch_stats, src)
+        if p or s:
+            _leaf_state(sd, dst, modules[dst], p, s)
     return sd
 
 
@@ -441,3 +460,480 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(sd, strict=True)
+
+
+# ---------------------------------------------------------------------------
+# torch checkpoints -> JAX-layout trees (numpy): the JAX package's converters
+# ---------------------------------------------------------------------------
+#
+# Conventions, as in the JAX package:
+# - torch Conv2d weight (O, I, kH, kW) -> kernel (kH, kW, I, O);
+# - torch Linear weight (O, I) -> Dense kernel (I, O);
+# - nn.MultiheadAttention in_proj rows [q; k; v] -> kernel columns [q, k, v];
+# - BatchNorm weight/bias -> scale/bias (params), running_mean/var ->
+#   mean/var (stats); ``num_batches_tracked`` is not read.
+
+
+def _np(t) -> np.ndarray:
+    """fp32 numpy copy of a tensor or array (an OpenAI archive is fp16). A
+    copy, never a view: a view of live storage changes with a later
+    in-place update of the tensor."""
+    if isinstance(t, torch.Tensor):
+        return np.array(t.detach().cpu().float().numpy(), np.float32)
+    return np.asarray(t, np.float32)
+
+
+def conv_kernel(w) -> np.ndarray:
+    return _np(w).transpose(2, 3, 1, 0)
+
+
+def dense_kernel(w) -> np.ndarray:
+    return _np(w).T
+
+
+def load_torch_state_dict(path: str) -> Dict[str, Any]:
+    """A ``.pt``/``.pth`` file's state dict: a TorchScript archive (how
+    OpenAI ships CLIP), a plain state dict, a dict wrapping one under
+    ``state_dict``, ``model_state_dict`` or ``model``, or a pickled module."""
+    try:
+        return dict(torch.jit.load(path, map_location="cpu").state_dict())
+    except Exception:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(obj, "state_dict"):
+        return dict(obj.state_dict())
+    if isinstance(obj, dict):
+        for key in ("state_dict", "model_state_dict", "model"):
+            if key in obj and isinstance(obj[key], dict):
+                return dict(obj[key])
+        return dict(obj)
+    raise ValueError(f"cannot extract a state dict from {path}")
+
+
+class _TreeBuilder:
+    def __init__(self) -> None:
+        self.params: Dict[str, Any] = {}
+        self.stats: Dict[str, Any] = {}
+
+    @staticmethod
+    def put(tree: Dict[str, Any], path: str, value: np.ndarray) -> None:
+        keys = path.split("/")
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = value
+
+    def param(self, path: str, value) -> None:
+        self.put(self.params, path, value)
+
+    def stat(self, path: str, value) -> None:
+        self.put(self.stats, path, value)
+
+    def bn(self, dst: str, sd: Mapping[str, Any], src: str) -> None:
+        """torch BN at ``src`` -> the JAX BatchNorm wrapper at ``dst``."""
+        inner = f"{dst}/BatchNorm_0"
+        self.param(f"{inner}/scale", _np(sd[f"{src}.weight"]))
+        self.param(f"{inner}/bias", _np(sd[f"{src}.bias"]))
+        self.stat(f"{inner}/mean", _np(sd[f"{src}.running_mean"]))
+        self.stat(f"{inner}/var", _np(sd[f"{src}.running_var"]))
+
+    def ln(self, dst: str, sd: Mapping[str, Any], src: str) -> None:
+        self.param(f"{dst}/LayerNorm_0/scale", _np(sd[f"{src}.weight"]))
+        self.param(f"{dst}/LayerNorm_0/bias", _np(sd[f"{src}.bias"]))
+
+    def attn(self, dst: str, sd: Mapping[str, Any], src: str) -> None:
+        """torch nn.MultiheadAttention -> MultiHeadAttention."""
+        self.param(f"{dst}/in_proj/kernel", dense_kernel(sd[f"{src}.in_proj_weight"]))
+        self.param(f"{dst}/in_proj/bias", _np(sd[f"{src}.in_proj_bias"]))
+        self.param(f"{dst}/out_proj/kernel", dense_kernel(sd[f"{src}.out_proj.weight"]))
+        self.param(f"{dst}/out_proj/bias", _np(sd[f"{src}.out_proj.bias"]))
+
+    def resblock(self, dst: str, sd: Mapping[str, Any], src: str) -> None:
+        """CLIP ResidualAttentionBlock (attn, ln_1/2, mlp c_fc/c_proj)."""
+        self.ln(f"{dst}/ln_1", sd, f"{src}.ln_1")
+        self.ln(f"{dst}/ln_2", sd, f"{src}.ln_2")
+        self.attn(f"{dst}/attn", sd, f"{src}.attn")
+        self.param(f"{dst}/mlp_fc/kernel", dense_kernel(sd[f"{src}.mlp.c_fc.weight"]))
+        self.param(f"{dst}/mlp_fc/bias", _np(sd[f"{src}.mlp.c_fc.bias"]))
+        self.param(f"{dst}/mlp_proj/kernel", dense_kernel(sd[f"{src}.mlp.c_proj.weight"]))
+        self.param(f"{dst}/mlp_proj/bias", _np(sd[f"{src}.mlp.c_proj.bias"]))
+
+    def out(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        return self.params, self.stats
+
+
+def convert_vgg_features(sd: Mapping[str, Any], use_bn: bool, prefix: str = "features"
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """torchvision ``features.*`` conv/BN weights -> the ``VGGStage`` tree
+    (``ConvBNAct_{j}`` per conv; truncated configurations too)."""
+    b = _TreeBuilder()
+    conv_idx = sorted(
+        int(m.group(1)) for k in sd
+        if (m := re.fullmatch(rf"{prefix}\.(\d+)\.weight", k)) and sd[k].ndim == 4
+    )
+    for j, idx in enumerate(conv_idx):
+        b.param(f"ConvBNAct_{j}/Conv_0/kernel", conv_kernel(sd[f"{prefix}.{idx}.weight"]))
+        b.param(f"ConvBNAct_{j}/Conv_0/bias", _np(sd[f"{prefix}.{idx}.bias"]))
+        if use_bn:
+            b.bn(f"ConvBNAct_{j}/BatchNorm_0", sd, f"{prefix}.{idx + 1}")
+    return b.out()
+
+
+def convert_clip_vit(sd: Mapping[str, Any], include_proj: bool = False
+                     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``visual.*`` of a CLIP ViT checkpoint -> the ``ClipViT`` tree;
+    ``include_proj`` adds the pooled head's projection (the prepared image
+    tower)."""
+    b = _TreeBuilder()
+    b.param("conv1/kernel", conv_kernel(sd["visual.conv1.weight"]))
+    b.param("class_embedding", _np(sd["visual.class_embedding"]))
+    b.param("positional_embedding", _np(sd["visual.positional_embedding"]))
+    b.ln("ln_pre", sd, "visual.ln_pre")
+    b.ln("ln_post", sd, "visual.ln_post")
+    if include_proj and "visual.proj" in sd:
+        b.param("proj", _np(sd["visual.proj"]))  # already (width, embed)
+    i = 0
+    while f"visual.transformer.resblocks.{i}.ln_1.weight" in sd:
+        b.resblock(f"resblock_{i}", sd, f"visual.transformer.resblocks.{i}")
+        i += 1
+    return b.out()
+
+
+def convert_clip_resnet(sd: Mapping[str, Any], include_attnpool: bool = False
+                        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``visual.*`` of a CLIP ModifiedResNet checkpoint; ``include_attnpool``
+    adds the attention pool (the prepared image tower)."""
+    b = _TreeBuilder()
+    if include_attnpool and "visual.attnpool.positional_embedding" in sd:
+        ap = "visual.attnpool"
+        b.param("attnpool/positional_embedding", _np(sd[f"{ap}.positional_embedding"]))
+        for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            b.param(f"attnpool/{proj}/kernel", dense_kernel(sd[f"{ap}.{proj}.weight"]))
+            b.param(f"attnpool/{proj}/bias", _np(sd[f"{ap}.{proj}.bias"]))
+    for i in (1, 2, 3):
+        b.param(f"stem_conv{i}/kernel", conv_kernel(sd[f"visual.conv{i}.weight"]))
+        b.bn(f"stem_bn{i}", sd, f"visual.bn{i}")
+    for li in range(1, 5):
+        bi = 0
+        while f"visual.layer{li}.{bi}.conv1.weight" in sd:
+            src, dst = f"visual.layer{li}.{bi}", f"layer{li}_{bi}"
+            for ci in (1, 2, 3):
+                b.param(f"{dst}/conv{ci}/kernel", conv_kernel(sd[f"{src}.conv{ci}.weight"]))
+                b.bn(f"{dst}/bn{ci}", sd, f"{src}.bn{ci}")
+            if f"{src}.downsample.0.weight" in sd:
+                b.param(f"{dst}/down_conv/kernel", conv_kernel(sd[f"{src}.downsample.0.weight"]))
+                b.bn(f"{dst}/down_bn", sd, f"{src}.downsample.1")
+            bi += 1
+    return b.out()
+
+
+def convert_clip_text(sd: Mapping[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    b = _TreeBuilder()
+    b.param("token_embedding/embedding", _np(sd["token_embedding.weight"]))
+    b.param("positional_embedding", _np(sd["positional_embedding"]))
+    b.ln("ln_final", sd, "ln_final")
+    b.param("text_projection", _np(sd["text_projection"]))  # already (width, embed)
+    i = 0
+    while f"transformer.resblocks.{i}.ln_1.weight" in sd:
+        b.resblock(f"resblock_{i}", sd, f"transformer.resblocks.{i}")
+        i += 1
+    return b.out()
+
+
+def _towers(img: Tuple[Dict[str, Any], Dict[str, Any]], txt: Tuple[Dict[str, Any], Dict[str, Any]]
+            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    params: Dict[str, Any] = {"image_encoder": img[0], "text_encoder": txt[0]}
+    stats: Dict[str, Any] = {}
+    if img[1]:
+        stats["image_encoder"] = img[1]
+    if txt[1]:
+        stats["text_encoder"] = txt[1]
+    return params, stats
+
+
+def convert_clip_ebc(sd: Mapping[str, Any], is_vit: bool) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A full OpenAI CLIP checkpoint -> the pretrained subtrees of a
+    ``ClipEBC`` (``image_encoder``, ``text_encoder``, ``logit_scale``); the
+    decoder, projection and prompts keep their fresh initialization."""
+    params, stats = _towers((convert_clip_vit if is_vit else convert_clip_resnet)(sd),
+                            convert_clip_text(sd))
+    if "logit_scale" in sd:
+        params["logit_scale"] = _np(sd["logit_scale"]).reshape(())
+    return params, stats
+
+
+def convert_torchvision_vit(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    b = _TreeBuilder()
+    b.param("patchify/kernel", conv_kernel(sd["conv_proj.weight"]))
+    b.param("patchify/bias", _np(sd["conv_proj.bias"]))
+    b.param("class_token", _np(sd["class_token"]))
+    b.param("pos_embedding", _np(sd["encoder.pos_embedding"])[0])
+    b.ln("ln_final", sd, "encoder.ln")
+    i = 0
+    while f"encoder.layers.encoder_layer_{i}.ln_1.weight" in sd:
+        src, dst = f"encoder.layers.encoder_layer_{i}", f"block_{i}"
+        b.ln(f"{dst}/ln_1", sd, f"{src}.ln_1")
+        b.ln(f"{dst}/ln_2", sd, f"{src}.ln_2")
+        b.attn(f"{dst}/attn", sd, f"{src}.self_attention")
+        b.param(f"{dst}/mlp_fc/kernel", dense_kernel(sd[f"{src}.mlp.linear_1.weight"]))
+        b.param(f"{dst}/mlp_fc/bias", _np(sd[f"{src}.mlp.linear_1.bias"]))
+        b.param(f"{dst}/mlp_proj/kernel", dense_kernel(sd[f"{src}.mlp.linear_2.weight"]))
+        b.param(f"{dst}/mlp_proj/bias", _np(sd[f"{src}.mlp.linear_2.bias"]))
+        i += 1
+    return b.params
+
+
+def convert_torchvision_resnet(sd: Mapping[str, Any], prefix: str = ""
+                               ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """torchvision ResNet state dict -> the ``ResNetEncoder`` tree (stem
+    ``Conv_0``/``BatchNorm_0``, then ``_TVBasicBlock_{j}`` or
+    ``_TVBottleneck_{j}`` numbered across the four stages)."""
+    b = _TreeBuilder()
+    p = (prefix + ".") if prefix else ""
+    b.param("Conv_0/kernel", conv_kernel(sd[f"{p}conv1.weight"]))
+    b.bn("BatchNorm_0", sd, f"{p}bn1")
+    is_bottleneck = f"{p}layer1.0.conv3.weight" in sd
+    block = "_TVBottleneck" if is_bottleneck else "_TVBasicBlock"
+    n_convs = 3 if is_bottleneck else 2
+    j = 0
+    for li in (1, 2, 3, 4):
+        bi = 0
+        while f"{p}layer{li}.{bi}.conv1.weight" in sd:
+            src, dst = f"{p}layer{li}.{bi}", f"{block}_{j}"
+            for ci in range(n_convs):
+                b.param(f"{dst}/Conv_{ci}/kernel", conv_kernel(sd[f"{src}.conv{ci + 1}.weight"]))
+                b.bn(f"{dst}/BatchNorm_{ci}", sd, f"{src}.bn{ci + 1}")
+            if f"{src}.downsample.0.weight" in sd:
+                b.param(f"{dst}/Conv_{n_convs}/kernel",
+                        conv_kernel(sd[f"{src}.downsample.0.weight"]))
+                b.bn(f"{dst}/BatchNorm_{n_convs}", sd, f"{src}.downsample.1")
+            j += 1
+            bi += 1
+    return b.out()
+
+
+# MobileNetV2's stage repeats; torchvision numbers the 17 inverted-residual
+# blocks features.1..17 (features.18, the 1280-wide conv, is not read: the
+# backbone taps the 320-channel stage)
+_MOBILENET_REPEATS = (1, 2, 3, 4, 3, 3, 1)
+
+
+def convert_torchvision_mobilenet_v2(sd: Mapping[str, Any]
+                                     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    b = _TreeBuilder()
+    b.param("stem/kernel", conv_kernel(sd["features.0.0.weight"]))
+    b.bn("stem_bn", sd, "features.0.1")
+    f = 1
+    for si, n in enumerate(_MOBILENET_REPEATS):
+        for bi in range(n):
+            src, dst = f"features.{f}.conv", f"stage{si}_{bi}"
+            if f"{src}.2.weight" in sd and sd[f"{src}.2.weight"].ndim == 4:
+                # expand -> depthwise -> project (expand_ratio > 1)
+                b.param(f"{dst}/expand/kernel", conv_kernel(sd[f"{src}.0.0.weight"]))
+                b.bn(f"{dst}/expand_bn", sd, f"{src}.0.1")
+                b.param(f"{dst}/dw/kernel", conv_kernel(sd[f"{src}.1.0.weight"]))
+                b.bn(f"{dst}/dw_bn", sd, f"{src}.1.1")
+                b.param(f"{dst}/project/kernel", conv_kernel(sd[f"{src}.2.weight"]))
+                b.bn(f"{dst}/project_bn", sd, f"{src}.3")
+            else:  # expand_ratio == 1 (the first block): depthwise -> project
+                b.param(f"{dst}/dw/kernel", conv_kernel(sd[f"{src}.0.0.weight"]))
+                b.bn(f"{dst}/dw_bn", sd, f"{src}.0.1")
+                b.param(f"{dst}/project/kernel", conv_kernel(sd[f"{src}.1.weight"]))
+                b.bn(f"{dst}/project_bn", sd, f"{src}.2")
+            f += 1
+    return b.out()
+
+
+def convert_torchvision_densenet(sd: Mapping[str, Any]
+                                 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """torchvision ``densenet121/161/169/201`` -> the ``DenseNetBackbone`` tree."""
+    b = _TreeBuilder()
+    b.param("stem/kernel", conv_kernel(sd["features.conv0.weight"]))
+    b.bn("stem_bn", sd, "features.norm0")
+    bi = 1
+    while f"features.denseblock{bi}.denselayer1.norm1.weight" in sd:
+        li = 1
+        while f"features.denseblock{bi}.denselayer{li}.norm1.weight" in sd:
+            src, dst = f"features.denseblock{bi}.denselayer{li}", f"block{bi}_layer{li}"
+            b.bn(f"{dst}/bn1", sd, f"{src}.norm1")
+            b.param(f"{dst}/conv1/kernel", conv_kernel(sd[f"{src}.conv1.weight"]))
+            b.bn(f"{dst}/bn2", sd, f"{src}.norm2")
+            b.param(f"{dst}/conv2/kernel", conv_kernel(sd[f"{src}.conv2.weight"]))
+            li += 1
+        if f"features.transition{bi}.norm.weight" in sd:
+            b.bn(f"trans{bi}_bn", sd, f"features.transition{bi}.norm")
+            b.param(f"trans{bi}_conv/kernel",
+                    conv_kernel(sd[f"features.transition{bi}.conv.weight"]))
+        bi += 1
+    b.bn("final_bn", sd, "features.norm5")
+    return b.out()
+
+
+def convert_resnet_stage(sd: Mapping[str, Any], prefix: str
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The reference's ``make_resnet_layers`` Sequential -> the
+    ``ResNetStage`` tree: Sequential indices skip the parameter-less
+    Upsample entries, the per-kind block counter does not."""
+    b = _TreeBuilder()
+    idxs = sorted(
+        int(m.group(1)) for k in sd
+        if (m := re.fullmatch(rf"{re.escape(prefix)}\.(\d+)\.conv1\.weight", k))
+    )
+    for j, i in enumerate(idxs):
+        src = f"{prefix}.{i}"
+        is_bottleneck = f"{src}.conv3.weight" in sd
+        dst = ("BottleneckBlock" if is_bottleneck else "BasicBlock") + f"_{j}"
+        n_convs = 3 if is_bottleneck else 2
+        for ci in range(n_convs):
+            b.param(f"{dst}/ConvBNAct_{ci}/Conv_0/kernel",
+                    conv_kernel(sd[f"{src}.conv{ci + 1}.weight"]))
+            b.bn(f"{dst}/ConvBNAct_{ci}/BatchNorm_0", sd, f"{src}.bn{ci + 1}")
+        if f"{src}.downsample.0.weight" in sd:
+            b.param(f"{dst}/ConvBNAct_{n_convs}/Conv_0/kernel",
+                    conv_kernel(sd[f"{src}.downsample.0.weight"]))
+            b.bn(f"{dst}/ConvBNAct_{n_convs}/BatchNorm_0", sd, f"{src}.downsample.1")
+    return b.out()
+
+
+def convert_reference_clip_ebc(sd: Mapping[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A trained reference ``CLIP_EBC`` state dict (``image_encoder.*``,
+    ``vpt_{i}``, ``image_decoder.*``, ``projection.*``, ``text_encoder.*``,
+    ``logit_scale``) -> the ``ClipEBC`` tree."""
+    vis = {"visual." + k[len("image_encoder."):]: v for k, v in sd.items()
+           if k.startswith("image_encoder.")}
+    is_vit = "visual.class_embedding" in vis
+    img_p, img_s = (convert_clip_vit if is_vit else convert_clip_resnet)(vis)
+    vpt_idxs = sorted(int(m.group(1)) for k in sd if (m := re.fullmatch(r"vpt_(\d+)", k)))
+    if vpt_idxs:
+        if vpt_idxs != list(range(len(vpt_idxs))):
+            raise ValueError(f"non-contiguous VPT layers in checkpoint: {vpt_idxs}")
+        img_p["vpt"] = np.stack([_np(sd[f"vpt_{i}"]) for i in vpt_idxs])
+    txt = {k[len("text_encoder."):]: v for k, v in sd.items() if k.startswith("text_encoder.")}
+    params, stats = _towers((img_p, img_s), convert_clip_text(txt))
+    dec_p, dec_s = convert_resnet_stage(sd, "image_decoder")
+    if dec_p:
+        params["image_decoder"] = dec_p
+    if dec_s:
+        stats["image_decoder"] = dec_s
+    if "projection.weight" in sd:
+        params["projection"] = {"kernel": conv_kernel(sd["projection.weight"]),
+                                "bias": _np(sd["projection.bias"])}
+    if "logit_scale" in sd:
+        params["logit_scale"] = _np(sd["logit_scale"]).reshape(())
+    return params, stats
+
+
+def convert_reference_classifier(sd: Mapping[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A trained reference ``Classifier``/``Regressor`` over a VGG(-AE)
+    backbone -> its tree (``backbone/features``, ``backbone/reg{j}``, the
+    head)."""
+    if not any(k.startswith("backbone.features.") for k in sd):
+        raise ValueError(
+            "unsupported reference backbone: only VGG features.* checkpoints "
+            f"are convertible (got keys like {sorted(sd)[:3]})"
+        )
+    use_bn = any(re.fullmatch(r"backbone\.features\.\d+\.running_mean", k) for k in sd)
+    f_p, f_s = convert_vgg_features(sd, use_bn, prefix="backbone.features")
+    bb_params: Dict[str, Any] = {"features": f_p}
+    regs = sorted(int(m.group(1)) for k in sd
+                  if (m := re.fullmatch(r"backbone\.reg_layer\.(\d+)\.weight", k)))
+    for j, i in enumerate(regs):  # reg_layer Sequential: convs at 0 and 2 -> reg0, reg1
+        bb_params[f"reg{j}"] = {"Conv_0": {"kernel": conv_kernel(sd[f"backbone.reg_layer.{i}.weight"]),
+                                           "bias": _np(sd[f"backbone.reg_layer.{i}.bias"])}}
+    params: Dict[str, Any] = {"backbone": bb_params}
+    stats: Dict[str, Any] = {"backbone": {"features": f_s}} if f_s else {}
+    if "classifier.weight" in sd:  # one 1x1 conv head
+        params["cls_out"] = {"kernel": conv_kernel(sd["classifier.weight"]),
+                             "bias": _np(sd["classifier.bias"])}
+    elif "classifier.0.weight" in sd:  # the 512-wide bottleneck head
+        params["cls_hidden"] = {"kernel": conv_kernel(sd["classifier.0.weight"]),
+                                "bias": _np(sd["classifier.0.bias"])}
+        params["cls_out"] = {"kernel": conv_kernel(sd["classifier.2.weight"]),
+                             "bias": _np(sd["classifier.2.bias"])}
+    elif "regressor.0.weight" in sd:
+        params["Conv_0"] = {"kernel": conv_kernel(sd["regressor.0.weight"]),
+                            "bias": _np(sd["regressor.0.bias"])}
+    return params, stats
+
+
+def detect_checkpoint_kind(sd: Mapping[str, Any]) -> str:
+    """Classify a torch state dict into one of the convertible families."""
+    keys = set(sd)
+    if any(k.startswith("visual.") for k in keys):
+        return "clip"
+    if (any(k.startswith("image_encoder.") for k in keys)
+            and any(k.startswith("text_encoder.") for k in keys)):
+        return "reference_clip_ebc"
+    if any(k.startswith("backbone.") for k in keys):
+        return "reference_classifier"
+    if "conv_proj.weight" in keys:
+        return "torchvision_vit"
+    if "conv1.weight" in keys and "layer1.0.conv1.weight" in keys:
+        return "torchvision_resnet"
+    if "features.0.0.weight" in keys and "features.1.conv.0.0.weight" in keys:
+        return "torchvision_mobilenet_v2"
+    if "features.denseblock1.denselayer1.norm1.weight" in keys:
+        return "torchvision_densenet"
+    if any(re.fullmatch(r"features\.\d+\.weight", k) for k in keys):
+        return "torchvision_vgg"
+    raise ValueError(
+        "unrecognized checkpoint family; expected an OpenAI CLIP, "
+        "torchvision VGG/ViT/ResNet, or reference CLIP-EBC/Classifier "
+        f"state dict (sample keys: {sorted(keys)[:5]})"
+    )
+
+
+def detect_clip_arch(sd: Mapping[str, Any]) -> str:
+    """The CLIP backbone name of a full checkpoint's state dict (the
+    reference's ``build_model`` sniffing)."""
+    if "visual.conv1.weight" in sd and "visual.class_embedding" in sd:
+        w = sd["visual.conv1.weight"]
+        patch, width = int(w.shape[-1]), int(w.shape[0])
+        n_layers = len({k.split(".")[3] for k in sd if k.startswith("visual.transformer.resblocks.")})
+        if width == 1024 and patch == 14:
+            grid = int(round((int(sd["visual.positional_embedding"].shape[0]) - 1) ** 0.5))
+            return "vit_l_14_336px" if grid * 14 == 336 else "vit_l_14"
+        if width == 768 and n_layers == 12:
+            return f"vit_b_{patch}"
+        raise ValueError(f"unrecognized CLIP ViT (width={width}, patch={patch})")
+    if "visual.layer1.0.conv1.weight" in sd:
+        from .clip.image_encoder import RESNET_CONFIGS
+
+        stem = int(sd["visual.conv1.weight"].shape[0])  # width // 2
+        counts = tuple(len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{i}.")})
+                       for i in (1, 2, 3, 4))
+        for name, (layers, width, _, _) in RESNET_CONFIGS.items():
+            if counts == layers and stem == width // 2:
+                return name
+        raise ValueError(f"unrecognized CLIP ResNet (layers={counts}, stem={stem})")
+    raise ValueError("state dict does not look like a CLIP checkpoint")
+
+
+def save_prepared_tree(path: str, params: Mapping[str, Any],
+                       stats: Mapping[str, Any] | None = None,
+                       meta: Mapping[str, str] | None = None) -> None:
+    """Write converted trees as one ``.npz``: keys are '/'-joined paths
+    under ``params/`` and ``stats/``, and ``meta`` strings (the backbone
+    name) under ``meta/``, the JAX package's keys; the inverse is
+    :func:`load_prepared_tree` (of either package). Stored, not deflated
+    as the JAX package's are: deflating the hundreds of MB of a CLIP
+    tower's fp16-valued weights takes minutes on one core and barely
+    shrinks them; ``np.load`` reads both."""
+    flat = _flatten_tree(params, "params")
+    if stats:
+        flat.update(_flatten_tree(stats, "stats"))
+    for k, v in (meta or {}).items():
+        flat[f"meta/{k}"] = str(v)
+    np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
+
+
+def merge_params(model_sd: Mapping[str, torch.Tensor], overlay: Mapping[str, torch.Tensor]
+                 ) -> None:
+    """Check an overlay against a model's state dict: every overlay tensor
+    must name a tensor of the model of the same shape (the JAX
+    ``merge_params``'s checks, on the port's names)."""
+    for k, v in overlay.items():
+        if k not in model_sd:
+            raise KeyError(f"converted param {k!r} does not exist in the model")
+        if tuple(model_sd[k].shape) != tuple(v.shape):
+            raise ValueError(f"shape mismatch for {k!r}: model {tuple(model_sd[k].shape)} "
+                             f"vs checkpoint {tuple(v.shape)}")

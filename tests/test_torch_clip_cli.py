@@ -88,12 +88,12 @@ def test_clip_resnet50_trains_and_serves_through_the_clis(tmp_path):
 def test_trainer_cli_refuses_vit_l_training(tmp_path, model):
     """The trainer CLI refuses a ViT-L backbone no more (its D = 1024
     frozen backward is ported), with the loader's process pool
-    (``--loader_procs``) too: it refuses only what it refuses for every
-    model, here ``--pretrained``."""
+    (``--loader_procs``) and ``--pretrained`` too: a missing checkpoint
+    fails before the model is built, as for every model."""
     argv = ["--model", model, "--dataset", "sha", "--truncation", "4", "--loader_procs", "2",
             "--data_root", str(tmp_path), "--ckpt_dir", str(tmp_path / "ck"), "--device", "cpu"]
-    trainer_cli._check_ported(trainer_cli.build_parser().parse_args(argv))
-    with pytest.raises(NotImplementedError, match="--pretrained"):
+    trainer_cli.config_from_args(trainer_cli.build_parser().parse_args(argv))
+    with pytest.raises(FileNotFoundError, match="clip.pt"):
         trainer_cli.main([*argv, "--pretrained", "clip.pt"])
 
 

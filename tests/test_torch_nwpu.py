@@ -129,7 +129,7 @@ def test_nwpu_cli_matches_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("extra,error", [
     (["--quant", "int8", "--quant_attn", "xla"], SystemExit),  # int8 attention needs static scales
-    (["--pretrained", "clip.pt"], NotImplementedError),
+    (["--pretrained", "clip.pt"], FileNotFoundError),  # accepted; the file is missing
     (["--model", "clip_resnet50", "--quant", "int8"], SystemExit),  # W8A8 on a CLIP ResNet: no weights
     (["--packed_eval"], SystemExit),  # needs --sliding_window, as the JAX CLI says
     (["--quant_attn"], SystemExit),  # needs --quant int8_static
@@ -148,3 +148,9 @@ def test_nwpu_cli_rejects_what_it_cannot_do(tmp_path, extra, error):
 ])
 def test_nwpu_result_file_name(weights, name):
     assert test_nwpu.result_path("out", weights) == os.path.join("out", name)
+    # --weight_path names the file over --pretrained; --pretrained alone keeps
+    # its extension, as the JAX CLI names it
+    assert test_nwpu.result_path("out", weights, "clip/ViT-B-16.pt") == os.path.join("out", name)
+    assert test_nwpu.result_path("out", None, weights) == os.path.join(
+        "out", f"{os.path.basename(os.path.dirname(os.path.normpath(weights)))}_"
+        f"{os.path.basename(os.path.normpath(weights))}.txt".lstrip("_"))

@@ -208,7 +208,12 @@ def test_trainer_cli_writes_a_checkpoint_that_predict_loads(tmp_path):
     ["--pretrained", "clip.pt"], ["--profile_dir", "p"],
 ])
 def test_trainer_cli_refuses_unported_options(tmp_path, extra):
+    """Both options are ported: ``--pretrained`` of a missing file fails
+    before the model is built, ``--profile_dir`` gets as far as the
+    dataset, which ``tmp_path`` lacks."""
     argv = ["--model", "clip_vit_b_16", "--dataset", "qnrf", "--truncation", "4",
             "--data_root", str(tmp_path), "--ckpt_dir", str(tmp_path / "ck"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    error, match = ((FileNotFoundError, "clip.pt") if "--pretrained" in extra
+                    else (ValueError, "qnrf train split"))
+    with pytest.raises(error, match=match):
         trainer_cli.main(argv + extra)
